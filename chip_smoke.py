@@ -3,21 +3,35 @@
 
     python3 chip_smoke.py
 
-1. builds every kernel of the sampling path from the repo's sources
-   (``text_to_image_tpu_torch/csrc/*.cu`` with nvcc, one process per source;
-   the Triton ``bn_act`` at its first launch);
+1. builds every kernel from the repo's sources
+   (``text_to_image_tpu_torch/csrc/*.cu`` with nvcc, one process per source,
+   all together; the Triton ``bn_act`` at its first launch);
 2. holds each kernel against its plain PyTorch version at every shape the
-   GAN-CLS 64 px generator gives it, at batch 64 in bf16 and f32;
+   GAN-CLS 64 px sampling and training paths give it (bf16 and f32, batch
+   64 and the discriminator's 3 × 64 streams) and at odd shapes that reach
+   every code path, and each backward (autograd.Function) against
+   torch.autograd through the plain version, in f32 with TF32 off;
 3. drives the sampling path at the flagship widths (gf 128, z 100,
    embed 1024, batch 64, bf16) through ``eval/sampler.py`` — the sample grid
    and both interpolation grids — plus the BN-folded serving generator, with
    every launch counter set to 0 just before and read just after; checks the
    images (finite, shape, tanh range) and holds the generator against the
    same code on the CPU, where every kernel is its plain version;
-4. times each kernel, its plain version and one PyTorch library call at
+4. drives the training path, the loop of ``main.py --train`` on synthetic
+   data at flagship widths (df 64, batch 64, bf16), for a few ticks with the
+   counters set to 0 just before and read just after: every loss finite,
+   every parameter tree changed, the D running statistics moved; then one
+   tick at batch 8 in f32 on the card against the same tick on the CPU
+   (plain versions): losses, then params after Adam;
+5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
-   kernel's bound, and times sampling in images/s.
+   kernel's bound, times the backward passes, sampling in images/s and the
+   training tick in ms and images/s, and profiles where a forward's and a
+   tick's device time goes (torch.profiler).
 
+Every f32 comparison on the card runs with TF32 off
+(``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32`` False, set at the start).
 Weights are random, from a seed.  It prints the card's name and power limit
 and a ``{"kernels": [...]}`` line, writes the full report to
 ``chiprun_out/chip_smoke.json``, and ends with
@@ -28,6 +42,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -62,6 +77,54 @@ BN_SHAPES = [(BATCH, 4, 4, 1024), (BATCH, 8, 8, 512), (BATCH, 16, 16, 256),
 ODD_DECONV_SHAPES = [((2, 5, 7, 12), 20, "lrelu"), ((3, 8, 8, 8), 16, "none"),
                      ((2, 5, 7, 6), 3, "tanh"), ((2, 4, 4, 16), 2, "relu")]
 ODD_BN_SHAPES = [((3, 5, 7, 20), "tanh"), ((2, 3, 3, 200), "lrelu")]
+# the 64 px discriminator: the D step runs the real, fake and wrong streams
+# in one pass of 3·64, the G step's D call one stream of 64
+D_BATCH = 3 * BATCH
+
+
+def conv_shapes(b):
+    """(B, H, W, Cin) → Co, act: the D down-block calls at batch b."""
+    return [((b, 64, 64, 3), 64, "lrelu"), ((b, 32, 32, 64), 128, "none"),
+            ((b, 16, 16, 128), 256, "none"), ((b, 8, 8, 256), 512, "none")]
+
+
+def join_shape(b):
+    """(B, H, W, Cx), E, Co: the D text join at batch b."""
+    return (b, 4, 4, 512), 128, 512
+
+
+# the D-side bn_act inputs per stream (lrelu): down1-3; the join's output
+# has down3's shape
+D_BN_SHAPES = [(BATCH, 16, 16, 128), (BATCH, 8, 8, 256), (BATCH, 4, 4, 512)]
+# off the main path, reaching the direct (Cin <= 4), pipelined (aligned
+# bf16) and simple-tile (f32, ragged) code paths, and odd maps (SAME pads 2)
+ODD_CONV_SHAPES = [((2, 5, 7, 12), 20, "tanh"), ((3, 9, 6, 6), 10, "relu"),
+                   ((2, 8, 8, 16), 8, "lrelu"), ((2, 7, 7, 2), 5, "none"),
+                   ((2, 6, 6, 4), 3, "lrelu")]
+ODD_JOIN_SHAPES = [((5, 3, 3, 12), 7, 20, "lrelu"),
+                   ((4, 4, 4, 16), 8, 24, "tanh"),
+                   ((3, 2, 2, 8), 16, 8, "relu")]
+# f32 conv: K = 25·Cin up to 6400 terms summed in another order than the
+# plain version's 25 matmuls
+CONV_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (2e-4, 1e-4)}
+# f32 backward vs torch.autograd through the plain version: 1e-4 of the
+# largest |gradient| plus 1e-4 relative (sums of up to B·H·W·25 products)
+GRAD_REL = 1e-4
+# one training tick on the card vs the CPU (f32, TF32 off, batch 8): losses
+# within 1e-4 + 1e-4·|ref|; params after Adam within 1e-6 (0.5 % of the LR
+# 2e-4), where the gradient is clear of 0 (|mu| > 1e-3·max|mu| of the leaf:
+# Adam's first step is lr·sign(g), so a near-zero g may flip).  A bias in
+# front of a train-mode BN has a zero true gradient, so Adam turns its
+# round-off into ±lr steps: those leaves are left out (see also
+# phase_card_vs_cpu).
+LOSS_TOL = 1e-4
+PARAM_TOL = 1e-6
+TRAIN_TICKS = 3
+# launches per training tick: the D step's G forward (4 deconv, 4 bn_act)
+# and D over three streams (4 conv, 1 join, 4 BN × 3 streams), then each of
+# the 2 G steps (G: 4 deconv, 4 bn_act; D: 4 conv, 1 join, 4 bn_act)
+TICK_LAUNCHES = {"deconv5x5_s2": 12, "bn_act": 32, "conv5x5_s2_act": 12,
+                 "conditioning_join": 3}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -144,6 +207,22 @@ def bn_inputs(shape, dtype, device, gen):
     return [v.to(device) for v in (x, a, b)]
 
 
+def conv_inputs(shape, co, dtype, device, gen):
+    x = torch.randn(shape, generator=gen).to(dtype)
+    w = (torch.randn(5, 5, shape[-1], co, generator=gen) * 0.02).to(dtype)
+    b = 0.1 * torch.randn(co, generator=gen)
+    return [v.to(device) for v in (x, w, b)]
+
+
+def join_inputs(shape, e, co, dtype, device, gen):
+    x = torch.relu(torch.randn(shape, generator=gen)).to(dtype)
+    t = torch.randn(shape[0], e, generator=gen).to(dtype)
+    wx = (torch.randn(shape[-1], co, generator=gen) * 0.02).to(dtype)
+    wt = (torch.randn(e, co, generator=gen) * 0.02).to(dtype)
+    b = 0.1 * torch.randn(co, generator=gen)
+    return [v.to(device) for v in (x, t, wx, wt, b)]
+
+
 def phase_kernels(device):
     """Each kernel against its plain version at every main-path shape."""
     from text_to_image_tpu_torch.ops.kernels import conv, fused
@@ -178,6 +257,257 @@ def phase_kernels(device):
     return errs
 
 
+def phase_train_kernels(device):
+    """conv5x5_s2_act and conditioning_join against their plain versions at
+    the D's shapes (batch 3·64 and 64) and at odd shapes, bf16 and f32."""
+    from text_to_image_tpu_torch.ops.kernels import conv, fused
+    gen = torch.Generator().manual_seed(SEED + 2)
+    errs = {"conv5x5_s2_act": {}, "conditioning_join": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for b in (D_BATCH, BATCH):
+            for shape, co, act in conv_shapes(b):
+                x, w, bias = conv_inputs(shape, co, dtype, device, gen)
+                got = conv.conv5x5_s2_act(x, w, bias, act)
+                ref = conv.conv5x5_s2_act_plain(x, w, bias, act)
+                torch.cuda.synchronize()
+                check(got.shape == ref.shape, f"conv shape {got.shape}")
+                errs["conv5x5_s2_act"][(dtype, shape)] = compare(
+                    got, ref, *CONV_TOL[dtype],
+                    f"conv5x5_s2_act {dt} {shape}->{co} {act}")
+            shape, e, co = join_shape(b)
+            args = join_inputs(shape, e, co, dtype, device, gen)
+            got = fused.conditioning_join(*args, "none")
+            ref = fused.conditioning_join_plain(*args, "none")
+            torch.cuda.synchronize()
+            errs["conditioning_join"][(dtype, shape)] = compare(
+                got, ref, *CONV_TOL[dtype],
+                f"conditioning_join {dt} {shape} e{e}->{co}")
+        for shape, co, act in ODD_CONV_SHAPES:
+            x, w, bias = conv_inputs(shape, co, dtype, device, gen)
+            compare(conv.conv5x5_s2_act(x, w, bias, act),
+                    conv.conv5x5_s2_act_plain(x, w, bias, act),
+                    *CONV_TOL[dtype],
+                    f"conv5x5_s2_act {dt} {shape}->{co} {act} (odd)")
+        for shape, e, co, act in ODD_JOIN_SHAPES:
+            args = join_inputs(shape, e, co, dtype, device, gen)
+            compare(fused.conditioning_join(*args, act),
+                    fused.conditioning_join_plain(*args, act),
+                    *CONV_TOL[dtype],
+                    f"conditioning_join {dt} {shape} e{e}->{co} {act} (odd)")
+    return errs
+
+
+def grad_compare(fn, plain, args, grad_idx, gen, what):
+    """Forward and input gradients of `fn` (the kernel's autograd.Function)
+    against torch.autograd through `plain`, for one random cotangent; f32."""
+    def run(f):
+        xs = [a.detach().clone().requires_grad_(i in grad_idx)
+              if isinstance(a, torch.Tensor) else a for i, a in enumerate(args)]
+        y = f(*xs)
+        return y, xs
+    y, xs = run(fn)
+    g = torch.randn(y.shape, generator=gen).to(y.device)
+    got = torch.autograd.grad(y, [xs[i] for i in grad_idx], g)
+    y2, xs2 = run(plain)
+    ref = torch.autograd.grad(y2, [xs2[i] for i in grad_idx], g)
+    worst = 0.0
+    for i, a, r in zip(grad_idx, got, ref):
+        scale = float(r.abs().max())
+        worst = max(worst, compare(a, r, GRAD_REL * scale, GRAD_REL,
+                                   f"{what} d/d arg{i}"))
+    return worst
+
+
+def smooth(act):
+    """The activation a main-path backward is checked with.  A backward
+    takes act' from the kernel's own output; where that output and the
+    plain version's fall on two sides of a relu/lrelu kink (|y| ~ 1e-6, a
+    few of a million outputs), act' differs and so does every gradient term
+    through that output.  The main-path shapes are checked without the
+    kink; the odd shapes, and tanh, with their activation."""
+    return "none" if act in ("relu", "lrelu") else act
+
+
+def phase_backward(device):
+    """Each new backward (the four autograd.Functions) against
+    torch.autograd through the plain version, f32, TF32 off, at the
+    training path's shapes (batch 64) and odd ones."""
+    from text_to_image_tpu_torch.ops.kernels import conv, fused
+    gen = torch.Generator().manual_seed(SEED + 3)
+    f32 = torch.float32
+    errs = {}
+    for shape, co, act in ([(s, c, smooth(a)) for s, c, a in DECONV_SHAPES]
+                           + ODD_DECONV_SHAPES[:2]):
+        x, w, s, t = deconv_inputs(shape, co, f32, device, gen)
+        errs[f"deconv5x5_s2 {shape}->{co} {act}"] = grad_compare(
+            conv.deconv5x5_s2, conv.deconv5x5_s2_plain, [x, w, s, t, act],
+            (0, 1, 2, 3), gen, f"deconv5x5_s2 bwd {shape}->{co} {act}")
+    for shape, co, act in ([(s, c, smooth(a)) for s, c, a in conv_shapes(BATCH)]
+                           + ODD_CONV_SHAPES[:2]):
+        x, w, b = conv_inputs(shape, co, f32, device, gen)
+        errs[f"conv5x5_s2_act {shape}->{co} {act}"] = grad_compare(
+            conv.conv5x5_s2_act, conv.conv5x5_s2_act_plain, [x, w, b, act],
+            (0, 1, 2), gen, f"conv5x5_s2_act bwd {shape}->{co} {act}")
+    for (shape, e, co), act in ((join_shape(BATCH), "none"),
+                                (ODD_JOIN_SHAPES[1][:3], "tanh")):
+        args = join_inputs(shape, e, co, f32, device, gen)
+        errs[f"conditioning_join {shape} {act}"] = grad_compare(
+            fused.conditioning_join, fused.conditioning_join_plain,
+            [*args, act], (0, 1, 2, 3, 4), gen,
+            f"conditioning_join bwd {shape} e{e}->{co} {act}")
+    for shape, act in ([(s, "relu") for s in BN_SHAPES]
+                       + [(s, "lrelu") for s in D_BN_SHAPES]
+                       + ODD_BN_SHAPES):
+        x, a, b = bn_inputs(shape, f32, device, gen)
+        errs[f"bn_act {shape} {act}"] = grad_compare(
+            fused.bn_act, fused.bn_act_plain, [x, a, b, act], (0, 1, 2), gen,
+            f"bn_act bwd {shape} {act}")
+    return errs
+
+
+def train_config(**overrides):
+    """configs/gancls_flowers.yml on synthetic data, as
+    ``main.py --set data.dataset_name=synthetic …`` loads it."""
+    from text_to_image_tpu_torch.config import load_config
+    return load_config(os.path.join(ROOT, "configs", "gancls_flowers.yml"),
+                       {"data.dataset_name": "synthetic",
+                        "train.summary_interval": 1, **overrides})
+
+
+def flat(tree):
+    from text_to_image_tpu_torch.train.optim import flatten
+    return dict(flatten(tree))
+
+
+def phase_train_path(device):
+    """``python -m text_to_image_tpu_torch.main --cfg
+    configs/gancls_flowers.yml --train --steps 3 --set
+    data.dataset_name=synthetic`` on the card (flagship widths, batch 64,
+    bf16), with the launch counts."""
+    from text_to_image_tpu_torch import main as port_main
+    from text_to_image_tpu_torch.models.registry import get_model
+    from text_to_image_tpu_torch.ops.kernels import conv, fused
+
+    argv = ["--cfg", os.path.join(ROOT, "configs", "gancls_flowers.yml"),
+            "--train", "--steps", str(TRAIN_TICKS), "--device", str(device),
+            "--set", "data.dataset_name=synthetic", "train.summary_interval=1"]
+    counters = (conv.deconv5x5_s2, fused.bn_act, conv.conv5x5_s2_act,
+                fused.conditioning_join)
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trainer = port_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counters}
+    log(f"  training-path launches over {TRAIN_TICKS} ticks: {launches} "
+        f"({wall:.1f} s, kernel builds and Triton compiles included)")
+    check(launches == {k: v * TRAIN_TICKS for k, v in TICK_LAUNCHES.items()},
+          f"unexpected launch counts {launches}")
+
+    cfg = trainer.cfg
+    check((cfg.gan.gf_dim, cfg.gan.df_dim, cfg.gan.embed_dim,
+           cfg.train.batch_size, cfg.dtype) == (128, 64, 1024, BATCH,
+                                                "bfloat16"),
+          f"not the flagship config: {cfg}")
+    ts = trainer.ts
+    check(ts.step == TRAIN_TICKS, f"step {ts.step}")
+    last = trainer.history[-1]
+    for k in ("d_loss", "d_real", "d_fake", "d_wrong", "g_fake", "g_loss"):
+        check(k in last and math.isfinite(last[k]), f"loss {k}: {last.get(k)}")
+    gp0, gs0, dp0, ds0 = get_model(cfg).init(cfg.seed, device)
+    moved = {}
+    for name, now, before in (("g_params", ts.g_params, gp0),
+                              ("d_params", ts.d_params, dp0),
+                              ("g_state", ts.g_state, gs0),
+                              ("d_state", ts.d_state, ds0)):
+        a, b = flat(now), flat(before)
+        changed = [k for k in b if not torch.equal(a[k].detach(), b[k])]
+        moved[name] = f"{len(changed)}/{len(b)}"
+        check(len(changed) == len(b),
+              f"{name}: unchanged leaves {sorted(set(b) - set(changed))}")
+        log(f"  {name}: {len(changed)}/{len(b)} leaves changed")
+    return trainer.history, launches, moved
+
+
+def tick_on(cfg, spe, batch, noise, dev):
+    from text_to_image_tpu_torch.train.steps import (init_train_state,
+                                                     make_train_step)
+    ts = init_train_state(cfg.seed, cfg, spe, dev)
+    t0 = time.perf_counter()
+    ts, m = make_train_step(cfg, spe, dev)(ts, batch, noise)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    log(f"  tick on {dev}: {time.perf_counter() - t0:.2f} s")
+    return ts, {k: float(v) for k, v in m.items()}
+
+
+def params_close(gts, cts, net):
+    """Max |card − CPU| of one net's params after Adam, where its gradient
+    is clear of 0; biases in front of a train-mode BN left out."""
+    params_g = flat(getattr(gts, f"{net}_params"))
+    params_c = flat(getattr(cts, f"{net}_params"))
+    mu = getattr(cts, f"{net}_opt").moments()[0]
+    layers = {leaf.split("/")[0] for leaf in params_c}
+    worst, kept = 0.0, []
+    for leaf, ref in params_c.items():
+        layer = leaf.split("/")[0]
+        if leaf == f"{layer}/b" and f"{layer}_bn" in layers:
+            continue   # zero true gradient: Adam walks on round-off
+        m = mu[leaf].abs()
+        keep = m > 1e-3 * float(m.max())
+        check(bool(keep.any()), f"{net} {leaf}: zero gradient")
+        kept.append(float(keep.float().mean()))
+        err = float((params_g[leaf].detach().cpu() - ref.detach())[keep]
+                    .abs().max())
+        worst = max(worst, err)
+        check(err <= PARAM_TOL, f"{net} {leaf}: |diff| {err:.2e} after Adam")
+    log(f"  {net} params after Adam: max |diff| {worst:.2e} (tol "
+        f"{PARAM_TOL:g}; compared {min(kept):.1%}-{max(kept):.1%} of each "
+        f"leaf)")
+    return worst
+
+
+def phase_card_vs_cpu(device):
+    """One tick at flagship widths, batch 8, f32, TF32 off, on the card and
+    on the CPU (plain versions), same weights, data and z: losses, then
+    params after Adam.
+
+    At init, G's first Adam step (≈ lr·sign(g) on every weight) already
+    saturates D on the fakes: the second G step reads g_loss ≈ 1e-6 and its
+    gradient is too small to survive round-off, so G's params after the
+    default tick differ between any two devices by a few lr.  The default
+    tick therefore holds the losses and D's params, and a second tick with D
+    frozen (discriminator_lr 0) holds G's params."""
+    from text_to_image_tpu_torch.data import get_dataset
+    from text_to_image_tpu_torch.train.steps import draw_noise
+    out = {}
+    for variant, extra in (("tick", {}),
+                           ("tick with D frozen", {"train.discriminator_lr": 0.0})):
+        log(f"  {variant}:")
+        cfg = train_config(**{"train.batch_size": 8, "dtype": "float32",
+                              **extra})
+        ds = get_dataset(cfg)
+        spe = max(1, ds.num_examples // 8)
+        batch = {k: v[None] for k, v in
+                 ds.next_batch(8, window=cfg.data.caption_window).items()}
+        noise = draw_noise(cfg, 0, 8)
+        gts, gm = tick_on(cfg, spe, batch, noise, device)
+        cts, cm = tick_on(cfg, spe, batch, noise, "cpu")
+        loss_err = {}
+        for k in cm:
+            loss_err[k] = abs(gm[k] - cm[k])
+            log(f"  {k}: card {gm[k]:.7f} cpu {cm[k]:.7f} |diff| "
+                f"{loss_err[k]:.2e}")
+            check(loss_err[k] <= LOSS_TOL * (1 + abs(cm[k])),
+                  f"loss {k} differs")
+        out[variant] = {"loss_abs_diff": loss_err, "losses_card": gm,
+                        "param_max_abs_diff": params_close(
+                            gts, cts, "g" if extra else "d")}
+    return out
+
+
 def flagship_config():
     from text_to_image_tpu_torch.config import Config, DataConfig
     return Config(model="gancls", dtype="bfloat16", seed=SEED,
@@ -196,7 +526,7 @@ def phase_main_path(device):
     cfg = flagship_config()
     bundle = get_model(cfg)
     policy = L.Policy.from_str(cfg.dtype)
-    params32, state = bundle.init(cfg.seed, device)
+    params32, state = bundle.init(cfg.seed, device)[:2]
     ts = sampler.GeneratorState(L.cast_weights(params32, policy), state)
     gen = sampler.make_generator_fn(cfg, device=device)
     emb = get_dataset(cfg).test_embeddings(BATCH)
@@ -344,13 +674,200 @@ def phase_timing(device, cfg, bundle, ts, gen, z, emb):
     return rows, rates
 
 
+def bwd_ms(fn, args, grad_idx, flush, gen):
+    """Device time of one backward of fn's autograd.Function (the graph is
+    built once and kept)."""
+    xs = [a.detach().clone().requires_grad_(i in grad_idx)
+          if isinstance(a, torch.Tensor) else a for i, a in enumerate(args)]
+    y = fn(*xs)
+    g = torch.randn(y.shape, generator=gen).to(y.device, y.dtype)
+    leaves = [xs[i] for i in grad_idx]
+    return time_ms(lambda: torch.autograd.grad(y, leaves, g, retain_graph=True),
+                   flush, iters=10)
+
+
+def phase_train_timing(device, flush):
+    """conv5x5_s2_act and conditioning_join at the D's shapes (bf16, batch
+    3·64 and 64): kernel, plain version, one library call, bound, and the
+    backward; the backward of deconv5x5_s2 and bn_act at the tick's
+    shapes."""
+    import torch.nn.functional as F
+
+    from text_to_image_tpu_torch.ops.kernels import conv, fused
+    gen = torch.Generator().manual_seed(SEED + 4)
+    dtype = torch.bfloat16
+    rows = {"conv5x5_s2_act": [], "conditioning_join": []}
+    for b in (D_BATCH, BATCH):
+        for shape, co, act in conv_shapes(b):
+            x, w, bias = conv_inputs(shape, co, dtype, device, gen)
+            y = conv.conv5x5_s2_act(x, w, bias, act)
+            _, h, wd, cin = shape
+            # one library call: cuDNN's conv on the (1, 2)-pre-padded NCHW
+            # input (channels_last strides) with the bias, plus the act
+            xp = F.pad(x.permute(0, 3, 1, 2), (1, 2, 1, 2)).contiguous(
+                memory_format=torch.channels_last)
+            w_t = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            b16 = bias.to(dtype)
+
+            def lib():
+                out = F.conv2d(xp, w_t, b16, stride=2)
+                return F.leaky_relu(out, 0.2) if act == "lrelu" else out
+            lib_err = float((lib().permute(0, 2, 3, 1).float()
+                             - conv.conv5x5_s2_act_plain(x, w, bias, act).float()
+                             ).abs().max())
+            flops = 2 * 25 * b * (h // 2) * (wd // 2) * cin * co
+            bms, by = bound(nbytes(x, w, bias, y), flops, dtype)
+            r = {"shape": [list(shape), co, act], "batch": b,
+                 "ms": time_ms(lambda: conv.conv5x5_s2_act(x, w, bias, act),
+                               flush),
+                 "plain_ms": time_ms(lambda: conv.conv5x5_s2_act_plain(
+                     x, w, bias, act), flush, 5),
+                 "library_ms": time_ms(lib, flush),
+                 "bound_ms": bms, "bound_by": by,
+                 "bwd_ms": bwd_ms(conv.conv5x5_s2_act, [x, w, bias, act],
+                                  (0, 1, 2), flush, gen),
+                 "library_max_abs_err_vs_plain": lib_err}
+            r["tflops"] = flops / r["ms"] / 1e9
+            rows["conv5x5_s2_act"].append(r)
+            log(f"  conv5x5_s2_act {shape}->{co} {act}: {r['ms']:.4f} ms "
+                f"(bound {bms:.4f} by {by}, {r['tflops']:.1f} TFLOP/s), plain "
+                f"{r['plain_ms']:.4f}, cuDNN {r['library_ms']:.4f}, backward "
+                f"{r['bwd_ms']:.4f} ms")
+        shape, e, co = join_shape(b)
+        x, t, wx, wt, bias = join_inputs(shape, e, co, dtype, device, gen)
+        y = fused.conditioning_join(x, t, wx, wt, bias, "none")
+        # one library call: addmm on the materialised concat
+        cat = torch.cat([x, t[:, None, None, :].expand(*shape[:3], e)],
+                        -1).reshape(-1, shape[-1] + e)
+        wcat = torch.cat([wx, wt])
+        b16 = bias.to(dtype)
+        flops = 2 * b * 16 * shape[-1] * co + 2 * b * e * co
+        bms, by = bound(nbytes(x, t, wx, wt, bias, y), flops, dtype)
+        r = {"shape": [list(shape), e, co, "none"], "batch": b,
+             "ms": time_ms(lambda: fused.conditioning_join(
+                 x, t, wx, wt, bias, "none"), flush),
+             "plain_ms": time_ms(lambda: fused.conditioning_join_plain(
+                 x, t, wx, wt, bias, "none"), flush),
+             "library_ms": time_ms(lambda: torch.addmm(b16, cat, wcat), flush),
+             "bound_ms": bms, "bound_by": by,
+             "bwd_ms": bwd_ms(fused.conditioning_join,
+                              [x, t, wx, wt, bias, "none"], (0, 1, 2, 3, 4),
+                              flush, gen)}
+        rows["conditioning_join"].append(r)
+        log(f"  conditioning_join {shape} e{e}->{co}: {r['ms']:.4f} ms (bound "
+            f"{bms:.4f} by {by}), plain {r['plain_ms']:.4f}, addmm "
+            f"{r['library_ms']:.4f}, backward {r['bwd_ms']:.4f} ms")
+    bwd = {"deconv5x5_s2": [], "bn_act": []}
+    for shape, co, act in DECONV_SHAPES:
+        x, w, sc, t = deconv_inputs(shape, co, dtype, device, gen)
+        ms = bwd_ms(conv.deconv5x5_s2, [x, w, sc, t, act], (0, 1, 3), flush,
+                    gen)
+        bwd["deconv5x5_s2"].append({"shape": [list(shape), co, act],
+                                    "bwd_ms": ms})
+        log(f"  deconv5x5_s2 backward {shape}->{co} {act}: {ms:.4f} ms")
+    for shape, act in ([(s, "relu") for s in BN_SHAPES]
+                       + [(s, "lrelu") for s in D_BN_SHAPES]):
+        x, a, b = bn_inputs(shape, dtype, device, gen)
+        ms = bwd_ms(fused.bn_act, [x, a, b, act], (0, 1, 2), flush, gen)
+        bwd["bn_act"].append({"shape": [list(shape), act], "bwd_ms": ms})
+        log(f"  bn_act backward {shape} {act}: {ms:.4f} ms")
+    return rows, bwd
+
+
+def phase_tick_timing(device):
+    """Training ticks at flagship widths, batch 64, bf16, on a batch kept on
+    the card: ms per tick and images/s counted as bench.py counts them
+    (batch per tick), median of 3 windows of 10 ticks; peak memory."""
+    from text_to_image_tpu_torch.data import get_dataset
+    from text_to_image_tpu_torch.train.steps import (init_train_state,
+                                                     make_train_step)
+    cfg = train_config()
+    ds = get_dataset(cfg)
+    spe = max(1, ds.num_examples // BATCH)
+    ts = init_train_state(cfg.seed, cfg, spe, device)
+    step = make_train_step(cfg, spe, device)
+    batch = {k: torch.as_tensor(v[None]).to(device)
+             for k, v in ds.next_batch(BATCH).items()}
+    for _ in range(2):
+        ts, m = step(ts, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            ts, m = step(ts, batch)
+        float(m["g_loss"])
+        rates.append(10 * BATCH / (time.perf_counter() - t0))
+    rate = sorted(rates)[1]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  training tick: {BATCH / rate * 1e3:.3f} ms, {rate:.1f} images/s "
+        f"(median of 3 windows of 10 ticks: "
+        f"{', '.join(f'{r:.1f}' for r in rates)}); peak memory {peak:.2f} GiB")
+    return {"tick_ms": BATCH / rate * 1e3, "images_per_s": rate,
+            "windows_images_per_s": rates, "peak_memory_gib": peak}, \
+        (ts, step, batch)
+
+
+def is_kernel(event) -> bool:
+    """A device kernel of a profile, not a range annotated around kernels
+    (``Optimizer.step#Adam.step`` has device time too, which would count
+    the Adam kernels twice)."""
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not event.key.startswith("Optimizer."))
+
+
 def kernel_family(name: str) -> str:
-    for key, fam in (("deconv5x5_s2", "deconv5x5_s2 (CUDA)"),
-                     ("bn_act", "bn_act (Triton)"), ("gemm", "linear (cuBLAS)"),
-                     ("reduce", "BN statistics (torch reductions)")):
-        if key in name.lower():
+    low = name.lower()
+    for keys, fam in (
+            (("deconv5x5_s2",), "deconv5x5_s2 (CUDA)"),
+            (("namespace)::conv",), "conv5x5_s2_act (CUDA)"),
+            (("namespace)::join", "join_text_kernel"),
+             "conditioning_join (CUDA)"),
+            (("bn_act",), "bn_act (Triton)"),
+            (("gemm", "gemv"), "matmul (cuBLAS)"),
+            (("conv", "cudnn", "dgrad", "wgrad", "xmma"),
+             "conv backward (cuDNN)"),
+            (("multi_tensor_apply", "foreach"), "Adam and EMA (foreach)"),
+            (("reduce",), "reductions (BN statistics, grad sums)"),
+            (("copy", "cat"), "casts, copies, concatenation"),
+            (("fill",), "fills (zeros)")):
+        if any(k in low for k in keys):
             return fam
-    return "other torch elementwise / copies"
+    return "other torch elementwise"
+
+
+def phase_tick_profile(ts, step, batch, tick_ms):
+    """Device time per training tick by kernel family (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            ts, m = step(ts, batch)
+        torch.cuda.synchronize()
+    fams: dict = {}
+    launches = 0
+    for e in prof.key_averages():
+        if not is_kernel(e):
+            continue
+        fam = kernel_family(e.key)
+        fams[fam] = fams.get(fam, 0.0) + e.self_device_time_total / 1e3 / n
+        launches += e.count
+    busy = sum(fams.values())
+    check(busy > 0, "the profiler saw no device time")
+    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
+        log(f"  {fam}: {ms:.4f} ms per tick ({ms / busy:.1%} of device time)")
+    top = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key[:160])
+                  for e in prof.key_averages() if is_kernel(e)),
+                 reverse=True)[:25]
+    log(f"  device busy {busy:.4f} ms of {tick_ms:.4f} ms per tick (idle share "
+        f"{1 - busy / tick_ms:.1%}); {launches / n:.0f} kernel launches per "
+        f"tick")
+    return {"ms_per_tick_by_family": fams, "device_busy_ms": busy,
+            "tick_ms": tick_ms, "idle_share": 1 - busy / tick_ms,
+            "kernels_per_tick": launches / n,
+            "top_kernels_ms_calls_name": top}
 
 
 def phase_profile(gen, ts, z, emb, device, rate):
@@ -369,7 +886,7 @@ def phase_profile(gen, ts, z, emb, device, rate):
     fams: dict = {}
     launches = 0
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if not is_kernel(e):
             continue
         fam = kernel_family(e.key)
         fams[fam] = fams.get(fam, 0.0) + e.self_device_time_total / 1e3 / n
@@ -413,16 +930,34 @@ def main() -> int:
     log("phase 2: kernels vs plain versions at the main-path shapes")
     t0 = time.perf_counter()
     errs = phase_kernels(device)
+    errs.update(phase_train_kernels(device))
     log(f"  ({time.perf_counter() - t0:.1f} s, Triton compile included)")
 
-    log("phase 3: sampling path at flagship widths, batch 64, bf16")
+    log("phase 3: backward passes vs torch.autograd through the plain "
+        "versions (f32, TF32 off)")
+    grad_errs = phase_backward(device)
+
+    log("phase 4: sampling path at flagship widths, batch 64, bf16")
     cfg, bundle, ts, gen, z, emb, launches, g_err = phase_main_path(device)
+    launches_by_path = {"sampling": launches}
 
-    log("phase 4: timing")
+    log(f"phase 5: training path (main.py --train loop) at flagship widths, "
+        f"batch 64, bf16, {TRAIN_TICKS} ticks")
+    history, launches_by_path["training"], moved = phase_train_path(device)
+
+    log("phase 6: one tick on the card vs the CPU (flagship widths, batch 8, "
+        "f32, TF32 off)")
+    tick_vs_cpu = phase_card_vs_cpu(device)
+
+    log("phase 7: timing")
     rows, rates = phase_timing(device, cfg, bundle, ts, gen, z, emb)
+    train_rows, bwd_rows = phase_train_timing(device, L2Flush(device))
+    rows.update(train_rows)
+    tick, (tts, tstep, tbatch) = phase_tick_timing(device)
 
-    log("phase 5: where a train-mode forward's device time goes")
+    log("phase 8: where a train-mode forward's and a tick's device time goes")
     profile = phase_profile(gen, ts, z, emb, device, rates["train_mode"])
+    tick_profile = phase_tick_profile(tts, tstep, tbatch, tick["tick_ms"])
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -436,24 +971,41 @@ def main() -> int:
                          "text_to_image_tpu/ops/pallas/conv.py:146"),
         "bn_act": ("triton", src + "ops/kernels/fused.py",
                    "text_to_image_tpu/ops/pallas/fused.py:259"),
+        "conv5x5_s2_act": ("cuda", src + "csrc/conv5x5_s2.cu",
+                           "text_to_image_tpu/ops/pallas/conv.py:797"),
+        "conditioning_join": ("cuda", src + "csrc/conditioning_join.cu",
+                              "text_to_image_tpu/ops/pallas/fused.py:327"),
     }
+
+    def per_unit(per, key):
+        """deconv5x5_s2 and bn_act: one generator forward (the sum over its
+        four calls at batch 64).  conv5x5_s2_act and conditioning_join: one
+        tick's forward calls (the D step at 3·64 plus two G steps' D at
+        64)."""
+        return sum(r[key] * (1 if r.get("batch", D_BATCH) == D_BATCH else 2)
+                   for r in per)
+
     kernels = []
     for name, (route, source, replaces) in meta.items():
         per = rows[name]
         ops_share = sum(r["bound_ms"] for r in per if r["bound_by"] == "operations")
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": sum(p.get(name, 0) for p in launches_by_path.values()),
+            "launches_by_path": {k: p.get(name, 0)
+                                 for k, p in launches_by_path.items()},
             "max_abs_err": max(v for (dt, _), v in errs[name].items()
                                if dt == torch.bfloat16),
-            # one generator forward's worth: the sum over the four shapes
-            "ms": sum(r["ms"] for r in per),
-            "plain_ms": sum(r["plain_ms"] for r in per),
-            "bound_ms": sum(r["bound_ms"] for r in per),
+            "ms": per_unit(per, "ms"),
+            "plain_ms": per_unit(per, "plain_ms"),
+            "bound_ms": per_unit(per, "bound_ms"),
             "bound_by": ("operations" if ops_share * 2 > sum(
                 r["bound_ms"] for r in per) else "bytes"),
-            "library_ms": sum(r["library_ms"] for r in per),
-            "shapes": per,
+            "library_ms": per_unit(per, "library_ms"),
+            "max_grad_err_f32": max(v for k, v in grad_errs.items()
+                                    if k.startswith(name)),
+            "shapes": per + bwd_rows.get(name, []),
         })
 
     report = {"card": card, "torch": torch.__version__,
@@ -461,8 +1013,11 @@ def main() -> int:
               "kernel_errors": {f"{n} {str(dt)[6:]} {list(s)}": v
                                 for n, d in errs.items()
                                 for (dt, s), v in d.items()},
+              "backward_errors_f32": grad_errs,
               "generator_errors": g_err, "sampling_images_per_s": rates,
-              "profile": profile}
+              "profile": profile, "training_history": history,
+              "training_leaves_changed": moved, "tick_vs_cpu": tick_vs_cpu,
+              "tick": tick, "tick_profile": tick_profile}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

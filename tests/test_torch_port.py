@@ -1,7 +1,8 @@
 """The port's package boundary and entry points on the CPU: it imports
 neither JAX nor the JAX package, its CLI writes the three grids (from a
-seed or from JAX weights), unported models and datasets name their ROADMAP
-item, and weights survive the ``.npz`` round trip."""
+seed or from JAX weights) and trains, unported models, datasets and
+checkpoints name their ROADMAP item, and weights survive the ``.npz`` round
+trip."""
 
 import os
 import subprocess
@@ -35,6 +36,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import text_to_image_tpu_torch.utils.images
         import text_to_image_tpu_torch.models.registry
         import text_to_image_tpu_torch.ops.kernels._build
+        import text_to_image_tpu_torch.models.losses
+        import text_to_image_tpu_torch.train.optim
+        import text_to_image_tpu_torch.train.state
+        import text_to_image_tpu_torch.train.steps
+        import text_to_image_tpu_torch.train.trainer
         bad = sorted(m for m in sys.modules
                      if m == "text_to_image_tpu"
                      or m.startswith("text_to_image_tpu."))
@@ -76,9 +82,22 @@ def test_cli_writes_three_grids(tmp_path, weights):
             (out / f"{name}.png.npy").exists(), name
 
 
-def test_cli_train_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main.main(["--cfg", _tiny_yaml(tmp_path), "--train"])
+def test_cli_train_is_not_ported(tmp_path, capsys):
+    """Training runs (``--train --steps 2 --device cpu`` prints finite
+    metrics); what is not ported of it, checkpoints and sample grids, raises
+    naming ROADMAP item 3 before the first step."""
+    argv = ["--cfg", _tiny_yaml(tmp_path), "--train", "--device", "cpu"]
+    main.main(argv + ["--steps", "2"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[step 2]")]
+    assert len(lines) == 1, lines
+    fields = dict(kv.split("=") for kv in lines[0].split()[2:])
+    for k in ("d_loss", "d_real", "d_fake", "d_wrong", "g_loss",
+              "images_per_sec"):
+        assert np.isfinite(float(fields[k])), k
+    for key in ("snapshot_interval", "sample_interval"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
+            main.main(argv + ["--steps", "2", "--set", f"train.{key}=2"])
 
 
 def test_cli_overrides_are_typed():
@@ -119,8 +138,17 @@ def test_npz_round_trip(tmp_path):
 
 
 def test_from_jax_generator_rejects_foreign_layers():
+    """`down0` is a discriminator layer, not a generator one; a name that
+    neither network has is refused by both."""
     with pytest.raises(ValueError, match="down0"):
         convert.from_jax_generator({"down0": {"w": np.zeros(1)}}, {}, "cpu")
+    convert.from_jax_discriminator({"down0": {"w": np.zeros(1)}}, {}, "cpu")
+    for fn in (convert.from_jax_generator, convert.from_jax_discriminator):
+        with pytest.raises(ValueError, match="conv9"):
+            fn({"conv9": {"w": np.zeros(1)}}, {}, "cpu")
+    with pytest.raises(ValueError, match="up0"):
+        convert.from_jax_discriminator({}, {"up0": {"mean": np.zeros(1)}},
+                                       "cpu")
 
 
 def test_init_is_a_function_of_the_key():

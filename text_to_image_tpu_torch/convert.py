@@ -1,4 +1,4 @@
-"""Carry generator weights between the JAX package and the port.
+"""Carry weights and train states between the JAX package and the port.
 
 The port keeps the JAX package's layouts (linear ``[in, out]``, conv HWIO,
 BN ``scale``/``bias``/``mean``/``var``) and its tree of names, so converting
@@ -9,6 +9,11 @@ keys; from the JAX package it is written with
     save_npz("g.npz", *jax.device_get((ts.g_params, ts.g_state)))
 
 and ``python -m text_to_image_tpu_torch.main --weights g.npz`` serves it.
+
+`from_jax_train_state` carries a whole JAX ``TrainState`` (as
+``jax.device_get`` returns it): both networks, both BN states, the step,
+``aux['ema_g_params']`` and each ``optax.adam`` state's update count and
+moments, so the port computes the same next tick.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-_LAYER = re.compile(r"^(embed|stem|stem_bn|out|up\d+|up\d+_bn)$")
+_G_LAYER = re.compile(r"^(embed|stem|stem_bn|out|up\d+|up\d+_bn)$")
+_D_LAYER = re.compile(r"^(down\d+|down\d+_bn|embed|join|join_bn|logit)$")
 
 
 def _to_torch(tree: Dict, device) -> Dict:
@@ -28,16 +34,61 @@ def _to_torch(tree: Dict, device) -> Dict:
             for k, v in tree.items()}
 
 
+def _checked(params: Dict, state: Dict, layer: re.Pattern, what: str,
+             device) -> Tuple[Dict, Dict]:
+    for name in (*params, *state):
+        if not layer.match(name):
+            raise ValueError(f"not a GAN-CLS {what} layer: {name!r}")
+    return _to_torch(params, device), _to_torch(state, device)
+
+
 def from_jax_generator(params: Dict, state: Dict, device="cuda"
                        ) -> Tuple[Dict, Dict]:
     """JAX generator (params, state) as nested dicts of numpy arrays, as
     ``jax.device_get`` returns them, → the port's (params, state): f32
     tensors on `device`.  Raises on a layer name the GAN-CLS generator does
     not have."""
-    for name in (*params, *state):
-        if not _LAYER.match(name):
-            raise ValueError(f"not a GAN-CLS generator layer: {name!r}")
-    return _to_torch(params, device), _to_torch(state, device)
+    return _checked(params, state, _G_LAYER, "generator", device)
+
+
+def from_jax_discriminator(params: Dict, state: Dict, device="cuda"
+                           ) -> Tuple[Dict, Dict]:
+    """As `from_jax_generator`, for the batch-norm discriminator (layers
+    ``down<i>``, ``down<i>_bn``, ``embed``, ``join``, ``join_bn``,
+    ``logit``)."""
+    return _checked(params, state, _D_LAYER, "discriminator", device)
+
+
+def _adam_state(opt_state) -> Tuple[int, Dict, Dict]:
+    """(count, mu, nu) of an ``optax.adam`` state held as numpy: the
+    chain's ``ScaleByAdamState`` is the element with ``mu`` and ``nu``."""
+    for part in opt_state:
+        if hasattr(part, "mu") and hasattr(part, "nu"):
+            return int(np.asarray(part.count)), part.mu, part.nu
+    raise ValueError("no Adam state (an element with mu and nu) in "
+                     f"{type(opt_state).__name__}")
+
+
+def from_jax_train_state(ts, cfg, steps_per_epoch: int, device="cuda"):
+    """A JAX GAN-CLS ``TrainState`` held as numpy → the port's TrainState
+    on `device` for `cfg` (the same config as the JAX run), with the Adam
+    counts and moments carried."""
+    from text_to_image_tpu_torch.train.optim import flatten
+    from text_to_image_tpu_torch.train.steps import make_train_state
+
+    gp, gs = from_jax_generator(ts.g_params, ts.g_state, device)
+    dp, ds = from_jax_discriminator(ts.d_params, ts.d_state, device)
+    aux = {}
+    if "ema_g_params" in ts.aux:
+        aux["ema_g_params"] = from_jax_generator(ts.aux["ema_g_params"], {},
+                                                 device)[0]
+    out = make_train_state(cfg, steps_per_epoch, gp, gs, dp, ds,
+                           step=int(np.asarray(ts.step)), aux=aux)
+    for opt, jax_opt in ((out.g_opt, ts.g_opt), (out.d_opt, ts.d_opt)):
+        count, mu, nu = _adam_state(jax_opt)
+        opt.load(count, dict(flatten(_to_torch(mu, device))),
+                 dict(flatten(_to_torch(nu, device))))
+    return out
 
 
 def _flatten(tree: Dict, prefix: str) -> Dict[str, np.ndarray]:

@@ -1,14 +1,17 @@
-"""Sampling entry point of the port (counterpart of the root ``main.py``'s
-``evaluate``):
+"""Entry point of the port (counterpart of the root ``main.py``):
 
     python -m text_to_image_tpu_torch.main --cfg configs/gancls_flowers.yml \
-        [--weights g.npz] [--set dataset_name=synthetic ...] [--device cuda]
+        [--train [--steps N]] [--weights g.npz] \
+        [--set data.dataset_name=synthetic ...] [--device cuda]
 
-writes the fixed-z eval grid and the latent- and text-interpolation grids
-under ``<sample_dir>/<model>/<dataset>/``.  ``--weights`` serves a generator
-saved with `convert.save_npz` (for example from the JAX package); without
-it the generator is initialised from ``cfg.seed``.  Training is not ported
-yet: ``--train`` raises `NotImplementedError`.
+Without ``--train`` it writes the fixed-z eval grid and the latent- and
+text-interpolation grids under ``<sample_dir>/<model>/<dataset>/``.
+``--weights`` serves a generator saved with `convert.save_npz` (for example
+from the JAX package); without it the generator is initialised from
+``cfg.seed``.  ``--train`` runs the training loop (``train/trainer.py``) to
+step N, printing ``[step N]`` metric lines; checkpoints, sample grids and
+the real datasets are not ported yet and raise `NotImplementedError`.
+Everything runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -22,13 +25,16 @@ from text_to_image_tpu_torch.config import Config, load_config
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="text-to-image GAN sampling on PyTorch + CUDA")
+        description="text-to-image GAN training and sampling on PyTorch + "
+                    "CUDA")
     p.add_argument("--cfg", required=True, help="YAML config path")
     p.add_argument("--weights", default=None,
                    help="generator .npz (convert.save_npz); default: "
                         "initialise from cfg.seed")
     p.add_argument("--train", action="store_true",
-                   help="train (not ported yet)")
+                   help="train (else: sample the three grids)")
+    p.add_argument("--steps", type=int, default=None,
+                   help="train to this step (default: max_epoch epochs)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions")
     p.add_argument("--set", nargs="*", default=[],
@@ -73,7 +79,7 @@ def evaluate(cfg: Config, weights: str | None = None, device="cuda") -> str:
         g_params, g_state = convert.load_npz(weights, device)
         print(f"sampling from {weights}")
     else:
-        g_params, g_state = get_model(cfg).init(cfg.seed, device)
+        g_params, g_state = get_model(cfg).init(cfg.seed, device)[:2]
         print(f"sampling from a generator initialised from seed {cfg.seed}")
     ts = GeneratorState(L.cast_weights(g_params, L.Policy.from_str(cfg.dtype)),
                         g_state)
@@ -96,14 +102,22 @@ def evaluate(cfg: Config, weights: str | None = None, device="cuda") -> str:
     return out
 
 
+def train(cfg: Config, steps: int | None = None, device="cuda"):
+    """Run the training loop to `steps`; returns the trainer."""
+    from text_to_image_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, device=device)
+    trainer.train(num_steps=steps)
+    return trainer
+
+
 def main(argv=None):
+    """Returns the trainer (``--train``) or the grids' directory."""
     args = parse_args(argv)
-    if args.train:
-        raise NotImplementedError(
-            "training is not ported yet: ROADMAP.md, 'Modules to port' "
-            "items 2-3")
     cfg = load_config(args.cfg, parse_overrides(args.set) or None)
-    evaluate(cfg, weights=args.weights, device=args.device)
+    if args.train:
+        return train(cfg, args.steps, device=args.device)
+    return evaluate(cfg, weights=args.weights, device=args.device)
 
 
 if __name__ == "__main__":

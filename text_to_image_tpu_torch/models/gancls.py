@@ -1,15 +1,25 @@
-"""GAN-CLS generator (counterpart of ``text_to_image_tpu/models/gancls.py``,
-generator side; Reed et al. 2016, arXiv:1605.05396):
+"""GAN-CLS generator and matching-aware discriminator (counterpart of
+``text_to_image_tpu/models/gancls.py``; Reed et al. 2016, arXiv:1605.05396):
 
-    t = lrelu(FC(φ(text)) → 128);  h = concat(z, t) → FC → 4×4×(8·gf) NHWC
-    → [deconv5×5 s2 + BN + ReLU] × (n_up−1) → deconv5×5 s2 → tanh
+    G: t = lrelu(FC(φ(text)) → 128);  h = concat(z, t) → FC → 4×4×(8·gf)
+       → [deconv5×5 s2 + BN + ReLU] × (n_up−1) → deconv5×5 s2 → tanh
+    D: [conv5×5 s2 (+BN from layer 2) + lrelu] × n_down to 4×4×(8·df)
+       → concat(tile(lrelu(FC(φ)))) → conv1×1 + BN + lrelu
+       → conv4×4 VALID → scalar logit
 
-Each up-block is the `deconv5x5_s2` kernel followed by the `bn_act` kernel
-(train-mode statistics in plain torch).  `generator_apply_inference` folds
-eval-mode BN into each deconv's per-channel scale/shift, so every up-block
-is one kernel; its stem BN + ReLU also runs through `bn_act`.  On CUDA a
-train-mode forward launches 4 deconv + 4 bn_act at 64 px, the folded
+Each G up-block is the `deconv5x5_s2` kernel followed by the `bn_act`
+kernel (train-mode statistics in plain torch).  `generator_apply_inference`
+folds eval-mode BN into each deconv's per-channel scale/shift, so every
+up-block is one kernel; its stem BN + ReLU also runs through `bn_act`.  On
+CUDA a train-mode forward launches 4 deconv + 4 bn_act at 64 px, the folded
 forward 4 deconv + 1 bn_act.
+
+Each D down-block is the `conv5x5_s2_act` kernel (bias, and on ``down0``
+the lrelu, fused) followed by `bn_act`; the text join is the
+`conditioning_join` kernel.  The JAX package computes the same function
+with ``L.conv2d`` + ``batch_norm_act`` and its lax join.  Only batch norm
+is ported: the layer-norm critic belongs to WGAN-CLS.  A 64 px D forward
+launches 4 conv + 1 join and, per stream, 4 bn_act.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch
 from text_to_image_tpu_torch.config import GanConfig
 from text_to_image_tpu_torch.ops import layers as L
 from text_to_image_tpu_torch.ops.kernels.conv import deconv5x5_s2
+from text_to_image_tpu_torch.ops.kernels.fused import conditioning_join
 from text_to_image_tpu_torch.utils import prng
 
 BN_EPS = 1e-5
@@ -109,3 +120,95 @@ def generator_apply_inference(params: Dict, state: Dict, z: torch.Tensor,
     ones = torch.ones(3, dtype=torch.float32, device=h.device)
     return deconv5x5_s2(h, out["w"].to(h.dtype), ones, out["b"].float(),
                         "tanh")
+
+
+# --- discriminator ---------------------------------------------------------------
+
+def discriminator_init(key: int, gan: GanConfig, resolution: int = 64
+                       ) -> Tuple[Dict, Dict]:
+    """(params, state) as f32 CPU tensors, drawn from `key` (batch norm)."""
+    n_down = _n_stages(resolution)
+    df = gan.df_dim
+    ks = prng.split_tree(key, ("embed", "downs", "join", "logit"))
+
+    params: Dict = {}
+    state: Dict = {}
+    c_in = 3
+    for i in range(n_down):
+        # growth capped at 8·df, as in the JAX package
+        c_out = df * min(2 ** i, 8)
+        ki = prng.fold_in(ks["downs"], i)
+        params[f"down{i}"] = L.conv2d_init(ki, 5, c_in, c_out)
+        if i > 0:  # no norm on the first conv
+            params[f"down{i}_bn"], state[f"down{i}_bn"] = L.batch_norm_init(
+                c_out, prng.fold_in(ki, 1))
+        c_in = c_out
+    params["embed"] = L.linear_init(ks["embed"], gan.embed_dim,
+                                    gan.compressed_embed_dim)
+    params["join"] = L.conv2d_init(ks["join"], 1,
+                                   c_in + gan.compressed_embed_dim, c_in)
+    params["join_bn"], state["join_bn"] = L.batch_norm_init(
+        c_in, prng.fold_in(ks["join"], 1))
+    params["logit"] = L.conv2d_init(ks["logit"], 4, c_in, 1)
+    return params, state
+
+
+def _text_join(join_params: Dict, h: torch.Tensor, t: torch.Tensor
+               ) -> torch.Tensor:
+    """conv1x1(concat(h, tile(t))) through the `conditioning_join` kernel:
+    the 1×1 kernel split over the [image; text] channels, concat-free."""
+    w = join_params["w"][0, 0].to(h.dtype)             # [Cx+E, Co]
+    cx = h.shape[-1]
+    return conditioning_join(h, t.to(h.dtype), w[:cx].contiguous(),
+                             w[cx:].contiguous(), join_params["b"].float(),
+                             "none")
+
+
+def _discriminator(params: Dict, state: Dict, x: torch.Tensor,
+                   emb: torch.Tensor, train: bool, policy: L.Policy,
+                   resolution: int, streams: int) -> Tuple[torch.Tensor, Dict]:
+    """D over a batch of `streams` contiguous streams, each with its own
+    batch statistics; convolutions and the join run once over all of it."""
+    n_down = _n_stages(resolution)
+    h = policy.cast(x)
+    new_state: Dict = {}
+    for i in range(n_down):
+        if i == 0:
+            h = L.conv2d(params["down0"], h, act="lrelu")
+            continue
+        h = L.conv2d(params[f"down{i}"], h)
+        h, new_state[f"down{i}_bn"] = L.batch_norm_act(
+            params[f"down{i}_bn"], state[f"down{i}_bn"], h, train,
+            act="lrelu", streams=streams)
+    t = L.lrelu(L.linear(params["embed"], policy.cast(emb)))
+    h = _text_join(params["join"], h, t)
+    h, new_state["join_bn"] = L.batch_norm_act(
+        params["join_bn"], state["join_bn"], h, train, act="lrelu",
+        streams=streams)
+    logit = L.conv2d(params["logit"], h, stride=1, padding="VALID")
+    return logit.reshape(logit.shape[0]), new_state
+
+
+def discriminator_apply(params: Dict, state: Dict, x: torch.Tensor,
+                        emb: torch.Tensor, train: bool,
+                        policy: L.Policy = L.FP32, resolution: int = 64
+                        ) -> Tuple[torch.Tensor, Dict]:
+    """x[B,res,res,3], emb[B,embed_dim] → (logits[B] before the sigmoid,
+    new BN state)."""
+    return _discriminator(params, state, x, emb, train, policy, resolution, 1)
+
+
+def discriminator_apply_streams(params: Dict, state: Dict, xs: torch.Tensor,
+                                embs: torch.Tensor, train: bool,
+                                policy: L.Policy = L.FP32,
+                                resolution: int = 64
+                                ) -> Tuple[torch.Tensor, Dict]:
+    """D on S stacked streams xs[S,B,...], embs[S,B,E] in one pass of batch
+    S·B: each stream keeps its own BN batch statistics (the JAX package
+    ``vmap``s), and the new running state is the mean over streams of each
+    stream's update.  Returns logits[S,B]."""
+    s, b = xs.shape[:2]
+    logits, new_state = _discriminator(
+        params, state, xs.reshape(s * b, *xs.shape[2:]),
+        embs.reshape(s * b, embs.shape[-1]), train, policy, resolution, s)
+    return logits.reshape(s, b), new_state

@@ -1,8 +1,8 @@
 """Model registry (counterpart of ``text_to_image_tpu/models/registry.py``):
 maps the config's ``model`` name onto a `ModelBundle`.
 
-Only the ``gancls`` generator is ported so far.  Every other name the JAX
-package knows raises `NotImplementedError` naming its ROADMAP item.
+Only ``gancls`` is ported so far.  Every other name the JAX package knows
+raises `NotImplementedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from typing import Callable, Dict
 
 from text_to_image_tpu_torch.config import Config
 from text_to_image_tpu_torch.models import gancls
+from text_to_image_tpu_torch.utils import prng
 
 MODEL_NAMES = ("gancls", "wgancls", "stackgan_stage1", "stackgan_stage2",
                "pggan")
@@ -26,12 +27,18 @@ _NOT_PORTED = {
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
-    """Generator side of the JAX bundle:
+    """The JAX bundle's surface for one model:
 
-    * ``init(key, device="cuda")`` → (g_params, g_state), f32 tensors
-      drawn on the CPU from `key` and moved to `device`;
+    * ``init(key, device="cuda")`` → (g_params, g_state, d_params,
+      d_state), f32 tensors drawn on the CPU from `key` and moved to
+      `device`;
     * ``gen_apply(gp, gs, z, emb, train, policy)`` → (img, new_gs);
-    * ``gen_apply_inference(gp, gs, z, emb, policy)`` → img (BN folded).
+    * ``gen_apply_inference(gp, gs, z, emb, policy)`` → img (BN folded);
+    * ``disc_apply(dp, ds, x, emb, train, policy)`` → (logits[B], new_ds);
+    * ``disc_streams(dp, ds, xs, embs, train, policy)`` → (logits[S,B],
+      new_ds), per-stream BN statistics;
+    * ``is_wgan`` (critic + GP loss) and ``has_ca`` (KL term): both False
+      for GAN-CLS.
     """
 
     name: str
@@ -39,6 +46,10 @@ class ModelBundle:
     init: Callable
     gen_apply: Callable
     gen_apply_inference: Callable
+    disc_apply: Callable
+    disc_streams: Callable
+    is_wgan: bool = False
+    has_ca: bool = False
 
 
 def _to(tree: Dict, device) -> Dict:
@@ -53,8 +64,9 @@ def get_model(cfg: Config) -> ModelBundle:
 
     if name == "gancls":
         def init(key, device="cuda"):
-            return tuple(_to(t, device)
-                         for t in gancls.generator_init(key, gan, res))
+            g = gancls.generator_init(prng.fold_in(key, 0), gan, res)
+            d = gancls.discriminator_init(prng.fold_in(key, 1), gan, res)
+            return tuple(_to(t, device) for t in (*g, *d))
 
         def gen_apply(gp, gs, z, emb, train, policy):
             return gancls.generator_apply(gp, gs, z, emb, train, policy, res)
@@ -63,7 +75,16 @@ def get_model(cfg: Config) -> ModelBundle:
             return gancls.generator_apply_inference(gp, gs, z, emb, policy,
                                                     res)
 
-        return ModelBundle(name, res, init, gen_apply, gen_apply_inference)
+        def disc_apply(dp, ds, x, emb, train, policy):
+            return gancls.discriminator_apply(dp, ds, x, emb, train, policy,
+                                              res)
+
+        def disc_streams(dp, ds, xs, embs, train, policy):
+            return gancls.discriminator_apply_streams(dp, ds, xs, embs, train,
+                                                      policy, res)
+
+        return ModelBundle(name, res, init, gen_apply, gen_apply_inference,
+                           disc_apply, disc_streams)
 
     if name in _NOT_PORTED:
         raise NotImplementedError(

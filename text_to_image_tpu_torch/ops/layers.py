@@ -1,17 +1,20 @@
-"""Functional layers the generator needs (counterpart of
-``text_to_image_tpu/ops/layers.py``).
+"""Functional layers of the GAN-CLS generator and discriminator
+(counterpart of ``text_to_image_tpu/ops/layers.py``).
 
 Parameters are plain dicts of tensors in the JAX package's layouts: linear
 ``w`` is ``[in, out]``, conv weights are HWIO, activations NHWC.  Every
 ``*_init`` draws on the CPU from an integer key; callers move the tree to
-the device.  The up-block transposed convolution and the BN epilogue go
-through the hand-written kernels in ``ops/kernels``.
+the device.  The up-block transposed convolution, the down-block strided
+convolution and the BN epilogue go through the hand-written kernels in
+``ops/kernels``.
 
 Mixed precision: parameters live in f32; a `Policy` casts inputs to the
-compute dtype and each layer casts its weights to the input's dtype.  Cast
-the weights once when they are loaded (`cast_weights`): the cast inside a
-layer is then a no-op instead of a copy per call (``up0``'s weight alone is
-52 MB in f32).  BatchNorm statistics are always taken in f32.
+compute dtype and each layer casts its weights to the input's dtype on each
+call, as the JAX layers do.  Training keeps f32 master weights, so autograd
+sees that cast and the optimizer updates the f32 leaves.  Serving casts the
+weights once when they are loaded (`cast_weights`): the cast inside a layer
+is then a no-op instead of a copy per call (``up0``'s weight alone is 52 MB
+in f32).  BatchNorm statistics are always taken in f32.
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ from typing import Dict, Tuple
 import torch
 
 from text_to_image_tpu_torch.ops import initializers as init
-from text_to_image_tpu_torch.ops.kernels.conv import deconv5x5_s2
-from text_to_image_tpu_torch.ops.kernels.fused import bn_act
+from text_to_image_tpu_torch.ops.kernels.conv import conv5x5_s2_act, deconv5x5_s2
+from text_to_image_tpu_torch.ops.kernels.fused import apply_act, bn_act
 
 Params = Dict[str, torch.Tensor]
 
@@ -69,6 +72,40 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+# --- conv2d -------------------------------------------------------------------
+
+def conv2d_init(key: int, k: int, in_c: int, out_c: int,
+                stddev: float = init.DEFAULT_STDDEV) -> Params:
+    return {"w": init.normal(key, (k, k, in_c, out_c), stddev),
+            "b": init.zeros((out_c,))}
+
+
+def conv2d(p: Params, x: torch.Tensor, stride: int = 2,
+           padding: str = "SAME", act: str = "none") -> torch.Tensor:
+    """``act(conv(x, w) + b)`` for the discriminator's three convolutions:
+
+    * 5×5 stride 2 SAME (the down-blocks): the `conv5x5_s2_act` kernel,
+      bias and activation fused;
+    * 1×1 stride 1 (the text join's plain version): one matmul;
+    * k×k VALID over a k×k map (the logit): a ``[B, k·k·C] @ [k·k·C, Co]``
+      matmul.
+    """
+    k = p["w"].shape[0]
+    w = p["w"].to(x.dtype)
+    if k == 5 and stride == 2 and padding == "SAME":
+        return conv5x5_s2_act(x, w, p["b"].float(), act)
+    if k == 1 and stride == 1:
+        y = x @ w[0, 0] + p["b"].to(x.dtype)
+    elif padding == "VALID" and tuple(x.shape[1:3]) == (k, k):
+        y = (x.reshape(x.shape[0], -1) @ w.reshape(-1, w.shape[-1])
+             + p["b"].to(x.dtype)).reshape(x.shape[0], 1, 1, -1)
+    else:
+        raise ValueError(f"conv2d takes 5×5 stride-2 SAME, 1×1, or k×k VALID "
+                         f"over a k×k map; got k={k}, stride={stride}, "
+                         f"{padding}, x {tuple(x.shape)}")
+    return apply_act(y, act)
 
 
 # --- conv2d_transpose (reference `deconv2d`) ---------------------------------
@@ -124,19 +161,39 @@ def batch_norm(p: Params, state: Params, x: torch.Tensor, train: bool,
 
 
 def batch_norm_act(p: Params, state: Params, x: torch.Tensor, train: bool,
-                   act: str = "relu", momentum: float = 0.9, eps: float = 1e-5
-                   ) -> Tuple[torch.Tensor, Params]:
+                   act: str = "relu", momentum: float = 0.9, eps: float = 1e-5,
+                   streams: int = 1) -> Tuple[torch.Tensor, Params]:
     """`batch_norm` + activation with the normalize-affine + activation
     epilogue folded to ``act(x·a + b)`` (a = γ·rsqrt(σ²+ε), b = β − μ·a) and
-    run by the `bn_act` kernel; the statistics stay plain torch."""
-    mean, var, new_state = _stats(state, x, train, momentum)
-    a = torch.rsqrt(var + eps) * p["scale"].float()
-    b = p["bias"].float() - mean * a
-    return bn_act(x, a.contiguous(), b.contiguous(), act), new_state
+    run by the `bn_act` kernel; the statistics stay plain torch.
+
+    ``streams`` > 1 splits the batch into that many contiguous streams, as
+    the JAX package's ``vmap`` over stacked discriminator streams does: each
+    takes its own batch statistics (one `bn_act` launch per stream), and the
+    new running state is the mean over streams of each stream's update."""
+    if streams == 1:
+        mean, var, new_state = _stats(state, x, train, momentum)
+        a = torch.rsqrt(var + eps) * p["scale"].float()
+        b = p["bias"].float() - mean * a
+        return bn_act(x, a.contiguous(), b.contiguous(), act), new_state
+    outs = [batch_norm_act(p, state, xs, train, act, momentum, eps)
+            for xs in x.chunk(streams)]
+    new_state = {k: torch.stack([s[k] for _, s in outs]).mean(0)
+                 for k in state}
+    return torch.cat([y for y, _ in outs]), new_state
 
 
 # --- activations ----------------------------------------------------------------
 
 def lrelu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
+
+
+def tile_and_concat(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Replicate t[B,E] over x's H×W grid and concat on channels: the
+    conditioning join's input as the reference builds it (the plain version
+    of `conditioning_join`, which never builds it)."""
+    b, h, w, _ = x.shape
+    tiled = t[:, None, None, :].expand(b, h, w, t.shape[-1]).to(x.dtype)
+    return torch.cat([x, tiled], dim=-1)
 
