@@ -7,10 +7,11 @@
    (``text_to_image_tpu_torch/csrc/*.cu`` with nvcc, one process per source,
    all together; the Triton ``bn_act`` at its first launch);
 2. holds each kernel against its plain PyTorch version at every shape the
-   GAN-CLS 64 px sampling and training paths give it (bf16 and f32, batch
-   64 and the discriminator's 3 × 64 streams) and at odd shapes that reach
-   every code path, and each backward (autograd.Function) against
-   torch.autograd through the plain version, in f32 with TF32 off;
+   GAN-CLS 64 px and StackGAN 64 / 256 px sampling and training paths give
+   it (bf16 and f32, batch 64 and the discriminator's 3 × 64 streams) and
+   at odd shapes that reach every code path, and each backward
+   (autograd.Function) against torch.autograd through the plain version, in
+   f32 with TF32 off;
 3. drives the sampling path at the flagship widths (gf 128, z 100,
    embed 1024, batch 64, bf16) through ``eval/sampler.py`` — the sample grid
    and both interpolation grids — plus the BN-folded serving generator, with
@@ -23,11 +24,20 @@
    every parameter tree changed, the D running statistics moved; then one
    tick at batch 8 in f32 on the card against the same tick on the CPU
    (plain versions): losses, then params after Adam;
+4b. drives the StackGAN paths at the full width of
+   ``configs/stackgan_stage{1,2}_flowers.yml`` (gf 128, df 64, ca 128, batch
+   64, bf16; Stage-II at 256 px over a frozen 64 px Stage-I drawn from the
+   seed): the three grids of ``main.py`` for each stage, then 3 ticks of
+   ``main.py --train`` for each stage, with the launch counts of all five
+   kernels, finite losses (``kl`` too), every trained leaf moved and the
+   frozen Stage-I bit-identical; both generators against the CPU; one f32
+   Stage-II tick at batch 4 on the card against the CPU;
 5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
    kernel's bound, times the backward passes, sampling in images/s and the
-   training tick in ms and images/s, and profiles where a forward's and a
-   tick's device time goes (torch.profiler).
+   training ticks (GAN-CLS, Stage-I, Stage-II) in ms and images/s with
+   their peak memory, and profiles where a forward's and a tick's device
+   time goes (torch.profiler; GAN-CLS and Stage-II).
 
 Every f32 comparison on the card runs with TF32 off
 (``torch.backends.cudnn.allow_tf32`` and
@@ -37,6 +47,9 @@ and a ``{"kernels": [...]}`` line, writes the full report to
 ``chiprun_out/chip_smoke.json``, and ends with
 ``{"ok": true, "device": {...}}``.  Any failure raises: no result line.
 It imports nothing of JAX or of the JAX package.
+
+``python3 chip_smoke.py --diag-kinks`` runs none of the above but the
+measurement behind the Stage-II card-vs-CPU tolerances (`diag_kinks`).
 """
 
 from __future__ import annotations
@@ -88,6 +101,15 @@ def conv_shapes(b):
             ((b, 16, 16, 128), 256, "none"), ((b, 8, 8, 256), 512, "none")]
 
 
+def conv_shapes_256(b):
+    """The 256 px D's six down-block calls at batch b (growth capped at
+    8·df): the first is the largest input a kernel of the port reads
+    (192×256²×3), its output the largest a conv writes (192×128²×64)."""
+    return [((b, 256, 256, 3), 64, "lrelu"), ((b, 128, 128, 64), 128, "none"),
+            ((b, 64, 64, 128), 256, "none"), ((b, 32, 32, 256), 512, "none"),
+            ((b, 16, 16, 512), 512, "none"), ((b, 8, 8, 512), 512, "none")]
+
+
 def join_shape(b):
     """(B, H, W, Cx), E, Co: the D text join at batch b."""
     return (b, 4, 4, 512), 128, 512
@@ -125,6 +147,39 @@ TRAIN_TICKS = 3
 # the 2 G steps (G: 4 deconv, 4 bn_act; D: 4 conv, 1 join, 4 bn_act)
 TICK_LAUNCHES = {"deconv5x5_s2": 12, "bn_act": 32, "conv5x5_s2_act": 12,
                  "conditioning_join": 3}
+
+
+# (B, H, W, Cin) → Co: the upconv3x3_bias calls of the 64 px Stage-I
+# generator and of the 256 px Stage-II generator (act "none": a BN follows)
+UPCONV_SHAPES = {
+    "stage1": [((BATCH, 4, 4, 1024), 512), ((BATCH, 8, 8, 512), 256),
+               ((BATCH, 16, 16, 256), 128), ((BATCH, 32, 32, 128), 64)],
+    "stage2": [((BATCH, 16, 16, 512), 256), ((BATCH, 32, 32, 256), 128),
+               ((BATCH, 64, 64, 128), 64), ((BATCH, 128, 128, 64), 64)]}
+# off the main path: ragged channels (the simple tile), aligned bf16 on odd
+# maps (the pipelined tile), B = 1, every activation
+ODD_UPCONV_SHAPES = [((2, 5, 7, 12), 20, "lrelu"), ((3, 7, 5, 8), 16, "tanh"),
+                     ((1, 3, 3, 5), 3, "relu"), ((2, 6, 9, 16), 8, "none")]
+# StackGAN launches per training tick (n_critic 1, g_steps 1, remat off).
+# Stage-I: two G forwards (4 upconv, 5 bn_act each), D over three streams
+# (4 conv, 1 join, 4 BN × 3) and over one (4 conv, 1 join, 4 bn_act).
+# Stage-II: two G forwards, each the frozen Stage-I (4 upconv, 5 bn_act)
+# plus Stage-II (4 upconv, 9 bn_act); the 256 px D has six down-blocks:
+# three streams (6 conv, 1 join, 6 BN × 3) and one (6 conv, 1 join, 6).
+STACKGAN_TICK_LAUNCHES = {
+    "stackgan_stage1": {"upconv3x3": 8, "bn_act": 26, "conv5x5_s2_act": 8,
+                        "conditioning_join": 2, "deconv5x5_s2": 0},
+    "stackgan_stage2": {"upconv3x3": 16, "bn_act": 52, "conv5x5_s2_act": 12,
+                        "conditioning_join": 2, "deconv5x5_s2": 0}}
+# per sampling forward (train-mode BN): Stage-I 4 upconv + 5 bn_act;
+# Stage-II 8 upconv (4 of them in the frozen Stage-I) + 14 bn_act
+STACKGAN_FORWARD_LAUNCHES = {
+    "stackgan_stage1": {"upconv3x3": 4, "bn_act": 5},
+    "stackgan_stage2": {"upconv3x3": 8, "bn_act": 14}}
+# the Stage-II generator (a frozen Stage-I inside: 25 layers, train-mode
+# BN) on the card vs the CPU plain path: f32 by the largest error; in bf16
+# every layer rounds, so the mean error is held and the largest reported
+S2_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -283,6 +338,17 @@ def phase_train_kernels(device):
             errs["conditioning_join"][(dtype, shape)] = compare(
                 got, ref, *CONV_TOL[dtype],
                 f"conditioning_join {dt} {shape} e{e}->{co}")
+        if dtype == torch.bfloat16:      # the Stage-II D step's six calls
+            for shape, co, act in conv_shapes_256(D_BATCH):
+                x, w, bias = conv_inputs(shape, co, dtype, device, gen)
+                got = conv.conv5x5_s2_act(x, w, bias, act)
+                torch.cuda.synchronize()
+                errs["conv5x5_s2_act"][(dtype, shape)] = compare(
+                    got, conv.conv5x5_s2_act_plain(x, w, bias, act),
+                    *CONV_TOL[dtype],
+                    f"conv5x5_s2_act {dt} {shape}->{co} {act} (256 px D)")
+                del x, got
+            torch.cuda.empty_cache()
         for shape, co, act in ODD_CONV_SHAPES:
             x, w, bias = conv_inputs(shape, co, dtype, device, gen)
             compare(conv.conv5x5_s2_act(x, w, bias, act),
@@ -366,13 +432,308 @@ def phase_backward(device):
     return errs
 
 
-def train_config(**overrides):
-    """configs/gancls_flowers.yml on synthetic data, as
-    ``main.py --set data.dataset_name=synthetic …`` loads it."""
+def config_path(model="gancls"):
+    return os.path.join(ROOT, "configs", f"{model}_flowers.yml")
+
+
+def upconv_inputs(shape, co, dtype, device, gen):
+    x = torch.relu(torch.randn(shape, generator=gen)).to(dtype)
+    w = (torch.randn(3, 3, shape[-1], co, generator=gen) * 0.02).to(dtype)
+    s = 1.0 + 0.1 * torch.randn(co, generator=gen)
+    t = 0.1 * torch.randn(co, generator=gen)
+    return [v.to(device) for v in (x, w, s, t)]
+
+
+def upconv_bias_plain(x, w, b, act):
+    from text_to_image_tpu_torch.ops.kernels import conv
+    return conv.upconv3x3_plain(x, w, torch.ones_like(b), b, act)
+
+
+def phase_upconv_kernels(device):
+    """upconv3x3 and upconv3x3_bias against the plain version at the eight
+    StackGAN shapes at batch 64 (the main path's call, bias and no
+    activation, and the scale/shift epilogue with relu) and at odd shapes,
+    bf16 and f32."""
+    from text_to_image_tpu_torch.ops.kernels import conv
+    gen = torch.Generator().manual_seed(SEED + 5)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for shape, co in UPCONV_SHAPES["stage1"] + UPCONV_SHAPES["stage2"]:
+            x, w, s, t = upconv_inputs(shape, co, dtype, device, gen)
+            got = conv.upconv3x3_bias(x, w, t, "none")
+            torch.cuda.synchronize()
+            ref = upconv_bias_plain(x, w, t, "none")
+            check(got.shape == ref.shape, f"upconv shape {got.shape}")
+            errs[(dtype, shape)] = compare(
+                got, ref, *TOL[dtype], f"upconv3x3_bias {dt} {shape}->{co} none")
+            del got, ref
+            compare(conv.upconv3x3(x, w, s, t, "relu"),
+                    conv.upconv3x3_plain(x, w, s, t, "relu"), *TOL[dtype],
+                    f"upconv3x3 {dt} {shape}->{co} relu")
+        for shape, co, act in ODD_UPCONV_SHAPES:
+            x, w, s, t = upconv_inputs(shape, co, dtype, device, gen)
+            compare(conv.upconv3x3(x, w, s, t, act),
+                    conv.upconv3x3_plain(x, w, s, t, act), *TOL[dtype],
+                    f"upconv3x3 {dt} {shape}->{co} {act} (odd)")
+            compare(conv.upconv3x3_bias(x, w, t, act),
+                    upconv_bias_plain(x, w, t, act), *TOL[dtype],
+                    f"upconv3x3_bias {dt} {shape}->{co} {act} (odd)")
+    return {"upconv3x3": errs}
+
+
+def phase_upconv_backward(device):
+    """Both upconv backwards (the parity adjoints; tanh's recompute) against
+    torch.autograd through the plain version, f32, TF32 off: upconv3x3_bias
+    at the eight main-path shapes, both at the odd ones."""
+    from text_to_image_tpu_torch.ops.kernels import conv
+    gen = torch.Generator().manual_seed(SEED + 6)
+    f32 = torch.float32
+    errs = {}
+    for shape, co in UPCONV_SHAPES["stage1"] + UPCONV_SHAPES["stage2"]:
+        x, w, _, t = upconv_inputs(shape, co, f32, device, gen)
+        errs[f"upconv3x3_bias {shape}->{co} none"] = grad_compare(
+            conv.upconv3x3_bias, upconv_bias_plain, [x, w, t, "none"],
+            (0, 1, 2), gen, f"upconv3x3_bias bwd {shape}->{co} none")
+        torch.cuda.empty_cache()
+    for shape, co, act in ODD_UPCONV_SHAPES:
+        x, w, s, t = upconv_inputs(shape, co, f32, device, gen)
+        errs[f"upconv3x3 {shape}->{co} {act}"] = grad_compare(
+            conv.upconv3x3, conv.upconv3x3_plain, [x, w, s, t, act],
+            (0, 1, 2, 3), gen, f"upconv3x3 bwd {shape}->{co} {act}")
+        errs[f"upconv3x3_bias {shape}->{co} {act}"] = grad_compare(
+            conv.upconv3x3_bias, upconv_bias_plain, [x, w, t, act],
+            (0, 1, 2), gen, f"upconv3x3_bias bwd {shape}->{co} {act}")
+    return errs
+
+
+def phase_stackgan_sampling(device, model, sample_dir):
+    """``python -m text_to_image_tpu_torch.main --cfg
+    configs/<model>_flowers.yml --set data.dataset_name=synthetic
+    stage1_checkpoint=`` on the card: the three grids at full width, batch
+    64, bf16, with the launch counts; then the generator (for Stage-II with
+    its frozen Stage-I) against the same code on the CPU."""
+    from text_to_image_tpu_torch import main as port_main
+    from text_to_image_tpu_torch.data import get_dataset
+    from text_to_image_tpu_torch.eval import sampler
+    from text_to_image_tpu_torch.models.registry import get_model, tree_to
+    from text_to_image_tpu_torch.ops import layers as L
+    from text_to_image_tpu_torch.train.steps import stage1_aux
+    from text_to_image_tpu_torch.utils import prng
+
+    counters = all_counters()
+    for k in counters:
+        k.launches = 0
+    out = port_main.main(["--cfg", config_path(model), "--device", str(device),
+                          "--set", "data.dataset_name=synthetic",
+                          "stage1_checkpoint=", f"sample_dir={sample_dir}"])
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    log(f"  {model} sampling-path launches (3 grids): {launches}")
+    want = {k.__name__: 0 for k in counters}
+    want.update({k: 3 * v for k, v in STACKGAN_FORWARD_LAUNCHES[model].items()})
+    check(launches == want, f"unexpected launch counts {launches}")
+    for name in ("eval_grid", "z_interp", "t_interp"):
+        check(any(os.path.exists(os.path.join(out, name + ext))
+                  for ext in (".png", ".png.npy")), f"{name} not written")
+
+    # the same generator through the sampler, on the card and on the CPU
+    cfg = train_config(model)
+    res = cfg.data.image_size
+    check((cfg.gan.gf_dim, cfg.gan.ca_dim, cfg.dtype, res) ==
+          (128, 128, "bfloat16", 64 if model == "stackgan_stage1" else 256),
+          f"not the full-width config: {cfg}")
+    bundle = get_model(cfg)
+    params32, state = bundle.init(cfg.seed, device)[:2]
+    aux32 = stage1_aux(cfg, cfg.seed, device) if bundle.needs_stage1 else {}
+    n = 16 if bundle.needs_stage1 else BATCH     # the CPU side: 256 px, f32
+    emb = get_dataset(cfg).test_embeddings(n)
+    g = prng.generator(prng.fold_in(cfg.seed, 1))
+    z = torch.randn(n, cfg.gan.z_dim, generator=g)
+    eps = torch.randn(*bundle.eps_shape(n), generator=g)
+    g_err = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        pol = L.Policy(compute_dtype=dtype)
+        dcfg = train_config(model, dtype=dt)
+        imgs = []
+        for dev in (device, "cpu"):
+            aux = {k: L.cast_weights(tree_to(v, dev), pol)
+                   for k, v in aux32.items()}
+            ts = sampler.GeneratorState(
+                L.cast_weights(tree_to(params32, dev), pol),
+                tree_to(state, dev), aux)
+            gen = sampler.make_generator_fn(dcfg, device=dev)
+            imgs.append(torch.as_tensor(
+                sampler.sample_grid(gen, ts, dcfg, emb, z=z, eps=eps)))
+        dev_img, cpu_img = imgs
+        check(tuple(dev_img.shape) == (n, res, res, 3), f"{dev_img.shape}")
+        check(bool(torch.isfinite(dev_img).all()), f"{model}: non-finite")
+        check(float(dev_img.abs().max()) <= 1.0, f"{model}: outside [-1, 1]")
+        err = (dev_img - cpu_img).abs()
+        worst, mean = float(err.max()), float(err.mean())
+        # Stage-II in bf16 rounds at each of 25 layers: the mean is held
+        by_mean = bundle.needs_stage1 and dtype == torch.bfloat16
+        held = mean if by_mean else worst
+        tol = S2_TOL[dtype] if bundle.needs_stage1 else G_TOL[dtype]
+        log(f"  {model} generator {dt} vs CPU plain path at batch {n}: "
+            f"max|err| {worst:.3e}, mean {mean:.3e} "
+            f"({'mean' if by_mean else 'max'} held to {tol:g}), image std "
+            f"{float(dev_img.std()):.4f}")
+        check(held <= tol, f"{model} generator {dt}: {held:.3e} > {tol:g}")
+        g_err[f"{model} {dt}"] = {"max": worst, "mean": mean}
+    return launches, g_err
+
+
+def phase_upconv_timing(device, flush):
+    """upconv3x3_bias at the eight StackGAN shapes (bf16, batch 64): kernel,
+    plain version, one library composition (F.interpolate + cuDNN conv2d
+    with the bias; the 4× upsampled map goes through device memory), the
+    bound, and the backward."""
+    import torch.nn.functional as F
+
+    from text_to_image_tpu_torch.ops.kernels import conv
+    gen = torch.Generator().manual_seed(SEED + 7)
+    dtype = torch.bfloat16
+    rows = []
+    for stage, shapes in UPCONV_SHAPES.items():
+        for shape, co in shapes:
+            x, w, _, t = upconv_inputs(shape, co, dtype, device, gen)
+            y = conv.upconv3x3_bias(x, w, t, "none")
+            b, h, wd, cin = shape
+            x_cl = x.permute(0, 3, 1, 2)              # channels_last strides
+            w_t = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            t16 = t.to(dtype)
+
+            def lib():
+                return F.conv2d(F.interpolate(x_cl, scale_factor=2,
+                                              mode="nearest"), w_t, t16,
+                                padding=1)
+            lib_err = float((lib().permute(0, 2, 3, 1).float()
+                             - upconv_bias_plain(x, w, t, "none").float()
+                             ).abs().max())
+            flops = 2 * 16 * b * h * wd * cin * co
+            # x + the combined weights (16·Cin·Co) + bias + y
+            nb = nbytes(x, t, y) + 16 * cin * co * x.element_size()
+            bms, by = bound(nb, flops, dtype)
+            r = {"shape": [list(shape), co, "none"], "stage": stage,
+                 "ms": time_ms(lambda: conv.upconv3x3_bias(x, w, t, "none"),
+                               flush),
+                 "plain_ms": time_ms(lambda: upconv_bias_plain(x, w, t, "none"),
+                                     flush, 5),
+                 "library_ms": time_ms(lib, flush),
+                 "bound_ms": bms, "bound_by": by,
+                 "bwd_ms": bwd_ms(conv.upconv3x3_bias, [x, w, t, "none"],
+                                  (0, 1, 2), flush, gen),
+                 "library_max_abs_err_vs_plain": lib_err}
+            r["tflops"] = flops / r["ms"] / 1e9
+            r["gbytes_per_s"] = nb / r["ms"] / 1e6
+            rows.append(r)
+            log(f"  upconv3x3_bias {shape}->{co}: {r['ms']:.4f} ms (bound "
+                f"{bms:.4f} by {by}, {r['tflops']:.1f} TFLOP/s, "
+                f"{r['gbytes_per_s']:.0f} GB/s), plain {r['plain_ms']:.4f}, "
+                f"interpolate+cuDNN {r['library_ms']:.4f}, backward "
+                f"{r['bwd_ms']:.4f} ms")
+            del x, w, y
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_conv_256_timing(device, flush):
+    """conv5x5_s2_act at the 256 px D's six shapes over the D step's three
+    streams (bf16, batch 3·64): kernel, cuDNN's conv on the pre-padded
+    input, and the bound."""
+    import torch.nn.functional as F
+
+    from text_to_image_tpu_torch.ops.kernels import conv
+    gen = torch.Generator().manual_seed(SEED + 9)
+    dtype = torch.bfloat16
+    rows = []
+    for shape, co, act in conv_shapes_256(D_BATCH):
+        x, w, bias = conv_inputs(shape, co, dtype, device, gen)
+        y = conv.conv5x5_s2_act(x, w, bias, act)
+        b, h, wd, cin = shape
+        xp = F.pad(x.permute(0, 3, 1, 2), (1, 2, 1, 2)).contiguous(
+            memory_format=torch.channels_last)
+        w_t = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        b16 = bias.to(dtype)
+
+        def lib():
+            out = F.conv2d(xp, w_t, b16, stride=2)
+            return F.leaky_relu(out, 0.2) if act == "lrelu" else out
+        flops = 2 * 25 * b * (h // 2) * (wd // 2) * cin * co
+        bms, by = bound(nbytes(x, w, bias, y), flops, dtype)
+        r = {"shape": [list(shape), co, act],
+             "ms": time_ms(lambda: conv.conv5x5_s2_act(x, w, bias, act), flush,
+                           iters=10),
+             "library_ms": time_ms(lib, flush, iters=10),
+             "bound_ms": bms, "bound_by": by}
+        r["tflops"] = flops / r["ms"] / 1e9
+        rows.append(r)
+        log(f"  conv5x5_s2_act {shape}->{co} {act}: {r['ms']:.4f} ms (bound "
+            f"{bms:.4f} by {by}, {r['tflops']:.1f} TFLOP/s), cuDNN "
+            f"{r['library_ms']:.4f} ms")
+        del x, y, xp
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_stackgan_rates(device, model):
+    """Sampling throughput of one StackGAN stage at batch 64, bf16
+    (train-mode BN, z, emb and ε kept on the card; median of 5 windows of
+    10 synchronised forwards)."""
+    from text_to_image_tpu_torch.data import get_dataset
+    from text_to_image_tpu_torch.eval import sampler
+    from text_to_image_tpu_torch.models.registry import get_model
+    from text_to_image_tpu_torch.ops import layers as L
+    from text_to_image_tpu_torch.train.steps import stage1_aux
+    cfg = train_config(model)
+    bundle = get_model(cfg)
+    policy = L.Policy.from_str(cfg.dtype)
+    params, state = bundle.init(cfg.seed, device)[:2]
+    aux = stage1_aux(cfg, cfg.seed, device) if bundle.needs_stage1 else {}
+    aux = {k: L.cast_weights(v, policy) for k, v in aux.items()}
+    params = L.cast_weights(params, policy)
+    gen = sampler.make_generator_fn(cfg, device=device)
+    g = torch.Generator().manual_seed(SEED + 8)
+    z = torch.randn(BATCH, cfg.gan.z_dim, generator=g).to(device)
+    eps = torch.randn(*bundle.eps_shape(BATCH), generator=g).to(device)
+    emb = torch.as_tensor(get_dataset(cfg).test_embeddings(BATCH)).to(device)
+
+    def fn():
+        return gen(params, state, aux, z, emb, eps)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        samples.append(10 * BATCH / (time.perf_counter() - t0))
+    rate = sorted(samples)[2]
+    log(f"  sampling {model}: {rate:.1f} images/s, {BATCH / rate * 1e3:.3f} ms "
+        f"per batch of {BATCH} (median of 5 windows of 10 batches)")
+    return rate
+
+
+def train_config(model="gancls", **overrides):
+    """configs/<model>_flowers.yml on synthetic data, as ``main.py --set
+    data.dataset_name=synthetic stage1_checkpoint= …`` loads it."""
     from text_to_image_tpu_torch.config import load_config
-    return load_config(os.path.join(ROOT, "configs", "gancls_flowers.yml"),
+    return load_config(config_path(model),
                        {"data.dataset_name": "synthetic",
+                        "stage1_checkpoint": "",
                         "train.summary_interval": 1, **overrides})
+
+
+def all_counters():
+    from text_to_image_tpu_torch.ops.kernels import conv, fused
+    return (conv.deconv5x5_s2, fused.bn_act, conv.conv5x5_s2_act,
+            fused.conditioning_join, conv.upconv3x3)
 
 
 def flat(tree):
@@ -380,20 +741,21 @@ def flat(tree):
     return dict(flatten(tree))
 
 
-def phase_train_path(device):
+def phase_train_path(device, model="gancls"):
     """``python -m text_to_image_tpu_torch.main --cfg
-    configs/gancls_flowers.yml --train --steps 3 --set
-    data.dataset_name=synthetic`` on the card (flagship widths, batch 64,
-    bf16), with the launch counts."""
+    configs/<model>_flowers.yml --train --steps 3 --set
+    data.dataset_name=synthetic stage1_checkpoint=`` on the card (the
+    config's full widths, batch 64, bf16), with the launch counts of all
+    five kernels."""
     from text_to_image_tpu_torch import main as port_main
     from text_to_image_tpu_torch.models.registry import get_model
-    from text_to_image_tpu_torch.ops.kernels import conv, fused
+    from text_to_image_tpu_torch.train.steps import stage1_aux
 
-    argv = ["--cfg", os.path.join(ROOT, "configs", "gancls_flowers.yml"),
+    argv = ["--cfg", config_path(model),
             "--train", "--steps", str(TRAIN_TICKS), "--device", str(device),
-            "--set", "data.dataset_name=synthetic", "train.summary_interval=1"]
-    counters = (conv.deconv5x5_s2, fused.bn_act, conv.conv5x5_s2_act,
-                fused.conditioning_join)
+            "--set", "data.dataset_name=synthetic", "train.summary_interval=1",
+            "stage1_checkpoint="]
+    counters = all_counters()
     for k in counters:
         k.launches = 0
     t0 = time.perf_counter()
@@ -401,22 +763,40 @@ def phase_train_path(device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in counters}
-    log(f"  training-path launches over {TRAIN_TICKS} ticks: {launches} "
-        f"({wall:.1f} s, kernel builds and Triton compiles included)")
-    check(launches == {k: v * TRAIN_TICKS for k, v in TICK_LAUNCHES.items()},
+    log(f"  {model} training-path launches over {TRAIN_TICKS} ticks: "
+        f"{launches} ({wall:.1f} s, Triton compiles included)")
+    per_tick = (STACKGAN_TICK_LAUNCHES[model] if model in STACKGAN_TICK_LAUNCHES
+                else {**TICK_LAUNCHES, "upconv3x3": 0})
+    check(launches == {k: v * TRAIN_TICKS for k, v in per_tick.items()},
           f"unexpected launch counts {launches}")
 
     cfg = trainer.cfg
-    check((cfg.gan.gf_dim, cfg.gan.df_dim, cfg.gan.embed_dim,
-           cfg.train.batch_size, cfg.dtype) == (128, 64, 1024, BATCH,
-                                                "bfloat16"),
-          f"not the flagship config: {cfg}")
+    check((cfg.model, cfg.gan.gf_dim, cfg.gan.df_dim, cfg.gan.embed_dim,
+           cfg.gan.ca_dim, cfg.train.batch_size, cfg.dtype, cfg.remat) == (
+               model, 128, 64, 1024, 128, BATCH, "bfloat16", False),
+          f"not the full-width config: {cfg}")
     ts = trainer.ts
     check(ts.step == TRAIN_TICKS, f"step {ts.step}")
     last = trainer.history[-1]
-    for k in ("d_loss", "d_real", "d_fake", "d_wrong", "g_fake", "g_loss"):
+    names = ["d_loss", "d_real", "d_fake", "d_wrong", "g_fake", "g_loss"]
+    bundle = get_model(cfg)
+    if bundle.has_ca:
+        names.append("kl")
+    for k in names:
         check(k in last and math.isfinite(last[k]), f"loss {k}: {last.get(k)}")
-    gp0, gs0, dp0, ds0 = get_model(cfg).init(cfg.seed, device)
+    if bundle.needs_stage1:
+        # the frozen Stage-I generator: bit-identical to the one drawn from
+        # the seed, and in neither optimizer
+        check(cfg.data.image_size == 256, f"image_size {cfg.data.image_size}")
+        fresh = stage1_aux(cfg, cfg.seed, device)
+        for key, tree in fresh.items():
+            now = flat(ts.aux[key])
+            same = [k for k, v in flat(tree).items() if torch.equal(now[k], v)]
+            check(len(same) == len(now), f"{key}: changed leaves "
+                                         f"{sorted(set(now) - set(same))}")
+            log(f"  aux[{key}]: {len(same)}/{len(now)} leaves bit-identical")
+        check(not any("stage1" in n for n in ts.g_opt.names), "Stage-I in g_opt")
+    gp0, gs0, dp0, ds0 = bundle.init(cfg.seed, device)
     moved = {}
     for name, now, before in (("g_params", ts.g_params, gp0),
                               ("d_params", ts.d_params, dp0),
@@ -443,36 +823,74 @@ def tick_on(cfg, spe, batch, noise, dev):
     return ts, {k: float(v) for k, v in m.items()}
 
 
-def params_close(gts, cts, net):
+def params_close(gts, cts, net, kink_share=0.0):
     """Max |card − CPU| of one net's params after Adam, where its gradient
-    is clear of 0; biases in front of a train-mode BN left out."""
+    is clear of 0; biases in front of a train-mode BN left out.  At most
+    `kink_share` of the net's compared elements may lie further apart than
+    PARAM_TOL (see `phase_card_vs_cpu`)."""
     params_g = flat(getattr(gts, f"{net}_params"))
     params_c = flat(getattr(cts, f"{net}_params"))
     mu = getattr(cts, f"{net}_opt").moments()[0]
     layers = {leaf.split("/")[0] for leaf in params_c}
-    worst, kept = 0.0, []
+    worst, kept, n_far, n_kept = 0.0, [], 0, 0
     for leaf, ref in params_c.items():
-        layer = leaf.split("/")[0]
-        if leaf == f"{layer}/b" and f"{layer}_bn" in layers:
+        layer, *mid = leaf.split("/")[:-1]
+        # a bias in front of a train-mode BN (GAN-CLS `<layer>/b` with
+        # `<layer>_bn`; StackGAN's nested `up<i>/conv/b`, `res<i>/conv<j>/b`)
+        if leaf.endswith("/b") and (f"{layer}_bn" in layers if not mid
+                                    else mid[0].startswith("conv")):
             continue   # zero true gradient: Adam walks on round-off
         m = mu[leaf].abs()
         keep = m > 1e-3 * float(m.max())
         check(bool(keep.any()), f"{net} {leaf}: zero gradient")
         kept.append(float(keep.float().mean()))
-        err = float((params_g[leaf].detach().cpu() - ref.detach())[keep]
-                    .abs().max())
-        worst = max(worst, err)
-        check(err <= PARAM_TOL, f"{net} {leaf}: |diff| {err:.2e} after Adam")
+        err = (params_g[leaf].detach().cpu() - ref.detach())[keep].abs()
+        far = err > PARAM_TOL
+        n_far, n_kept = n_far + int(far.sum()), n_kept + far.numel()
+        check(kink_share > 0 or not bool(far.any()),
+              f"{net} {leaf}: |diff| {float(err.max()):.2e} after Adam")
+        if not bool(far.all()):
+            worst = max(worst, float(err[~far].max()))
+    share = n_far / n_kept
     log(f"  {net} params after Adam: max |diff| {worst:.2e} (tol "
         f"{PARAM_TOL:g}; compared {min(kept):.1%}-{max(kept):.1%} of each "
-        f"leaf)")
-    return worst
+        f"leaf); {n_far} of {n_kept} compared elements further apart (share "
+        f"{share:.2e}, allowed {kink_share:g})")
+    check(share <= kink_share, f"{net}: share {share:.2e} of the compared "
+                               f"elements differs after Adam")
+    return {"max_abs_diff": worst, "share_apart": share}
 
 
-def phase_card_vs_cpu(device):
-    """One tick at flagship widths, batch 8, f32, TF32 off, on the card and
-    on the CPU (plain versions), same weights, data and z: losses, then
-    params after Adam.
+def phase_card_vs_cpu(device, model="gancls", batch_size=8,
+                      g_after_d_tol=LOSS_TOL, kink_share=0.0):
+    """One tick at the config's full widths, a small batch, f32, TF32 off,
+    on the card and on the CPU (plain versions), same weights, data and
+    noise: losses, then params after Adam.
+
+    `g_after_d_tol` holds the default tick's g_fake and g_loss, which the G
+    step reads through the D that Adam has just updated.  That first update
+    moves every D weight by ≈ lr·sign(g), so the weights whose gradient is
+    round-off (a few per cent of a leaf) land 2·lr apart on two devices, and
+    D's logit on the fakes with them.  Where g_fake is of order 1 (Stage-II
+    at init) this shows as ~1e-3 of it and gets a looser, stated tolerance;
+    the tick with D frozen holds the same losses to LOSS_TOL.
+
+    `kink_share`: every backward takes act′ from the sign of the saved
+    output, so a relu / lrelu output within round-off of 0 lands on either
+    side of the kink on two devices (a few of a million outputs), and its
+    cotangent differs by the whole act′ step.  A 256 px net has tens of
+    millions of such outputs and a batch of 4 few positions per channel,
+    so single flips move a channel's gradient by per cents and flip the
+    sign of ~1e-3 of a leaf's elements that the |mu| mask keeps; Adam's
+    first step puts those 2·lr apart.  `diag_kinks` measures it layer by
+    layer on the 256 px D: card and CPU cotangents agree to 2e-7 down to
+    the first BN + lrelu whose output has one element on the other side of
+    the kink and differ by 1.6 % of the largest right below it; a conv
+    backward on its own agrees to 3e-6; BN scale gradients (blind to
+    outputs at the kink, where x̂ ≈ 0) differ ten times less than the BN
+    bias gradients of the same layers.  Stage-II therefore allows
+    that share of a net's compared elements to lie further apart; GAN-CLS
+    at 64 px allows none.
 
     At init, G's first Adam step (≈ lr·sign(g) on every weight) already
     saturates D on the fakes: the second G step reads g_loss ≈ 1e-6 and its
@@ -486,13 +904,13 @@ def phase_card_vs_cpu(device):
     for variant, extra in (("tick", {}),
                            ("tick with D frozen", {"train.discriminator_lr": 0.0})):
         log(f"  {variant}:")
-        cfg = train_config(**{"train.batch_size": 8, "dtype": "float32",
-                              **extra})
+        cfg = train_config(model, **{"train.batch_size": batch_size,
+                                     "dtype": "float32", **extra})
         ds = get_dataset(cfg)
-        spe = max(1, ds.num_examples // 8)
-        batch = {k: v[None] for k, v in
-                 ds.next_batch(8, window=cfg.data.caption_window).items()}
-        noise = draw_noise(cfg, 0, 8)
+        spe = max(1, ds.num_examples // batch_size)
+        batch = {k: v[None] for k, v in ds.next_batch(
+            batch_size, window=cfg.data.caption_window).items()}
+        noise = draw_noise(cfg, 0, batch_size)
         gts, gm = tick_on(cfg, spe, batch, noise, device)
         cts, cm = tick_on(cfg, spe, batch, noise, "cpu")
         loss_err = {}
@@ -500,11 +918,13 @@ def phase_card_vs_cpu(device):
             loss_err[k] = abs(gm[k] - cm[k])
             log(f"  {k}: card {gm[k]:.7f} cpu {cm[k]:.7f} |diff| "
                 f"{loss_err[k]:.2e}")
-            check(loss_err[k] <= LOSS_TOL * (1 + abs(cm[k])),
-                  f"loss {k} differs")
+            tol = (g_after_d_tol if not extra and k in ("g_fake", "g_loss")
+                   else LOSS_TOL)
+            check(loss_err[k] <= tol * (1 + abs(cm[k])),
+                  f"loss {k} differs: {loss_err[k]:.2e} > {tol:g}·(1+|ref|)")
         out[variant] = {"loss_abs_diff": loss_err, "losses_card": gm,
-                        "param_max_abs_diff": params_close(
-                            gts, cts, "g" if extra else "d")}
+                        "params": params_close(
+                            gts, cts, "g" if extra else "d", kink_share)}
     return out
 
 
@@ -575,11 +995,11 @@ def phase_main_path(device):
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
             pol = L.Policy(compute_dtype=dtype)
-            dev_img, _ = bundle.gen_apply(L.cast_weights(params32, pol), state,
-                                          z.to(device), emb_t.to(device),
-                                          True, pol)
-            ref_img, _ = bundle.gen_apply(L.cast_weights(cpu32, pol),
-                                          cpu_state, z, emb_t, True, pol)
+            dev_img = bundle.gen_apply(L.cast_weights(params32, pol), state,
+                                       {}, z.to(device), emb_t.to(device),
+                                       None, True, pol)[0]
+            ref_img = bundle.gen_apply(L.cast_weights(cpu32, pol), cpu_state,
+                                       {}, z, emb_t, None, True, pol)[0]
             g_err[f"train {str(dtype)[6:]}"] = compare(
                 dev_img.cpu(), ref_img, G_TOL[dtype], 0,
                 f"generator (train mode) {str(dtype)[6:]} vs CPU plain path")
@@ -656,7 +1076,7 @@ def phase_timing(device, cfg, bundle, ts, gen, z, emb):
                                            policy))
     rates = {}
     for name, fn in (("train_mode", lambda: gen(ts.g_params, ts.g_state,
-                                                zd, ed)),
+                                                ts.aux, zd, ed)),
                      ("folded", fold)):
         for _ in range(3):
             fn()
@@ -775,14 +1195,15 @@ def phase_train_timing(device, flush):
     return rows, bwd
 
 
-def phase_tick_timing(device):
-    """Training ticks at flagship widths, batch 64, bf16, on a batch kept on
-    the card: ms per tick and images/s counted as bench.py counts them
-    (batch per tick), median of 3 windows of 10 ticks; peak memory."""
+def phase_tick_timing(device, model="gancls", ticks=10):
+    """Training ticks at the config's full widths, batch 64, bf16, on a
+    batch kept on the card: ms per tick and images/s counted as bench.py
+    counts them (batch per tick), median of 3 windows of `ticks` ticks;
+    peak memory."""
     from text_to_image_tpu_torch.data import get_dataset
     from text_to_image_tpu_torch.train.steps import (init_train_state,
                                                      make_train_step)
-    cfg = train_config()
+    cfg = train_config(model)
     ds = get_dataset(cfg)
     spe = max(1, ds.num_examples // BATCH)
     ts = init_train_state(cfg.seed, cfg, spe, device)
@@ -796,14 +1217,14 @@ def phase_tick_timing(device):
     rates = []
     for _ in range(3):
         t0 = time.perf_counter()
-        for _ in range(10):
+        for _ in range(ticks):
             ts, m = step(ts, batch)
         float(m["g_loss"])
-        rates.append(10 * BATCH / (time.perf_counter() - t0))
+        rates.append(ticks * BATCH / (time.perf_counter() - t0))
     rate = sorted(rates)[1]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  training tick: {BATCH / rate * 1e3:.3f} ms, {rate:.1f} images/s "
-        f"(median of 3 windows of 10 ticks: "
+    log(f"  {model} training tick: {BATCH / rate * 1e3:.3f} ms, {rate:.1f} "
+        f"images/s (median of 3 windows of {ticks} ticks: "
         f"{', '.join(f'{r:.1f}' for r in rates)}); peak memory {peak:.2f} GiB")
     return {"tick_ms": BATCH / rate * 1e3, "images_per_s": rate,
             "windows_images_per_s": rates, "peak_memory_gib": peak}, \
@@ -822,6 +1243,7 @@ def kernel_family(name: str) -> str:
     low = name.lower()
     for keys, fam in (
             (("deconv5x5_s2",), "deconv5x5_s2 (CUDA)"),
+            (("namespace)::upconv",), "upconv3x3 (CUDA)"),
             (("namespace)::conv",), "conv5x5_s2_act (CUDA)"),
             (("namespace)::join", "join_text_kernel"),
              "conditioning_join (CUDA)"),
@@ -876,12 +1298,12 @@ def phase_profile(gen, ts, z, emb, device, rate):
     from torch.profiler import ProfilerActivity, profile
     zd, ed = z.to(device), torch.as_tensor(emb).to(device)
     for _ in range(3):
-        gen(ts.g_params, ts.g_state, zd, ed)
+        gen(ts.g_params, ts.g_state, ts.aux, zd, ed)
     torch.cuda.synchronize()
     n = 10
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            gen(ts.g_params, ts.g_state, zd, ed)
+            gen(ts.g_params, ts.g_state, ts.aux, zd, ed)
         torch.cuda.synchronize()
     fams: dict = {}
     launches = 0
@@ -903,6 +1325,100 @@ def phase_profile(gen, ts, z, emb, device, rate):
             "kernels_per_forward": launches / n}
 
 
+def diag_kinks(device, batch=4):
+    """Where the card's and the CPU's gradients of the 256 px D part (f32,
+    TF32 off, three streams of `batch`, full width, weights from the seed):
+    the D's forward and backward on both with every layer output's
+    cotangent kept, then each layer's error, the parameter gradients of BN
+    scales against BN biases, and single conv backwards on their own."""
+    from text_to_image_tpu_torch.models import gancls
+    from text_to_image_tpu_torch.models.registry import get_model, tree_to
+    from text_to_image_tpu_torch.ops import layers as L
+    from text_to_image_tpu_torch.ops.kernels import conv
+
+    cfg = train_config("stackgan_stage2", dtype="float32")
+    _, _, dp, ds = get_model(cfg).init(cfg.seed, "cpu")
+    g = torch.Generator().manual_seed(SEED)
+    xs = torch.rand(3, batch, 256, 256, 3, generator=g) * 2 - 1
+    embs = torch.randn(batch, cfg.gan.embed_dim, generator=g).expand(
+        3, batch, cfg.gan.embed_dim).contiguous()
+    weight = torch.linspace(-1, 1, 3 * batch).reshape(3, batch)
+    plain_conv, plain_bn = L.conv2d, L.batch_norm_act
+
+    def run(dev):
+        kept = []
+
+        def keep(kind, y):
+            if y.requires_grad:
+                y.retain_grad()
+                kept.append((kind, y))
+            return y
+
+        L.conv2d = lambda *a, **k: keep("conv", plain_conv(*a, **k))
+
+        def bn(*a, **k):
+            y, state = plain_bn(*a, **k)
+            return keep("bn_act", y), state
+        L.batch_norm_act = bn
+        try:
+            params = tree_to(dp, dev)
+            leaves = {}
+            for name, layer in params.items():
+                for leaf in layer:
+                    layer[leaf] = layer[leaf].clone().requires_grad_(True)
+                    leaves[f"{name}/{leaf}"] = layer[leaf]
+            logits, _ = gancls.discriminator_apply_streams(
+                params, tree_to(ds, dev), xs.to(dev), embs.to(dev), True,
+                L.FP32, 256)
+            (logits * weight.to(dev)).sum().backward()
+        finally:
+            L.conv2d, L.batch_norm_act = plain_conv, plain_bn
+        return ([(kind, y.detach().cpu(), y.grad.cpu()) for kind, y in kept],
+                {k: v.grad.cpu() for k, v in leaves.items()})
+
+    (card, card_p), (cpu, cpu_p) = run(device), run("cpu")
+    log("  cotangent of each layer output, in backward order (a per-stream "
+        "bn_act appears once per stream and once joined):")
+    for (kind, y, gy), (_, yr, gr) in reversed(list(zip(card, cpu))):
+        sides = int(((y >= 0) != (yr >= 0)).sum()) if kind == "bn_act" else 0
+        log(f"  {kind} {tuple(y.shape)}: forward |err| "
+            f"{float((y - yr).abs().max()):.2e}, {sides} outputs on the "
+            f"other side of the lrelu kink, cotangent |err| "
+            f"{float((gy - gr).abs().max()):.2e} of max "
+            f"{float(gr.abs().max()):.2e}")
+    worst = {}
+    for leaf, ref in cpu_p.items():
+        rel = float((card_p[leaf] - ref).abs().max() / ref.abs().max())
+        kind = leaf.split("/")[-1] if "_bn/" in leaf else None
+        if kind and not leaf.startswith("join"):
+            worst[kind] = max(worst.get(kind, 0.0), rel)
+        log(f"  d/d {leaf}: max |err| / max |grad| {rel:.2e}")
+    log(f"  down-block BN scale gradients differ by at most "
+        f"{worst['scale']:.2e} of their largest, BN bias gradients by "
+        f"{worst['bias']:.2e}")
+    single = 0.0
+    for shape, co in (((3 * batch, 8, 8, 512), 512),
+                      ((3 * batch, 16, 16, 512), 512),
+                      ((3 * batch, 128, 128, 64), 128)):
+        x, w, b = conv_inputs(shape, co, torch.float32, "cpu", g)
+        gy = torch.randn(shape[0], shape[1] // 2, shape[2] // 2, co,
+                         generator=g)
+        grads = []
+        for dev in (device, "cpu"):
+            xd, wd = (t.to(dev).requires_grad_(True) for t in (x, w))
+            y = conv.conv5x5_s2_act(xd, wd, b.to(dev), "none")
+            grads.append([t.cpu() for t in
+                          torch.autograd.grad(y, [xd, wd], gy.to(dev))])
+        for name, a, r in zip(("dx", "dw"), *grads):
+            rel = float((a - r).abs().max() / r.abs().max())
+            single = max(single, rel)
+            log(f"  conv5x5_s2_act backward alone {shape}->{co} {name}: max "
+                f"|err| / max |grad| {rel:.2e}")
+    log(f"  a conv backward on its own (no activation): card and CPU agree "
+        f"to {single:.2e} of the largest gradient")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -917,6 +1433,9 @@ def main() -> int:
     device = torch.device("cuda", 0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    if sys.argv[1:] == ["--diag-kinks"]:
+        return diag_kinks(device)
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
 
     log("phase 1: build")
     t0 = time.perf_counter()
@@ -931,11 +1450,13 @@ def main() -> int:
     t0 = time.perf_counter()
     errs = phase_kernels(device)
     errs.update(phase_train_kernels(device))
+    errs.update(phase_upconv_kernels(device))
     log(f"  ({time.perf_counter() - t0:.1f} s, Triton compile included)")
 
     log("phase 3: backward passes vs torch.autograd through the plain "
         "versions (f32, TF32 off)")
     grad_errs = phase_backward(device)
+    grad_errs.update(phase_upconv_backward(device))
 
     log("phase 4: sampling path at flagship widths, batch 64, bf16")
     cfg, bundle, ts, gen, z, emb, launches, g_err = phase_main_path(device)
@@ -949,15 +1470,54 @@ def main() -> int:
         "f32, TF32 off)")
     tick_vs_cpu = phase_card_vs_cpu(device)
 
+    stackgan = {}
+    sample_dir = os.path.join(ROOT, "chiprun_out", "samples")
+    for model in ("stackgan_stage1", "stackgan_stage2"):
+        log(f"phase 4b: {model} sampling path (main.py) at full width, batch "
+            f"64, bf16")
+        launches_by_path[f"{model} sampling"], sg_err = \
+            phase_stackgan_sampling(device, model, sample_dir)
+        g_err.update(sg_err)
+        log(f"phase 5b: {model} training path (main.py --train) at full "
+            f"width, batch 64, bf16, {TRAIN_TICKS} ticks")
+        s_history, launches_by_path[f"{model} training"], s_moved = \
+            phase_train_path(device, model)
+        stackgan[model] = {"training_history": s_history,
+                           "training_leaves_changed": s_moved}
+        torch.cuda.empty_cache()
+    log("phase 6b: one Stage-II tick on the card vs the CPU (full width, "
+        "256 px, batch 4, f32, TF32 off)")
+    stackgan["stackgan_stage2"]["tick_vs_cpu"] = phase_card_vs_cpu(
+        device, "stackgan_stage2", batch_size=4, g_after_d_tol=1e-2,
+        kink_share=5e-3)
+    torch.cuda.empty_cache()
+
     log("phase 7: timing")
+    flush = L2Flush(device)
     rows, rates = phase_timing(device, cfg, bundle, ts, gen, z, emb)
-    train_rows, bwd_rows = phase_train_timing(device, L2Flush(device))
+    train_rows, bwd_rows = phase_train_timing(device, flush)
     rows.update(train_rows)
+    rows["upconv3x3"] = phase_upconv_timing(device, flush)
+    conv_256_rows = phase_conv_256_timing(device, flush)
     tick, (tts, tstep, tbatch) = phase_tick_timing(device)
 
     log("phase 8: where a train-mode forward's and a tick's device time goes")
     profile = phase_profile(gen, ts, z, emb, device, rates["train_mode"])
     tick_profile = phase_tick_profile(tts, tstep, tbatch, tick["tick_ms"])
+    del tts, tstep, tbatch
+    torch.cuda.empty_cache()
+
+    log("phase 7b / 8b: StackGAN sampling rates, ticks and the Stage-II "
+        "tick's device time")
+    for model, ticks in (("stackgan_stage1", 10), ("stackgan_stage2", 5)):
+        rates[model] = phase_stackgan_rates(device, model)
+        stackgan[model]["tick"], tick_state = phase_tick_timing(
+            device, model, ticks)
+        if model == "stackgan_stage2":
+            stackgan[model]["tick_profile"] = phase_tick_profile(
+                *tick_state, stackgan[model]["tick"]["tick_ms"])
+        del tick_state
+        torch.cuda.empty_cache()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -975,13 +1535,16 @@ def main() -> int:
                            "text_to_image_tpu/ops/pallas/conv.py:797"),
         "conditioning_join": ("cuda", src + "csrc/conditioning_join.cu",
                               "text_to_image_tpu/ops/pallas/fused.py:327"),
+        "upconv3x3": ("cuda", src + "csrc/upconv3x3.cu",
+                      "text_to_image_tpu/ops/pallas/conv.py:546"),
     }
 
     def per_unit(per, key):
         """deconv5x5_s2 and bn_act: one generator forward (the sum over its
         four calls at batch 64).  conv5x5_s2_act and conditioning_join: one
-        tick's forward calls (the D step at 3·64 plus two G steps' D at
-        64)."""
+        GAN-CLS tick's forward calls (the D step at 3·64 plus two G steps' D
+        at 64).  upconv3x3: one Stage-II generator forward, its frozen
+        Stage-I included (the sum over the eight calls at batch 64)."""
         return sum(r[key] * (1 if r.get("batch", D_BATCH) == D_BATCH else 2)
                    for r in per)
 
@@ -1017,7 +1580,9 @@ def main() -> int:
               "generator_errors": g_err, "sampling_images_per_s": rates,
               "profile": profile, "training_history": history,
               "training_leaves_changed": moved, "tick_vs_cpu": tick_vs_cpu,
-              "tick": tick, "tick_profile": tick_profile}
+              "tick": tick, "tick_profile": tick_profile,
+              "launches_by_path": launches_by_path, "stackgan": stackgan,
+              "conv5x5_s2_act_256px_d": conv_256_rows}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

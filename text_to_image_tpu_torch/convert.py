@@ -3,28 +3,43 @@
 The port keeps the JAX package's layouts (linear ``[in, out]``, conv HWIO,
 BN ``scale``/``bias``/``mean``/``var``) and its tree of names, so converting
 is a tree map from numpy to torch plus a check of the names.  An ``.npz``
-holds one generator as ``params/<layer>/<leaf>`` and ``state/<layer>/<leaf>``
-keys; from the JAX package it is written with
+holds one generator (GAN-CLS, StackGAN Stage-I or Stage-II) as
+``params/<layer>/…/<leaf>`` and ``state/<layer>/…/<leaf>`` keys (StackGAN's
+up-blocks and residual blocks nest ``conv``/``bn`` one level down); from the
+JAX package it is written with
 
     save_npz("g.npz", *jax.device_get((ts.g_params, ts.g_state)))
 
 and ``python -m text_to_image_tpu_torch.main --weights g.npz`` serves it.
 
+and ``python -m text_to_image_tpu_torch.main --weights g.npz`` serves it; a
+Stage-I ``.npz`` named by ``cfg.stage1_checkpoint`` is the frozen generator
+inside Stage-II (`load_stage1_generator`).
+
 `from_jax_train_state` carries a whole JAX ``TrainState`` (as
 ``jax.device_get`` returns it): both networks, both BN states, the step,
-``aux['ema_g_params']`` and each ``optax.adam`` state's update count and
+``aux['ema_g_params']``, Stage-II's ``aux['stage1_g_params' |
+'stage1_g_state']`` and each ``optax.adam`` state's update count and
 moments, so the port computes the same next tick.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-_G_LAYER = re.compile(r"^(embed|stem|stem_bn|out|up\d+|up\d+_bn)$")
+# a layer holds leaves; StackGAN's CA, up-blocks and residual blocks hold a
+# second level of layers instead
+_LEAVES = {"w", "b", "scale", "bias", "mean", "var"}
+_G_LAYER = re.compile(                         # GAN-CLS; StackGAN I and II
+    r"^(embed|stem|stem_bn|out|up\d+|up\d+_bn|enc\d+|enc\d+_bn|join|join_bn)$")
+_G_NESTED = {re.compile(r"^ca$"): {"fc"},
+             re.compile(r"^up\d+$"): {"conv", "bn"},
+             re.compile(r"^res\d+$"): {"conv1", "bn1", "conv2", "bn2"}}
 _D_LAYER = re.compile(r"^(down\d+|down\d+_bn|embed|join|join_bn|logit)$")
 
 
@@ -34,11 +49,32 @@ def _to_torch(tree: Dict, device) -> Dict:
             for k, v in tree.items()}
 
 
-def _checked(params: Dict, state: Dict, layer: re.Pattern, what: str,
-             device) -> Tuple[Dict, Dict]:
-    for name in (*params, *state):
-        if not layer.match(name):
-            raise ValueError(f"not a GAN-CLS {what} layer: {name!r}")
+def _check_layer(name: str, sub: Dict, flat: re.Pattern, nested: Dict,
+                 what: str) -> None:
+    if sub and all(isinstance(v, dict) for v in sub.values()):
+        allowed = next((c for pat, c in nested.items() if pat.match(name)),
+                       None)
+        if allowed is None:
+            raise ValueError(f"not a {what} layer: {name!r}")
+        for child in sub:
+            if child not in allowed:
+                raise ValueError(f"not a {what} layer: '{name}/{child}'")
+        groups = sub.values()
+    elif flat.match(name):
+        groups = (sub,)
+    else:
+        raise ValueError(f"not a {what} layer: {name!r}")
+    for leaves in groups:
+        if not set(leaves) <= _LEAVES:
+            raise ValueError(f"{what} layer {name!r}: unknown entries "
+                             f"{sorted(set(leaves) - _LEAVES)}")
+
+
+def _checked(params: Dict, state: Dict, flat: re.Pattern, what: str,
+             device, nested: Optional[Dict] = None) -> Tuple[Dict, Dict]:
+    for tree in (params, state):
+        for name, sub in tree.items():
+            _check_layer(name, sub, flat, nested or {}, what)
     return _to_torch(params, device), _to_torch(state, device)
 
 
@@ -46,9 +82,11 @@ def from_jax_generator(params: Dict, state: Dict, device="cuda"
                        ) -> Tuple[Dict, Dict]:
     """JAX generator (params, state) as nested dicts of numpy arrays, as
     ``jax.device_get`` returns them, → the port's (params, state): f32
-    tensors on `device`.  Raises on a layer name the GAN-CLS generator does
-    not have."""
-    return _checked(params, state, _G_LAYER, "generator", device)
+    tensors on `device`.  Takes the GAN-CLS generator (``embed``, ``stem``,
+    ``up<i>``, ``up<i>_bn``, ``out``) and the StackGAN ones (``ca/fc``,
+    ``stem``, ``enc<i>``, ``join``, their ``_bn``s, ``res<i>/conv1|bn1|…``,
+    ``up<i>/conv|bn``, ``out``); raises on any other layer name."""
+    return _checked(params, state, _G_LAYER, "generator", device, _G_NESTED)
 
 
 def from_jax_discriminator(params: Dict, state: Dict, device="cuda"
@@ -70,9 +108,10 @@ def _adam_state(opt_state) -> Tuple[int, Dict, Dict]:
 
 
 def from_jax_train_state(ts, cfg, steps_per_epoch: int, device="cuda"):
-    """A JAX GAN-CLS ``TrainState`` held as numpy → the port's TrainState
-    on `device` for `cfg` (the same config as the JAX run), with the Adam
-    counts and moments carried."""
+    """A JAX ``TrainState`` (GAN-CLS or StackGAN) held as numpy → the port's
+    TrainState on `device` for `cfg` (the same config as the JAX run), with
+    the Adam counts and moments, the EMA and Stage-II's frozen Stage-I
+    generator carried."""
     from text_to_image_tpu_torch.train.optim import flatten
     from text_to_image_tpu_torch.train.steps import make_train_state
 
@@ -82,6 +121,9 @@ def from_jax_train_state(ts, cfg, steps_per_epoch: int, device="cuda"):
     if "ema_g_params" in ts.aux:
         aux["ema_g_params"] = from_jax_generator(ts.aux["ema_g_params"], {},
                                                  device)[0]
+    if "stage1_g_params" in ts.aux:
+        aux["stage1_g_params"], aux["stage1_g_state"] = from_jax_generator(
+            ts.aux["stage1_g_params"], ts.aux["stage1_g_state"], device)
     out = make_train_state(cfg, steps_per_epoch, gp, gs, dp, ds,
                            step=int(np.asarray(ts.step)), aux=aux)
     for opt, jax_opt in ((out.g_opt, ts.g_opt), (out.d_opt, ts.d_opt)):
@@ -122,3 +164,21 @@ def load_npz(path: str, device="cuda") -> Tuple[Dict, Dict]:
                 node = node.setdefault(part, {})
             node[leaf] = f[key]
     return from_jax_generator(trees["params"], trees["state"], device)
+
+
+def load_stage1_generator(path: str, device="cuda"
+                          ) -> Optional[Tuple[Dict, Dict]]:
+    """The Stage-I generator that ``cfg.stage1_checkpoint`` names: None for
+    an empty path (the caller draws one from its seed), (params, state) for
+    an ``.npz`` written by `save_npz`.  A checkpoint directory of the
+    trainer raises: checkpoints are not ported yet."""
+    if not path:
+        return None
+    if path.endswith(".npz") and os.path.isfile(path):
+        return load_npz(path, device)
+    raise NotImplementedError(
+        f"stage1_checkpoint={path!r}: restoring a Stage-I generator from a "
+        f"checkpoint directory is not ported yet (ROADMAP.md, 'Modules to "
+        f"port' item 3: train/checkpoint.py); name an .npz written by "
+        f"convert.save_npz, or leave it empty for a Stage-I drawn from the "
+        f"seed")

@@ -1,13 +1,15 @@
-// Implicit-GEMM tiles for Hopper (sm_90a), shared by conv5x5_s2.cu and
-// conditioning_join.cu.
+// Implicit-GEMM tiles for Hopper (sm_90a), shared by conv5x5_s2.cu,
+// conditioning_join.cu and upconv3x3.cu.
 //
-//   Y[r, co] = act(sum_k A[r, k] * Wt[k, co] + add(r, co)),   r < M, co < N
+//   Y[r, co] = act(sum_k A[r, k] * Wt[k, co] * mul(co) + add(r, co)),
+//   r < M, co < N
 //
 // K is walked as `taps` taps of Cin channels: tap t reads B rows
 // Wt[t*Cin .. t*Cin+Cin) (weights [taps][Cin][N], row-major) and A row r's
 // channels from wherever the problem's gather puts them (a_off), or zeros
-// where the gather returns -1.  Y is row-major [M, N].  A problem type P
-// supplies the gather and the epilogue's additive term:
+// where the gather returns -1.  Y is row-major [M, N] unless the problem
+// places its rows elsewhere.  A problem type P supplies the gather and the
+// epilogue's additive term:
 //
 //   struct P : igemm::Common {
 //     struct Row {...};                                 // decoded once
@@ -15,6 +17,14 @@
 //     __device__ long long a_off(const Row&, int tap, int ci) const;
 //     __device__ float add(int r, int co) const;
 //   };
+//
+// and may hide Common's defaults: `mul` (per-channel scale, 1), `y_row`
+// (element offset of output row r, r*N) and `w_tap` (which [Cin][N] block of
+// the weights tap t reads, t).  With `groups` = G > 1 the launch runs G
+// GEMMs over the same M x N extent, the group index the fastest part of
+// blockIdx.x (`group()`), so that the G blocks that gather the same A rows
+// run together and share them in L2; the problem reads `group()` in its
+// gather, `w_tap` and `y_row`.
 //
 // Two kernels, the same machinery as csrc/deconv5x5_s2.cu:
 //  * tile_kernel<P, BF16>: 128x64 tiles, K slices of 32 staged through
@@ -49,6 +59,12 @@ struct Common {
   void* y;         // [M][N]
   int M, N, Cin, taps, act;
   int vec_a, vec_w, vec_y;  // 16-byte accesses are legal for A / W / Y
+  int groups = 1;           // GEMMs per launch (see above)
+
+  __device__ int group() const { return blockIdx.x % groups; }
+  __device__ int w_tap(int tap) const { return tap; }
+  __device__ size_t y_row(int r) const { return static_cast<size_t>(r) * N; }
+  __device__ float mul(int) const { return 1.f; }
 };
 
 __device__ __forceinline__ float apply_act(float v, int act) {
@@ -69,7 +85,7 @@ inline bool aligned16(const void* q) {
   return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
 }
 
-// Stores n <= VEC outputs of row r from column co: act(v + add) in f32.
+// Stores n <= VEC outputs of row r from column co: act(v*mul + add) in f32.
 template <class P, bool BF16>
 __device__ __forceinline__ void store_out(const P& p, int r, int co,
                                           const float* v, int n) {
@@ -82,13 +98,13 @@ __device__ __forceinline__ void store_out(const P& p, int r, int co,
 #pragma unroll
   for (int e = 0; e < VEC; ++e) {
     const int c = e < n ? co + e : co;
-    const float f = apply_act(v[e] + p.add(r, c), p.act);
+    const float f = apply_act(fmaf(v[e], p.mul(c), p.add(r, c)), p.act);
     if constexpr (BF16)
       o.e[e] = __bfloat16_as_ushort(__float2bfloat16(f));
     else
       o.e[e] = f;
   }
-  S* y = static_cast<S*>(p.y) + static_cast<size_t>(r) * p.N + co;
+  S* y = static_cast<S*>(p.y) + p.y_row(r) + co;
   if (n == VEC && p.vec_y) {
     *reinterpret_cast<uint4*>(y) = o.u;
   } else {
@@ -117,7 +133,7 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(P p) {
   __shared__ __align__(128) S Bs[BK][BN + PAD];
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BM, co0 = blockIdx.y * BN;
+  const int row0 = (blockIdx.x / p.groups) * BM, co0 = blockIdx.y * BN;
   const S* a = static_cast<const S*>(p.a);
   const S* w = static_cast<const S*>(p.w);
 
@@ -131,7 +147,7 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(P p) {
 
   uint4 a_reg[A_LOADS], b_reg[B_LOADS];
   auto load_slice = [&](int it) {
-    const int tap = it / nk;
+    const int tap = it / nk, wt = p.w_tap(tap);
     const int ci0 = (it - tap * nk) * BK;
 #pragma unroll
     for (int i = 0; i < A_LOADS; ++i) {
@@ -158,7 +174,7 @@ __global__ void __launch_bounds__(THREADS) tile_kernel(P p) {
       Vec v;
       v.u = make_uint4(0, 0, 0, 0);
       if (ci < p.Cin && co < p.N) {
-        const S* src = w + (static_cast<size_t>(tap) * p.Cin + ci) *
+        const S* src = w + (static_cast<size_t>(wt) * p.Cin + ci) *
                                static_cast<size_t>(p.N) + co;
         if (p.vec_w) {
           v.u = __ldg(reinterpret_cast<const uint4*>(src));
@@ -307,7 +323,7 @@ __global__ void __launch_bounds__(THREADS) pipelined_kernel(P p) {
   uint16_t* Bs = smem + P_STAGES * P_A_STAGE;    // [STAGES][BK][LDB]
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * P_BM, co0 = blockIdx.y * P_BN;
+  const int row0 = (blockIdx.x / p.groups) * P_BM, co0 = blockIdx.y * P_BN;
   const uint16_t* a = static_cast<const uint16_t*>(p.a);
   const uint16_t* w = static_cast<const uint16_t*>(p.w);
 
@@ -319,7 +335,7 @@ __global__ void __launch_bounds__(THREADS) pipelined_kernel(P p) {
   const int n_iter = p.taps * nk;
 
   auto issue = [&](int it, int stage) {
-    const int tap = it / nk;
+    const int tap = it / nk, wt = p.w_tap(tap);
     const int ci0 = (it - tap * nk) * P_BK;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -336,7 +352,7 @@ __global__ void __launch_bounds__(THREADS) pipelined_kernel(P p) {
       const int ci = ci0 + kr, co = co0 + c8;
       const bool valid = ci < p.Cin && co < p.N;
       const uint16_t* src =
-          valid ? w + (static_cast<size_t>(tap) * p.Cin + ci) *
+          valid ? w + (static_cast<size_t>(wt) * p.Cin + ci) *
                           static_cast<size_t>(p.N) + co
                 : w;
       cp_async16(Bs + stage * P_B_STAGE + kr * P_LDB + c8, src, valid);
@@ -420,11 +436,12 @@ cudaError_t launch(const P& p, bool bf16, cudaStream_t s) {
         pipelined_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         P_SMEM);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.M + P_BM - 1) / P_BM, (p.N + P_BN - 1) / P_BN);
+    const dim3 grid((p.M + P_BM - 1) / P_BM * p.groups,
+                    (p.N + P_BN - 1) / P_BN);
     pipelined_kernel<P><<<grid, THREADS, P_SMEM, s>>>(p);
     return cudaGetLastError();
   }
-  const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
+  const dim3 grid((p.M + BM - 1) / BM * p.groups, (p.N + BN - 1) / BN);
   if (bf16)
     tile_kernel<P, true><<<grid, THREADS, 0, s>>>(p);
   else

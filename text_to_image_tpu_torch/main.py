@@ -11,6 +11,10 @@ from the JAX package); without it the generator is initialised from
 ``cfg.seed``.  ``--train`` runs the training loop (``train/trainer.py``) to
 step N, printing ``[step N]`` metric lines; checkpoints, sample grids and
 the real datasets are not ported yet and raise `NotImplementedError`.
+``stackgan_stage2`` takes its frozen Stage-I generator from
+``stage1_checkpoint`` when that names an ``.npz`` (`convert.save_npz`) and
+draws one from ``cfg.seed`` when it is empty (``--set stage1_checkpoint=``);
+a checkpoint directory there raises `NotImplementedError` too.
 Everything runs on the card unless ``--device cpu`` is given.
 """
 
@@ -71,18 +75,27 @@ def evaluate(cfg: Config, weights: str | None = None, device="cuda") -> str:
         sample_grid, text_interpolation_grid)
     from text_to_image_tpu_torch.models.registry import get_model
     from text_to_image_tpu_torch.ops import layers as L
+    from text_to_image_tpu_torch.train.steps import stage1_aux
     from text_to_image_tpu_torch.utils import prng
     from text_to_image_tpu_torch.utils.images import save_images
 
     dataset = get_dataset(cfg, split="test")
+    bundle = get_model(cfg)
+    policy = L.Policy.from_str(cfg.dtype)
     if weights:
         g_params, g_state = convert.load_npz(weights, device)
         print(f"sampling from {weights}")
     else:
-        g_params, g_state = get_model(cfg).init(cfg.seed, device)[:2]
+        g_params, g_state = bundle.init(cfg.seed, device)[:2]
         print(f"sampling from a generator initialised from seed {cfg.seed}")
-    ts = GeneratorState(L.cast_weights(g_params, L.Policy.from_str(cfg.dtype)),
-                        g_state)
+    aux = {}
+    if bundle.needs_stage1:
+        aux = stage1_aux(cfg, cfg.seed, device, convert.load_stage1_generator(
+            cfg.stage1_checkpoint, device))
+        aux["stage1_g_params"] = L.cast_weights(aux["stage1_g_params"], policy)
+        print("frozen Stage-I generator: "
+              + (cfg.stage1_checkpoint or f"initialised from seed {cfg.seed}"))
+    ts = GeneratorState(L.cast_weights(g_params, policy), g_state, aux)
 
     gen = make_generator_fn(cfg, device=device)
     out = os.path.join(cfg.sample_dir, cfg.model, cfg.data.dataset_name)

@@ -1,12 +1,13 @@
-"""GAN-CLS losses (counterpart of ``text_to_image_tpu/models/losses.py``,
-the matching-aware CE family; Reed et al. 2016):
+"""GAN-CLS and StackGAN losses (counterpart of
+``text_to_image_tpu/models/losses.py``: the matching-aware CE family, Reed
+et al. 2016, and the conditioning-augmentation KL, Zhang et al. 2017):
 
     d_loss = CE(D(real, t), 1) + ½·[CE(D(fake, t), 0) + CE(D(real, t̄), 0)]
     g_loss = CE(D(fake, t), 1)   (+ w·CE(D(G(z, t_int), t_int), 1), GAN-INT)
+                                 (+ w_kl·KL(N(μ, σ) ‖ N(0, I)), StackGAN)
 
-Every reduction is a mean over the batch, in f32.  The WGAN-GP and CA-KL
-terms belong to WGAN-CLS and StackGAN (ROADMAP.md, 'Modules to port'
-items 5-6).
+Every reduction is a mean over the batch, in f32.  The WGAN-GP terms belong
+to WGAN-CLS (ROADMAP.md, 'Modules to port' item 5).
 """
 
 from __future__ import annotations
@@ -55,3 +56,11 @@ def interpolate_embeddings(emb: torch.Tensor, beta: float = 0.5
     """GAN-INT: β·t₁ + (1−β)·t₂, pairing each embedding with the previous
     one in the batch (a roll by one)."""
     return beta * emb + (1.0 - beta) * torch.roll(emb, shifts=1, dims=0)
+
+
+def ca_kl_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """Closed-form KL(N(μ, e^logvar) ‖ N(0, I)), summed over the CA
+    dimensions and averaged over the batch, in f32."""
+    mu, logvar = mu.float(), logvar.float()
+    per = -0.5 * torch.sum(1.0 + logvar - mu**2 - torch.exp(logvar), dim=-1)
+    return per.mean()

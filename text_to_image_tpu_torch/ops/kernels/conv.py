@@ -1,5 +1,5 @@
-"""``deconv5x5_s2`` and ``conv5x5_s2_act``: the generator's up-block and the
-discriminator's down-block convolutions (counterpart of
+"""``deconv5x5_s2``, ``conv5x5_s2_act`` and ``upconv3x3``: the generators'
+up-blocks and the discriminator's down-block convolutions (counterpart of
 ``text_to_image_tpu/ops/pallas/conv.py``).
 
 ``deconv5x5_s2``: ``y = act(conv_transpose_5x5_s2_SAME(x, w)·scale +
@@ -13,13 +13,23 @@ padding (an even map pads 1 before and 2 after).  Replaces
 `conv5x5_s2_act` (Pallas bodies `_conv_kernel_vpad` and its HBM-staged twin
 `_conv_kernel`).  CUDA kernel: ``csrc/conv5x5_s2.cu``.
 
+``upconv3x3`` / ``upconv3x3_bias``: ``y = act(conv_3x3_SAME(
+upsample2_nearest(x), w)·scale + shift)``, the StackGAN / PGGAN up-block,
+as four output parities of 2×2 combined taps over x: the upsampled map never
+exists.  Replaces `upconv3x3` / `upconv3x3_bias` (Pallas bodies
+`_upconv_kernel` and, for maps over 32×32, `_upconv_halo_kernel`).  CUDA
+kernel: ``csrc/upconv3x3.cu``; a CUDA tensor always goes through it, in
+sampling and in training (the JAX package's per-shape dispatch tables are
+TPU measurements and are not carried over).
+
 On CUDA each wrapper launches its hand-written kernel (each source note
 gives the bound on the H100 and the design).  On the CPU it runs the plain
 version, which is built from the same taps as the kernel and is what the
 kernel is held against.  Both are differentiable (`torch.autograd.Function`):
-the backwards are the JAX package's (`_deconv_bwd`, `_conv_bwd`) — the
-activation derivative from the saved output, then the conv's two adjoints,
-which the JAX package leaves to XLA and the port to cuDNN / the CPU conv.
+the backwards are the JAX package's (`_deconv_bwd`, `_conv_bwd`,
+`_upconv_bwd`, `_upconv_bias_bwd`) — the activation derivative from the
+saved output, then the conv's two adjoints, which the JAX package leaves to
+XLA and the port to cuDNN / the CPU conv.
 """
 
 from __future__ import annotations
@@ -51,12 +61,16 @@ def same_pads(n: int):
     return out, total // 2, total - total // 2
 
 
-def _check_common(x, w, vecs, act):
+def _check_common(x, w, vecs, act, k=5, rows=None):
+    """The checks every wrapper makes before it launches.  `rows` is the
+    GEMM's row count where that is the kernel's only 32-bit extent (the conv
+    and the upconv compute their tensor offsets in 64 bits; the 256 px D
+    reads 192×256²×3 inputs); None holds the output to 2^31 elements."""
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     cin = x.shape[-1]
-    if w.dim() != 4 or tuple(w.shape[:3]) != (5, 5, cin):
-        raise ValueError(f"w must be [5,5,{cin},Co], got {tuple(w.shape)}")
+    if w.dim() != 4 or tuple(w.shape[:3]) != (k, k, cin):
+        raise ValueError(f"w must be [{k},{k},{cin},Co], got {tuple(w.shape)}")
     co = w.shape[-1]
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"x and w must share a dtype in {_DTYPES}, got "
@@ -72,7 +86,8 @@ def _check_common(x, w, vecs, act):
             raise ValueError(f"{name} must be contiguous")
     if act not in ACT_CODES:
         raise ValueError(f"act {act!r} not in {sorted(ACT_CODES)}")
-    if x.numel() * 4 * co // cin >= 2**31 or w.numel() >= 2**31:
+    extent = x.numel() * 4 * co // cin if rows is None else rows + 2**16
+    if extent >= 2**31 or w.numel() >= 2**31:
         raise ValueError("tensor too large for the kernel's int32 extents")
 
 
@@ -230,7 +245,9 @@ def _conv_lib() -> ctypes.CDLL:
 
 
 def _conv_check(x, w, b, act):
-    _check_common(x, w, (("b", b),), act)
+    rows = x.shape[0] * same_pads(x.shape[1])[0] * same_pads(x.shape[2])[0] \
+        if x.dim() == 4 else None
+    _check_common(x, w, (("b", b),), act, rows=rows)
 
 
 def _conv_forward(x, w, b, act):
@@ -299,3 +316,225 @@ def conv5x5_s2_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 conv5x5_s2_act.launches = 0
+
+
+# ====================== nearest-upsample x2 + conv 3x3 ========================
+
+# parity → padded-x slice start of combined tap a ∈ {0, 1}, x padded by 1
+# per spatial dim (conv.py _UPCONV_TAPS): y[2m+p] = Σ_a Cw[p,a]·x[m+p+a−1]
+UPCONV_TAPS = {0: (0, 1), 1: (1, 2)}
+# Cw[p,a] = Σ_k UNCOMBINE[p][a][k]·W[k]: (0,0) → W0, (0,1) → W1+W2,
+# (1,0) → W0+W1, (1,1) → W2; its transpose recombines dCw into dW
+UNCOMBINE = (((1.0, 0.0, 0.0), (0.0, 1.0, 1.0)),
+             ((1.0, 1.0, 0.0), (0.0, 0.0, 1.0)))
+
+
+def combine_upconv_weights(w: torch.Tensor) -> torch.Tensor:
+    """[3,3,Cin,Co] → [2,2,2,2,Cin,Co] indexed [py,px,a,b]
+    (`_combine_upconv_weights`).  The sums W1+W2 and W0+W1 are taken in w's
+    dtype, rows first and then columns, as the JAX package takes them: under
+    the bf16 policy a corner tap is rounded to bf16 twice."""
+    rows = torch.stack([torch.stack([w[0], w[1] + w[2]]),
+                        torch.stack([w[0] + w[1], w[2]])])   # [py,a,3,ci,co]
+    cols = torch.stack([
+        torch.stack([rows[:, :, 0], rows[:, :, 1] + rows[:, :, 2]], 2),
+        torch.stack([rows[:, :, 0] + rows[:, :, 1], rows[:, :, 2]], 2),
+    ], 1)                                                    # [py,px,a,b,ci,co]
+    return cols.contiguous()
+
+
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """NHWC nearest-neighbour upsample (`L.upsample_nearest`)."""
+    b, h, w, c = x.shape
+    return (x[:, :, None, :, None, :].expand(b, h, factor, w, factor, c)
+            .reshape(b, h * factor, w * factor, c))
+
+
+def upconv3x3_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                    shift: torch.Tensor, act: str = "none") -> torch.Tensor:
+    """The plain PyTorch version: four output-parity planes, each the sum of
+    2×2 combined-tap matmuls over the 1-padded input, accumulated in f32."""
+    b, h, wd, _ = x.shape
+    co = w.shape[-1]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    wc = combine_upconv_weights(w).float()
+    rows = []
+    for py in (0, 1):
+        cols = []
+        for px in (0, 1):
+            acc = torch.zeros(b, h, wd, co, device=x.device)
+            for a, sh in enumerate(UPCONV_TAPS[py]):
+                for c, sw in enumerate(UPCONV_TAPS[px]):
+                    acc = acc + xp[:, sh:sh + h, sw:sw + wd, :] @ wc[py, px, a, c]
+            cols.append(acc)
+        rows.append(torch.stack(cols, dim=3))          # [B,H,W,2(px),Co]
+    y = torch.stack(rows, dim=2).reshape(b, 2 * h, 2 * wd, co)
+    return apply_act(y * scale.float() + shift.float(), act).to(x.dtype)
+
+
+def _upconv_lib() -> ctypes.CDLL:
+    lib = _build.library("upconv3x3")
+    fn = lib.t2i_upconv3x3
+    # x, wc, scale, shift, y; B, H, W, Cin, Co, act, bf16; stream
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _upconv_check(x, w, scale, shift, act):
+    rows = x.numel() // x.shape[-1] if x.dim() == 4 else None
+    _check_common(x, w, (("scale", scale), ("shift", shift)), act, k=3,
+                  rows=rows)
+
+
+def _upconv_forward(x, w, scale, shift, act):
+    if x.device.type == "cpu":
+        return upconv3x3_plain(x, w, scale, shift, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"upconv3x3 runs on cuda or cpu, not {x.device}")
+    _upconv_check(x, w, scale, shift, act)
+    b, h, wd, cin = x.shape
+    co = w.shape[-1]
+    wc = combine_upconv_weights(w)
+    y = torch.empty(b, 2 * h, 2 * wd, co, dtype=x.dtype, device=x.device)
+    rc = _upconv_lib().t2i_upconv3x3(
+        x.data_ptr(), wc.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        y.data_ptr(), b, h, wd, cin, co, ACT_CODES[act],
+        int(x.dtype == torch.bfloat16), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"upconv3x3 kernel launch failed: CUDA error {rc}")
+    upconv3x3.launches += 1
+    return y
+
+
+def _upconv_composed(x, w, scale, shift, act):
+    """conv3×3 over the materialised upsampled map (`_lax_upconv`): what the
+    kernel avoids; the tanh backward differentiates it."""
+    y = F.conv2d(_nchw(upsample_nearest(x)), w.permute(3, 2, 0, 1), padding=1)
+    y = _nhwc(y).float() * scale.float() + shift.float()
+    return apply_act(y, act).to(x.dtype)
+
+
+def _parity_dx(g, w, out_dtype):
+    """Adjoint in x of conv3×3(up2(x)) for the cotangent g [B,2H,2W,Co]
+    (`_parity_dx`): four 2×2 convs over g's parity planes, Co → Cin, summed
+    in f32; no upsampled intermediate."""
+    wc = combine_upconv_weights(w.to(g.dtype))         # [py,px,a,b,ci,co]
+    b, h2, w2, co = g.shape
+    gp = g.reshape(b, h2 // 2, 2, w2 // 2, 2, co)
+    dx = None
+    for py in (0, 1):
+        for px in (0, 1):
+            gpp = _nchw(gp[:, :, py, :, px, :])
+            # tap kh reads plane offset kh − py: kernel K[kh] = Cw[a=1−kh]ᵀ
+            k = wc[py, px].flip(0, 1).permute(2, 3, 0, 1)   # [ci,co,kh,kw]
+            part = F.conv2d(F.pad(gpp, (px, 1 - px, py, 1 - py)), k).float()
+            dx = part if dx is None else dx + part
+    return _nhwc(dx).to(out_dtype)
+
+
+def _parity_dw(x, g, w_dtype):
+    """Adjoint in w of conv3×3(up2(x)) for the cotangent g (`_parity_dw`):
+    per parity the weight gradient of a 2×2 VALID conv of the 1-padded x
+    against g's parity plane, then the constant recombination of the 16
+    combined taps into the 3×3 kernel, in f32."""
+    b, h, wd, ci = x.shape
+    co = g.shape[-1]
+    gp = g.to(x.dtype).reshape(b, h, 2, wd, 2, co)
+    xp = F.pad(_nchw(x), (1, 1, 1, 1))
+    planes = []
+    for py in (0, 1):
+        for px in (0, 1):
+            gpp = _nchw(gp[:, :, py, :, px, :]).contiguous(
+                memory_format=torch.channels_last)
+            xs = xp[:, :, py:py + h + 1, px:px + wd + 1].contiguous(
+                memory_format=torch.channels_last)
+            planes.append(conv2d_weight(xs, (co, ci, 2, 2), gpp))
+    # [py,px,co,ci,a,b] → Σ_{p,q,a,b} T[p,a,k]·T[q,b,l]·dCw = dW[k,l,ci,co]
+    dwc = torch.stack(planes).reshape(2, 2, co, ci, 2, 2).float()
+    t = torch.tensor(UNCOMBINE, dtype=torch.float32, device=x.device)
+    return torch.einsum("pqoiab,pak,qbl->klio", dwc, t, t).to(w_dtype)
+
+
+class _Upconv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, scale, shift, act):
+        y = _upconv_forward(x, w, scale, shift, act)
+        ctx.act = act
+        ctx.save_for_backward(x, w, scale, shift, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # _upconv_bwd: the epilogue's derivative and the conv output from
+        # the saved y for the invertible activations, then the parity
+        # adjoints; tanh differentiates the composed version again
+        x, w, scale, shift, y = ctx.saved_tensors
+        if ctx.act == "tanh":
+            with torch.enable_grad():
+                ins = [v.detach().requires_grad_(True)
+                       for v in (x, w, scale, shift)]
+                out = _upconv_composed(*ins, ctx.act)
+            return (*torch.autograd.grad(out, ins, g), None)
+        g32 = g.float() * act_grad_from_output(ctx.act, y)
+        y32 = y.float()
+        pre = y32 if ctx.act != "lrelu" else torch.where(y32 >= 0, y32,
+                                                         y32 / 0.2)
+        d0 = torch.where(g32 != 0, (pre - shift) / scale,
+                         torch.zeros_like(pre))            # the conv output
+        d_conv = (g32 * scale).to(x.dtype)
+        need = ctx.needs_input_grad
+        dx = _parity_dx(d_conv, w, x.dtype) if need[0] else None
+        dw = _parity_dw(x, d_conv, w.dtype) if need[1] else None
+        ds = (g32 * d0).sum((0, 1, 2)) if need[2] else None
+        dt = g32.sum((0, 1, 2)) if need[3] else None
+        return dx, dw, ds, dt, None
+
+
+class _UpconvBias(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, act):
+        y = _upconv_forward(x, w, torch.ones_like(b), b, act)
+        ctx.act = act
+        ctx.save_for_backward(x, w, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # _upconv_bias_bwd: no scale, so no conv output to recover
+        x, w, y = ctx.saved_tensors
+        g32 = g.float() * act_grad_from_output(ctx.act, y)
+        d_conv = g32.to(x.dtype)
+        need = ctx.needs_input_grad
+        dx = _parity_dx(d_conv, w, x.dtype) if need[0] else None
+        dw = _parity_dw(x, d_conv, w.dtype) if need[1] else None
+        db = g32.sum((0, 1, 2)) if need[2] else None
+        return dx, dw, db, None
+
+
+def upconv3x3(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+              shift: torch.Tensor, act: str = "none") -> torch.Tensor:
+    """Fused ``act(conv3x3(upsample2_nearest(x), w)·scale + shift)``.
+
+    x [B,H,W,Cin] and the ordinary kernel w [3,3,Cin,Co] share a dtype (bf16
+    or f32); scale and shift are f32 [Co]: (1, bias) plain, the folded BN
+    for inference.  Any H, W, Cin, Co.  Returns [B,2H,2W,Co] in x's dtype.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.  Differentiable in every tensor argument."""
+    if needs_grad(x, w, scale, shift):
+        return _Upconv.apply(x, w, scale, shift, act)
+    return _upconv_forward(x, w, scale, shift, act)
+
+
+upconv3x3.launches = 0
+
+
+def upconv3x3_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   act: str = "none") -> torch.Tensor:
+    """``act(conv3x3(upsample2_nearest(x), w) + b)``: the training-path
+    up-block (a BN follows outside).  The same kernel as `upconv3x3` with
+    scale 1, counted on `upconv3x3.launches`; its backward skips the scale
+    gradient.  b is f32 [Co]."""
+    if needs_grad(x, w, b):
+        return _UpconvBias.apply(x, w, b, act)
+    return _upconv_forward(x, w, torch.ones_like(b), b, act)

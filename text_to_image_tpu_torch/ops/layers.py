@@ -1,12 +1,15 @@
-"""Functional layers of the GAN-CLS generator and discriminator
-(counterpart of ``text_to_image_tpu/ops/layers.py``).
+"""Functional layers of the GAN-CLS and StackGAN generators and the
+discriminator (counterpart of ``text_to_image_tpu/ops/layers.py``).
 
 Parameters are plain dicts of tensors in the JAX package's layouts: linear
 ``w`` is ``[in, out]``, conv weights are HWIO, activations NHWC.  Every
 ``*_init`` draws on the CPU from an integer key; callers move the tree to
 the device.  The up-block transposed convolution, the down-block strided
 convolution and the BN epilogue go through the hand-written kernels in
-``ops/kernels``.
+``ops/kernels`` (StackGAN's upsample + 3×3 up-block calls
+`ops.kernels.conv.upconv3x3_bias` from ``models/stackgan.py``).  The
+convolutions that the JAX package leaves to ``lax.conv_general_dilated``
+outside any kernel (3×3 stride 1, 4×4 stride 2) go to ``F.conv2d``.
 
 Mixed precision: parameters live in f32; a `Policy` casts inputs to the
 compute dtype and each layer casts its weights to the input's dtype on each
@@ -23,9 +26,12 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from text_to_image_tpu_torch.ops import initializers as init
-from text_to_image_tpu_torch.ops.kernels.conv import conv5x5_s2_act, deconv5x5_s2
+from text_to_image_tpu_torch.ops.kernels.conv import (  # noqa: F401
+    conv5x5_s2_act, deconv5x5_s2,
+    upsample_nearest)  # re-exported: the JAX package's `L.upsample_nearest`
 from text_to_image_tpu_torch.ops.kernels.fused import apply_act, bn_act
 
 Params = Dict[str, torch.Tensor]
@@ -82,15 +88,26 @@ def conv2d_init(key: int, k: int, in_c: int, out_c: int,
             "b": init.zeros((out_c,))}
 
 
+def _same_pads(n: int, k: int, stride: int):
+    """TF SAME over n pixels: (before, after); the odd pixel goes after."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
 def conv2d(p: Params, x: torch.Tensor, stride: int = 2,
            padding: str = "SAME", act: str = "none") -> torch.Tensor:
-    """``act(conv(x, w) + b)`` for the discriminator's three convolutions:
+    """``act(conv(x, w) + b)`` over NHWC x with HWIO w, TF SAME or VALID:
 
-    * 5×5 stride 2 SAME (the down-blocks): the `conv5x5_s2_act` kernel,
+    * 5×5 stride 2 SAME (the D down-blocks): the `conv5x5_s2_act` kernel,
       bias and activation fused;
     * 1×1 stride 1 (the text join's plain version): one matmul;
     * k×k VALID over a k×k map (the logit): a ``[B, k·k·C] @ [k·k·C, Co]``
-      matmul.
+      matmul;
+    * anything else (StackGAN's 3×3 stride 1 and 4×4 stride 2, which the
+      JAX package computes outside any kernel too): ``F.conv2d`` over the
+      SAME-padded input (4×4 stride 2 pads (1, 1) on an even map, (1, 2)
+      on an odd one).
     """
     k = p["w"].shape[0]
     w = p["w"].to(x.dtype)
@@ -101,10 +118,16 @@ def conv2d(p: Params, x: torch.Tensor, stride: int = 2,
     elif padding == "VALID" and tuple(x.shape[1:3]) == (k, k):
         y = (x.reshape(x.shape[0], -1) @ w.reshape(-1, w.shape[-1])
              + p["b"].to(x.dtype)).reshape(x.shape[0], 1, 1, -1)
+    elif padding in ("SAME", "VALID"):
+        xn = x.permute(0, 3, 1, 2)
+        if padding == "SAME":
+            (pt, pb), (pl, pr) = (_same_pads(n, k, stride)
+                                  for n in x.shape[1:3])
+            xn = F.pad(xn, (pl, pr, pt, pb))
+        y = F.conv2d(xn, w.permute(3, 2, 0, 1), p["b"].to(x.dtype),
+                     stride=stride).permute(0, 2, 3, 1).contiguous()
     else:
-        raise ValueError(f"conv2d takes 5×5 stride-2 SAME, 1×1, or k×k VALID "
-                         f"over a k×k map; got k={k}, stride={stride}, "
-                         f"{padding}, x {tuple(x.shape)}")
+        raise ValueError(f"padding {padding!r} not in SAME/VALID")
     return apply_act(y, act)
 
 

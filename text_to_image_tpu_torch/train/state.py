@@ -1,6 +1,8 @@
 """Train state (counterpart of ``text_to_image_tpu/train/state.py``): both
 networks, their BN state, both optimizers, the step counter and ``aux``
-(``ema_g_params`` when the generator EMA is on), under the JAX field names.
+(``ema_g_params`` when the generator EMA is on; for StackGAN Stage-II the
+frozen Stage-I generator as ``stage1_g_params`` / ``stage1_g_state``), under
+the JAX field names.
 
 Parameters are f32 leaf tensors that require grad; the optimizers update
 them in place.  BN state tensors carry no autograd history.

@@ -1,10 +1,12 @@
-"""The GAN-CLS training tick (counterpart of
+"""The training tick of GAN-CLS and StackGAN (counterpart of
 ``text_to_image_tpu/train/steps.py``):
 
 1. ``n_critic`` matching-aware D updates, each on its own data slice, over
    the real, fake and wrong streams (three streams in one D pass, each with
    its own BN statistics);
-2. ``g_steps`` G updates on the last slice, all with one z;
+2. ``g_steps`` G updates on the last slice, all with one z (StackGAN adds
+   ``coeff.kl``·KL of its conditioning augmentation to the G loss, metric
+   ``kl``);
 3. Adam (β1 0.5, β2 0.9) with the staircase LR decay on each net;
 4. the optional generator EMA with the fade-aware ramp.
 
@@ -15,10 +17,13 @@ hand-written kernel (``ops/kernels``).
 Semantics kept from the JAX step: the D step's generator runs train-mode
 BN without gradient and its new G state is thrown away; the G step's D
 call is one stream in train mode and its new D state is thrown away; only
-the G steps update the G state.  The noise of step ``s`` comes from keys
+the G steps update the G state.  Stage-II's frozen Stage-I generator
+rides in ``aux`` (``stage1_g_params`` / ``stage1_g_state``): no gradient
+reaches it, and it is in neither optimizer nor the EMA.  The noise of step
+``s`` (z, and StackGAN's conditioning-augmentation ε) comes from keys
 ``fold_in(fold_in(seed, s), 0 | 1)``, drawn on the CPU and moved to the
 device, so a tick gives the same numbers on every device; a caller may pass
-its own z instead (``noise=``), as the tests do with the JAX step's draws.
+its own instead (``noise=``), as the tests do with the JAX step's draws.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import torch
 
 from text_to_image_tpu_torch.config import Config
 from text_to_image_tpu_torch.models import losses as LL
-from text_to_image_tpu_torch.models.registry import get_model
+from text_to_image_tpu_torch.models import stackgan
+from text_to_image_tpu_torch.models.registry import get_model, tree_to
 from text_to_image_tpu_torch.ops import layers as L
 from text_to_image_tpu_torch.train import optim
 from text_to_image_tpu_torch.train.optim import flatten
@@ -53,14 +59,31 @@ def _clone(tree: Dict) -> Dict:
             for k, v in tree.items()}
 
 
+def stage1_aux(cfg: Config, key: int, device="cuda",
+               stage1: Optional[Tuple[Dict, Dict]] = None) -> Dict:
+    """The ``aux`` entries of Stage-II's frozen Stage-I generator:
+    `stage1` (params, state), for example from `convert.load_npz`, or one
+    drawn from `key` at image_size/4 when None, so that dry runs need no
+    earlier training run (the JAX package does the same)."""
+    if stage1 is None:
+        stage1 = stackgan.stage1_generator_init(
+            prng.fold_in(key, 2), cfg.gan, cfg.data.image_size // 4)
+    params, state = (_detached(tree_to(t, device)) for t in stage1)
+    return {"stage1_g_params": params, "stage1_g_state": state}
+
+
 def init_train_state(key: int, cfg: Config, steps_per_epoch: int = 1000,
-                     device="cuda") -> TrainState:
+                     device="cuda",
+                     stage1: Optional[Tuple[Dict, Dict]] = None) -> TrainState:
     """Both networks drawn from `key` (f32, on `device`), fresh Adam states
     with the G decay period ``lr_decay_epoch·steps_per_epoch·g_steps`` and
-    the D period ``…·n_critic``, step 0, and ``aux['ema_g_params']`` (a copy
-    of G) when ``train.ema_decay > 0``."""
-    gp, gs, dp, ds = get_model(cfg).init(key, device)
-    return make_train_state(cfg, steps_per_epoch, gp, gs, dp, ds)
+    the D period ``…·n_critic``, step 0, ``aux['ema_g_params']`` (a copy
+    of G) when ``train.ema_decay > 0`` and, for ``stackgan_stage2``, the
+    frozen Stage-I generator beside it (`stage1_aux`)."""
+    bundle = get_model(cfg)
+    gp, gs, dp, ds = bundle.init(key, device)
+    aux = stage1_aux(cfg, key, device, stage1) if bundle.needs_stage1 else {}
+    return make_train_state(cfg, steps_per_epoch, gp, gs, dp, ds, aux=aux)
 
 
 def make_train_state(cfg: Config, steps_per_epoch: int, g_params: Dict,
@@ -84,20 +107,28 @@ def make_train_state(cfg: Config, steps_per_epoch: int, g_params: Dict,
 
 
 def draw_noise(cfg: Config, step: int, batch: int) -> Dict[str, torch.Tensor]:
-    """The tick's z on the CPU: ``d`` [n_critic, B, z] (one per D update),
-    ``g`` [B, z] (shared by the G updates) and, with GAN-INT, ``g2`` [B, z]
-    for the interpolated-caption term."""
+    """The tick's noise on the CPU: z as ``d`` [n_critic, B, z] (one per D
+    update), ``g`` [B, z] (shared by the G updates) and, with GAN-INT,
+    ``g2`` [B, z] for the interpolated-caption term; for a model with
+    conditioning augmentation also its ε under ``d_eps`` [n_critic, …],
+    ``g_eps`` and ``g2_eps``, each of the bundle's ``eps_shape(B)``."""
     key = prng.fold_in(cfg.seed, step)
     dkey, gkey = prng.fold_in(key, 0), prng.fold_in(key, 1)
+    eps_shape = get_model(cfg).eps_shape(batch)
 
-    def normal(k):
-        return torch.randn(batch, cfg.gan.z_dim, generator=prng.generator(k))
+    def normal(k, shape=(batch, cfg.gan.z_dim)):
+        return torch.randn(*shape, generator=prng.generator(k))
 
-    noise = {"d": torch.stack([normal(prng.fold_in(dkey, k))
-                               for k in range(cfg.train.n_critic)]),
-             "g": normal(gkey)}
+    d_keys = [prng.fold_in(dkey, k) for k in range(cfg.train.n_critic)]
+    noise = {"d": torch.stack([normal(k) for k in d_keys]), "g": normal(gkey)}
     if cfg.train.use_interpolation:
         noise["g2"] = normal(prng.fold_in(gkey, 1))
+    if eps_shape is not None:
+        noise["d_eps"] = torch.stack([normal(prng.fold_in(k, 2), eps_shape)
+                                      for k in d_keys])
+        noise["g_eps"] = normal(prng.fold_in(gkey, 2), eps_shape)
+        if cfg.train.use_interpolation:
+            noise["g2_eps"] = normal(prng.fold_in(gkey, 3), eps_shape)
     return noise
 
 
@@ -109,10 +140,10 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda"):
     `draw_noise`'s dict, drawn from (seed, step) when None.  `ts` is updated
     in place and returned; metrics are 0-dim device tensors."""
     bundle = get_model(cfg)
-    if bundle.is_wgan or bundle.has_ca:
+    if bundle.is_wgan:
         raise NotImplementedError(
-            "only the GAN-CLS tick is ported: ROADMAP.md, 'Modules to port' "
-            "items 5-6")
+            "the WGAN-GP critic tick is not ported yet: ROADMAP.md, "
+            "'Modules to port' item 5 (WGAN-CLS)")
     policy = L.Policy.from_str(cfg.dtype)
     tcfg = cfg.train
     co = tcfg.coeff
@@ -123,35 +154,38 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda"):
             x = x.float() / 127.5 - 1.0
         return policy.cast(x)
 
-    def d_step(ts: TrainState, real, wrong, emb, z) -> Dict:
+    def d_step(ts: TrainState, real, wrong, emb, z, eps) -> Dict:
         with torch.no_grad():
-            fake, _ = bundle.gen_apply(ts.g_params, ts.g_state, z, emb, True,
-                                       policy)
+            fake, _, _ = bundle.gen_apply(ts.g_params, ts.g_state, ts.aux, z,
+                                          emb, eps, True, policy)
         xs = torch.stack([real, policy.cast(fake), wrong])
         logits, new_state = bundle.disc_streams(
-            ts.d_params, ts.d_state, xs, emb.expand(3, *emb.shape), True,
-            policy)
+            ts.d_params, ts.d_state, ts.aux, xs, emb.expand(3, *emb.shape),
+            True, policy)
         ld = LL.gan_cls_d_loss(logits[0], logits[1], logits[2],
                                co.real_label_smooth)
         ts.d_opt.update(torch.autograd.grad(ld["d_loss"], ts.d_opt.leaves))
         ts.d_state = _detached(new_state)
         return ld
 
-    def g_step(ts: TrainState, emb, z, z2) -> Dict:
+    def g_step(ts: TrainState, emb, z, eps, z2, eps2) -> Dict:
         d_params = _detached(ts.d_params)
-        fake, new_state = bundle.gen_apply(ts.g_params, ts.g_state, z, emb,
-                                           True, policy)
-        fake_logit, _ = bundle.disc_apply(d_params, ts.d_state, fake, emb,
-                                          True, policy)
+        fake, new_state, gen_aux = bundle.gen_apply(
+            ts.g_params, ts.g_state, ts.aux, z, emb, eps, True, policy)
+        fake_logit, _ = bundle.disc_apply(d_params, ts.d_state, ts.aux, fake,
+                                          emb, True, policy)
         interp_logit = None
         if tcfg.use_interpolation:
             emb_int = LL.interpolate_embeddings(emb, co.interp_beta)
-            fake_int, _ = bundle.gen_apply(ts.g_params, ts.g_state, z2,
-                                           emb_int, True, policy)
-            interp_logit, _ = bundle.disc_apply(d_params, ts.d_state,
+            fake_int, _, _ = bundle.gen_apply(ts.g_params, ts.g_state, ts.aux,
+                                              z2, emb_int, eps2, True, policy)
+            interp_logit, _ = bundle.disc_apply(d_params, ts.d_state, ts.aux,
                                                 fake_int, emb_int, True,
                                                 policy)
         lg = LL.gan_cls_g_loss(fake_logit, interp_logit, co.interp_weight)
+        if bundle.has_ca:
+            kl = LL.ca_kl_loss(gen_aux["mu"], gen_aux["logvar"])
+            lg = {**lg, "kl": kl, "g_loss": lg["g_loss"] + co.kl * kl}
         ts.g_opt.update(torch.autograd.grad(lg["g_loss"], ts.g_opt.leaves))
         ts.g_state = _detached(new_state)
         return lg
@@ -172,16 +206,20 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda"):
         embs = torch.as_tensor(batch["emb"]).to(device, non_blocking=True)
         if noise is None:
             noise = draw_noise(cfg, ts.step, embs.shape[1])
-        zs = torch.as_tensor(noise["d"]).to(device, non_blocking=True)
-        zg = torch.as_tensor(noise["g"]).to(device, non_blocking=True)
+
+        def on_device(name):
+            if name not in noise:      # no GAN-INT term / no CA in this model
+                return None
+            return torch.as_tensor(noise[name]).to(device, non_blocking=True)
+
+        zs, eps_d = on_device("d"), on_device("d_eps")
         for k in range(tcfg.n_critic):
             d_metrics = d_step(ts, images(batch["real"][k]),
-                               images(batch["wrong"][k]), embs[k], zs[k])
-        z2 = None
-        if tcfg.use_interpolation:
-            z2 = torch.as_tensor(noise["g2"]).to(device, non_blocking=True)
+                               images(batch["wrong"][k]), embs[k], zs[k],
+                               None if eps_d is None else eps_d[k])
+        g_noise = [on_device(k) for k in ("g", "g_eps", "g2", "g2_eps")]
         for _ in range(tcfg.g_steps):
-            g_metrics = g_step(ts, embs[-1], zg, z2)
+            g_metrics = g_step(ts, embs[-1], *g_noise)
         if tcfg.ema_decay > 0:
             ema(ts)
         ts.step += 1

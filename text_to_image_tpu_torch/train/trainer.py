@@ -7,7 +7,9 @@ with ``images_per_sec``.
 Checkpoints, sample grids, the real datasets and the device-resident data
 tier are ROADMAP.md 'Modules to port' item 3.  A run that would need one
 of them raises `NotImplementedError` before its first step; none is
-skipped silently.
+skipped silently.  ``stackgan_stage2`` takes its frozen Stage-I generator
+from the ``.npz`` that ``cfg.stage1_checkpoint`` names, or draws it from the
+seed when that is empty; a checkpoint directory there raises as well.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from text_to_image_tpu_torch.config import Config
+from text_to_image_tpu_torch.convert import load_stage1_generator
 from text_to_image_tpu_torch.data import get_dataset
 from text_to_image_tpu_torch.train.steps import (init_train_state,
                                                  make_train_step)
@@ -55,7 +58,10 @@ class Trainer:
         self.dataset = get_dataset(cfg)
         self.steps_per_epoch = max(
             1, self.dataset.num_examples // cfg.train.batch_size)
-        self.ts = init_train_state(cfg.seed, cfg, self.steps_per_epoch, device)
+        stage1 = (load_stage1_generator(cfg.stage1_checkpoint, device)
+                  if cfg.model == "stackgan_stage2" else None)
+        self.ts = init_train_state(cfg.seed, cfg, self.steps_per_epoch, device,
+                                   stage1=stage1)
         self.step_fn = make_train_step(cfg, self.steps_per_epoch, device)
         self.meter = ThroughputMeter(cfg.train.batch_size * cfg.train.n_critic)
         self.history: list = []
