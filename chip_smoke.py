@@ -11,7 +11,11 @@
    it (bf16 and f32, batch 64 and the discriminator's 3 × 64 streams;
    ``bn_act`` up to the 64×256²×64 input of Stage-II's last up-block, the
    256 px discriminator's six convs at both batches) and at odd shapes that
-   reach every code path, and each backward
+   reach every code path (for ``conv5x5_s2_act`` the path each call takes is
+   read back from the C entry point and held against the Python mirror of
+   the rule; every wgmma tile with every split of K, a split's output bit
+   for bit between two runs; for ``conditioning_join`` both paths), and
+   each backward
    (autograd.Function) against torch.autograd through the plain version, in
    f32 with TF32 off;
 3. drives the sampling path at the flagship widths (gf 128, z 100,
@@ -36,7 +40,8 @@
    Stage-II tick at batch 4 on the card against the CPU;
 5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
-   kernel's bound, times the backward passes, sampling in images/s and the
+   kernel's bound, prints the path, tile and split of each conv and join
+   call with its TFLOP/s and GB/s, times the backward passes, sampling in images/s and the
    training ticks (GAN-CLS, Stage-I, Stage-II) in ms and images/s with
    their peak memory, and profiles where a forward's and a tick's device
    time goes (torch.profiler; GAN-CLS and Stage-II).
@@ -138,6 +143,30 @@ ODD_CONV_SHAPES = [((2, 5, 7, 12), 20, "tanh"), ((3, 9, 6, 6), 10, "relu"),
 ODD_JOIN_SHAPES = [((5, 3, 3, 12), 7, 20, "lrelu"),
                    ((4, 4, 4, 16), 8, 24, "tanh"),
                    ((3, 2, 2, 8), 16, 8, "relu")]
+# shapes that reach the conv's two tensor-core paths off the main path:
+# wgmma (bf16, Cin and Co multiples of 64) on odd, non-square maps, B = 1, M
+# not a multiple of any tile, Co = 192 (64-wide tiles only) and Co = 256
+# (every tile); down0 on the tensor cores (bf16, Cin <= 4, Co = 64) on odd
+# maps and with Cin = 1, 2, 4; and shapes that just miss them (Co or Cin a
+# multiple of 8 but not of 64: the pipelined tile; Cin <= 4 with another Co:
+# the direct kernel).  In f32 all of them take the simple tile or the direct
+# kernel.
+WGMMA_ODD_SHAPES = [((1, 9, 7, 64), 64, "lrelu"), ((3, 10, 6, 128), 192, "none"),
+                    ((3, 11, 9, 64), 256, "tanh")]
+DOWN0_ODD_SHAPES = [((2, 9, 7, 3), 64, "lrelu"), ((2, 8, 8, 4), 64, "relu"),
+                    ((3, 33, 17, 1), 64, "none"), ((2, 20, 40, 2), 64, "tanh")]
+NEAR_MISS_CONV_SHAPES = [((2, 8, 8, 64), 72, "lrelu"), ((2, 8, 8, 72), 64, "none"),
+                         ((2, 6, 6, 3), 32, "lrelu"), ((2, 9, 9, 5), 64, "none")]
+# the path each list takes in bf16 (in f32: "direct" for Cin <= 4, else
+# "tile")
+CONV_PATH_BF16 = {"wgmma": WGMMA_ODD_SHAPES, "down0_mma": DOWN0_ODD_SHAPES}
+NEAR_MISS_PATHS_BF16 = ["pipelined", "pipelined", "direct", "tile"]
+# the join's wgmma path (bf16; Cx, E, Co multiples of 64) with H·W not a
+# power of two, rows not a multiple of the tile, Co = 192; and one that just
+# misses it (Co = 72: the simple tile)
+WGMMA_JOIN_SHAPES = [((5, 3, 3, 64), 64, 64, "lrelu"),
+                     ((2, 4, 4, 128), 64, 192, "tanh")]
+NEAR_MISS_JOIN_SHAPES = [((2, 4, 4, 64), 64, 72, "none")]
 # f32 conv: K = 25·Cin up to 12800 terms (the 256 px D's last two blocks)
 # summed in another order than the plain version's 25 matmuls
 CONV_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (2e-4, 1e-4)}
@@ -332,58 +361,133 @@ def phase_kernels(device):
     return errs
 
 
+def expected_conv_path(cin, co, dtype):
+    """The path the port is meant to take for a contiguous torch tensor."""
+    if dtype != torch.bfloat16:
+        return "direct" if cin <= 4 else "tile"
+    if cin <= 4:
+        return "down0_mma" if co == 64 else "direct"
+    if cin % 64 == 0 and co % 64 == 0:
+        return "wgmma"
+    return "pipelined" if cin % 8 == 0 and co % 8 == 0 else "tile"
+
+
+def conv_vs_plain(conv, x, w, bias, act, dtype, what, want_path=None):
+    """One conv5x5_s2_act call against its plain version; checks the path
+    that the C entry point reports against the Python mirror of the rule
+    (and against `want_path`) and returns (max |err|, path, plan)."""
+    got = conv.conv5x5_s2_act(x, w, bias, act)
+    ref = conv.conv5x5_s2_act_plain(x, w, bias, act)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape, f"conv shape {got.shape}")
+    cin, co = x.shape[-1], w.shape[-1]
+    path = conv.conv_path_on_card(x, w, got)
+    mirror = conv.conv_path(cin, co, dtype)
+    want = want_path or expected_conv_path(cin, co, dtype)
+    check(path == mirror == want, f"{what}: path {path}, mirror {mirror}, "
+                                  f"expected {want}")
+    plan = (conv.conv_plan(got.numel() // co, co, 25 * cin)
+            if path == "wgmma" else None)
+    tag = f"{path} {plan[0]}x{plan[1]} split {plan[2]}" if plan else path
+    err = compare(got, ref, *CONV_TOL[dtype], f"{what} [{tag}]")
+    if plan and plan[2] > 1:
+        again = conv.conv5x5_s2_act(x, w, bias, act)
+        check(torch.equal(got, again), f"{what}: split-K output differs "
+                                       f"between two runs")
+    return err, path, plan
+
+
 def phase_train_kernels(device):
     """conv5x5_s2_act and conditioning_join against their plain versions at
-    the D's shapes (batch 3·64 and 64) and at odd shapes, bf16 and f32."""
+    the D's shapes (batch 3·64 and 64) and at odd shapes, bf16 and f32, with
+    the code path each call takes; every wgmma plan (tile × split of K) at
+    the odd shapes, split-K outputs bit-identical between two runs."""
     from text_to_image_tpu_torch.ops.kernels import conv, fused
     gen = torch.Generator().manual_seed(SEED + 2)
     errs = {"conv5x5_s2_act": {}, "conditioning_join": {}}
+    paths = {}
+
+    def join_vs_plain(shape, e, co, act, dtype, want, note=""):
+        args = join_inputs(shape, e, co, dtype, device, gen)
+        got = fused.conditioning_join(*args, act)
+        ref = fused.conditioning_join_plain(*args, act)
+        torch.cuda.synchronize()
+        path = fused.join_path_on_card(*args[:4], got)
+        mirror = fused.join_path(shape[-1], e, co, dtype)
+        check(path == mirror == want, f"join {shape}: path {path}, mirror "
+                                      f"{mirror}, expected {want}")
+        return compare(got, ref, *CONV_TOL[dtype],
+                       f"conditioning_join {str(dtype)[6:]} {shape} e{e}->{co} "
+                       f"{act}{note} [{path}]")
+
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype)[6:]
+        bf16 = dtype == torch.bfloat16
         for b in (D_BATCH, BATCH):
             for shape, co, act in conv_shapes(b):
                 x, w, bias = conv_inputs(shape, co, dtype, device, gen)
-                got = conv.conv5x5_s2_act(x, w, bias, act)
-                ref = conv.conv5x5_s2_act_plain(x, w, bias, act)
-                torch.cuda.synchronize()
-                check(got.shape == ref.shape, f"conv shape {got.shape}")
-                errs["conv5x5_s2_act"][(dtype, shape)] = compare(
-                    got, ref, *CONV_TOL[dtype],
+                err, path, plan = conv_vs_plain(
+                    conv, x, w, bias, act, dtype,
                     f"conv5x5_s2_act {dt} {shape}->{co} {act}")
+                errs["conv5x5_s2_act"][(dtype, shape)] = err
+                paths[f"{dt} {list(shape)}->{co}"] = [path, plan]
             shape, e, co = join_shape(b)
-            args = join_inputs(shape, e, co, dtype, device, gen)
-            got = fused.conditioning_join(*args, "none")
-            ref = fused.conditioning_join_plain(*args, "none")
-            torch.cuda.synchronize()
-            errs["conditioning_join"][(dtype, shape)] = compare(
-                got, ref, *CONV_TOL[dtype],
-                f"conditioning_join {dt} {shape} e{e}->{co}")
+            errs["conditioning_join"][(dtype, shape)] = join_vs_plain(
+                shape, e, co, "none", dtype, "wgmma" if bf16 else "simple")
         # the 256 px D's six calls: the D step's three streams, the G
         # step's one
         for b in (D_BATCH, BATCH):
             for shape, co, act in conv_shapes_256(b):
                 x, w, bias = conv_inputs(shape, co, dtype, device, gen)
-                got = conv.conv5x5_s2_act(x, w, bias, act)
-                torch.cuda.synchronize()
-                errs["conv5x5_s2_act"][(dtype, shape)] = compare(
-                    got, conv.conv5x5_s2_act_plain(x, w, bias, act),
-                    *CONV_TOL[dtype],
+                err, path, plan = conv_vs_plain(
+                    conv, x, w, bias, act, dtype,
                     f"conv5x5_s2_act {dt} {shape}->{co} {act} (256 px D)")
-                del x, got
+                errs["conv5x5_s2_act"][(dtype, shape)] = err
+                paths[f"{dt} {list(shape)}->{co}"] = [path, plan]
+                del x
             torch.cuda.empty_cache()
-        for shape, co, act in ODD_CONV_SHAPES:
+        odd = [(s, None) for s in ODD_CONV_SHAPES]
+        for want, shapes in CONV_PATH_BF16.items():
+            odd += [(s, want if bf16 else None) for s in shapes]
+        odd += [(s, want if bf16 else None) for s, want in
+                zip(NEAR_MISS_CONV_SHAPES, NEAR_MISS_PATHS_BF16)]
+        for (shape, co, act), want in odd:
             x, w, bias = conv_inputs(shape, co, dtype, device, gen)
-            compare(conv.conv5x5_s2_act(x, w, bias, act),
-                    conv.conv5x5_s2_act_plain(x, w, bias, act),
-                    *CONV_TOL[dtype],
-                    f"conv5x5_s2_act {dt} {shape}->{co} {act} (odd)")
-        for shape, e, co, act in ODD_JOIN_SHAPES:
-            args = join_inputs(shape, e, co, dtype, device, gen)
-            compare(fused.conditioning_join(*args, act),
-                    fused.conditioning_join_plain(*args, act),
-                    *CONV_TOL[dtype],
-                    f"conditioning_join {dt} {shape} e{e}->{co} {act} (odd)")
-    return errs
+            conv_vs_plain(conv, x, w, bias, act, dtype,
+                          f"conv5x5_s2_act {dt} {shape}->{co} {act} (odd)",
+                          want)
+        for shape, e, co, act in ODD_JOIN_SHAPES + NEAR_MISS_JOIN_SHAPES:
+            join_vs_plain(shape, e, co, act, dtype, "simple", " (odd)")
+        for shape, e, co, act in WGMMA_JOIN_SHAPES:
+            join_vs_plain(shape, e, co, act, dtype,
+                          "wgmma" if bf16 else "simple", " (odd)")
+    # every plan the wgmma path can be given, at the odd shapes: each tile
+    # that divides Co with each split of K; a split's output twice
+    dtype = torch.bfloat16
+    for shape, co, act in WGMMA_ODD_SHAPES:
+        x, w, bias = conv_inputs(shape, co, dtype, device, gen)
+        ref = conv.conv5x5_s2_act_plain(x, w, bias, act)
+        for tm, tn in conv.CONV_TILES:
+            if co % tn:
+                continue
+            worst, same = 0.0, True
+            for split in conv.CONV_SPLITS:
+                got = conv._conv_forward(x, w, bias, act, plan=(tm, tn, split))
+                again = conv._conv_forward(x, w, bias, act,
+                                           plan=(tm, tn, split))
+                torch.cuda.synchronize()
+                same = same and torch.equal(got, again)
+                err = (got.float() - ref.float()).abs()
+                bad = err > CONV_TOL[dtype][0] + CONV_TOL[dtype][1] * ref.float().abs()
+                check(not bool(bad.any()),
+                      f"wgmma plan {(tm, tn, split)} at {shape}->{co}: "
+                      f"max|err| {float(err.max()):.3e}")
+                worst = max(worst, float(err.max()))
+            log(f"  conv5x5_s2_act bfloat16 {shape}->{co} {act} tile {tm}x{tn}, "
+                f"splits {conv.CONV_SPLITS}: max|err| {worst:.3e}, two runs "
+                f"bit-identical {same}")
+            check(same, f"split-K output differs between two runs at {shape}")
+    return errs, paths
 
 
 def grad_compare(fn, plain, args, grad_idx, gen, what):
@@ -670,17 +774,28 @@ def phase_upconv_timing(device, flush):
     return rows
 
 
+def conv_plan_tag(conv, shape, co, dtype):
+    """(path, plan, text) of a conv5x5_s2_act call: the code path and, on
+    the wgmma path, the tile and the split of K."""
+    b, h, wd, cin = shape
+    path = conv.conv_path(cin, co, dtype)
+    plan = (conv.conv_plan(b * ((h + 1) // 2) * ((wd + 1) // 2), co, 25 * cin)
+            if path == "wgmma" else None)
+    text = f"{path} {plan[0]}x{plan[1]} split {plan[2]}" if plan else path
+    return path, plan, text
+
+
 def phase_conv_256_timing(device, flush):
     """conv5x5_s2_act at the 256 px D's six shapes over the D step's three
-    streams (bf16, batch 3·64): kernel, cuDNN's conv on the pre-padded
-    input, and the bound."""
+    streams and the G step's one (bf16, batch 3·64 and 64): kernel, cuDNN's
+    conv on the pre-padded input, the bound, and the path, tile and split."""
     import torch.nn.functional as F
 
     from text_to_image_tpu_torch.ops.kernels import conv
     gen = torch.Generator().manual_seed(SEED + 9)
     dtype = torch.bfloat16
     rows = []
-    for shape, co, act in conv_shapes_256(D_BATCH):
+    for shape, co, act in conv_shapes_256(D_BATCH) + conv_shapes_256(BATCH):
         x, w, bias = conv_inputs(shape, co, dtype, device, gen)
         y = conv.conv5x5_s2_act(x, w, bias, act)
         b, h, wd, cin = shape
@@ -694,17 +809,22 @@ def phase_conv_256_timing(device, flush):
             out = F.conv2d(xp, w_t, b16, stride=2)
             return F.leaky_relu(out, 0.2) if act == "lrelu" else out
         flops = 2 * 25 * b * (h // 2) * (wd // 2) * cin * co
-        bms, by = bound(nbytes(x, w, bias, y), flops, dtype)
-        r = {"shape": [list(shape), co, act],
+        nb = nbytes(x, w, bias, y)
+        bms, by = bound(nb, flops, dtype)
+        path, plan, tag = conv_plan_tag(conv, shape, co, dtype)
+        r = {"shape": [list(shape), co, act], "batch": b, "path": path,
+             "plan": plan,
              "ms": time_ms(lambda: conv.conv5x5_s2_act(x, w, bias, act), flush,
                            iters=10),
              "library_ms": time_ms(lib, flush, iters=10),
              "bound_ms": bms, "bound_by": by}
         r["tflops"] = flops / r["ms"] / 1e9
+        r["gbytes_per_s"] = nb / r["ms"] / 1e6
         rows.append(r)
-        log(f"  conv5x5_s2_act {shape}->{co} {act}: {r['ms']:.4f} ms (bound "
-            f"{bms:.4f} by {by}, {r['tflops']:.1f} TFLOP/s), cuDNN "
-            f"{r['library_ms']:.4f} ms")
+        log(f"  conv5x5_s2_act {shape}->{co} {act} [{tag}]: {r['ms']:.4f} ms "
+            f"(bound {bms:.4f} by {by}, {r['tflops']:.1f} TFLOP/s, "
+            f"{r['gbytes_per_s']:.0f} GB/s), cuDNN {r['library_ms']:.4f} ms "
+            f"({r['ms'] / r['library_ms']:.2f}x)")
         del x, y, xp
         torch.cuda.empty_cache()
     return rows
@@ -1186,8 +1306,11 @@ def phase_train_timing(device, flush):
                              - conv.conv5x5_s2_act_plain(x, w, bias, act).float()
                              ).abs().max())
             flops = 2 * 25 * b * (h // 2) * (wd // 2) * cin * co
-            bms, by = bound(nbytes(x, w, bias, y), flops, dtype)
-            r = {"shape": [list(shape), co, act], "batch": b,
+            nb = nbytes(x, w, bias, y)
+            bms, by = bound(nb, flops, dtype)
+            path, plan, tag = conv_plan_tag(conv, shape, co, dtype)
+            r = {"shape": [list(shape), co, act], "batch": b, "path": path,
+                 "plan": plan,
                  "ms": time_ms(lambda: conv.conv5x5_s2_act(x, w, bias, act),
                                flush),
                  "plain_ms": time_ms(lambda: conv.conv5x5_s2_act_plain(
@@ -1198,10 +1321,13 @@ def phase_train_timing(device, flush):
                                   (0, 1, 2), flush, gen),
                  "library_max_abs_err_vs_plain": lib_err}
             r["tflops"] = flops / r["ms"] / 1e9
+            r["gbytes_per_s"] = nb / r["ms"] / 1e6
             rows["conv5x5_s2_act"].append(r)
-            log(f"  conv5x5_s2_act {shape}->{co} {act}: {r['ms']:.4f} ms "
-                f"(bound {bms:.4f} by {by}, {r['tflops']:.1f} TFLOP/s), plain "
-                f"{r['plain_ms']:.4f}, cuDNN {r['library_ms']:.4f}, backward "
+            log(f"  conv5x5_s2_act {shape}->{co} {act} [{tag}]: "
+                f"{r['ms']:.4f} ms (bound {bms:.4f} by {by}, "
+                f"{r['tflops']:.1f} TFLOP/s, {r['gbytes_per_s']:.0f} GB/s), "
+                f"plain {r['plain_ms']:.4f}, cuDNN {r['library_ms']:.4f} "
+                f"({r['ms'] / r['library_ms']:.2f}x), backward "
                 f"{r['bwd_ms']:.4f} ms")
         shape, e, co = join_shape(b)
         x, t, wx, wt, bias = join_inputs(shape, e, co, dtype, device, gen)
@@ -1212,8 +1338,10 @@ def phase_train_timing(device, flush):
         wcat = torch.cat([wx, wt])
         b16 = bias.to(dtype)
         flops = 2 * b * 16 * shape[-1] * co + 2 * b * e * co
-        bms, by = bound(nbytes(x, t, wx, wt, bias, y), flops, dtype)
-        r = {"shape": [list(shape), e, co, "none"], "batch": b,
+        nb = nbytes(x, t, wx, wt, bias, y)
+        bms, by = bound(nb, flops, dtype)
+        jpath = fused.join_path(shape[-1], e, co, dtype)
+        r = {"shape": [list(shape), e, co, "none"], "batch": b, "path": jpath,
              "ms": time_ms(lambda: fused.conditioning_join(
                  x, t, wx, wt, bias, "none"), flush),
              "plain_ms": time_ms(lambda: fused.conditioning_join_plain(
@@ -1223,10 +1351,13 @@ def phase_train_timing(device, flush):
              "bwd_ms": bwd_ms(fused.conditioning_join,
                               [x, t, wx, wt, bias, "none"], (0, 1, 2, 3, 4),
                               flush, gen)}
+        r["gbytes_per_s"] = nb / r["ms"] / 1e6
         rows["conditioning_join"].append(r)
-        log(f"  conditioning_join {shape} e{e}->{co}: {r['ms']:.4f} ms (bound "
-            f"{bms:.4f} by {by}), plain {r['plain_ms']:.4f}, addmm "
-            f"{r['library_ms']:.4f}, backward {r['bwd_ms']:.4f} ms")
+        log(f"  conditioning_join {shape} e{e}->{co} [{jpath}, 128x64 tiles, "
+            f"one launch]: {r['ms']:.4f} ms (bound {bms:.4f} by {by}, "
+            f"{r['gbytes_per_s']:.0f} GB/s), plain {r['plain_ms']:.4f}, addmm "
+            f"{r['library_ms']:.4f} ({r['ms'] / r['library_ms']:.2f}x), "
+            f"backward {r['bwd_ms']:.4f} ms")
     bwd = {"deconv5x5_s2": [], "bn_act": []}
     for shape, co, act in DECONV_SHAPES:
         x, w, sc, t = deconv_inputs(shape, co, dtype, device, gen)
@@ -1293,7 +1424,8 @@ def kernel_family(name: str) -> str:
     for keys, fam in (
             (("deconv5x5_s2",), "deconv5x5_s2 (CUDA)"),
             (("namespace)::upconv",), "upconv3x3 (CUDA)"),
-            (("namespace)::conv",), "conv5x5_s2_act (CUDA)"),
+            (("namespace)::conv", "down0_mma_kernel"),
+             "conv5x5_s2_act (CUDA)"),
             (("namespace)::join", "join_text_kernel"),
              "conditioning_join (CUDA)"),
             (("bn_act",), "bn_act (Triton)"),
@@ -1402,7 +1534,8 @@ def main() -> int:
     log("phase 2: kernels vs plain versions at the main-path shapes")
     t0 = time.perf_counter()
     errs = phase_kernels(device)
-    errs.update(phase_train_kernels(device))
+    train_errs, conv_paths = phase_train_kernels(device)
+    errs.update(train_errs)
     errs.update(phase_upconv_kernels(device))
     log(f"  ({time.perf_counter() - t0:.1f} s, Triton compile included)")
 
@@ -1536,7 +1669,8 @@ def main() -> int:
               "training_leaves_changed": moved, "tick_vs_cpu": tick_vs_cpu,
               "tick": tick, "tick_profile": tick_profile,
               "launches_by_path": launches_by_path, "stackgan": stackgan,
-              "conv5x5_s2_act_256px_d": conv_256_rows}
+              "conv5x5_s2_act_256px_d": conv_256_rows,
+              "conv5x5_s2_act_paths": conv_paths}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

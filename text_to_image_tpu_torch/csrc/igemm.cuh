@@ -1,5 +1,8 @@
-// Implicit-GEMM tiles for Hopper (sm_90a), shared by conv5x5_s2.cu,
-// conditioning_join.cu and upconv3x3.cu.
+// Implicit-GEMM tiles for Hopper (sm_90a) on mma.sync and f32 FMA: what
+// upconv3x3.cu launches, and what conv5x5_s2.cu launches for the shapes its
+// wgmma paths do not take (f32, channels that are not multiples of 64).
+// igemm_sm90.cuh holds the wgmma form of the same problem and reuses the
+// problem type, the activations and store_out from here.
 //
 //   Y[r, co] = act(sum_k A[r, k] * Wt[k, co] * mul(co) + add(r, co)),
 //   r < M, co < N
@@ -25,6 +28,11 @@
 // blockIdx.x (`group()`), so that the G blocks that gather the same A rows
 // run together and share them in L2; the problem reads `group()` in its
 // gather, `w_tap` and `y_row`.
+//
+// What bounds these kernels on the card: mma.sync reaches about an eighth of
+// the bf16 tensor-core peak (124-128 TFLOP/s on the 256 px discriminator),
+// and K slices of 32 put a barrier after every 16 products of a warp; that
+// is why the deep bf16 convolutions moved to igemm_sm90.cuh.
 //
 // Two kernels, the same machinery as csrc/deconv5x5_s2.cu:
 //  * tile_kernel<P, BF16>: 128x64 tiles, K slices of 32 staged through

@@ -157,11 +157,11 @@ def _text_join(join_params: Dict, h: torch.Tensor, t: torch.Tensor
                ) -> torch.Tensor:
     """conv1x1(concat(h, tile(t))) through the `conditioning_join` kernel:
     the 1×1 kernel split over the [image; text] channels, concat-free."""
-    w = join_params["w"][0, 0].to(h.dtype)             # [Cx+E, Co]
+    w = join_params["w"][0, 0].to(h.dtype)             # [Cx+E, Co], one cast
     cx = h.shape[-1]
-    return conditioning_join(h, t.to(h.dtype), w[:cx].contiguous(),
-                             w[cx:].contiguous(), join_params["b"].float(),
-                             "none")
+    # row slices of a contiguous matrix are contiguous: no copies
+    return conditioning_join(h, t.to(h.dtype), w[:cx], w[cx:],
+                             join_params["b"].float(), "none")
 
 
 def _discriminator(params: Dict, state: Dict, x: torch.Tensor,

@@ -77,6 +77,23 @@ def library(name: str) -> ctypes.CDLL:
     return build([name])[name]
 
 
+_BOUND: Dict[str, ctypes.CDLL] = {}
+
+
+def bind(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with the argument types of its C
+    functions set (each returns an int), once per process."""
+    lib = _BOUND.get(name)
+    if lib is None:
+        lib = library(name)
+        for symbol, argtypes in signatures.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _BOUND[name] = lib
+    return lib
+
+
 def ptxas_report(name: str) -> str:
     """What ``-Xptxas -v`` printed for this source (registers, spills,
     shared memory per kernel); empty until it is built."""

@@ -11,7 +11,14 @@ and its HBM-staged twin `_deconv_kernel`).  CUDA kernel:
 ``conv5x5_s2_act``: ``y = act(conv_5x5_s2_SAME(x, w) + b)``, TF SAME
 padding (an even map pads 1 before and 2 after).  Replaces
 `conv5x5_s2_act` (Pallas bodies `_conv_kernel_vpad` and its HBM-staged twin
-`_conv_kernel`).  CUDA kernel: ``csrc/conv5x5_s2.cu``.
+`_conv_kernel`).  CUDA kernel: ``csrc/conv5x5_s2.cu``, five code paths
+chosen from shapes, types and alignment (`conv_path` mirrors the rule):
+``wgmma`` for bf16 with Cin and Co multiples of 64 (every deep
+discriminator call; `conv_plan` picks its tile and, for calls with few
+output tiles, a split of K over whole taps that is reduced in a fixed
+order), ``down0_mma`` for the RGB layer (bf16, Cin ≤ 4, Co = 64) on the
+tensor cores, ``pipelined`` / ``tile`` (mma.sync / f32 FMA) for other
+channel counts and f32, ``direct`` for Cin ≤ 4 otherwise.
 
 ``upconv3x3`` / ``upconv3x3_bias``: ``y = act(conv_3x3_SAME(
 upsample2_nearest(x), w)·scale + shift)``, the StackGAN / PGGAN up-block,
@@ -35,6 +42,7 @@ XLA and the port to cuDNN / the CPU conv.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -127,13 +135,13 @@ def deconv5x5_s2_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return apply_act(y * scale.float() + shift.float(), act).to(x.dtype)
 
 
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
 def _deconv_lib() -> ctypes.CDLL:
-    lib = _build.library("deconv5x5_s2")
-    fn = lib.t2i_deconv5x5_s2
     # x, w, scale, shift, y; B, H, W, Cin, Co, act, bf16; stream
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+    return _build.bind("deconv5x5_s2", {
+        "t2i_deconv5x5_s2": [_PTR] * 5 + [_INT] * 7 + [_PTR]})
 
 
 def _check(x, w, scale, shift, act):
@@ -236,12 +244,90 @@ def conv5x5_s2_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _conv_lib() -> ctypes.CDLL:
-    lib = _build.library("conv5x5_s2")
-    fn = lib.t2i_conv5x5_s2
-    # x, w, b, y; B, H, W, Cin, Co, act, bf16; stream
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+    return _build.bind("conv5x5_s2", {
+        # x, w, b, y, ws; B, H, W, Cin, Co, act, bf16, tile, split; stream
+        "t2i_conv5x5_s2": [_PTR] * 5 + [_INT] * 9 + [_PTR],
+        # x, w, y; Cin, Co, bf16
+        "t2i_conv5x5_s2_path": [_PTR] * 3 + [_INT] * 3})
+
+
+# The kernel's code paths in the order of the C entry point's codes
+# (csrc/conv5x5_s2.cu `Path`), chosen from shapes, types and alignment only.
+CONV_PATHS = ("tile", "pipelined", "direct", "wgmma", "down0_mma")
+
+
+def conv_path(cin: int, co: int, dtype: torch.dtype,
+              aligned: bool = True) -> str:
+    """The Python mirror of `conv_path` in csrc/conv5x5_s2.cu.  `aligned`:
+    x, w and y start on 16-byte boundaries (every torch allocation does)."""
+    bf16 = dtype == torch.bfloat16
+    vec = 8 if bf16 else 4
+    vec_a, vec_o = aligned and cin % vec == 0, aligned and co % vec == 0
+    if cin <= 4:
+        return "down0_mma" if bf16 and co == 64 and vec_o else "direct"
+    if bf16 and cin % 64 == 0 and co % 64 == 0 and aligned:
+        return "wgmma"
+    return "pipelined" if bf16 and vec_a and vec_o else "tile"
+
+
+# wgmma tiles in the order of igemm90::TileId; the splits of K a plan may
+# choose (whole taps each); the most a split-K workspace may hold
+CONV_TILES = ((128, 128), (128, 64), (64, 128), (128, 256))
+CONV_SPLITS = (1, 2, 3, 4, 5)
+CONV_WS_CAP = 64 * 2**20
+SM_COUNT = 132          # H100 SXM
+# The plan's cost model, in units of one 128x128x64 slice on one SM
+# (0.28 us at the bf16 peak).  Set from the sweep of
+# text_to_image_tpu_torch/tools/conv_plan_sweep.py on the H100.
+_PLAN_WAVE_OVERHEAD = 24.0     # ring fill and epilogue of one wave of blocks
+# work per product relative to the 128x128 tile: the narrow tiles move more
+# bytes per product through the copy units, the wide one fewer
+_PLAN_TILE_COST = {(128, 128): 1.0, (128, 64): 1.3, (64, 128): 1.2,
+                   (128, 256): 0.95}
+_PLAN_UNIT_S = 0.28e-6
+_PLAN_WS_BYTES_PER_S = 5e12    # workspace written and read again, in L2
+
+
+@functools.lru_cache(maxsize=None)   # a training run repeats a few shapes
+def conv_plan(m: int, n: int, k: int, taps: int = 25):
+    """(tile_m, tile_n, split_k) of the wgmma path for a GEMM of m rows, n
+    columns and depth k = taps·Cin: the cheapest, by a small cost model, of
+    the plans that give at least one block per SM (or, where none does, of
+    those with the most blocks).  The model: two blocks share an SM, so the
+    work of all blocks is spread over the SMs and divided by the share of
+    the 2·132 block slots they fill; the 256-wide tile runs one block per
+    SM in whole waves; each wave adds a fixed cost and a split its reduce
+    pass.  split_k parts of K are whole taps; their f32 partial sums
+    [split, m, n] stay under CONV_WS_CAP."""
+    slices = k // taps // 64
+    cands = []
+    for index, (tm, tn) in enumerate(CONV_TILES):
+        if n % tn:
+            continue
+        tiles = -(-m // tm) * (n // tn)
+        for split in CONV_SPLITS:
+            if split > 1 and split * m * n * 4 > CONV_WS_CAP:
+                continue
+            blocks = tiles * split
+            block_work = (-(-taps // split) * slices * tm * tn / 16384.0
+                          * _PLAN_TILE_COST[tm, tn])
+            if tn == 256:
+                waves = -(-blocks // SM_COUNT)
+                cost = waves * block_work
+            else:
+                waves = -(-blocks // (2 * SM_COUNT))
+                cost = (blocks * block_work / SM_COUNT
+                        / min(1.0, blocks / (2 * SM_COUNT)))
+            cost += waves * _PLAN_WAVE_OVERHEAD
+            if split > 1:
+                cost += (split + 1) * m * n * 4 / (
+                    _PLAN_WS_BYTES_PER_S * _PLAN_UNIT_S)
+            # ties go to the earlier tile and the smaller split
+            cands.append((min(blocks, SM_COUNT), -cost, -index, -split))
+    if not cands:
+        raise ValueError(f"no wgmma tile divides n = {n}")
+    _, _, index, split = max(cands)
+    return (*CONV_TILES[-index], -split)
 
 
 def _conv_check(x, w, b, act):
@@ -250,7 +336,13 @@ def _conv_check(x, w, b, act):
     _check_common(x, w, (("b", b),), act, rows=rows)
 
 
-def _conv_forward(x, w, b, act):
+def _aligned16(*ts):
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _conv_forward(x, w, b, act, plan=None):
+    """`plan` forces (tile_m, tile_n, split_k) on the wgmma path (the sweep
+    and the smoke run hold every plan with it); None asks `conv_plan`."""
     if x.device.type == "cpu":
         return conv5x5_s2_act_plain(x, w, b, act)
     if x.device.type != "cuda":
@@ -260,13 +352,33 @@ def _conv_forward(x, w, b, act):
     co = w.shape[-1]
     y = torch.empty(bsz, same_pads(h)[0], same_pads(wd)[0], co, dtype=x.dtype,
                     device=x.device)
+    tile, split, ws = 0, 1, None
+    if conv_path(cin, co, x.dtype, _aligned16(x, w, y)) == "wgmma":
+        rows = y.numel() // co
+        tm, tn, split = plan or conv_plan(rows, co, 25 * cin)
+        tile = CONV_TILES.index((tm, tn))
+        if split > 1:
+            if split * rows * co * 4 > CONV_WS_CAP:
+                raise ValueError(f"split-K workspace {split}x{rows}x{co} f32 "
+                                 f"over {CONV_WS_CAP} bytes")
+            ws = torch.empty(split * rows * co, dtype=torch.float32,
+                             device=x.device)
     rc = _conv_lib().t2i_conv5x5_s2(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h, wd,
-        cin, co, ACT_CODES[act], int(x.dtype == torch.bfloat16), _stream(x))
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+        ws.data_ptr() if ws is not None else None, bsz, h, wd, cin, co,
+        ACT_CODES[act], int(x.dtype == torch.bfloat16), tile, split,
+        _stream(x))
     if rc != 0:
         raise RuntimeError(f"conv5x5_s2 kernel launch failed: CUDA error {rc}")
     conv5x5_s2_act.launches += 1
     return y
+
+
+def conv_path_on_card(x, w, y) -> str:
+    """The path the C entry point itself reports for these tensors."""
+    return CONV_PATHS[_conv_lib().t2i_conv5x5_s2_path(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), x.shape[-1], w.shape[-1],
+        int(x.dtype == torch.bfloat16))]
 
 
 class _Conv(torch.autograd.Function):
@@ -373,12 +485,9 @@ def upconv3x3_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 def _upconv_lib() -> ctypes.CDLL:
-    lib = _build.library("upconv3x3")
-    fn = lib.t2i_upconv3x3
     # x, wc, scale, shift, y; B, H, W, Cin, Co, act, bf16; stream
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+    return _build.bind("upconv3x3", {
+        "t2i_upconv3x3": [_PTR] * 5 + [_INT] * 7 + [_PTR]})
 
 
 def _upconv_check(x, w, scale, shift, act):

@@ -16,7 +16,10 @@ only when the kernel is first launched.
 ``conditioning_join(x, t, wx, wt, bias, act) = act(x·wx + t·wt + bias)``:
 the discriminator's ``conv1x1(concat(x, tile(t)))`` without the concat.
 Replaces `conditioning_join` (Pallas body `_join_kernel` via `_join_core`);
-the CUDA kernel and its bound are in ``csrc/conditioning_join.cu``.
+the CUDA kernel and its bound are in ``csrc/conditioning_join.cu``: one
+launch that folds the text term into the GEMM's K, rows ``[x ; t]`` against
+``[wx ; wt]`` (`join_path`: the convolution's wgmma main loop with two taps
+for aligned bf16, a simple f32-FMA tile otherwise).
 
 Both are differentiable (`torch.autograd.Function`).  Their backwards are
 the JAX package's `_bn_act_bwd` and `_join_bwd` in plain torch: the
@@ -194,12 +197,33 @@ def conditioning_join_plain(x: torch.Tensor, t: torch.Tensor,
 
 
 def _join_lib() -> ctypes.CDLL:
-    lib = _build.library("conditioning_join")
-    fn = lib.t2i_conditioning_join
-    # x, t, wx, wt, bias, u (scratch), y; B, HW, Cx, E, Co, act, bf16; stream
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+    ptr, integer = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("conditioning_join", {
+        # x, t, wx, wt, bias, y; B, HW, Cx, E, Co, act, bf16; stream
+        "t2i_conditioning_join": [ptr] * 6 + [integer] * 7 + [ptr],
+        # x, t, wx, wt, y; Cx, E, Co, bf16
+        "t2i_conditioning_join_path": [ptr] * 5 + [integer] * 4})
+
+
+# The kernel's code paths in the order of the C entry point's codes
+# (csrc/conditioning_join.cu `Path`); both make one launch.
+JOIN_PATHS = ("simple", "wgmma")
+
+
+def join_path(cx: int, e: int, co: int, dtype: torch.dtype,
+              aligned: bool = True) -> str:
+    """The Python mirror of `join_path` in csrc/conditioning_join.cu."""
+    ok = (dtype == torch.bfloat16 and aligned and cx > 0 and e > 0
+          and cx % 64 == 0 and e % 64 == 0 and co % 64 == 0)
+    return "wgmma" if ok else "simple"
+
+
+def join_path_on_card(x, t, wx, wt, y) -> str:
+    """The path the C entry point itself reports for these tensors."""
+    return JOIN_PATHS[_join_lib().t2i_conditioning_join_path(
+        x.data_ptr(), t.data_ptr(), wx.data_ptr(), wt.data_ptr(),
+        y.data_ptr(), x.shape[-1], t.shape[-1], wx.shape[-1],
+        int(x.dtype == torch.bfloat16))]
 
 
 def _join_check(x, t, wx, wt, bias, act):
@@ -238,10 +262,9 @@ def _join_forward(x, t, wx, wt, bias, act):
     b, h, w, cx = x.shape
     e, co = wt.shape
     y = torch.empty(b, h, w, co, dtype=x.dtype, device=x.device)
-    u = torch.empty(b, co, dtype=torch.float32, device=x.device)
     rc = _join_lib().t2i_conditioning_join(
         x.data_ptr(), t.data_ptr(), wx.data_ptr(), wt.data_ptr(),
-        bias.data_ptr(), u.data_ptr(), y.data_ptr(), b, h * w, cx, e, co,
+        bias.data_ptr(), y.data_ptr(), b, h * w, cx, e, co,
         ACT_CODES[act], int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
