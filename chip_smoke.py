@@ -11,11 +11,14 @@
    it (bf16 and f32, batch 64 and the discriminator's 3 × 64 streams;
    ``bn_act`` up to the 64×256²×64 input of Stage-II's last up-block, the
    256 px discriminator's six convs at both batches) and at odd shapes that
-   reach every code path (for ``conv5x5_s2_act`` the path each call takes is
-   read back from the C entry point and held against the Python mirror of
-   the rule; every wgmma tile with every split of K, a split's output bit
-   for bit between two runs; for ``conditioning_join`` both paths), and
-   each backward
+   reach every code path (for ``conv5x5_s2_act``, ``deconv5x5_s2`` and
+   ``upconv3x3`` the path each call takes is read back from the C entry
+   point and held against the Python mirror of the rule; every wgmma tile
+   with every split of K -- for the two parity kernels every plan the
+   grouped plan chooses from, the resident kernel and A by TMA boxes or by
+   cp.async included -- a split's output bit for bit between two runs; the
+   upconv's combined weights from its kernel bit for bit against the torch
+   version; for ``conditioning_join`` both paths), and each backward
    (autograd.Function) against torch.autograd through the plain version, in
    f32 with TF32 off;
 3. drives the sampling path at the flagship widths (gf 128, z 100,
@@ -40,8 +43,8 @@
    Stage-II tick at batch 4 on the card against the CPU;
 5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
-   kernel's bound, prints the path, tile and split of each conv and join
-   call with its TFLOP/s and GB/s, times the backward passes, sampling in images/s and the
+   kernel's bound, prints the path, tile and split of each conv, join,
+   deconv and upconv call with its TFLOP/s and GB/s, times the backward passes, sampling in images/s and the
    training ticks (GAN-CLS, Stage-I, Stage-II) in ms and images/s with
    their peak memory, and profiles where a forward's and a tick's device
    time goes (torch.profiler; GAN-CLS and Stage-II).
@@ -201,6 +204,24 @@ UPCONV_SHAPES = {
 # maps (the pipelined tile), B = 1, every activation
 ODD_UPCONV_SHAPES = [((2, 5, 7, 12), 20, "lrelu"), ((3, 7, 5, 8), 16, "tanh"),
                      ((1, 3, 3, 5), 3, "relu"), ((2, 6, 9, 16), 8, "none")]
+# the grouped wgmma path of both kernels (bf16, Cin and Co multiples of
+# 64) off the main path: B = 1, M not a multiple of any tile, odd and
+# non-square maps (A gathered by cp.async), Cin 64 with Co 192 (64-wide
+# tiles only), and power-of-two maps whose tiles span several images, the
+# last one partly past the batch (A as TMA boxes, zero-filled)
+WGMMA_DECONV_ODD_SHAPES = [((1, 5, 7, 64), 64, "relu"),
+                           ((3, 5, 3, 128), 192, "lrelu"),
+                           ((2, 7, 9, 64), 256, "tanh"),
+                           ((2, 6, 5, 64), 192, "none"),
+                           ((1, 4, 8, 64), 128, "none"),
+                           ((3, 8, 4, 128), 192, "lrelu")]
+WGMMA_UPCONV_ODD_SHAPES = [((1, 5, 7, 64), 64, "relu"),
+                           ((3, 5, 3, 128), 192, "lrelu"),
+                           ((2, 7, 9, 64), 128, "tanh"),
+                           ((2, 6, 5, 64), 192, "none"),
+                           ((1, 4, 8, 64), 64, "none"),
+                           ((3, 8, 4, 128), 192, "lrelu"),
+                           ((2, 16, 8, 128), 64, "relu")]
 # StackGAN launches per training tick (n_critic 1, g_steps 1, remat off).
 # Stage-I: two G forwards (4 upconv, 5 bn_act each), D over three streams
 # (4 conv, 1 join, 4 BN × 3) and over one (4 conv, 1 join, 4 bn_act).
@@ -319,6 +340,84 @@ def join_inputs(shape, e, co, dtype, device, gen):
     return [v.to(device) for v in (x, t, wx, wt, b)]
 
 
+def grouped_tag(conv, path, plan, h, w):
+    """The text of a grouped wgmma plan: tile, parts of K per parity or the
+    resident kernel, and how A comes."""
+    if path != "wgmma":
+        return path
+    a = "TMA" if conv.a_by_tma(h, w, plan) else "cp.async"
+    kind = ("resident 128x64" if plan.resident else
+            f"{plan.tile_m}x{plan.tile_n} parts {list(plan.parts)}")
+    return f"wgmma {kind}, A by {a}"
+
+
+def grouped_vs_plain(conv, op, args, dtype, what, want_path=None):
+    """One deconv5x5_s2 or upconv3x3 call against its plain version; checks
+    the path the C entry point reports against the Python mirror of the rule
+    and against the expected one, a split output bit for bit against a
+    second run, and returns (max |err|, path, plan)."""
+    x, w = args[0], args[1]
+    cin, co = x.shape[-1], w.shape[-1]
+    b, h, wd = x.shape[:3]
+    if op == "deconv":
+        got = conv.deconv5x5_s2(*args)
+        ref = conv.deconv5x5_s2_plain(*args)
+        path = conv.deconv_path_on_card(x, w, got)
+        mirror = conv.deconv_path(cin, co, dtype)
+        want = want_path or expected_deconv_path(cin, co, dtype)
+        plan = conv.deconv_plan(b * h * wd, co, cin) if path == "wgmma" else None
+    else:
+        got = conv.upconv3x3(*args)
+        ref = conv.upconv3x3_plain(*args)
+        path = conv.upconv_path_on_card(x, conv.combined_weights(w), got)
+        mirror = conv.upconv_path(cin, co, dtype)
+        want = want_path or expected_upconv_path(cin, co, dtype)
+        plan = conv.upconv_plan(b * h * wd, co, cin) if path == "wgmma" else None
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape, f"{what}: shape {got.shape}")
+    check(path == mirror == want, f"{what}: path {path}, mirror {mirror}, "
+                                  f"expected {want}")
+    err = compare(got, ref, *TOL[dtype],
+                  f"{what} [{grouped_tag(conv, path, plan, h, wd)}]")
+    if plan and max(plan.parts) > 1:
+        again = (conv.deconv5x5_s2 if op == "deconv" else conv.upconv3x3)(*args)
+        check(torch.equal(got, again), f"{what}: split output differs "
+                                       f"between two runs")
+    return err, path, plan
+
+
+def every_grouped_plan(conv, op, shapes, device, gen):
+    """Every plan the grouped wgmma path can be given (each tile that divides
+    Co with each split of K per parity the plans choose from, the resident
+    kernels) at `shapes`, bf16: within tolerance of the plain version and
+    bit for bit between two runs."""
+    dtype = torch.bfloat16
+    taps = conv.DECONV_PARITY_TAPS if op == "deconv" else conv.UPCONV_PARITY_TAPS
+    for shape, co, act in shapes:
+        b, h, wd, cin = shape
+        args = [*(deconv_inputs if op == "deconv" else upconv_inputs)(
+            shape, co, dtype, device, gen), act]
+        plain = conv.deconv5x5_s2_plain if op == "deconv" else conv.upconv3x3_plain
+        fwd = conv._deconv_forward if op == "deconv" else conv._upconv_forward
+        ref = plain(*args)
+        plans = conv.grouped_candidates(b * h * wd, co, cin, taps)
+        worst, same = 0.0, True
+        for plan in plans:
+            got = fwd(*args, plan=plan)
+            again = fwd(*args, plan=plan)
+            torch.cuda.synchronize()
+            same = same and torch.equal(got, again)
+            err = (got.float() - ref.float()).abs()
+            bad = err > TOL[dtype][0] + TOL[dtype][1] * ref.float().abs()
+            check(not bool(bad.any()), f"{op} plan {plan} at {shape}->{co}: "
+                                       f"max|err| {float(err.max()):.3e}")
+            worst = max(worst, float(err.max()))
+        a = sorted({conv.a_by_tma(h, wd, p) for p in plans})
+        log(f"  {op} bfloat16 {shape}->{co} {act}: {len(plans)} plans (A by "
+            f"TMA {a}): max|err| {worst:.3e}, two runs bit-identical {same}")
+        check(same, f"{op}: output differs between two runs at {shape}")
+
+
 def phase_kernels(device):
     """Each kernel against its plain version at every main-path shape."""
     from text_to_image_tpu_torch.ops.kernels import conv, fused
@@ -326,14 +425,10 @@ def phase_kernels(device):
     errs = {"deconv5x5_s2": {}, "bn_act": {}}
     for dtype in (torch.bfloat16, torch.float32):
         for shape, co, act in DECONV_SHAPES:
-            x, w, s, t = deconv_inputs(shape, co, dtype, device, gen)
-            got = conv.deconv5x5_s2(x, w, s, t, act)
-            ref = conv.deconv5x5_s2_plain(x, w, s, t, act)
-            torch.cuda.synchronize()
-            check(got.shape == ref.shape, f"deconv shape {got.shape}")
-            errs["deconv5x5_s2"][(dtype, shape)] = compare(
-                got, ref, *TOL[dtype],
-                f"deconv5x5_s2 {str(dtype)[6:]} {shape}->{co} {act}")
+            args = [*deconv_inputs(shape, co, dtype, device, gen), act]
+            errs["deconv5x5_s2"][(dtype, shape)] = grouped_vs_plain(
+                conv, "deconv", args, dtype,
+                f"deconv5x5_s2 {str(dtype)[6:]} {shape}->{co} {act}")[0]
         for shape in BN_SHAPES:
             x, a, b = bn_inputs(shape, dtype, device, gen)
             got = fused.bn_act(x, a, b, "relu")
@@ -349,15 +444,16 @@ def phase_kernels(device):
                 got, fused.bn_act_plain(x, a, b, act), *BN_TOL[dtype],
                 f"bn_act {str(dtype)[6:]} {shape} {act} (StackGAN)")
             del x, got
-        for shape, co, act in ODD_DECONV_SHAPES:
-            x, w, s, t = deconv_inputs(shape, co, dtype, device, gen)
-            compare(conv.deconv5x5_s2(x, w, s, t, act),
-                    conv.deconv5x5_s2_plain(x, w, s, t, act), *TOL[dtype],
-                    f"deconv5x5_s2 {str(dtype)[6:]} {shape}->{co} {act} (odd)")
+        for shape, co, act in ODD_DECONV_SHAPES + WGMMA_DECONV_ODD_SHAPES:
+            args = [*deconv_inputs(shape, co, dtype, device, gen), act]
+            grouped_vs_plain(
+                conv, "deconv", args, dtype,
+                f"deconv5x5_s2 {str(dtype)[6:]} {shape}->{co} {act} (odd)")
         for shape, act in ODD_BN_SHAPES:
             x, a, b = bn_inputs(shape, dtype, device, gen)
             compare(fused.bn_act(x, a, b, act), fused.bn_act_plain(x, a, b, act),
                     *BN_TOL[dtype], f"bn_act {str(dtype)[6:]} {shape} {act} (odd)")
+    every_grouped_plan(conv, "deconv", WGMMA_DECONV_ODD_SHAPES, device, gen)
     return errs
 
 
@@ -367,6 +463,26 @@ def expected_conv_path(cin, co, dtype):
         return "direct" if cin <= 4 else "tile"
     if cin <= 4:
         return "down0_mma" if co == 64 else "direct"
+    if cin % 64 == 0 and co % 64 == 0:
+        return "wgmma"
+    return "pipelined" if cin % 8 == 0 and co % 8 == 0 else "tile"
+
+
+def expected_deconv_path(cin, co, dtype):
+    """The deconv path the port is meant to take for a contiguous tensor."""
+    if co <= 4 and cin <= 512:
+        return "direct"
+    if dtype != torch.bfloat16:
+        return "tile"
+    if cin % 64 == 0 and co % 64 == 0:
+        return "wgmma"
+    return "pipelined" if cin % 8 == 0 and co % 8 == 0 else "tile"
+
+
+def expected_upconv_path(cin, co, dtype):
+    """The upconv path the port is meant to take for a contiguous tensor."""
+    if dtype != torch.bfloat16:
+        return "tile"
     if cin % 64 == 0 and co % 64 == 0:
         return "wgmma"
     return "pipelined" if cin % 8 == 0 and co % 8 == 0 else "tile"
@@ -603,18 +719,27 @@ def phase_upconv_kernels(device):
             errs[(dtype, shape)] = compare(
                 got, ref, *TOL[dtype], f"upconv3x3_bias {dt} {shape}->{co} none")
             del got, ref
-            compare(conv.upconv3x3(x, w, s, t, "relu"),
-                    conv.upconv3x3_plain(x, w, s, t, "relu"), *TOL[dtype],
-                    f"upconv3x3 {dt} {shape}->{co} relu")
-        for shape, co, act in ODD_UPCONV_SHAPES:
+            same_wc(conv, w, f"{dt} {shape}->{co}")
+            grouped_vs_plain(conv, "upconv", [x, w, s, t, "relu"], dtype,
+                             f"upconv3x3 {dt} {shape}->{co} relu")
+        for shape, co, act in ODD_UPCONV_SHAPES + WGMMA_UPCONV_ODD_SHAPES:
             x, w, s, t = upconv_inputs(shape, co, dtype, device, gen)
-            compare(conv.upconv3x3(x, w, s, t, act),
-                    conv.upconv3x3_plain(x, w, s, t, act), *TOL[dtype],
-                    f"upconv3x3 {dt} {shape}->{co} {act} (odd)")
+            same_wc(conv, w, f"{dt} {shape}->{co} (odd)")
+            grouped_vs_plain(conv, "upconv", [x, w, s, t, act], dtype,
+                             f"upconv3x3 {dt} {shape}->{co} {act} (odd)")
             compare(conv.upconv3x3_bias(x, w, t, act),
                     upconv_bias_plain(x, w, t, act), *TOL[dtype],
                     f"upconv3x3_bias {dt} {shape}->{co} {act} (odd)")
+    every_grouped_plan(conv, "upconv", WGMMA_UPCONV_ODD_SHAPES, device, gen)
     return {"upconv3x3": errs}
+
+
+def same_wc(conv, w, what):
+    """The combine kernel's weights bit for bit against the torch version."""
+    got = conv.combined_weights(w)
+    torch.cuda.synchronize()
+    check(torch.equal(got, conv.combine_upconv_weights(w)),
+          f"combined weights {what}: kernel and torch differ")
 
 
 def phase_upconv_backward(device):
@@ -751,7 +876,13 @@ def phase_upconv_timing(device, flush):
             flops = 2 * 16 * b * h * wd * cin * co
             nb = nbytes(x, w, t, y)
             bms, by = bound(nb, flops, dtype)
+            path = conv.upconv_path(cin, co, dtype)
+            plan = (conv.upconv_plan(b * h * wd, co, cin) if path == "wgmma"
+                    else None)
+            tag = grouped_tag(conv, path, plan, h, wd)
             r = {"shape": [list(shape), co, "none"], "stage": stage,
+                 "path": path, "plan": list(plan) if plan else None,
+                 "tag": tag,
                  "ms": time_ms(lambda: conv.upconv3x3_bias(x, w, t, "none"),
                                flush),
                  "plain_ms": time_ms(lambda: upconv_bias_plain(x, w, t, "none"),
@@ -764,10 +895,11 @@ def phase_upconv_timing(device, flush):
             r["tflops"] = flops / r["ms"] / 1e9
             r["gbytes_per_s"] = nb / r["ms"] / 1e6
             rows.append(r)
-            log(f"  upconv3x3_bias {shape}->{co}: {r['ms']:.4f} ms (bound "
-                f"{bms:.4f} by {by}, {r['tflops']:.1f} TFLOP/s, "
+            log(f"  upconv3x3_bias {shape}->{co} [{tag}]: {r['ms']:.4f} ms "
+                f"(bound {bms:.4f} by {by}, {r['tflops']:.1f} TFLOP/s, "
                 f"{r['gbytes_per_s']:.0f} GB/s), plain {r['plain_ms']:.4f}, "
-                f"interpolate+cuDNN {r['library_ms']:.4f}, backward "
+                f"interpolate+cuDNN {r['library_ms']:.4f} "
+                f"({r['ms'] / r['library_ms']:.2f}x), backward "
                 f"{r['bwd_ms']:.4f} ms")
             del x, w, y
             torch.cuda.empty_cache()
@@ -1186,7 +1318,11 @@ def phase_timing(device, cfg, bundle, ts, gen, z, emb):
         lib_err = float(((lib_y.float() * s + t) - plain.float()).abs().max())
         flops = 2 * 25 * b * h * wd * cin * co
         bms, by = bound(nbytes(x, w, s, t, y), flops, dtype)
-        r = {"shape": [list(shape), co, act],
+        path = conv.deconv_path(cin, co, dtype)
+        plan = conv.deconv_plan(b * h * wd, co, cin) if path == "wgmma" else None
+        tag = grouped_tag(conv, path, plan, h, wd)
+        r = {"shape": [list(shape), co, act], "path": path,
+             "plan": list(plan) if plan else None, "tag": tag,
              "ms": time_ms(lambda: conv.deconv5x5_s2(x, w, s, t, act), flush),
              "plain_ms": time_ms(
                  lambda: conv.deconv5x5_s2_plain(x, w, s, t, act), flush, 5),
@@ -1195,9 +1331,10 @@ def phase_timing(device, cfg, bundle, ts, gen, z, emb):
              "library_max_abs_err_vs_plain": lib_err}
         r["tflops"] = flops / r["ms"] / 1e9
         rows["deconv5x5_s2"].append(r)
-        log(f"  deconv5x5_s2 {shape}->{co}: {r['ms']:.4f} ms (bound "
+        log(f"  deconv5x5_s2 {shape}->{co} [{tag}]: {r['ms']:.4f} ms (bound "
             f"{bms:.4f} by {by}, {r['tflops']:.1f} TFLOP/s), plain "
-            f"{r['plain_ms']:.4f}, cuDNN {r['library_ms']:.4f} ms")
+            f"{r['plain_ms']:.4f}, cuDNN {r['library_ms']:.4f} ms "
+            f"({r['ms'] / r['library_ms']:.2f}x)")
     def bn_row(shape, act):
         x, a, b = bn_inputs(shape, dtype, device, gen_)
         y = fused.bn_act(x, a, b, act)
@@ -1422,8 +1559,8 @@ def is_kernel(event) -> bool:
 def kernel_family(name: str) -> str:
     low = name.lower()
     for keys, fam in (
-            (("deconv5x5_s2",), "deconv5x5_s2 (CUDA)"),
-            (("namespace)::upconv",), "upconv3x3 (CUDA)"),
+            (("deconv5x5_s2", "namespace)::deconv"), "deconv5x5_s2 (CUDA)"),
+            (("namespace)::upconv", "combine_kernel"), "upconv3x3 (CUDA)"),
             (("namespace)::conv", "down0_mma_kernel"),
              "conv5x5_s2_act (CUDA)"),
             (("namespace)::join", "join_text_kernel"),

@@ -55,7 +55,7 @@ struct Join : Common {
 
   // igemm_sm90.cuh: two taps, the image channels of row r and the text
   // channels of its example
-  __device__ igemm90::Gather gather(int r) const {
+  __device__ igemm90::Gather gather(int r, int) const {
     if (r >= M) return igemm90::Gather{0, 0, 0u};
     return igemm90::Gather{static_cast<long long>(r) * Cin,
                            t_from_x + static_cast<long long>(r / hw) * E, 3u};
@@ -63,7 +63,7 @@ struct Join : Common {
   __device__ long long row_off(const igemm90::Gather& g, int tap) const {
     return tap ? g.base2 : g.base;
   }
-  __device__ long long tap_off(int) const { return 0; }
+  __device__ long long tap_off(int, int) const { return 0; }
   __device__ int slices(int tap) const { return (tap ? E : Cin) / 64; }
   static constexpr bool kOneWeightMatrix = false;  // wx and wt
   __device__ const uint16_t* w_rows(int tap) const {
@@ -208,9 +208,11 @@ extern "C" int t2i_conditioning_join(const void* x, const void* t,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Join p = make_join(x, t, wx, wt, bias, y, B, HW, Cx, E, Co, act);
-  if (join_path(p, bf16 != 0) == kWgmma)
+  if (join_path(p, bf16 != 0) == kWgmma) {
+    const int one_part = 1;
     return static_cast<int>(
-        igemm90::launch(p, igemm90::k128x64, 1, nullptr, s));
+        igemm90::launch(p, igemm90::k128x64, &one_part, nullptr, s));
+  }
   const dim3 grid((p.M + S_BM - 1) / S_BM, (Co + S_BN - 1) / S_BN);
   if (bf16)
     join_simple_kernel<true><<<grid, 256, 0, s>>>(p);

@@ -86,7 +86,7 @@ struct Conv : Common {
 
   // The gather hoisted for igemm_sm90.cuh: row r's offset of tap (0, 0),
   // which may lie in the padding, and the taps that lie inside the image.
-  __device__ igemm90::Gather gather(int r) const {
+  __device__ igemm90::Gather gather(int r, int) const {
     const Row q = row(r);
     if (q.b < 0) return igemm90::Gather{0, 0, 0u};
     const int iy0 = 2 * q.oy - pad_top, ix0 = 2 * q.ox - pad_left;
@@ -108,9 +108,9 @@ struct Conv : Common {
   __device__ int slices(int) const { return Cin / igemm90::BK; }
 
   static constexpr bool kOneWeightMatrix = true;   // HWIO is [25*Cin][Co]
-  __device__ int w_row(int tap) const { return tap * Cin; }
+  __device__ int w_row(int, int tap) const { return tap * Cin; }
 
-  __device__ long long tap_off(int tap) const {
+  __device__ long long tap_off(int, int tap) const {
     const int kh = tap / 5, kw = tap - 5 * kh;
     return (static_cast<long long>(kh) * W + kw) * Cin;
   }
@@ -386,7 +386,7 @@ extern "C" int t2i_conv5x5_s2(const void* x, const void* w, const void* b,
   switch (conv_path(p, bf16 != 0)) {
     case kWgmma:
       return static_cast<int>(
-          igemm90::launch(p, tile, split, static_cast<float*>(ws), s));
+          igemm90::launch(p, tile, &split, static_cast<float*>(ws), s));
     case kDown0Mma:
       switch (Cin) {
         case 1: return static_cast<int>(launch_down0<1>(p, B, s));

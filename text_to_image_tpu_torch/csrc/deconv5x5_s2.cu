@@ -8,7 +8,9 @@
 //
 // Replaces text_to_image_tpu/ops/pallas/conv.py deconv5x5_s2, whose Pallas
 // bodies are _deconv_kernel_vpad (via _deconv_pallas_vpad) and its
-// HBM-staged twin _deconv_kernel (via _deconv_pallas).
+// HBM-staged twin _deconv_kernel (via _deconv_pallas).  What those bodies
+// do for the TPU is not carried over: the (1, 2)-padded copy of x in fast
+// memory and the sequential walk of the grid over the parity planes.
 //
 // Decomposition (the TPU kernel's tap table, conv.py _DECONV_TAPS): per
 // spatial dim, output parity p in {0,1} sums taps t = 0 .. 1+p that read
@@ -25,17 +27,33 @@
 // 30 MB of traffic (9 us at 3.35 TB/s): bound by tensor-core operations.
 // The RGB layer (Co=3, tanh) is bound by its bytes (18.4 MB, 5.5 us).
 //
-// Design (first version: simple and right).  One block computes one
-// output-parity plane x a 128-row x 64-channel tile.  K is walked tap by
-// tap in 32-deep slices staged through shared memory; the next slice's
-// global loads go into registers before the current slice's math (a
-// one-deep software pipeline).  bf16 runs on the tensor cores through WMMA
-// (mma.sync 16x16x16, f32 accumulate), f32 on FMA with an 8x4 register
-// tile.  The epilogue act(acc*scale + shift) runs in f32 and each output is
-// stored once, straight into the interleaved NHWC image.  Ragged Co (the RGB
-// layer's 3), ragged Cin and the image edges are masked, so every shape is
-// taken.  Left for later: wgmma + TMA with a deeper shared-memory ring, and
-// a narrow tile for Co=3, where the 64-wide tile wastes 61/64 of its MMAs.
+// Paths, chosen from shapes, types and alignment only (deconv_path below;
+// the wrapper mirrors the rule in Python):
+//  * wgmma: bf16 with Cin and Co multiples of 64 -- the three deep layers.
+//    The four parities are the groups of one grouped GEMM on the main loop
+//    of igemm_sm90.cuh (Deconv below): K slices of 64 channels in
+//    128-byte-swizzled shared memory, m64nNk16 warpgroup products, the
+//    gather hoisted out of the K loop (a row's offset of input pixel
+//    (m-1, n-1) and a mask of the taps inside the image) or, on
+//    power-of-two maps, A by TMA (tap (th, tw) one box of x shifted by
+//    (th-1, tw-1)), the weights [25*Cin][Co] by TMA, each tap's rows
+//    picked by the tap table.  What
+//    held the first version (mma.sync from padded shared memory, one fixed
+//    128x128 tile, K never split) back was the first layer: 64x4^2x1024 ->
+//    512 gives 128 blocks of 4-9 taps for 132 SMs, so the 9-tap blocks ran
+//    on a quarter of the card.  Now the caller's plan (deconv_plan in
+//    ops/kernels/conv.py) picks the tile and splits each parity's K over
+//    whole taps in its own number of parts, so that the blocks even out;
+//    partial sums are reduced in a fixed order (the same bits every run).
+//  * direct: Co <= 4 (the RGB layer): one thread per input pixel and its
+//    2x2 outputs, f32 FMA, all weights in shared memory.
+//  * pipelined: bf16 with channels that are multiples of 8 otherwise: the
+//    first version's 128x128 mma.sync tile in a 3-stage cp.async ring.
+//  * tile: f32 and ragged channels: 128x64 tiles, K slices of 32 through
+//    registers, WMMA (bf16) or an 8x4 FMA register tile (f32); it masks
+//    Cin, Co and the image edges, so it takes every shape.
+// The epilogue act(acc*scale + shift) runs in f32 and each output is stored
+// once, straight into the interleaved NHWC image.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,6 +61,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "igemm_sm90.cuh"
 
 namespace {
 
@@ -608,42 +628,170 @@ bool aligned16(const void* q) {
   return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma path: four groups, one per output parity g = (py, px) =
+// (g >> 1, g & 1), (2+py)(2+px) taps each; tap t = (th, tw), th = t / (2+px).
+struct Deconv : igemm::Common {
+  const float* scale;
+  const float* shift;
+  int H, W;
+
+  __host__ __device__ int group_taps(int g) const {
+    return (2 + (g >> 1)) * (2 + (g & 1));
+  }
+  __host__ __device__ long long weight_rows() const {   // HWIO as [25*Cin][Co]
+    return 25LL * Cin;
+  }
+
+  // row r = (b, m, n) of parity g reads input pixel (m-1+th, n-1+tw) at tap
+  // (th, tw): the base is pixel (m-1, n-1), which may lie in the padding
+  __device__ igemm90::Gather gather(int r, int g) const {
+    if (r >= M) return igemm90::Gather{0, 0, 0u};
+    const int hw = H * W, b = r / hw, rem = r - b * hw;
+    const int m = rem / W, n = rem - m * W;
+    const int nth = 2 + (g >> 1), ntw = 2 + (g & 1);
+    unsigned mw = 0, taps = 0;
+    for (int tw = 0; tw < ntw; ++tw)
+      if (n - 1 + tw >= 0 && n - 1 + tw < W) mw |= 1u << tw;
+    for (int th = 0; th < nth; ++th)
+      if (m - 1 + th >= 0 && m - 1 + th < H) taps |= mw << (th * ntw);
+    return igemm90::Gather{
+        ((static_cast<long long>(b) * H + m - 1) * W + n - 1) * Cin, 0, taps};
+  }
+  __device__ long long row_off(const igemm90::Gather& q, int) const {
+    return q.base;
+  }
+  __device__ long long tap_off(int g, int tap) const {
+    const int ntw = 2 + (g & 1), th = tap / ntw, tw = tap - th * ntw;
+    return (static_cast<long long>(th) * W + tw) * Cin;
+  }
+  __device__ int slices(int) const { return Cin / igemm90::BK; }
+
+  static constexpr bool kOneWeightMatrix = true;
+  // tap (th, tw) of parity (py, px) reads kernel tap (2th+1-py, 2tw+1-px)
+  __device__ int w_row(int g, int tap) const {
+    const int py = g >> 1, px = g & 1, ntw = 2 + px;
+    const int th = tap / ntw, tw = tap - th * ntw;
+    return ((2 * th + 1 - py) * 5 + 2 * tw + 1 - px) * Cin;
+  }
+
+  __device__ size_t y_row(int r, int g) const {
+    const int hw = H * W, b = r / hw, rem = r - b * hw;
+    const int m = rem / W, n = rem - m * W;
+    const size_t oy = 2 * m + (g >> 1), ox = 2 * n + (g & 1);
+    return ((static_cast<size_t>(b) * (2 * H) + oy) * (2 * W) + ox) * N;
+  }
+  __device__ float mul(int co) const { return scale[co]; }
+  __device__ float add(int, int co) const { return shift[co]; }
+
+  // A by TMA where row tiles are whole image rows: tap (th, tw) is the
+  // tile's box shifted by (th-1, tw-1)
+  static constexpr bool kGrouped = true;
+  static constexpr bool kImageA = true;
+  bool a_boxes(int bm) const { return igemm90::image_boxes(H, W, bm); }
+  cudaError_t a_map(CUtensorMap* map, int bm) const {
+    return igemm90::make_image_map(map, a, M / (H * W), H, W, Cin, bm);
+  }
+  __device__ int3 a_box(int row0, int g, int tap) const {
+    const int ntw = 2 + (g & 1), th = tap / ntw, tw = tap - th * ntw;
+    return igemm90::image_box(row0, H, W, th - 1, tw - 1);
+  }
+};
+
+enum Path { kTile = 0, kPipelined = 1, kDirect = 2, kWgmma = 3 };
+
+Params make_params(const void* x, const void* w, const void* scale,
+                   const void* shift, void* y, int B, int H, int W, int Cin,
+                   int Co, int act, int bf16) {
+  const int vec = bf16 ? 8 : 4;
+  return Params{x, w, static_cast<const float*>(scale),
+                static_cast<const float*>(shift), y, B, H, W, Cin, Co, act,
+                Cin % vec == 0 && aligned16(x), Co % vec == 0 && aligned16(w),
+                Co % vec == 0 && aligned16(y)};
+}
+
+Deconv make_deconv(const Params& q) {
+  Deconv p;
+  p.a = q.x;
+  p.w = q.w;
+  p.y = q.y;
+  p.M = q.B * q.H * q.W;
+  p.N = q.Co;
+  p.Cin = q.Cin;
+  p.taps = 9;          // the longest parity; group_taps gives each one's
+  p.act = q.act;
+  p.vec_a = q.vec_x;
+  p.vec_w = q.vec_w;
+  p.vec_y = q.vec_y;
+  p.groups = 4;
+  p.scale = q.scale;
+  p.shift = q.shift;
+  p.H = q.H;
+  p.W = q.W;
+  return p;
+}
+
+// The path a call takes: from shapes, types and alignment only.
+int deconv_path(const Params& q, bool bf16) {
+  if (q.Co <= 4 && 25 * q.Cin * static_cast<int>(sizeof(float4)) <= D_MAX_SMEM)
+    return kDirect;
+  if (bf16 && igemm90::applies(make_deconv(q))) return kWgmma;
+  return bf16 && q.vec_x && q.vec_w && q.vec_y ? kPipelined : kTile;
+}
+
 }  // namespace
 
+// The path t2i_deconv5x5_s2 takes for these pointers and shapes: 0 the
+// simple tile, 1 the pipelined tile, 2 the direct kernel, 3 wgmma.
+extern "C" int t2i_deconv5x5_s2_path(const void* x, const void* w,
+                                     const void* y, int Cin, int Co,
+                                     int bf16) {
+  return deconv_path(make_params(x, w, nullptr, nullptr, const_cast<void*>(y),
+                                 1, 1, 1, Cin, Co, 0, bf16),
+                     bf16 != 0);
+}
+
 // Launches on `stream` and returns the CUDA error code (0 when launched).
-// Path, chosen from the shapes: Co <= 4 -> the direct kernel; bf16 with
-// channels that allow 16-byte copies -> the pipelined tile kernel; anything
-// else (f32, ragged channels) -> the simple tile kernel.
+// `tile` (igemm90::TileId) and the parts of K of parities 0-3 (p0..p3, whole
+// taps each) are read on the wgmma path only; a part count above 1 needs
+// `ws`, f32 scratch of one B*H*W x Co plane per part of every split parity.
+// No path gives way to another: a refused launch is returned.
 extern "C" int t2i_deconv5x5_s2(const void* x, const void* w,
                                 const void* scale, const void* shift, void* y,
-                                int B, int H, int W, int Cin, int Co, int act,
-                                int bf16, void* stream) {
-  const int vec = bf16 ? 8 : 4;
-  Params p{x, w, static_cast<const float*>(scale),
-           static_cast<const float*>(shift), y, B, H, W, Cin, Co, act,
-           Cin % vec == 0 && aligned16(x), Co % vec == 0 && aligned16(w),
-           Co % vec == 0 && aligned16(y)};
+                                void* ws, int B, int H, int W, int Cin, int Co,
+                                int act, int bf16, int tile, int p0, int p1,
+                                int p2, int p3, void* stream) {
+  const Params p =
+      make_params(x, w, scale, shift, y, B, H, W, Cin, Co, act, bf16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = static_cast<long long>(B) * H * W;
-  if (Co <= 4 && 25 * Cin * static_cast<int>(sizeof(float4)) <= D_MAX_SMEM) {
-    return static_cast<int>(bf16 ? launch_direct_co<true>(p, s)
-                                 : launch_direct_co<false>(p, s));
+  switch (deconv_path(p, bf16 != 0)) {
+    case kWgmma: {
+      const int parts[4] = {p0, p1, p2, p3};
+      return static_cast<int>(igemm90::launch(
+          make_deconv(p), tile, parts, static_cast<float*>(ws), s));
+    }
+    case kDirect:
+      return static_cast<int>(bf16 ? launch_direct_co<true>(p, s)
+                                   : launch_direct_co<false>(p, s));
+    case kPipelined: {
+      cudaError_t err = cudaFuncSetAttribute(
+          deconv5x5_s2_pipelined_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, P_SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const dim3 grid(static_cast<unsigned>((M + P_BM - 1) / P_BM),
+                      static_cast<unsigned>((Co + P_BN - 1) / P_BN), 4);
+      deconv5x5_s2_pipelined_kernel<<<grid, THREADS, P_SMEM, s>>>(p);
+      return static_cast<int>(cudaGetLastError());
+    }
+    default: {
+      const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM),
+                      static_cast<unsigned>((Co + BN - 1) / BN), 4);
+      if (bf16)
+        deconv5x5_s2_kernel<true><<<grid, THREADS, 0, s>>>(p);
+      else
+        deconv5x5_s2_kernel<false><<<grid, THREADS, 0, s>>>(p);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
-  if (bf16 && p.vec_x && p.vec_w && p.vec_y) {
-    cudaError_t err = cudaFuncSetAttribute(
-        deconv5x5_s2_pipelined_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, P_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned>((M + P_BM - 1) / P_BM),
-                    static_cast<unsigned>((Co + P_BN - 1) / P_BN), 4);
-    deconv5x5_s2_pipelined_kernel<<<grid, THREADS, P_SMEM, s>>>(p);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM),
-                  static_cast<unsigned>((Co + BN - 1) / BN), 4);
-  if (bf16)
-    deconv5x5_s2_kernel<true><<<grid, THREADS, 0, s>>>(p);
-  else
-    deconv5x5_s2_kernel<false><<<grid, THREADS, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 // Implicit-GEMM tiles for Hopper (sm_90a) on mma.sync and f32 FMA: what
-// upconv3x3.cu launches, and what conv5x5_s2.cu launches for the shapes its
-// wgmma paths do not take (f32, channels that are not multiples of 64).
+// conv5x5_s2.cu and upconv3x3.cu launch for the shapes their wgmma paths do
+// not take (f32, channels that are not multiples of 64).
 // igemm_sm90.cuh holds the wgmma form of the same problem and reuses the
 // problem type, the activations and store_out from here.
 //
@@ -73,6 +73,23 @@ struct Common {
   __device__ int w_tap(int tap) const { return tap; }
   __device__ size_t y_row(int r) const { return static_cast<size_t>(r) * N; }
   __device__ float mul(int) const { return 1.f; }
+  // igemm_sm90.cuh hands the group to its hooks instead of decoding it:
+  // taps of group g, row r of group g's output, rows of the one weight
+  // matrix its TMA map covers
+  __host__ __device__ int group_taps(int) const { return taps; }
+  __device__ size_t y_row(int r, int) const {
+    return static_cast<size_t>(r) * N;
+  }
+  __host__ __device__ long long weight_rows() const {
+    return static_cast<long long>(taps) * Cin;
+  }
+  // whether its rows are image pixels whose A slices it can describe as
+  // TMA boxes (a_boxes, a_map, a_box: see igemm_sm90.cuh)
+  static constexpr bool kImageA = false;
+  // whether it may run more than one group (igemm_sm90.cuh decodes the
+  // group and reads the per-group split only then: read by a runtime group
+  // index they made the one-group conv up to 15 % slower on the H100)
+  static constexpr bool kGrouped = false;
 };
 
 __device__ __forceinline__ float apply_act(float v, int act) {

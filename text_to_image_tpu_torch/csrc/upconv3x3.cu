@@ -5,11 +5,11 @@
 //
 // x NHWC [B,H,W,Cin], y NHWC [B,2H,2W,Co], scale and shift f32 [Co]; bf16 or
 // f32 in and out, f32 accumulation and epilogue.  The kernel does not read w
-// but the combined weights wc [2,2,2,2,Cin,Co] = [py,px,a,b,Cin,Co] that the
-// wrapper builds from w in x's type (ops/kernels/conv.py
-// combine_upconv_weights): nearest upsampling repeats every input pixel, so
-// per spatial dim the three taps over the upsampled map fall on two input
-// pixels,
+// but the combined weights wc [2,2,2,2,Cin,Co] = [py,px,a,b,Cin,Co], which
+// combine_kernel below builds from w in one launch, in w's type (the sums
+// rounded as ops/kernels/conv.py combine_upconv_weights rounds them):
+// nearest upsampling repeats every input pixel, so per spatial dim the three
+// taps over the upsampled map fall on two input pixels,
 //
 //   parity 0: {x[m-1]: W0,    x[m]:   W1+W2}
 //   parity 1: {x[m]:   W0+W1, x[m+1]: W2}
@@ -28,16 +28,16 @@
 // bodies do for the TPU is not carried over: the padded copy of the image in
 // fast memory, channels padded to 128 / 64 lanes, the (px, co)-major lane
 // folding of the output, the split into two bodies at H*W > 1024 and the
-// row-tile size picked from a memory budget.  One kernel takes every shape.
+// row-tile size picked from a memory budget.
 //
 // Decomposition: four implicit GEMMs, one per output parity, each with
 // M = B*H*W input-resolution pixels, N = Co and K = 4*Cin walked tap by tap;
 // row (b, m, n) of parity (py, px) gathers tap (a, b) at input pixel
 // (m+py+a-1, n+px+b-1), zeros outside the image, and the epilogue stores its
 // Co outputs at output pixel (2m+py, 2n+px) of the interleaved NHWC map.
-// One launch runs all four (igemm.cuh `groups`): the parity is the fastest
-// part of the block index, so the four blocks that gather the same input
-// tile run together and find it in L2.
+// One launch runs all four as groups; the parity is the fastest part of the
+// block index, so the four blocks that gather the same input tile run
+// together and find it in L2.
 //
 // Bound on the H100 SXM, bf16, B = 64: operations 2*16*B*H*W*Cin*Co at
 // 989 TFLOP/s against bytes x + wc + y at 3.35 TB/s.  Every Stage-I layer
@@ -47,15 +47,26 @@
 // last Stage-II layer, 128x128x64->64, is bound by bytes: it reads 134 MB
 // and writes 537 MB (0.200 ms) against 137 GFLOP (0.139 ms).
 //
-// Design (first version: simple and right): the GEMM tiles of igemm.cuh.
-// bf16 with 16-byte-aligned channels runs 128x128 WMMA tiles fed by a
-// 3-stage cp.async ring; f32 and ragged channels run the simple 128x64 tile,
-// which masks Cin, Co and M.  Left for later: one block computing all four
-// parities from one staged 3x3 neighbourhood (x is read four times from L2
-// now), 64-wide N tiles for the Co = 64 layers (half of each 128-wide MMA
-// tile is masked there), wgmma + TMA.
+// Paths, chosen from shapes, types and alignment only (upconv_path below;
+// the wrapper mirrors the rule in Python):
+//  * wgmma: bf16 with Cin and Co multiples of 64 -- all eight StackGAN
+//    calls.  The grouped GEMM of igemm_sm90.cuh (wc [16*Cin][Co] by TMA,
+//    w_row(g, t) = (4g + t)*Cin; the gather's base and tap mask depend on
+//    the parity; on power-of-two maps A comes by TMA too, tap (a, b) of
+//    parity (py, px) one box of x shifted by (py+a-1, px+b-1)).  The first
+//    version ran igemm.cuh's mma.sync 128x128 tile at 55-138 TFLOP/s, half
+//    of it masked where Co = 64.  The caller's plan (upconv_plan in
+//    ops/kernels/conv.py) picks the tile -- 128x64 where Co = 64 -- and,
+//    for K of at most 4 slices (128^2x64->64), the resident kernel: two
+//    blocks per SM keep their parity's weights in shared memory and stream
+//    many row tiles through one ring.  A split of K is a candidate too; on
+//    the H100 no main-path call is faster with one.
+//  * pipelined / tile (igemm.cuh, mma.sync / f32 FMA): bf16 with channels
+//    that are multiples of 8 but not of 64; f32 and ragged channels (the
+//    simple tile masks Cin, Co and M, so it takes every shape).
+// The epilogue runs in f32 and stores each output once.
 
-#include "igemm.cuh"
+#include "igemm_sm90.cuh"
 
 namespace {
 
@@ -93,25 +104,113 @@ struct Upconv : Common {
 
   __device__ int w_tap(int tap) const { return group() * 4 + tap; }
 
-  __device__ size_t y_row(int r) const {
+  __device__ size_t y_row(int r) const { return y_row(r, group()); }
+  __device__ size_t y_row(int r, int g) const {
     const Row q = row(r);
-    const int g = group();
     const size_t oy = 2 * q.m + (g >> 1), ox = 2 * q.n + (g & 1);
     return ((static_cast<size_t>(q.b) * (2 * H) + oy) * (2 * W) + ox) * N;
   }
 
   __device__ float mul(int co) const { return scale[co]; }
   __device__ float add(int, int co) const { return shift[co]; }
+
+  // igemm_sm90.cuh: group g's row r gathers tap (a, b) = (t >> 1, t & 1) at
+  // input pixel (m+py-1+a, n+px-1+b); the base is (m+py-1, n+px-1)
+  __host__ __device__ long long weight_rows() const {   // wc as [16*Cin][Co]
+    return 16LL * Cin;
+  }
+  __device__ igemm90::Gather gather(int r, int g) const {
+    const Row q = row(r);
+    if (q.b < 0) return igemm90::Gather{0, 0, 0u};
+    const int iy0 = q.m + (g >> 1) - 1, ix0 = q.n + (g & 1) - 1;
+    unsigned taps = 0;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int iy = iy0 + (t >> 1), ix = ix0 + (t & 1);
+      if (iy >= 0 && iy < H && ix >= 0 && ix < W) taps |= 1u << t;
+    }
+    return igemm90::Gather{
+        ((static_cast<long long>(q.b) * H + iy0) * W + ix0) * Cin, 0, taps};
+  }
+  __device__ long long row_off(const igemm90::Gather& q, int) const {
+    return q.base;
+  }
+  __device__ long long tap_off(int, int tap) const {
+    return (static_cast<long long>(tap >> 1) * W + (tap & 1)) * Cin;
+  }
+  __device__ int slices(int) const { return Cin / igemm90::BK; }
+  static constexpr bool kOneWeightMatrix = true;
+  __device__ int w_row(int g, int tap) const { return (4 * g + tap) * Cin; }
+
+  // A by TMA where row tiles are whole image rows: tap (a, b) of parity
+  // (py, px) is the tile's box shifted by (py+a-1, px+b-1)
+  static constexpr bool kGrouped = true;
+  static constexpr bool kImageA = true;
+  bool a_boxes(int bm) const { return igemm90::image_boxes(H, W, bm); }
+  cudaError_t a_map(CUtensorMap* map, int bm) const {
+    return igemm90::make_image_map(map, a, M / (H * W), H, W, Cin, bm);
+  }
+  __device__ int3 a_box(int row0, int g, int tap) const {
+    return igemm90::image_box(row0, H, W, (g >> 1) + (tap >> 1) - 1,
+                              (g & 1) + (tap & 1) - 1);
+  }
 };
 
-}  // namespace
+// wc[py,px,a,b,ci,co] from w[kh,kw,ci,co] (the table at the top), in w's
+// type: the kh sums first, then the kw sums, each rounded to S as torch
+// rounds a sum of two tensors of that type.  One thread per (ci, co).
+template <class S>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same<S, uint16_t>::value)
+    return __bfloat162float(__float2bfloat16(v));
+  else
+    return v;
+}
 
-// Launches on `stream` and returns the CUDA error code (0 when launched).
-// wc is the combined weight [16][Cin][Co], parity-major ((py*2+px)*4 + a*2+b).
-extern "C" int t2i_upconv3x3(const void* x, const void* wc, const void* scale,
-                             const void* shift, void* y, int B, int H, int W,
-                             int Cin, int Co, int act, int bf16,
-                             void* stream) {
+template <class S>
+__global__ void __launch_bounds__(256)
+    combine_kernel(const S* w, S* wc, long long cico) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= cico) return;
+  float v[3][3];
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw)
+      v[kh][kw] = igemm::to_float(w[(kh * 3 + kw) * cico + i]);
+  float rows[2][2][3];   // [py][a][kw]
+#pragma unroll
+  for (int kw = 0; kw < 3; ++kw) {
+    rows[0][0][kw] = v[0][kw];
+    rows[0][1][kw] = round_to<S>(v[1][kw] + v[2][kw]);
+    rows[1][0][kw] = round_to<S>(v[0][kw] + v[1][kw]);
+    rows[1][1][kw] = v[2][kw];
+  }
+#pragma unroll
+  for (int py = 0; py < 2; ++py)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const float* r = rows[py][a];
+      const float c[2][2] = {{r[0], round_to<S>(r[1] + r[2])},
+                             {round_to<S>(r[0] + r[1]), r[2]}};   // [px][b]
+#pragma unroll
+      for (int px = 0; px < 2; ++px)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          S* out = wc + ((((py * 2 + px) * 2 + a) * 2 + b) * cico + i);
+          if constexpr (std::is_same<S, uint16_t>::value)
+            *out = __bfloat16_as_ushort(__float2bfloat16(c[px][b]));
+          else
+            *out = c[px][b];
+        }
+    }
+}
+
+enum Path { kTile = 0, kPipelined = 1, kWgmma = 2 };
+
+Upconv make_upconv(const void* x, const void* wc, const void* scale,
+                   const void* shift, void* y, int B, int H, int W, int Cin,
+                   int Co, int act, int bf16) {
   const int vec = bf16 ? 8 : 4;
   Upconv p;
   p.a = x;
@@ -130,6 +229,60 @@ extern "C" int t2i_upconv3x3(const void* x, const void* wc, const void* scale,
   p.shift = static_cast<const float*>(shift);
   p.H = H;
   p.W = W;
-  return static_cast<int>(
-      igemm::launch(p, bf16 != 0, static_cast<cudaStream_t>(stream)));
+  return p;
+}
+
+// The path a call takes: from shapes, types and alignment only.
+int upconv_path(const Upconv& p, bool bf16) {
+  if (bf16 && igemm90::applies(p)) return kWgmma;
+  return bf16 && p.vec_a && p.vec_w && p.vec_y ? kPipelined : kTile;
+}
+
+}  // namespace
+
+// Builds wc [16][Cin][Co] from w [3][3][Cin][Co] (both bf16 or both f32)
+// on `stream`; returns the CUDA error code.
+extern "C" int t2i_upconv3x3_combine(const void* w, void* wc, int Cin, int Co,
+                                     int bf16, void* stream) {
+  const long long cico = static_cast<long long>(Cin) * Co;
+  const unsigned blocks = static_cast<unsigned>((cico + 255) / 256);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    combine_kernel<uint16_t><<<blocks, 256, 0, s>>>(
+        static_cast<const uint16_t*>(w), static_cast<uint16_t*>(wc), cico);
+  else
+    combine_kernel<float><<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(w), static_cast<float*>(wc), cico);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The path t2i_upconv3x3 takes for these pointers and shapes: 0 the simple
+// tile, 1 the pipelined tile, 2 wgmma.
+extern "C" int t2i_upconv3x3_path(const void* x, const void* wc, const void* y,
+                                  int Cin, int Co, int bf16) {
+  return upconv_path(make_upconv(x, wc, nullptr, nullptr, const_cast<void*>(y),
+                                 1, 1, 1, Cin, Co, 0, bf16),
+                     bf16 != 0);
+}
+
+// Launches on `stream` and returns the CUDA error code (0 when launched).
+// wc is the combined weight [16][Cin][Co], parity-major ((py*2+px)*4 + a*2+b).
+// `tile` (igemm90::TileId, kResident128x64 included) and the parts of K of
+// parities 0-3 (p0..p3, whole taps each) are read on the wgmma path only; a
+// part count above 1 needs `ws`, f32 scratch of one B*H*W x Co plane per
+// part of every split parity.  No path gives way to another.
+extern "C" int t2i_upconv3x3(const void* x, const void* wc, const void* scale,
+                             const void* shift, void* y, void* ws, int B,
+                             int H, int W, int Cin, int Co, int act, int bf16,
+                             int tile, int p0, int p1, int p2, int p3,
+                             void* stream) {
+  const Upconv p =
+      make_upconv(x, wc, scale, shift, y, B, H, W, Cin, Co, act, bf16);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (upconv_path(p, bf16 != 0) == kWgmma) {
+    const int parts[4] = {p0, p1, p2, p3};
+    return static_cast<int>(
+        igemm90::launch(p, tile, parts, static_cast<float*>(ws), s));
+  }
+  return static_cast<int>(igemm::launch(p, bf16 != 0, s));
 }

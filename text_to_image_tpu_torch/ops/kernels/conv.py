@@ -6,7 +6,11 @@ up-blocks and the discriminator's down-block convolutions (counterpart of
 shift)`` over NHWC x and HWIO w, with ``lax.conv_transpose`` semantics (no
 kernel flip).  Replaces `deconv5x5_s2` (Pallas bodies `_deconv_kernel_vpad`
 and its HBM-staged twin `_deconv_kernel`).  CUDA kernel:
-``csrc/deconv5x5_s2.cu``.
+``csrc/deconv5x5_s2.cu``, four code paths (`deconv_path` mirrors the rule):
+``wgmma`` for bf16 with Cin and Co multiples of 64 (the three deep
+generator layers: the four output parities as one grouped GEMM, whose tile
+and per-parity split of K `deconv_plan` picks), ``direct`` for Co ≤ 4 (the
+RGB layer), ``pipelined`` / ``tile`` (mma.sync / f32 FMA) otherwise.
 
 ``conv5x5_s2_act``: ``y = act(conv_5x5_s2_SAME(x, w) + b)``, TF SAME
 padding (an even map pads 1 before and 2 after).  Replaces
@@ -27,7 +31,12 @@ exists.  Replaces `upconv3x3` / `upconv3x3_bias` (Pallas bodies
 `_upconv_kernel` and, for maps over 32×32, `_upconv_halo_kernel`).  CUDA
 kernel: ``csrc/upconv3x3.cu``; a CUDA tensor always goes through it, in
 sampling and in training (the JAX package's per-shape dispatch tables are
-TPU measurements and are not carried over).
+TPU measurements and are not carried over).  Three code paths
+(`upconv_path` mirrors the rule): ``wgmma`` for bf16 with Cin and Co
+multiples of 64 (all eight StackGAN calls; `upconv_plan` picks the tile,
+the split of K, or the resident kernel for K of at most 8 slices),
+``pipelined`` / ``tile`` otherwise.  The combined weights come from one
+kernel launch (`combined_weights`).
 
 On CUDA each wrapper launches its hand-written kernel (each source note
 gives the bound on the H100 and the design).  On the CPU it runs the plain
@@ -43,6 +52,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -139,16 +150,54 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
 def _deconv_lib() -> ctypes.CDLL:
-    # x, w, scale, shift, y; B, H, W, Cin, Co, act, bf16; stream
     return _build.bind("deconv5x5_s2", {
-        "t2i_deconv5x5_s2": [_PTR] * 5 + [_INT] * 7 + [_PTR]})
+        # x, w, scale, shift, y, ws; B, H, W, Cin, Co, act, bf16, tile,
+        # parts of parities 0-3; stream
+        "t2i_deconv5x5_s2": [_PTR] * 6 + [_INT] * 12 + [_PTR],
+        # x, w, y; Cin, Co, bf16
+        "t2i_deconv5x5_s2_path": [_PTR] * 3 + [_INT] * 3})
+
+
+# The kernel's code paths in the order of the C entry point's codes
+# (csrc/deconv5x5_s2.cu `Path`), chosen from shapes, types and alignment.
+DECONV_PATHS = ("tile", "pipelined", "direct", "wgmma")
+_DIRECT_MAX_CIN = 200 * 1024 // (25 * 16)     # its weights in shared memory
+
+
+def deconv_path(cin: int, co: int, dtype: torch.dtype,
+                aligned: bool = True) -> str:
+    """The Python mirror of `deconv_path` in csrc/deconv5x5_s2.cu.
+    `aligned`: x, w and y start on 16-byte boundaries."""
+    bf16 = dtype == torch.bfloat16
+    vec = 8 if bf16 else 4
+    if co <= 4 and cin <= _DIRECT_MAX_CIN:
+        return "direct"
+    if bf16 and cin % 64 == 0 and co % 64 == 0 and aligned:
+        return "wgmma"
+    return ("pipelined" if bf16 and aligned and cin % vec == 0
+            and co % vec == 0 else "tile")
 
 
 def _check(x, w, scale, shift, act):
     _check_common(x, w, (("scale", scale), ("shift", shift)), act)
 
 
-def _deconv_forward(x, w, scale, shift, act):
+def _grouped_launch_args(x, plan, rows, co):
+    """(tile index, parts, workspace) of a grouped wgmma launch."""
+    tile = RESIDENT_TILE if plan.resident else CONV_TILES.index(
+        (plan.tile_m, plan.tile_n))
+    elems = grouped_ws_elems(rows, co, plan.parts)
+    if elems * 4 > CONV_WS_CAP:
+        raise ValueError(f"split-K workspace {elems} f32 over {CONV_WS_CAP} "
+                         f"bytes")
+    ws = (torch.empty(elems, dtype=torch.float32, device=x.device)
+          if elems else None)
+    return tile, plan.parts, ws
+
+
+def _deconv_forward(x, w, scale, shift, act, plan=None):
+    """`plan` forces a `GroupedPlan` on the wgmma path (the sweep and the
+    smoke run hold every plan with it); None asks `deconv_plan`."""
     if x.device.type == "cpu":
         return deconv5x5_s2_plain(x, w, scale, shift, act)
     if x.device.type != "cuda":
@@ -157,14 +206,27 @@ def _deconv_forward(x, w, scale, shift, act):
     b, h, wd, cin = x.shape
     co = w.shape[-1]
     y = torch.empty(b, 2 * h, 2 * wd, co, dtype=x.dtype, device=x.device)
+    tile, parts, ws = 0, (1, 1, 1, 1), None
+    if deconv_path(cin, co, x.dtype, _aligned16(x, w, y)) == "wgmma":
+        rows = b * h * wd
+        tile, parts, ws = _grouped_launch_args(
+            x, plan or deconv_plan(rows, co, cin), rows, co)
     rc = _deconv_lib().t2i_deconv5x5_s2(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        y.data_ptr(), b, h, wd, cin, co, ACT_CODES[act],
-        int(x.dtype == torch.bfloat16), _stream(x))
+        y.data_ptr(), ws.data_ptr() if ws is not None else None, b, h, wd,
+        cin, co, ACT_CODES[act], int(x.dtype == torch.bfloat16), tile,
+        *parts, _stream(x))
     if rc != 0:
         raise RuntimeError(f"deconv5x5_s2 kernel launch failed: CUDA error {rc}")
     deconv5x5_s2.launches += 1
     return y
+
+
+def deconv_path_on_card(x, w, y) -> str:
+    """The path the C entry point itself reports for these tensors."""
+    return DECONV_PATHS[_deconv_lib().t2i_deconv5x5_s2_path(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), x.shape[-1], w.shape[-1],
+        int(x.dtype == torch.bfloat16))]
 
 
 def _deconv_as_conv_weight(w):
@@ -330,6 +392,163 @@ def conv_plan(m: int, n: int, k: int, taps: int = 25):
     return (*CONV_TILES[-index], -split)
 
 
+# ---- grouped wgmma plans (deconv5x5_s2 and upconv3x3: four parity GEMMs)
+
+# taps of each output parity (py, px): the transposed conv's (2+py)(2+px),
+# the upsampling conv's 2x2 combined taps
+DECONV_PARITY_TAPS = (4, 6, 6, 9)
+UPCONV_PARITY_TAPS = (4, 4, 4, 4)
+RESIDENT_TILE = 4              # igemm90::kResident128x64
+RESIDENT_MAX_SLICES = 4        # its weights, at most 32 KB, stay resident
+
+
+class GroupedPlan(NamedTuple):
+    """A launch of the grouped wgmma GEMM: the tile, each group's number
+    of parts of K (whole taps each), and whether it is the resident kernel
+    (128x64 tiles, N = 64, no split, two blocks per SM)."""
+    tile_m: int
+    tile_n: int
+    parts: Tuple[int, ...]
+    resident: bool = False
+
+
+# The grouped plan's cost model, in the units of `conv_plan` (one 128x128x64
+# slice on one SM).  Fitted to the sweep of
+# text_to_image_tpu_torch/tools/conv_plan_sweep.py on the H100 (11 deconv
+# and upconv shapes; the chosen plans within 6 % of the fastest, 12 % in sum).
+_GPLAN_BLOCK_OVERHEAD = 8.0    # ring fill and epilogue of one block
+# work per product relative to the 128x128 tile (A by TMA where the map
+# allows it, else by cp.async: see `a_by_tma`)
+_GPLAN_TILE_COST = {(128, 128): 1.0, (128, 64): 1.1, (64, 128): 1.2,
+                    (128, 256): 1.0}
+_GPLAN_RES_SLICE = 0.2         # a 128x64x64 slice of the resident kernel
+_GPLAN_RES_TILE = 0.5          # its epilogue of one 128x64 tile
+_GPLAN_RES_FIXED = 4.0         # its start: the weights by TMA
+
+
+def grouped_ws_elems(m: int, n: int, parts) -> int:
+    """f32 elements of the split-K workspace: one [m, n] plane per part of
+    every group split in more than one."""
+    return sum(p for p in parts if p > 1) * m * n
+
+
+def _parts_for_cap(taps, cap):
+    return tuple(min(CONV_SPLITS[-1], -(-t // cap)) for t in taps)
+
+
+def grouped_candidates(m: int, n: int, cin: int, taps):
+    """Every plan `grouped_plan` chooses from: each tile that divides n
+    with the parts that cap the taps of a part at 1, 2, ... (at most
+    CONV_SPLITS[-1] parts, the workspace under CONV_WS_CAP), and the
+    resident kernel where n = 64 and each group's K is at most
+    RESIDENT_MAX_SLICES slices of 64 channels."""
+    plans = []
+    for tm, tn in CONV_TILES:
+        if n % tn:
+            continue
+        for cap in range(max(taps), 0, -1):
+            parts = _parts_for_cap(taps, cap)
+            plan = GroupedPlan(tm, tn, parts)
+            if (plan not in plans
+                    and grouped_ws_elems(m, n, parts) * 4 <= CONV_WS_CAP):
+                plans.append(plan)
+    if n == 64 and max(taps) * (cin // 64) <= RESIDENT_MAX_SLICES:
+        plans.append(GroupedPlan(128, 64, (1,) * len(taps), True))
+    return plans
+
+
+def _makespan(durations, slots):
+    """Blocks handed out in order to the first free of `slots` block slots
+    (the hardware's dispatch, as a list schedule)."""
+    if len(set(durations)) == 1:
+        return -(-len(durations) // slots) * durations[0]
+    free = [0.0] * min(slots, len(durations))
+    heapq.heapify(free)
+    end = 0.0
+    for d in durations:
+        t = heapq.heappop(free) + d
+        end = max(end, t)
+        heapq.heappush(free, t)
+    return end
+
+
+def grouped_cost(m: int, n: int, cin: int, taps, plan: GroupedPlan) -> float:
+    """The model's relative time of `plan` (it ranks plans; it is not a
+    prediction), in units of one 128x128x64 slice on one SM.  The blocks,
+    in the launch's order (part, then tile, then group), go to 2 slots per
+    SM (1 for 128x256 tiles) at the tile's cost per product plus a fixed
+    cost each; a split adds its reduce pass.  The resident kernel runs two
+    blocks per SM, each over ceil(tiles / blocks) tiles of its group at a
+    cost per slice and per tile."""
+    slices = cin // 64
+    groups = len(taps)
+    if plan.resident:
+        row_tiles = -(-m // 128)
+        per_group = min(row_tiles, 2 * SM_COUNT // groups)
+        walk = -(-row_tiles // per_group)
+        return (walk * 2 * (max(taps) * slices * _GPLAN_RES_SLICE
+                            + _GPLAN_RES_TILE)
+                + _GPLAN_RES_FIXED)
+    tm, tn = plan.tile_m, plan.tile_n
+    slots = SM_COUNT if tn == 256 else 2 * SM_COUNT
+    rate = _GPLAN_TILE_COST[tm, tn] * tm * tn / 16384.0 * slots / SM_COUNT
+    tiles = -(-m // tm) * (n // tn)
+    durations = []
+    for z in range(max(plan.parts)):
+        row = [((z + 1) * t // p - z * t // p) * slices * rate
+               + _GPLAN_BLOCK_OVERHEAD
+               for t, p in zip(taps, plan.parts) if z < p]
+        durations += row * tiles
+    cost = _makespan(durations, slots)
+    planes = sum(p + 1 for p in plan.parts if p > 1)
+    if planes:
+        cost += planes * m * n * 4 / (_PLAN_WS_BYTES_PER_S * _PLAN_UNIT_S)
+    return cost
+
+
+def grouped_blocks(m: int, n: int, cin: int, taps, plan: GroupedPlan) -> int:
+    """Blocks the launch runs (the resident kernel: its grid)."""
+    if plan.resident:
+        return min(-(-m // 128), 2 * SM_COUNT // len(taps)) * len(taps)
+    return -(-m // plan.tile_m) * (n // plan.tile_n) * sum(plan.parts)
+
+
+def a_by_tma(h: int, w: int, plan: GroupedPlan) -> bool:
+    """Whether the grouped kernel brings A by TMA, one box a slice
+    (csrc/igemm_sm90.cuh `image_boxes`), rather than gathering it row by row
+    with cp.async: where a tile of rows is whole rows of the h×w input map
+    or whole maps."""
+    hw = h * w
+    return plan.tile_m % w == 0 and (hw % plan.tile_m == 0
+                                     or plan.tile_m % hw == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_plan(m: int, n: int, cin: int, taps) -> GroupedPlan:
+    """The cheapest `grouped_candidates` plan by `grouped_cost` among those
+    that give at least one block per SM (where none does, among those with
+    the most blocks) for groups of m rows, n columns and taps[g]·cin deep;
+    ties go to the earlier candidate."""
+    cands = grouped_candidates(m, n, cin, taps)
+    if not cands:
+        raise ValueError(f"no wgmma tile divides n = {n}")
+    return max(cands, key=lambda p: (
+        min(grouped_blocks(m, n, cin, taps, p), SM_COUNT),
+        -grouped_cost(m, n, cin, taps, p), -cands.index(p)))
+
+
+def deconv_plan(m: int, n: int, cin: int) -> GroupedPlan:
+    """`grouped_plan` of the transposed conv: m = B·H·W rows per parity,
+    n = Co, parities of 4, 6, 6 and 9 taps of cin channels."""
+    return grouped_plan(m, n, cin, DECONV_PARITY_TAPS)
+
+
+def upconv_plan(m: int, n: int, cin: int) -> GroupedPlan:
+    """`grouped_plan` of the upsampling conv: m = B·H·W rows per parity,
+    n = Co, four parities of 4 combined taps of cin channels."""
+    return grouped_plan(m, n, cin, UPCONV_PARITY_TAPS)
+
+
 def _conv_check(x, w, b, act):
     rows = x.shape[0] * same_pads(x.shape[1])[0] * same_pads(x.shape[2])[0] \
         if x.dim() == 4 else None
@@ -485,9 +704,50 @@ def upconv3x3_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 def _upconv_lib() -> ctypes.CDLL:
-    # x, wc, scale, shift, y; B, H, W, Cin, Co, act, bf16; stream
     return _build.bind("upconv3x3", {
-        "t2i_upconv3x3": [_PTR] * 5 + [_INT] * 7 + [_PTR]})
+        # x, wc, scale, shift, y, ws; B, H, W, Cin, Co, act, bf16, tile,
+        # parts of parities 0-3; stream
+        "t2i_upconv3x3": [_PTR] * 6 + [_INT] * 12 + [_PTR],
+        # x, wc, y; Cin, Co, bf16
+        "t2i_upconv3x3_path": [_PTR] * 3 + [_INT] * 3,
+        # w, wc; Cin, Co, bf16; stream
+        "t2i_upconv3x3_combine": [_PTR] * 2 + [_INT] * 3 + [_PTR]})
+
+
+# The kernel's code paths in the order of the C entry point's codes
+# (csrc/upconv3x3.cu `Path`), chosen from shapes, types and alignment.
+UPCONV_PATHS = ("tile", "pipelined", "wgmma")
+
+
+def upconv_path(cin: int, co: int, dtype: torch.dtype,
+                aligned: bool = True) -> str:
+    """The Python mirror of `upconv_path` in csrc/upconv3x3.cu.  `aligned`:
+    x, the combined weights and y start on 16-byte boundaries."""
+    bf16 = dtype == torch.bfloat16
+    if bf16 and cin % 64 == 0 and co % 64 == 0 and aligned:
+        return "wgmma"
+    return ("pipelined" if bf16 and aligned and cin % 8 == 0 and co % 8 == 0
+            else "tile")
+
+
+def combined_weights(w: torch.Tensor) -> torch.Tensor:
+    """`combine_upconv_weights` of w: on CUDA one launch of the combine
+    kernel of csrc/upconv3x3.cu (bit-equal to the torch version: the same
+    sums in w's dtype, in the same order), on the CPU the torch version."""
+    if w.device.type != "cuda":
+        return combine_upconv_weights(w)
+    if w.dtype not in _DTYPES or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
+        raise ValueError(f"w must be [3,3,Cin,Co] in {_DTYPES}, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    w = w.contiguous()
+    cin, co = w.shape[2:]
+    wc = torch.empty(2, 2, 2, 2, cin, co, dtype=w.dtype, device=w.device)
+    rc = _upconv_lib().t2i_upconv3x3_combine(
+        w.data_ptr(), wc.data_ptr(), cin, co, int(w.dtype == torch.bfloat16),
+        _stream(w))
+    if rc != 0:
+        raise RuntimeError(f"upconv3x3 combine launch failed: CUDA error {rc}")
+    return wc
 
 
 def _upconv_check(x, w, scale, shift, act):
@@ -496,7 +756,9 @@ def _upconv_check(x, w, scale, shift, act):
                   rows=rows)
 
 
-def _upconv_forward(x, w, scale, shift, act):
+def _upconv_forward(x, w, scale, shift, act, plan=None):
+    """`plan` forces a `GroupedPlan` on the wgmma path; None asks
+    `upconv_plan`."""
     if x.device.type == "cpu":
         return upconv3x3_plain(x, w, scale, shift, act)
     if x.device.type != "cuda":
@@ -504,16 +766,29 @@ def _upconv_forward(x, w, scale, shift, act):
     _upconv_check(x, w, scale, shift, act)
     b, h, wd, cin = x.shape
     co = w.shape[-1]
-    wc = combine_upconv_weights(w)
+    wc = combined_weights(w)
     y = torch.empty(b, 2 * h, 2 * wd, co, dtype=x.dtype, device=x.device)
+    tile, parts, ws = 0, (1, 1, 1, 1), None
+    if upconv_path(cin, co, x.dtype, _aligned16(x, wc, y)) == "wgmma":
+        rows = b * h * wd
+        tile, parts, ws = _grouped_launch_args(
+            x, plan or upconv_plan(rows, co, cin), rows, co)
     rc = _upconv_lib().t2i_upconv3x3(
         x.data_ptr(), wc.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        y.data_ptr(), b, h, wd, cin, co, ACT_CODES[act],
-        int(x.dtype == torch.bfloat16), _stream(x))
+        y.data_ptr(), ws.data_ptr() if ws is not None else None, b, h, wd,
+        cin, co, ACT_CODES[act], int(x.dtype == torch.bfloat16), tile,
+        *parts, _stream(x))
     if rc != 0:
         raise RuntimeError(f"upconv3x3 kernel launch failed: CUDA error {rc}")
     upconv3x3.launches += 1
     return y
+
+
+def upconv_path_on_card(x, wc, y) -> str:
+    """The path the C entry point itself reports for these tensors."""
+    return UPCONV_PATHS[_upconv_lib().t2i_upconv3x3_path(
+        x.data_ptr(), wc.data_ptr(), y.data_ptr(), x.shape[-1], wc.shape[-1],
+        int(x.dtype == torch.bfloat16))]
 
 
 def _upconv_composed(x, w, scale, shift, act):
@@ -528,7 +803,7 @@ def _parity_dx(g, w, out_dtype):
     """Adjoint in x of conv3×3(up2(x)) for the cotangent g [B,2H,2W,Co]
     (`_parity_dx`): four 2×2 convs over g's parity planes, Co → Cin, summed
     in f32; no upsampled intermediate."""
-    wc = combine_upconv_weights(w.to(g.dtype))         # [py,px,a,b,ci,co]
+    wc = combined_weights(w.to(g.dtype))               # [py,px,a,b,ci,co]
     b, h2, w2, co = g.shape
     gp = g.reshape(b, h2 // 2, 2, w2 // 2, 2, co)
     dx = None

@@ -1,6 +1,7 @@
-"""Hold and time every wgmma plan of ``conv5x5_s2_act`` on the card.
+"""Hold and time every wgmma plan of ``conv5x5_s2_act``, ``deconv5x5_s2``
+and ``upconv3x3`` on the card.
 
-    python -m text_to_image_tpu_torch.tools.conv_plan_sweep
+    python -m text_to_image_tpu_torch.tools.conv_plan_sweep [--ops conv deconv upconv]
 
 For each deep discriminator shape (64 px and 256 px D, batch 192 and 64,
 bf16) it runs every (tile, split) the plan may choose, holds the output
@@ -9,9 +10,16 @@ against the plain version, and prints the time of each beside the plan
 cost model in ``ops/kernels/conv.py`` were set from.  It also times the
 tensor-core down0 path and ``conditioning_join`` at the main-path shapes
 beside their library calls (the join's and ``addmm``'s kernels also alone,
-by torch.profiler) and prints the compiler's register report
-(``chip_smoke.py`` holds every path at odd shapes).  Needs one NVIDIA GPU
-with nvcc.
+by torch.profiler).  ``deconv`` does the same for the GAN-CLS generator's
+three deep transposed convs and ``upconv`` for the eight StackGAN up-blocks
+(batch 64, bf16): every `grouped_candidates` plan (tile, parts of K per
+parity, the resident kernel) held against the plain version, split outputs
+bit for bit between two runs, timed beside cuDNN's ``conv_transpose2d`` /
+``F.interpolate`` + ``conv2d`` and beside the cost model's estimate, from
+which the constants of `grouped_plan` were set.  It prints the compiler's
+register report (``chip_smoke.py`` holds every path at odd shapes) and
+writes ``conv_plan_sweep.json`` to the output directory of ``chip_smoke.py``.
+Needs one NVIDIA GPU with nvcc.
 """
 
 from __future__ import annotations
@@ -79,22 +87,85 @@ def plans(m, n):
                 yield tm, tn, split
 
 
-def main() -> int:
-    argparse.ArgumentParser(description=__doc__).parse_args()
-    if not torch.cuda.is_available():
-        print("needs an NVIDIA GPU", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator().manual_seed(0)
-    _build.build(["conv5x5_s2", "conditioning_join"])
-    for name in ("conv5x5_s2", "conditioning_join"):
-        for line in _build.ptxas_report(name).splitlines():
-            if any(k in line for k in ("registers", "spill", "Compiling",
-                                       "warning", "error")):
-                print(f"ptxas {name}: {line.strip()}", flush=True)
-    bad = 0
-    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
-    rows = []
+DECONV_SHAPES = [((64, 4, 4, 1024), 512), ((64, 8, 8, 512), 256),
+                 ((64, 16, 16, 256), 128)]
+UPCONV_SHAPES = [((64, 4, 4, 1024), 512), ((64, 8, 8, 512), 256),
+                 ((64, 16, 16, 256), 128), ((64, 32, 32, 128), 64),
+                 ((64, 16, 16, 512), 256), ((64, 32, 32, 256), 128),
+                 ((64, 64, 64, 128), 64), ((64, 128, 128, 64), 64)]
+
+
+def sweep_grouped(op, shapes, gen, dev, flush):
+    """Every grouped plan of `op` ("deconv" or "upconv") at `shapes`."""
+    bad, rows = 0, []
+    taps = conv.DECONV_PARITY_TAPS if op == "deconv" else conv.UPCONV_PARITY_TAPS
+    k = 5 if op == "deconv" else 3
+    for shape, co in shapes:
+        cin = shape[-1]
+        x = torch.relu(torch.randn(shape, generator=gen)).to(torch.bfloat16).to(dev)
+        w = (torch.randn(k, k, cin, co, generator=gen) * 0.02).to(
+            torch.bfloat16).to(dev)
+        s = (1.0 + 0.1 * torch.randn(co, generator=gen)).to(dev)
+        t = (0.1 * torch.randn(co, generator=gen)).to(dev)
+        m = shape[0] * shape[1] * shape[2]
+        x_cl = x.permute(0, 3, 1, 2)
+        if op == "deconv":
+            ref = conv.deconv5x5_s2_plain(x, w, s, t, "relu")
+            w_t = w.permute(2, 3, 0, 1).flip(2, 3).contiguous()
+            lib = time_ms(lambda: F.conv_transpose2d(x_cl, w_t, stride=2,
+                                                     padding=1), flush)
+
+            def run(plan):
+                return conv._deconv_forward(x, w, s, t, "relu", plan=plan)
+            flops = 2 * 25 * m * cin * co
+        else:
+            ref = conv.upconv3x3_plain(x, w, s, t, "relu")
+            w_t = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            t16 = t.to(torch.bfloat16)
+            lib = time_ms(lambda: F.conv2d(F.interpolate(
+                x_cl, scale_factor=2, mode="nearest"), w_t, t16, padding=1),
+                flush)
+
+            def run(plan):
+                return conv._upconv_forward(x, w, s, t, "relu", plan=plan)
+            flops = 2 * 16 * m * cin * co
+        chosen = (conv.deconv_plan(m, co, cin) if op == "deconv"
+                  else conv.upconv_plan(m, co, cin))
+        times, model = {}, {}
+        for plan in conv.grouped_candidates(m, co, cin, taps):
+            got = run(plan)
+            again = run(plan)
+            torch.cuda.synchronize()
+            e, n = worst(got, ref)
+            same = torch.equal(got, again)
+            bad += (n > 0) + (not same)
+            if n or not same:
+                print(f"  FAIL {op} {shape}->{co} {plan}: max|err| {e:.3e}, "
+                      f"{n} out of tolerance, two runs bit-identical {same}",
+                      flush=True)
+            times[plan] = time_ms(lambda: run(plan), flush)
+            model[plan] = conv.grouped_cost(m, co, cin, taps, plan) * \
+                conv._PLAN_UNIT_S * 1e3
+        best = min(times, key=times.get)
+        print(f"{op} {shape}->{co}: library {lib:.4f} ms; plan {chosen} "
+              f"{times[chosen]:.4f} ms ({flops / times[chosen] / 1e9:.0f} "
+              f"TFLOP/s); best {best} {times[best]:.4f} ms", flush=True)
+        for plan, ms in sorted(times.items(), key=lambda kv: kv[1]):
+            a_mode = "TMA" if conv.a_by_tma(shape[1], shape[2], plan) else \
+                "cp.async"
+            print(f"    {plan} (A by {a_mode}): {ms:.4f} ms, model "
+                  f"{model[plan]:.4f} ms", flush=True)
+        rows.append({"op": op, "shape": [list(shape), co], "library_ms": lib,
+                     "plan": list(chosen), "best": list(best),
+                     "ms": [[list(p), ms, model[p]] for p, ms in times.items()]})
+        del x, ref
+        torch.cuda.empty_cache()
+    return bad, rows
+
+
+def sweep_conv(gen, dev, flush):
+    bad, rows = 0, []
     for res in (64, 256):
         for bsz in (192, 64):
             for shape, co in conv_shapes(bsz, res):
@@ -181,6 +252,35 @@ def main() -> int:
             print(f"  {name} kernels alone, us: {alone[name]}", flush=True)
         rows.append({"join": list(shape), "ms": ms, "addmm_ms": lib,
                      "kernels_alone_us": alone})
+    return bad, rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--ops", nargs="+", default=["conv", "deconv", "upconv"],
+                    choices=["conv", "deconv", "upconv"])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    names = ["conv5x5_s2", "conditioning_join", "deconv5x5_s2", "upconv3x3"]
+    _build.build(names)
+    for name in names:
+        for line in _build.ptxas_report(name).splitlines():
+            if any(k in line for k in ("registers", "spill", "Compiling",
+                                       "warning", "error")):
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+    bad, rows = 0, []
+    if "conv" in args.ops:
+        b, r = sweep_conv(gen, dev, flush)
+        bad, rows = bad + b, rows + r
+    for op, shapes in (("deconv", DECONV_SHAPES), ("upconv", UPCONV_SHAPES)):
+        if op in args.ops:
+            b, r = sweep_grouped(op, shapes, gen, dev, flush)
+            bad, rows = bad + b, rows + r
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
