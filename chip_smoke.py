@@ -5,12 +5,15 @@
 
 1. builds every kernel from the repo's sources
    (``text_to_image_tpu_torch/csrc/*.cu`` with nvcc, one process per source,
-   all together; the Triton ``bn_act`` at its first launch);
+   all together);
 2. holds each kernel against its plain PyTorch version at every shape the
    GAN-CLS 64 px and StackGAN 64 / 256 px sampling and training paths give
-   it (bf16 and f32, batch 64 and the discriminator's 3 × 64 streams;
-   ``bn_act`` up to the 64×256²×64 input of Stage-II's last up-block, the
-   256 px discriminator's six convs at both batches) and at odd shapes that
+   it (bf16 and f32, batch 64 and the discriminator's 3 × 64 streams; the
+   four batch-norm kernels at every train-mode BN call of every path, up to
+   the 64×256²×64 input of Stage-II's last up-block, each output and the
+   running state bit for bit between two runs and each plan read back from
+   C; the 256 px discriminator's six convs at both batches) and at odd
+   shapes that
    reach every code path (for ``conv5x5_s2_act``, ``deconv5x5_s2`` and
    ``upconv3x3`` the path each call takes is read back from the C entry
    point and held against the Python mirror of the rule; every wgmma tile
@@ -18,9 +21,10 @@
    grouped plan chooses from, the resident kernel and A by TMA boxes or by
    cp.async included -- a split's output bit for bit between two runs; the
    upconv's combined weights from its kernel bit for bit against the torch
-   version; for ``conditioning_join`` both paths), and each backward
-   (autograd.Function) against torch.autograd through the plain version, in
-   f32 with TF32 off;
+   version; for ``conditioning_join`` both paths; for the batch norm the
+   scalar path), and each backward (autograd.Function; the train-mode batch
+   norm's through its statistics) against torch.autograd through the plain
+   version, in f32 with TF32 off;
 3. drives the sampling path at the flagship widths (gf 128, z 100,
    embed 1024, batch 64, bf16) through ``eval/sampler.py`` — the sample grid
    and both interpolation grids — plus the BN-folded serving generator, with
@@ -37,14 +41,16 @@
    ``configs/stackgan_stage{1,2}_flowers.yml`` (gf 128, df 64, ca 128, batch
    64, bf16; Stage-II at 256 px over a frozen 64 px Stage-I drawn from the
    seed): the three grids of ``main.py`` for each stage, then 3 ticks of
-   ``main.py --train`` for each stage, with the launch counts of all five
+   ``main.py --train`` for each stage, with the launch counts of all eight
    kernels, finite losses (``kl`` too), every trained leaf moved and the
    frozen Stage-I bit-identical; both generators against the CPU; one f32
    Stage-II tick at batch 4 on the card against the CPU;
 5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
    kernel's bound, prints the path, tile and split of each conv, join,
-   deconv and upconv call with its TFLOP/s and GB/s, times the backward passes, sampling in images/s and the
+   deconv and upconv call with its TFLOP/s and GB/s, times each batch-norm
+   call forward and with its backward beside ``F.batch_norm``, times the
+   backward passes, sampling in images/s and the
    training ticks (GAN-CLS, Stage-I, Stage-II) in ms and images/s with
    their peak memory, and profiles where a forward's and a tick's device
    time goes (torch.profiler; GAN-CLS and Stage-II).
@@ -96,7 +102,10 @@ BN_SHAPES = [(BATCH, 4, 4, 1024), (BATCH, 8, 8, 512), (BATCH, 16, 16, 256),
 # of each kernel is held against its plain version too
 ODD_DECONV_SHAPES = [((2, 5, 7, 12), 20, "lrelu"), ((3, 8, 8, 8), 16, "none"),
                      ((2, 5, 7, 6), 3, "tanh"), ((2, 4, 4, 16), 2, "relu")]
-ODD_BN_SHAPES = [((3, 5, 7, 20), "tanh"), ((2, 3, 3, 200), "lrelu")]
+# off the main path, (input, streams, act): the scalar path (C = 20), four
+# channel slices the last of one group (C = 200), three streams of ragged C
+ODD_BN_CALLS = [((3, 5, 7, 20), 1, "tanh"), ((2, 3, 3, 200), 1, "lrelu"),
+                ((6, 5, 7, 20), 3, "relu")]
 # the 64 px discriminator: the D step runs the real, fake and wrong streams
 # in one pass of 3·64, the G step's D call one stream of 64
 D_BATCH = 3 * BATCH
@@ -138,6 +147,24 @@ STACKGAN_BN_SHAPES = (
     + [(s, "lrelu") for s in ((BATCH, 64, 64, 128), (BATCH, 32, 32, 256),
                               (BATCH, 16, 16, 512), (BATCH, 8, 8, 512),
                               (BATCH, 4, 4, 512))])
+# every train-mode BN call of every path as (input, streams, act): the
+# GAN-CLS and Stage-I generators' stem and up-blocks (relu); the 64 px D over
+# the D step's three streams of 64 and the G step's one (down1-3, the join's
+# output; lrelu); the StackGAN generators' other calls (relu; the residual
+# blocks' second BN has no activation); the 256 px D at both batches
+BN_CALLS = list(dict.fromkeys(
+    [(s, 1, "relu") for s in BN_SHAPES]
+    + [((k * BATCH, *s[1:]), k, "lrelu") for k in (3, 1) for s in D_BN_SHAPES]
+    + [(s, 1, a) for s, a in STACKGAN_BN_SHAPES if a == "relu"]
+    + [((BATCH, 16, 16, 512), 1, "none")]
+    + [((k * BATCH, *s[1:]), k, a) for k in (3, 1)
+       for s, a in STACKGAN_BN_SHAPES if a == "lrelu"]))
+# the batch-norm statistics (mean, rstd, a, b, running state), kernel vs
+# plain version: f32 sums over up to 4 M rows in another order
+STATS_TOL = (1e-5, 1e-5)
+# the four batch-norm kernels by the step of a call each one times
+BN_STEPS = {"bn_stats": "stats", "bn_act": "apply", "bn_bwd_reduce": "reduce",
+            "bn_bwd_apply": "dx"}
 # off the main path, reaching the direct (Cin <= 4), pipelined (aligned
 # bf16) and simple-tile (f32, ragged) code paths, and odd maps (SAME pads 2)
 ODD_CONV_SHAPES = [((2, 5, 7, 12), 20, "tanh"), ((3, 9, 6, 6), 10, "relu"),
@@ -186,11 +213,17 @@ GRAD_REL = 1e-4
 LOSS_TOL = 1e-4
 PARAM_TOL = 1e-6
 TRAIN_TICKS = 3
-# launches per training tick: the D step's G forward (4 deconv, 4 bn_act)
-# and D over three streams (4 conv, 1 join, 4 BN × 3 streams), then each of
-# the 2 G steps (G: 4 deconv, 4 bn_act; D: 4 conv, 1 join, 4 bn_act)
-TICK_LAUNCHES = {"deconv5x5_s2": 12, "bn_act": 32, "conv5x5_s2_act": 12,
-                 "conditioning_join": 3}
+# launches per training tick.  A train-mode BN call is one bn_stats + one
+# bn_act forward and, where it is differentiated, one bn_bwd_reduce + one
+# bn_bwd_apply, whatever its number of streams.  The D step: G forward
+# without gradient (4 deconv; 4 BN calls: stem, up0-2) and D over the three
+# streams in one pass (4 conv, 1 join; 4 BN calls: down1-3, join;
+# differentiated); then each of the 2 G steps: G (4 deconv, 4 BN) and D on
+# one stream (4 conv, 1 join, 4 BN), both differentiated.  BN calls forward
+# 4 + 4 + 2·(4 + 4) = 24, backward 4 + 2·(4 + 4) = 20.
+TICK_LAUNCHES = {"deconv5x5_s2": 12, "bn_stats": 24, "bn_act": 24,
+                 "bn_bwd_reduce": 20, "bn_bwd_apply": 20,
+                 "conv5x5_s2_act": 12, "conditioning_join": 3}
 
 
 # (B, H, W, Cin) → Co: the upconv3x3_bias calls of the 64 px Stage-I
@@ -222,22 +255,30 @@ WGMMA_UPCONV_ODD_SHAPES = [((1, 5, 7, 64), 64, "relu"),
                            ((1, 4, 8, 64), 64, "none"),
                            ((3, 8, 4, 128), 192, "lrelu"),
                            ((2, 16, 8, 128), 64, "relu")]
-# StackGAN launches per training tick (n_critic 1, g_steps 1, remat off).
-# Stage-I: two G forwards (4 upconv, 5 bn_act each), D over three streams
-# (4 conv, 1 join, 4 BN × 3) and over one (4 conv, 1 join, 4 bn_act).
-# Stage-II: two G forwards, each the frozen Stage-I (4 upconv, 5 bn_act)
-# plus Stage-II (4 upconv, 9 bn_act); the 256 px D has six down-blocks:
-# three streams (6 conv, 1 join, 6 BN × 3) and one (6 conv, 1 join, 6).
+# StackGAN launches per training tick (n_critic 1, g_steps 1, remat off),
+# BN calls counted as above.  Stage-I: two G forwards (4 upconv; 5 BN calls:
+# stem, up0-3), the first without gradient; D over three streams and over
+# one (4 conv, 1 join, 4 BN calls each), both differentiated.  BN forward
+# 5 + 4 + 5 + 4 = 18, backward 4 + 5 + 4 = 13.  Stage-II: two G forwards,
+# each the frozen Stage-I (4 upconv, 5 BN calls, never differentiated) plus
+# Stage-II (4 upconv; 11 BN calls: enc1-2, join, two per residual block,
+# up0-3); the 256 px D has six down-blocks (6 conv, 1 join; 6 BN calls:
+# down1-5, join), over three streams and over one.  BN forward
+# 16 + 6 + 16 + 6 = 44, backward 6 + 11 + 6 = 23.
 STACKGAN_TICK_LAUNCHES = {
-    "stackgan_stage1": {"upconv3x3": 8, "bn_act": 26, "conv5x5_s2_act": 8,
-                        "conditioning_join": 2, "deconv5x5_s2": 0},
-    "stackgan_stage2": {"upconv3x3": 16, "bn_act": 52, "conv5x5_s2_act": 12,
-                        "conditioning_join": 2, "deconv5x5_s2": 0}}
-# per sampling forward (train-mode BN): Stage-I 4 upconv + 5 bn_act;
-# Stage-II 8 upconv (4 of them in the frozen Stage-I) + 14 bn_act
+    "stackgan_stage1": {"upconv3x3": 8, "bn_stats": 18, "bn_act": 18,
+                        "bn_bwd_reduce": 13, "bn_bwd_apply": 13,
+                        "conv5x5_s2_act": 8, "conditioning_join": 2,
+                        "deconv5x5_s2": 0},
+    "stackgan_stage2": {"upconv3x3": 16, "bn_stats": 44, "bn_act": 44,
+                        "bn_bwd_reduce": 23, "bn_bwd_apply": 23,
+                        "conv5x5_s2_act": 12, "conditioning_join": 2,
+                        "deconv5x5_s2": 0}}
+# per sampling forward (train-mode BN, no gradient): Stage-I 4 upconv + 5 BN
+# calls; Stage-II 8 upconv (4 of them in the frozen Stage-I) + 16 BN calls
 STACKGAN_FORWARD_LAUNCHES = {
-    "stackgan_stage1": {"upconv3x3": 4, "bn_act": 5},
-    "stackgan_stage2": {"upconv3x3": 8, "bn_act": 14}}
+    "stackgan_stage1": {"upconv3x3": 4, "bn_stats": 5, "bn_act": 5},
+    "stackgan_stage2": {"upconv3x3": 8, "bn_stats": 16, "bn_act": 16}}
 # the Stage-II generator (a frozen Stage-I inside: 25 layers, train-mode
 # BN) on the card vs the CPU plain path: f32 by the largest error; in bf16
 # every layer rounds, so the mean error is held and the largest reported
@@ -322,6 +363,119 @@ def bn_inputs(shape, dtype, device, gen):
     a = 1.0 + 0.1 * torch.randn(c, generator=gen)
     b = 0.1 * torch.randn(c, generator=gen)
     return [v.to(device) for v in (x, a, b)]
+
+
+def bn_train_inputs(shape, dtype, device, gen, misaligned=False):
+    """x, γ, β, running mean and var of a train-mode BN call; with
+    `misaligned` x is a view one element into its buffer (2 or 4 bytes off
+    the 16-byte alignment of the vector path)."""
+    c = shape[-1]
+    x = (0.5 + 1.5 * torch.randn(shape, generator=gen)).to(dtype).to(device)
+    if misaligned:
+        buf = torch.empty(x.numel() + 8, dtype=dtype, device=device)
+        x = buf[1:1 + x.numel()].view(shape).copy_(x)
+    gamma = 1.0 + 0.1 * torch.randn(c, generator=gen)
+    beta = 0.1 * torch.randn(c, generator=gen)
+    rm = 0.1 * torch.randn(c, generator=gen)
+    rv = 1.0 + 0.2 * torch.rand(c, generator=gen)
+    return [x] + [v.to(device) for v in (gamma, beta, rm, rv)]
+
+
+def compare_all(pairs, atol, rtol, what, rel_to_max=False):
+    """Each (name, got, ref) within atol + rtol·|ref| (with `rel_to_max`
+    atol is taken relative to max|ref| of that output); one log line."""
+    worst, pairs = 0.0, list(pairs)
+    for name, got, ref in pairs:
+        err = (got.float() - ref.float()).abs()
+        tol = atol * (float(ref.float().abs().max()) if rel_to_max else 1.0)
+        bad = err > tol + rtol * ref.float().abs()
+        check(not bool(bad.any()), f"{what} {name}: {int(bad.sum())} "
+                                   f"elements out of tolerance, max|err| "
+                                   f"{float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+    log(f"  {what}: max|err| {worst:.3e} over {[p[0] for p in pairs]} ok")
+    return worst
+
+
+def phase_bn_kernels(device):
+    """The four batch-norm kernels against their plain versions at every
+    train-mode BN call of every path and at the odd calls, bf16 and f32, on
+    the same inputs: bn_stats (mean, rstd, a, b, the running state), bn_act
+    (the apply pass over those a, b), bn_bwd_reduce (per-stream sums, dγ,
+    dβ) and bn_bwd_apply (dx over those sums).  Every output and the
+    running state bit-identical between two runs; the plan of every launch
+    read back from the C entry point against the Python mirror.  One call on
+    a misaligned x holds the scalar path at C % 8 == 0."""
+    from text_to_image_tpu_torch.ops.kernels import fused
+    gen = torch.Generator().manual_seed(SEED + 10)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    errs = {n: {} for n in ("bn_stats", "bn_act", "bn_bwd_reduce",
+                            "bn_bwd_apply")}
+    plans = {}
+    calls = ([(c, False) for c in BN_CALLS + ODD_BN_CALLS]
+             + [(((4, 8, 8, 64), 2, "lrelu"), True)])
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for (shape, s, act), misaligned in calls:
+            x, gamma, beta, rm, rv = bn_train_inputs(shape, dtype, device,
+                                                     gen, misaligned)
+            tag = " misaligned" if misaligned else ""
+            what = f"{dt} {shape} S={s} {act}{tag}"
+            key = (dtype, (*shape, s, act + tag))
+            c = shape[-1]
+            stats = fused.bn_stats(x, s, gamma, beta, rm, rv)
+            again = fused.bn_stats(x, s, gamma, beta, rm, rv)
+            ref = fused.bn_stats_plain(x, s, gamma, beta, rm, rv)
+            torch.cuda.synchronize()
+            check(all(torch.equal(u, v) for u, v in zip(stats, again)),
+                  f"bn_stats {what}: outputs differ between two runs")
+            errs["bn_stats"][key] = compare_all(
+                zip(("mean", "rstd", "a", "b", "new mean", "new var"), stats,
+                    ref), *STATS_TOL, f"bn_stats {what}")
+            mean, rstd, a, b = stats[:4]
+            y = fused._bn_act_forward(x, a, b, act)
+            check(torch.equal(y, fused._bn_act_forward(x, a, b, act)),
+                  f"bn_act {what}: output differs between two runs")
+            errs["bn_act"][key] = compare_all(
+                [("y", y, fused.bn_act_plain(x, a, b, act))], *BN_TOL[dtype],
+                f"bn_act {what}")
+            g = torch.randn(shape, generator=gen).to(device, dtype)
+            sums = fused.bn_bwd_reduce(g, y, x, mean, rstd, s, act)
+            again = fused.bn_bwd_reduce(g, y, x, mean, rstd, s, act)
+            ref = fused.bn_bwd_reduce_plain(g, y, x, mean, rstd, s, act)
+            torch.cuda.synchronize()
+            check(all(torch.equal(u, v) for u, v in zip(sums, again)),
+                  f"bn_bwd_reduce {what}: outputs differ between two runs")
+            errs["bn_bwd_reduce"][key] = compare_all(
+                zip(("sum ga", "sum ga.xhat", "dgamma", "dbeta"), sums, ref),
+                GRAD_REL, GRAD_REL, f"bn_bwd_reduce {what}", rel_to_max=True)
+            dx = fused.bn_bwd_apply(g, y, x, mean, rstd, gamma, *sums[:2], s,
+                                    act)
+            check(torch.equal(dx, fused.bn_bwd_apply(
+                g, y, x, mean, rstd, gamma, *sums[:2], s, act)),
+                f"bn_bwd_apply {what}: output differs between two runs")
+            errs["bn_bwd_apply"][key] = compare_all(
+                [("dx", dx, fused.bn_bwd_apply_plain(
+                    g, y, x, mean, rstd, gamma, *sums[:2], s, act))],
+                *BN_TOL[dtype], f"bn_bwd_apply {what}")
+            mirror = fused.bn_plan(x.numel() // c, s, c, not misaligned, sms,
+                                   x.element_size())
+            if mirror.one_launch:   # the same bits from one launch
+                one = fused.bn_stats_act(x, s, gamma, beta, rm, rv, act)
+                torch.cuda.synchronize()
+                check(all(torch.equal(u, v) for u, v in
+                          zip(one, (y, *stats))),
+                      f"bn_stats_act {what}: differs from bn_stats + bn_act")
+            for others in ((), (y,), (g, y), (g, y, dx)):
+                on_card = fused.bn_plan_on_card(x, s, *others)
+                check(on_card == mirror, f"bn plan {what}: C {on_card}, "
+                                         f"mirror {mirror}")
+            plans[what] = list(mirror)
+            del x, y, g, dx, stats, sums, ref
+        torch.cuda.empty_cache()
+    log(f"  {len(plans)} batch-norm calls: every plan read back from C equals "
+        f"the mirror")
+    return errs, plans
 
 
 def conv_inputs(shape, co, dtype, device, gen):
@@ -419,40 +573,28 @@ def every_grouped_plan(conv, op, shapes, device, gen):
 
 
 def phase_kernels(device):
-    """Each kernel against its plain version at every main-path shape."""
+    """deconv5x5_s2 against its plain version at every main-path shape and
+    at odd ones; the public bn_act (a and b given)."""
     from text_to_image_tpu_torch.ops.kernels import conv, fused
     gen = torch.Generator().manual_seed(SEED)
-    errs = {"deconv5x5_s2": {}, "bn_act": {}}
+    errs = {"deconv5x5_s2": {}}
     for dtype in (torch.bfloat16, torch.float32):
         for shape, co, act in DECONV_SHAPES:
             args = [*deconv_inputs(shape, co, dtype, device, gen), act]
             errs["deconv5x5_s2"][(dtype, shape)] = grouped_vs_plain(
                 conv, "deconv", args, dtype,
                 f"deconv5x5_s2 {str(dtype)[6:]} {shape}->{co} {act}")[0]
-        for shape in BN_SHAPES:
-            x, a, b = bn_inputs(shape, dtype, device, gen)
-            got = fused.bn_act(x, a, b, "relu")
-            ref = fused.bn_act_plain(x, a, b, "relu")
-            torch.cuda.synchronize()
-            errs["bn_act"][(dtype, shape)] = compare(
-                got, ref, *BN_TOL[dtype], f"bn_act {str(dtype)[6:]} {shape} relu")
-        for shape, act in STACKGAN_BN_SHAPES:
-            x, a, b = bn_inputs(shape, dtype, device, gen)
-            got = fused.bn_act(x, a, b, act)
-            torch.cuda.synchronize()
-            errs["bn_act"][(dtype, shape + (act,))] = compare(
-                got, fused.bn_act_plain(x, a, b, act), *BN_TOL[dtype],
-                f"bn_act {str(dtype)[6:]} {shape} {act} (StackGAN)")
-            del x, got
         for shape, co, act in ODD_DECONV_SHAPES + WGMMA_DECONV_ODD_SHAPES:
             args = [*deconv_inputs(shape, co, dtype, device, gen), act]
             grouped_vs_plain(
                 conv, "deconv", args, dtype,
                 f"deconv5x5_s2 {str(dtype)[6:]} {shape}->{co} {act} (odd)")
-        for shape, act in ODD_BN_SHAPES:
+        # the public bn_act (eval-mode BN, the folded stem) with a, b given
+        for shape, s, act in ODD_BN_CALLS + [(BN_SHAPES[0], 1, "relu")]:
             x, a, b = bn_inputs(shape, dtype, device, gen)
             compare(fused.bn_act(x, a, b, act), fused.bn_act_plain(x, a, b, act),
-                    *BN_TOL[dtype], f"bn_act {str(dtype)[6:]} {shape} {act} (odd)")
+                    *BN_TOL[dtype], f"bn_act {str(dtype)[6:]} {shape} {act} "
+                                    f"(public, a and b given)")
     every_grouped_plan(conv, "deconv", WGMMA_DECONV_ODD_SHAPES, device, gen)
     return errs
 
@@ -665,19 +807,43 @@ def phase_backward(device):
             fused.conditioning_join, fused.conditioning_join_plain,
             [*args, act], (0, 1, 2, 3, 4), gen,
             f"conditioning_join bwd {shape} e{e}->{co} {act}")
-    # bn_act keeps its kink up to the largest GAN-CLS input (2^23 outputs:
-    # a flip there is a chance of well under 1 %); the larger StackGAN
-    # inputs, up to 2^28 outputs, go without it
-    for shape, act in dict.fromkeys(
-            [(s, "relu") for s in BN_SHAPES]
-            + [(s, "lrelu") for s in D_BN_SHAPES]
-            + [(s, a if math.prod(s) <= 2**23 else smooth(a))
-               for s, a in STACKGAN_BN_SHAPES]
-            + ODD_BN_SHAPES):
+    # the public bn_act (eval mode, the folded stem): its backward at the
+    # odd shapes
+    for shape, s, act in ODD_BN_CALLS[:2]:
         x, a, b = bn_inputs(shape, f32, device, gen)
         errs[f"bn_act {shape} {act}"] = grad_compare(
             fused.bn_act, fused.bn_act_plain, [x, a, b, act], (0, 1, 2), gen,
             f"bn_act bwd {shape} {act}")
+    errs.update(phase_bn_backward(device))
+    return errs
+
+
+def phase_bn_backward(device):
+    """The train-mode batch norm (`batch_norm_train`: bn_stats + bn_act,
+    bn_bwd_reduce + bn_bwd_apply) against torch.autograd through the plain
+    forward (var_mean included), f32, TF32 off, for x, γ and β at every BN
+    call of every path (without the kink, `smooth`: the plain forward's
+    statistics differ from the kernel's in the last bits, so an output
+    within ~1e-7 of 0 may take the other side of it; at 2^23 elements a flip
+    is likely) and at the odd calls with their activation.  The kernels'
+    act' at the kink is held by phase_bn_kernels, on the same y."""
+    from text_to_image_tpu_torch.ops.kernels import fused
+    gen = torch.Generator().manual_seed(SEED + 11)
+    errs = {}
+    for shape, s, act in dict.fromkeys(
+            [(c, k, smooth(a)) for c, k, a in BN_CALLS] + ODD_BN_CALLS):
+        x, gamma, beta, rm, rv = bn_train_inputs(shape, torch.float32, device,
+                                                 gen)
+
+        def kernels(x_, g_, b_):
+            return fused.batch_norm_train(x_, g_, b_, rm, rv, s, act)[0]
+
+        def plain(x_, g_, b_):
+            a, b = fused.bn_stats_plain(x_, s, g_, b_, rm, rv)[2:4]
+            return fused.bn_act_plain(x_, a, b, act)
+        errs[f"batch_norm_train {shape} S={s} {act}"] = grad_compare(
+            kernels, plain, [x, gamma, beta], (0, 1, 2), gen,
+            f"batch_norm_train bwd {shape} S={s} {act}")
         del x
         torch.cuda.empty_cache()
     return errs
@@ -1014,7 +1180,8 @@ def train_config(model="gancls", **overrides):
 
 def all_counters():
     from text_to_image_tpu_torch.ops.kernels import conv, fused
-    return (conv.deconv5x5_s2, fused.bn_act, conv.conv5x5_s2_act,
+    return (conv.deconv5x5_s2, fused.bn_stats, fused.bn_act,
+            fused.bn_bwd_reduce, fused.bn_bwd_apply, conv.conv5x5_s2_act,
             fused.conditioning_join, conv.upconv3x3)
 
 
@@ -1028,7 +1195,7 @@ def phase_train_path(device, model="gancls"):
     configs/<model>_flowers.yml --train --steps 3 --set
     data.dataset_name=synthetic stage1_checkpoint=`` on the card (the
     config's full widths, batch 64, bf16), with the launch counts of all
-    five kernels."""
+    eight kernels."""
     from text_to_image_tpu_torch import main as port_main
     from text_to_image_tpu_torch.models.registry import get_model
     from text_to_image_tpu_torch.train.steps import stage1_aux
@@ -1046,7 +1213,7 @@ def phase_train_path(device, model="gancls"):
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in counters}
     log(f"  {model} training-path launches over {TRAIN_TICKS} ticks: "
-        f"{launches} ({wall:.1f} s, Triton compiles included)")
+        f"{launches} ({wall:.1f} s)")
     per_tick = (STACKGAN_TICK_LAUNCHES[model] if model in STACKGAN_TICK_LAUNCHES
                 else {**TICK_LAUNCHES, "upconv3x3": 0})
     check(launches == {k: v * TRAIN_TICKS for k, v in per_tick.items()},
@@ -1238,7 +1405,7 @@ def phase_main_path(device):
     z1, z2, zt = (torch.randn(rows, cfg.gan.z_dim, generator=g)
                   for _ in range(3))
 
-    counters = (conv.deconv5x5_s2, fused.bn_act)
+    counters = all_counters()
     for k in counters:
         k.launches = 0
     grid = sampler.sample_grid(gen, ts, cfg, emb, z=z)
@@ -1253,10 +1420,12 @@ def phase_main_path(device):
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in counters}
     log(f"  main-path launches: {launches}")
-    # 3 train-mode forwards (4 deconv + 4 bn_act each) + the folded
-    # forward (4 deconv + 1 bn_act for its stem)
-    check(launches == {"deconv5x5_s2": 16, "bn_act": 13},
-          f"unexpected launch counts {launches}")
+    # 3 train-mode forwards without gradient (4 deconv; 4 BN calls, each one
+    # bn_stats + one bn_act) + the folded forward (4 deconv + 1 bn_act, the
+    # eval-mode BN of its stem)
+    want = {k.__name__: 0 for k in counters}
+    want.update({"deconv5x5_s2": 16, "bn_stats": 12, "bn_act": 13})
+    check(launches == want, f"unexpected launch counts {launches}")
 
     for name, imgs in (("sample grid", grid), ("z interpolation", zgrid),
                        ("text interpolation", tgrid),
@@ -1301,7 +1470,7 @@ def phase_timing(device, cfg, bundle, ts, gen, z, emb):
     flush = L2Flush(device)
     gen_ = torch.Generator().manual_seed(SEED + 1)
     dtype = torch.bfloat16
-    rows = {"deconv5x5_s2": [], "bn_act": []}
+    rows = {"deconv5x5_s2": []}
     for shape, co, act in DECONV_SHAPES:
         x, w, s, t = deconv_inputs(shape, co, dtype, device, gen_)
         y = conv.deconv5x5_s2(x, w, s, t, act)
@@ -1335,44 +1504,6 @@ def phase_timing(device, cfg, bundle, ts, gen, z, emb):
             f"{bms:.4f} by {by}, {r['tflops']:.1f} TFLOP/s), plain "
             f"{r['plain_ms']:.4f}, cuDNN {r['library_ms']:.4f} ms "
             f"({r['ms'] / r['library_ms']:.2f}x)")
-    def bn_row(shape, act):
-        x, a, b = bn_inputs(shape, dtype, device, gen_)
-        y = fused.bn_act(x, a, b, act)
-        a16, b16 = a.to(dtype), b.to(dtype)
-        bms, by = bound(nbytes(x, a, b, y), 2 * x.numel(), torch.float32)
-
-        def lib():   # eager torch: addcmul + the in-place act (two launches)
-            out = torch.addcmul(b16, x, a16)
-            return out.relu_() if act == "relu" else F.leaky_relu_(out, 0.2)
-        r = {"shape": [list(shape), act],
-             "ms": time_ms(lambda: fused.bn_act(x, a, b, act), flush),
-             "plain_ms": time_ms(lambda: fused.bn_act_plain(x, a, b, act),
-                                 flush),
-             "library_ms": time_ms(lib, flush),
-             "bound_ms": bms, "bound_by": by}
-        r["gbytes_per_s"] = nbytes(x, a, b, y) / r["ms"] / 1e6
-        return r, (x, a, b)
-
-    for shape in BN_SHAPES:
-        r, _ = bn_row(shape, "relu")
-        rows["bn_act"].append(r)
-        log(f"  bn_act {shape}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by "
-            f"{r['bound_by']}, {r['gbytes_per_s']:.0f} GB/s), plain "
-            f"{r['plain_ms']:.4f}, torch {r['library_ms']:.4f} ms")
-    # the inputs that only the StackGAN paths give, with their backward
-    rows["bn_act (StackGAN)"] = []
-    for shape, act in STACKGAN_BN_SHAPES:
-        r, (x, a, b) = bn_row(shape, act)
-        r["bwd_ms"] = bwd_ms(fused.bn_act, [x, a, b, act], (0, 1, 2), flush,
-                             gen_)
-        rows["bn_act (StackGAN)"].append(r)
-        log(f"  bn_act {shape} {act}: {r['ms']:.4f} ms (bound "
-            f"{r['bound_ms']:.4f} by {r['bound_by']}, "
-            f"{r['gbytes_per_s']:.0f} GB/s), plain {r['plain_ms']:.4f}, torch "
-            f"{r['library_ms']:.4f}, backward {r['bwd_ms']:.4f} ms")
-        del x
-        torch.cuda.empty_cache()
-
     # sampling throughput at batch 64 (device-resident z, emb; host clock
     # around synchronised windows)
     policy = L.Policy.from_str(cfg.dtype)
@@ -1398,6 +1529,122 @@ def phase_timing(device, cfg, bundle, ts, gen, z, emb):
         log(f"  sampling {name}: {rates[name]:.1f} images/s (median of 5 "
             f"windows of 20 batches of {BATCH})")
     return rows, rates
+
+
+def phase_bn_timing(device, flush):
+    """The four batch-norm kernels at every train-mode BN call of every path
+    (bf16, L2 flushed): each kernel beside its bound (bytes: each input read
+    once, each output written once), its plain version and PyTorch's own
+    kernel for the same step, per stream (`torch.batch_norm_stats`,
+    `batch_norm_elemt`, `batch_norm_backward_reduce`,
+    `batch_norm_backward_elemt`: SyncBatchNorm's kernels; the last three
+    without the activation); then a whole call forward (bn_stats + bn_act)
+    and forward + backward (through autograd, dx, dγ, dβ) beside
+    `F.batch_norm(training=True)` + the activation on the channels_last
+    view of each stream."""
+    import torch.nn.functional as F
+
+    from text_to_image_tpu_torch.ops.kernels import fused
+    gen = torch.Generator().manual_seed(SEED + 12)
+    dtype = torch.bfloat16
+    f_act = {"relu": F.relu, "lrelu": lambda v: F.leaky_relu(v, 0.2),
+             "none": lambda v: v}
+    rows = []
+    for shape, s, act in BN_CALLS:
+        x, gamma, beta, rm, rv = bn_train_inputs(shape, dtype, device, gen)
+        c = shape[-1]
+        mean, rstd, a, b, new_mean, new_var = fused.bn_stats(x, s, gamma, beta,
+                                                             rm, rv)
+        y = fused._bn_act_forward(x, a, b, act)
+        g = torch.randn(shape, generator=gen).to(device, dtype)
+        sums = fused.bn_bwd_reduce(g, y, x, mean, rstd, s, act)
+        dx = fused.bn_bwd_apply(g, y, x, mean, rstd, gamma, *sums[:2], s, act)
+        ya = [y] if act != "none" else []
+        per_c = nbytes(gamma, beta, rm, rv)
+        # streams as channels_last NCHW views, PyTorch's statistics of each
+        xs = [t.permute(0, 3, 1, 2) for t in x.chunk(s)]
+        gs = [t.permute(0, 3, 1, 2) for t in g.chunk(s)]
+        lib_stats = [torch.batch_norm_stats(xi, 1e-5) for xi in xs]
+        lib_sums = [torch.batch_norm_backward_reduce(gi, xi, m, i, gamma, True,
+                                                     True, True)
+                    for gi, xi, (m, i) in zip(gs, xs, lib_stats)]
+        count = torch.tensor([x.numel() // c // s], dtype=torch.int32,
+                             device=device)
+        n = x.numel()
+        kernels = {
+            "stats": (lambda: fused.bn_stats(x, s, gamma, beta, rm, rv),
+                      lambda: fused.bn_stats_plain(x, s, gamma, beta, rm, rv),
+                      lambda: [torch.batch_norm_stats(xi, 1e-5) for xi in xs],
+                      nbytes(x, mean, rstd, a, b, new_mean, new_var) + per_c,
+                      6 * n),
+            "apply": (lambda: fused._bn_act_forward(x, a, b, act),
+                      lambda: fused.bn_act_plain(x, a, b, act),
+                      lambda: [torch.batch_norm_elemt(xi, gamma, beta, m, i,
+                                                      1e-5)
+                               for xi, (m, i) in zip(xs, lib_stats)],
+                      nbytes(x, y, a, b), 3 * n),
+            "reduce": (lambda: fused.bn_bwd_reduce(g, y, x, mean, rstd, s, act),
+                       lambda: fused.bn_bwd_reduce_plain(g, y, x, mean, rstd, s,
+                                                         act),
+                       lambda: [torch.batch_norm_backward_reduce(
+                           gi, xi, m, i, gamma, True, True, True)
+                           for gi, xi, (m, i) in zip(gs, xs, lib_stats)],
+                       nbytes(g, x, *ya, mean, rstd, *sums), 6 * n),
+            "dx": (lambda: fused.bn_bwd_apply(g, y, x, mean, rstd, gamma,
+                                              *sums[:2], s, act),
+                   lambda: fused.bn_bwd_apply_plain(g, y, x, mean, rstd, gamma,
+                                                    *sums[:2], s, act),
+                   lambda: [torch.batch_norm_backward_elemt(
+                       gi, xi, m, i, gamma, r[0], r[1], count)
+                       for gi, xi, (m, i), r in zip(gs, xs, lib_stats,
+                                                    lib_sums)],
+                   nbytes(g, x, *ya, dx, mean, rstd, gamma, *sums[:2]), 8 * n)}
+        r = {"shape": list(shape), "streams": s, "act": act}
+        for name, (fn, plain, lib, nb, flops) in kernels.items():
+            bms, by = bound(nb, flops, torch.float32)
+            ms = time_ms(fn, flush)
+            r[name] = {"ms": ms, "plain_ms": time_ms(plain, flush, 5),
+                       "library_ms": time_ms(lib, flush),
+                       "bound_ms": bms, "bound_by": by,
+                       "gbytes_per_s": nb / ms / 1e6}
+        # a whole call: ours vs F.batch_norm + act, forward and with backward
+        rm2, rv2 = rm.clone(), rv.clone()
+        xq = x.detach().requires_grad_(True)
+        gq = gamma.detach().requires_grad_(True)
+        bq = beta.detach().requires_grad_(True)
+        xsq = [xi.detach().requires_grad_(True) for xi in xs]
+
+        def ours_fwd_bwd():
+            yq = fused.batch_norm_train(xq, gq, bq, rm, rv, s, act)[0]
+            return torch.autograd.grad(yq, (xq, gq, bq), g)
+
+        def torch_fwd():
+            return [f_act[act](F.batch_norm(xi, rm2, rv2, gamma, beta, True,
+                                            0.1, 1e-5)) for xi in xs]
+
+        def torch_fwd_bwd():
+            outs = [f_act[act](F.batch_norm(xi, rm2, rv2, gq, bq, True, 0.1,
+                                            1e-5)) for xi in xsq]
+            return torch.autograd.grad(outs, xsq + [gq, bq], gs)
+        r["fwd_ms"] = time_ms(lambda: fused.batch_norm_train(
+            x, gamma, beta, rm, rv, s, act), flush)
+        if fused.bn_plan(n // c, s, c).one_launch:   # the one-launch form
+            r["fwd_one_launch_ms"] = time_ms(lambda: fused.bn_stats_act(
+                x, s, gamma, beta, rm, rv, act), flush)
+        r["fwd_bwd_ms"] = time_ms(ours_fwd_bwd, flush)
+        r["f_batch_norm_fwd_ms"] = time_ms(torch_fwd, flush)
+        r["f_batch_norm_fwd_bwd_ms"] = time_ms(torch_fwd_bwd, flush)
+        rows.append(r)
+        log(f"  bn {shape} S={s} {act}: " + ", ".join(
+            f"{k} {r[k]['ms']:.4f} (bound {r[k]['bound_ms']:.4f}, torch "
+            f"{r[k]['library_ms']:.4f})"
+            for k in kernels) + f"; call fwd {r['fwd_ms']:.4f} (one launch "
+            f"{r.get('fwd_one_launch_ms', float('nan')):.4f}) vs F.batch_norm "
+            f"{r['f_batch_norm_fwd_ms']:.4f}, fwd+bwd {r['fwd_bwd_ms']:.4f} vs "
+            f"{r['f_batch_norm_fwd_bwd_ms']:.4f} ms")
+        del x, y, g, dx, xs, gs, xq, xsq
+        torch.cuda.empty_cache()
+    return rows
 
 
 def bwd_ms(fn, args, grad_idx, flush, gen):
@@ -1495,7 +1742,7 @@ def phase_train_timing(device, flush):
             f"{r['gbytes_per_s']:.0f} GB/s), plain {r['plain_ms']:.4f}, addmm "
             f"{r['library_ms']:.4f} ({r['ms'] / r['library_ms']:.2f}x), "
             f"backward {r['bwd_ms']:.4f} ms")
-    bwd = {"deconv5x5_s2": [], "bn_act": []}
+    bwd = {"deconv5x5_s2": []}
     for shape, co, act in DECONV_SHAPES:
         x, w, sc, t = deconv_inputs(shape, co, dtype, device, gen)
         ms = bwd_ms(conv.deconv5x5_s2, [x, w, sc, t, act], (0, 1, 3), flush,
@@ -1503,12 +1750,6 @@ def phase_train_timing(device, flush):
         bwd["deconv5x5_s2"].append({"shape": [list(shape), co, act],
                                     "bwd_ms": ms})
         log(f"  deconv5x5_s2 backward {shape}->{co} {act}: {ms:.4f} ms")
-    for shape, act in ([(s, "relu") for s in BN_SHAPES]
-                       + [(s, "lrelu") for s in D_BN_SHAPES]):
-        x, a, b = bn_inputs(shape, dtype, device, gen)
-        ms = bwd_ms(fused.bn_act, [x, a, b, act], (0, 1, 2), flush, gen)
-        bwd["bn_act"].append({"shape": [list(shape), act], "bwd_ms": ms})
-        log(f"  bn_act backward {shape} {act}: {ms:.4f} ms")
     return rows, bwd
 
 
@@ -1565,7 +1806,8 @@ def kernel_family(name: str) -> str:
              "conv5x5_s2_act (CUDA)"),
             (("namespace)::join", "join_text_kernel"),
              "conditioning_join (CUDA)"),
-            (("bn_act",), "bn_act (Triton)"),
+            (("bn_stats_kernel", "bn_apply_kernel", "bn_reduce_kernel",
+              "bn_dx_kernel"), "batch norm (CUDA)"),
             (("gemm", "gemv"), "matmul (cuBLAS)"),
             (("conv", "cudnn", "dgrad", "wgrad", "xmma"),
              "conv backward (cuDNN)"),
@@ -1674,7 +1916,9 @@ def main() -> int:
     train_errs, conv_paths = phase_train_kernels(device)
     errs.update(train_errs)
     errs.update(phase_upconv_kernels(device))
-    log(f"  ({time.perf_counter() - t0:.1f} s, Triton compile included)")
+    bn_errs, bn_plans = phase_bn_kernels(device)
+    errs.update(bn_errs)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     log("phase 3: backward passes vs torch.autograd through the plain "
         "versions (f32, TF32 off)")
@@ -1722,6 +1966,16 @@ def main() -> int:
     rows.update(train_rows)
     rows["upconv3x3"] = phase_upconv_timing(device, flush)
     conv_256_rows = phase_conv_256_timing(device, flush)
+    bn_rows = phase_bn_timing(device, flush)
+    for name, step in BN_STEPS.items():
+        every = [{**r[step], "shape": [r["shape"], r["streams"], r["act"]]}
+                 for r in bn_rows]
+        # one GAN-CLS generator forward (its four BN calls at batch 64), as
+        # for deconv5x5_s2
+        rows[name] = [e for e, r in zip(every, bn_rows)
+                      if (tuple(r["shape"]), r["streams"]) in
+                      {(sh, 1) for sh in BN_SHAPES}]
+        rows[f"{name} (every call)"] = every
     tick, (tts, tstep, tbatch) = phase_tick_timing(device)
 
     log("phase 8: where a train-mode forward's and a tick's device time goes")
@@ -1752,8 +2006,16 @@ def main() -> int:
     meta = {
         "deconv5x5_s2": ("cuda", src + "csrc/deconv5x5_s2.cu",
                          "text_to_image_tpu/ops/pallas/conv.py:146"),
-        "bn_act": ("triton", src + "ops/kernels/fused.py",
+        # the Pallas bn_act and the XLA statistics and backward around it
+        # (text_to_image_tpu/ops/layers.py:147 batch_norm_act)
+        "bn_stats": ("cuda", src + "csrc/batch_norm.cu",
+                     "text_to_image_tpu/ops/pallas/fused.py:259"),
+        "bn_act": ("cuda", src + "csrc/batch_norm.cu",
                    "text_to_image_tpu/ops/pallas/fused.py:259"),
+        "bn_bwd_reduce": ("cuda", src + "csrc/batch_norm.cu",
+                          "text_to_image_tpu/ops/pallas/fused.py:259"),
+        "bn_bwd_apply": ("cuda", src + "csrc/batch_norm.cu",
+                         "text_to_image_tpu/ops/pallas/fused.py:259"),
         "conv5x5_s2_act": ("cuda", src + "csrc/conv5x5_s2.cu",
                            "text_to_image_tpu/ops/pallas/conv.py:797"),
         "conditioning_join": ("cuda", src + "csrc/conditioning_join.cu",
@@ -1763,8 +2025,9 @@ def main() -> int:
     }
 
     def per_unit(per, key):
-        """deconv5x5_s2 and bn_act: one generator forward (the sum over its
-        four calls at batch 64).  conv5x5_s2_act and conditioning_join: one
+        """deconv5x5_s2 and the four batch-norm kernels: one GAN-CLS
+        generator forward (the sum over its four calls at batch 64; for
+        bn_bwd_reduce and bn_bwd_apply the backward of those four calls).  conv5x5_s2_act and conditioning_join: one
         GAN-CLS tick's forward calls (the D step at 3·64 plus two G steps' D
         at 64).  upconv3x3: one Stage-II generator forward, its frozen
         Stage-I included (the sum over the eight calls at batch 64)."""
@@ -1790,8 +2053,10 @@ def main() -> int:
                 r["bound_ms"] for r in per) else "bytes"),
             "library_ms": per_unit(per, "library_ms"),
             "max_grad_err_f32": max(v for k, v in grad_errs.items()
-                                    if k.startswith(name)),
-            "shapes": (per + rows.get(f"{name} (StackGAN)", [])
+                                    if k.startswith(
+                                        "batch_norm_train" if name in BN_STEPS
+                                        else name)),
+            "shapes": (rows.get(f"{name} (every call)", per)
                        + bwd_rows.get(name, [])),
         })
 
@@ -1807,7 +2072,8 @@ def main() -> int:
               "tick": tick, "tick_profile": tick_profile,
               "launches_by_path": launches_by_path, "stackgan": stackgan,
               "conv5x5_s2_act_256px_d": conv_256_rows,
-              "conv5x5_s2_act_paths": conv_paths}
+              "conv5x5_s2_act_paths": conv_paths,
+              "batch_norm_calls": bn_rows, "batch_norm_plans": bn_plans}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -7,19 +7,22 @@
        → concat(tile(lrelu(FC(φ)))) → conv1×1 + BN + lrelu
        → conv4×4 VALID → scalar logit
 
-Each G up-block is the `deconv5x5_s2` kernel followed by the `bn_act`
-kernel (train-mode statistics in plain torch).  `generator_apply_inference`
-folds eval-mode BN into each deconv's per-channel scale/shift, so every
-up-block is one kernel; its stem BN + ReLU also runs through `bn_act`.  On
-CUDA a train-mode forward launches 4 deconv + 4 bn_act at 64 px, the folded
-forward 4 deconv + 1 bn_act.
+Each G up-block is the `deconv5x5_s2` kernel followed by a train-mode batch
+norm (`bn_stats` + `bn_act`; backward `bn_bwd_reduce` + `bn_bwd_apply`).
+`generator_apply_inference` folds eval-mode BN into each deconv's
+per-channel scale/shift, so every up-block is one kernel; its stem BN + ReLU
+runs through `bn_act` alone.  On CUDA a train-mode forward launches 4 deconv
+and, for its 4 BN calls, 4 bn_stats + 4 bn_act at 64 px; the folded forward
+4 deconv + 1 bn_act.
 
 Each D down-block is the `conv5x5_s2_act` kernel (bias, and on ``down0``
-the lrelu, fused) followed by `bn_act`; the text join is the
+the lrelu, fused) followed by a batch norm; the text join is the
 `conditioning_join` kernel.  The JAX package computes the same function
 with ``L.conv2d`` + ``batch_norm_act`` and its lax join.  Only batch norm
 is ported: the layer-norm critic belongs to WGAN-CLS.  A 64 px D forward
-launches 4 conv + 1 join and, per stream, 4 bn_act.
+launches 4 conv + 1 join and, for its 4 BN calls, 4 bn_stats + 4 bn_act
+whatever its number of streams (each stream takes its own statistics
+inside the kernels).
 """
 
 from __future__ import annotations

@@ -12,12 +12,14 @@ arXiv:1612.03242):
 
 The noise ε comes from the caller (the JAX package draws it from a key
 inside `ca_apply`).  Each up-block is the `upconv3x3_bias` kernel (the 4×
-upsampled map never exists) followed by the `bn_act` kernel; every other
-BN + ReLU is `bn_act` too.  The 3×3, 4×4 and FC layers are plain torch, as
-they are plain lax in the JAX package.  On CUDA a 64 px Stage-I forward
-launches 4 upconv + 5 bn_act, a 256 px Stage-II forward (without its
-Stage-I) 4 upconv + 7 + ``res_blocks`` bn_act.  The discriminators are
-``models/gancls.py``'s with the text compressed to ``ca_dim``.
+upsampled map never exists) followed by a train-mode batch norm (the
+`bn_stats` and `bn_act` kernels); every other BN, with or without its ReLU,
+is one too.  The 3×3, 4×4 and FC layers are plain torch, as they are plain
+lax in the JAX package.  On CUDA a 64 px Stage-I forward launches 4 upconv
+and 5 BN calls, a 256 px Stage-II forward (without its Stage-I) 4 upconv and
+7 + 2·``res_blocks`` BN calls, each one bn_stats + one bn_act.  The
+discriminators are ``models/gancls.py``'s with the text compressed to
+``ca_dim``.
 """
 
 from __future__ import annotations

@@ -1,17 +1,17 @@
-"""``bn_act`` and ``conditioning_join``: the fused epilogue and text-join
-kernels (counterpart of ``text_to_image_tpu/ops/pallas/fused.py``).
+"""Train-mode batch norm, ``bn_act`` and ``conditioning_join``: the fused
+BN and text-join kernels (counterpart of ``text_to_image_tpu/ops/pallas/
+fused.py`` and of the BN statistics around its ``bn_act``).
 
-``bn_act(x, a, b, act) = act(x·a + b)``: x is NHWC (any rows × C), a and b
-are per-channel f32 (BN folded as a = γ·rsqrt(σ²+ε), b = β − μ·a).
-Replaces `bn_act` (Pallas body `_bn_act_kernel` via `_bn_act_core`).
-Bound on the H100: one read and one write of each element and no
-tensor-core work, so it is bound by bytes (at B=64 bf16 the generator's four
-calls move 4.2 + 8.4 + 16.8 + 33.6 MB, about 19 µs at 3.35 TB/s).  Design:
-a Triton kernel over 2-D blocks (rows × up to 128 channels) with masked
-loads and stores: a and b are read once per block, x once, y written once,
-in f32 arithmetic.  It takes any row count and any C (the TPU's
-``rows % 256`` and ``C % 128`` gates do not apply).  ``triton`` is imported
-only when the kernel is first launched.
+``batch_norm_train(x, γ, β, mean, var, streams, act)``: train-mode BN +
+activation over x's S contiguous streams, each with its own f32 batch
+statistics.  Replaces `bn_act` (Pallas body `_bn_act_kernel` via
+`_bn_act_core`) with the XLA statistics and backward around it; the CUDA
+kernels, their bound and design are in ``csrc/batch_norm.cu``: `bn_stats`
+(Welford statistics, a, b and the running state in one launch) and `bn_act`
+(the apply pass) forward, `bn_bwd_reduce` and `bn_bwd_apply` backward, each
+with its plain PyTorch version (``*_plain``) and launch counter, on one grid
+(`bn_plan`, the mirror of the C plan).  ``bn_act(x, a, b, act) = act(x·a +
+b)`` alone is the public op of eval-mode BN and the folded stem.
 
 ``conditioning_join(x, t, wx, wt, bias, act) = act(x·wx + t·wt + bias)``:
 the discriminator's ``conv1x1(concat(x, tile(t)))`` without the concat.
@@ -21,17 +21,20 @@ launch that folds the text term into the GEMM's K, rows ``[x ; t]`` against
 ``[wx ; wt]`` (`join_path`: the convolution's wgmma main loop with two taps
 for aligned bf16, a simple f32-FMA tile otherwise).
 
-Both are differentiable (`torch.autograd.Function`).  Their backwards are
-the JAX package's `_bn_act_bwd` and `_join_bwd` in plain torch: the
-activation derivative is recovered from the saved output, so no
-pre-activation tensor is kept.
+All are differentiable (`torch.autograd.Function`).  The backwards of
+`bn_act` and the join are the JAX package's `_bn_act_bwd` and `_join_bwd` in
+plain torch; every activation derivative is recovered from the saved
+output, so no pre-activation tensor is kept.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from text_to_image_tpu_torch.ops.kernels import _build
 
@@ -52,16 +55,22 @@ def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"act {act!r} not in {sorted(ACT_CODES)}")
 
 
+def acc(t: torch.Tensor) -> torch.Tensor:
+    """t in the type the plain versions compute in: f32, or f64 for f64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def act_grad_from_output(act: str, y: torch.Tensor) -> torch.Tensor:
-    """d act(p)/dp from y = act(p), in f32 (`_act_grad_from_output`): valid
-    because every activation here is monotone with sign(y) = sign(p)."""
-    y32 = y.float()
+    """d act(p)/dp from y = act(p), in f32 (`_act_grad_from_output`; f64
+    for f64 y): valid because every activation here is monotone with
+    sign(y) = sign(p)."""
+    y32 = acc(y)
     if act == "none":
         return torch.ones_like(y32)
     if act == "relu":
-        return (y32 > 0).float()
+        return (y32 > 0).to(y32.dtype)
     if act == "lrelu":
-        return torch.where(y32 >= 0, 1.0, 0.2)
+        return torch.full_like(y32, 0.2).masked_fill_(y32 >= 0, 1.0)
     if act == "tanh":
         return 1.0 - y32 * y32
     raise ValueError(f"act {act!r} not in {sorted(ACT_CODES)}")
@@ -72,80 +81,284 @@ def needs_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-# =============================== bn_act ======================================
+# ============================== batch norm ===================================
+# csrc/batch_norm.cu: the train-mode batch norm of a call is bn_stats + bn_act
+# forward and bn_bwd_reduce + bn_bwd_apply backward; bn_act alone is the
+# public op (eval-mode BN, the folded stem).  x is NHWC seen as [S·R, C]: S
+# contiguous streams of R rows, each with its own batch statistics.
 
-def bn_act_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                 act: str = "relu") -> torch.Tensor:
-    """The plain PyTorch version: f32 affine + activation, cast back."""
-    return apply_act(x.float() * a.float() + b.float(), act).to(x.dtype)
-
-
-_KERNEL = None
-
-
-def _kernel():
-    global _KERNEL
-    if _KERNEL is None:
-        import triton
-        import triton.language as tl
-
-        @triton.jit
-        def bn_act_kernel(x_ptr, a_ptr, b_ptr, y_ptr, rows, C,
-                          ACT: tl.constexpr, BLOCK_R: tl.constexpr,
-                          BLOCK_C: tl.constexpr):
-            r = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-            c = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-            cmask = c < C
-            a = tl.load(a_ptr + c, mask=cmask, other=0.0)
-            b = tl.load(b_ptr + c, mask=cmask, other=0.0)
-            mask = (r[:, None] < rows) & cmask[None, :]
-            offs = r[:, None].to(tl.int64) * C + c[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            y = x * a[None, :] + b[None, :]
-            if ACT == 1:
-                y = tl.maximum(y, 0.0)
-            elif ACT == 2:
-                y = tl.where(y >= 0, y, 0.2 * y)
-            elif ACT == 3:
-                y = 2.0 / (1.0 + tl.exp(-2.0 * y)) - 1.0
-            tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-        _KERNEL = bn_act_kernel
-    return _KERNEL
+# the constants of csrc/batch_norm.cu's plan
+BN_THREADS = 256
+BN_VEC = 8             # channels a thread owns
+BN_TPR = 8             # most threads a row: a CTA covers 64 channels
+BN_UNROLL = 4          # rows in flight a lane
+BN_CTAS_PER_SM = 2
+BN_MAX_CHUNKS = 4096   # ticket counters and flags at the workspace's head
+BN_SLOT = 1 + 2 * BN_TPR * BN_VEC   # floats of one CTA's partial
+BN_ONE_LAUNCH_MAX_BYTES = 16 << 20  # x of the one-launch form
 
 
-def _check(x, a, b, act):
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"bn_act takes bf16 or f32 x, got {x.dtype}")
+class BnPlan(NamedTuple):
+    """The grid of every batch-norm launch over one x (csrc `Plan`)."""
+
+    vec: int        # 1: 16-byte vectors (C % 8 == 0, aligned); 0: elements
+    groups: int     # groups of 8 channels, ceil(C / 8)
+    tpr: int        # groups a CTA covers (threads a row)
+    chunks: int     # channel slices, ceil(groups / tpr): the grid's x
+    lanes: int      # row lanes of a CTA, 256 // tpr
+    bands: int      # CTAs per stream and slice: the grid's y is S·bands
+    band_rows: int  # rows of a band
+    ws_bytes: int   # the workspace bn_stats and bn_bwd_reduce need
+    one_launch: int  # 1: bn_stats may apply too, in one cooperative launch
+
+
+def bn_plan(rows: int, streams: int, c: int, aligned: bool = True,
+            sms: int = 132, elem_bytes: int = 2) -> BnPlan:
+    """The Python mirror of `make_plan` and `one_launch_ok` in
+    csrc/batch_norm.cu: x of `rows` rows of `c` channels in `streams`
+    streams, `elem_bytes` an element, on a card of `sms` SMs.
+
+    A thread owns 8 channels, a CTA 64 (or C below that) and 256 // tpr row
+    lanes; each stream's R rows are cut into bands, as many as give
+    BN_CTAS_PER_SM CTAs an SM over the whole grid but no fewer than
+    BN_UNROLL rows a lane.  The one-launch form needs x within
+    BN_ONE_LAUNCH_MAX_BYTES and the grid within BN_CTAS_PER_SM CTAs an SM.
+    Raises ValueError where no launch is made."""
+    if streams < 1 or c < 1 or rows < streams or rows % streams or sms < 1:
+        raise ValueError(f"{streams} streams do not divide {rows} rows "
+                         f"(C = {c}, {sms} SMs)")
+    r = rows // streams
+    groups = -(-c // BN_VEC)
+    tpr = min(groups, BN_TPR)
+    chunks = -(-groups // tpr)
+    if chunks > BN_MAX_CHUNKS:
+        raise ValueError(f"C = {c} over the kernel's {BN_MAX_CHUNKS} slices")
+    lanes = BN_THREADS // tpr
+    fill = BN_CTAS_PER_SM * sms // (chunks * streams)
+    most = -(-r // (lanes * BN_UNROLL))
+    band_rows = -(-r // max(1, min(fill, most)))
+    bands = -(-r // band_rows)
+    if bands > 65535 // streams:
+        raise ValueError(f"{streams}×{bands} bands over the grid's 65535")
+    ctas = chunks * streams * bands
+    one = (rows * c * elem_bytes <= BN_ONE_LAUNCH_MAX_BYTES
+           and ctas <= BN_CTAS_PER_SM * sms)
+    return BnPlan(int(c % BN_VEC == 0 and aligned), groups, tpr, chunks,
+                  lanes, bands, band_rows,
+                  8 * BN_MAX_CHUNKS + 4 * BN_SLOT * ctas, int(one))
+
+
+def _bn_lib() -> ctypes.CDLL:
+    ptr, integer, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_float)
+    return _build.bind("batch_norm", {
+        # x, p1, p2, p3; rows, S, C, bf16, sms; out[9]
+        "t2i_bn_plan": [ptr] * 4 + [i64] + [integer] * 4 + [ptr],
+        # x, gamma, beta, run_mean, run_var, out, ws; ws_bytes, rows; S, C,
+        # bf16; momentum, 1 - momentum, eps; sms; y (one launch), act; stream
+        "t2i_bn_stats": [ptr] * 7 + [i64, i64] + [integer] * 3 + [f32] * 3
+                        + [integer, ptr, integer, ptr],
+        # x, a, b, y; rows; S, C, act, bf16, sms; stream
+        "t2i_bn_act": [ptr] * 4 + [i64] + [integer] * 5 + [ptr],
+        # g, y, x, mean, rstd, out, ws; ws_bytes, rows; S, C, act, bf16,
+        # sms; stream
+        "t2i_bn_bwd_reduce": [ptr] * 7 + [i64, i64] + [integer] * 5 + [ptr],
+        # g, y, x, mean, rstd, gamma, sga, sgx, dx; rows; S, C, act, bf16,
+        # sms; stream
+        "t2i_bn_bwd_apply": [ptr] * 9 + [i64] + [integer] * 5 + [ptr]})
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bn_plan_on_card(x: torch.Tensor, streams: int, *others) -> BnPlan:
+    """The plan the C entry point itself makes for x and the call's other
+    full-size tensors (None where absent)."""
     c = x.shape[-1]
-    for name, v in (("a", a), ("b", b)):
-        if v.dtype != torch.float32 or tuple(v.shape) != (c,):
-            raise ValueError(f"{name} must be float32 [{c}], got "
+    out = (ctypes.c_longlong * 9)()
+    ptrs = [t.data_ptr() if t is not None else None for t in others]
+    rc = _bn_lib().t2i_bn_plan(x.data_ptr(), *(ptrs + [None] * 3)[:3],
+                               x.numel() // c, streams, c,
+                               int(x.dtype == torch.bfloat16),
+                               _sms(x.device.index), out)
+    if rc != 0:
+        raise ValueError(f"no batch-norm launch takes x {tuple(x.shape)} in "
+                         f"{streams} streams")
+    return BnPlan(*out)
+
+
+_BN_WS: Dict[int, torch.Tensor] = {}
+
+
+def _bn_workspace(device: torch.device, nbytes: int) -> torch.Tensor:
+    """The device's workspace of bn_stats and bn_bwd_reduce: the ticket
+    counters, then the CTAs' partials.  Allocated zeroed on first use and
+    again when a call needs more; every launch leaves its counters at 0, and
+    the launches on one stream run in order, so all calls share it."""
+    ws = _BN_WS.get(device.index)
+    if ws is None or ws.numel() < nbytes:
+        ws = torch.zeros(max(nbytes, 1 << 20), dtype=torch.uint8, device=device)
+        _BN_WS[device.index] = ws
+    return ws
+
+
+def _bn_check(x: torch.Tensor, streams: int, act: str,
+              **per_channel: torch.Tensor) -> None:
+    """What every batch-norm launch needs: x bf16 or f32, contiguous, its
+    batch cut into `streams` equal streams; each per-channel tensor f32,
+    contiguous, on x's device, of its shape (C) or (S, C)."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"batch norm takes bf16 or f32 x, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if (x.dim() < 2 or streams < 1 or x.shape[0] % streams
+            or x.numel() < streams * x.shape[-1]):
+        raise ValueError(f"{streams} streams do not divide the batch of "
+                         f"{tuple(x.shape)}")
+    if act not in ACT_CODES:
+        raise ValueError(f"act {act!r} not in {sorted(ACT_CODES)}")
+    c = x.shape[-1]
+    for name, v in per_channel.items():
+        want = (c,) if v.dim() <= 1 else (streams, c)
+        if v.dtype != torch.float32 or tuple(v.shape) != want:
+            raise ValueError(f"{name} must be float32 {list(want)}, got "
                              f"{v.dtype} {tuple(v.shape)}")
         if v.device != x.device:
             raise ValueError(f"{name} is on {v.device}, x on {x.device}")
         if not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    if act not in ACT_CODES:
-        raise ValueError(f"act {act!r} not in {sorted(ACT_CODES)}")
+
+
+def _on_card(x: torch.Tensor, op: str) -> bool:
+    """False for a CPU tensor (the plain version runs), True for CUDA."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{op} runs on cuda or cpu, not {x.device}")
+    return True
+
+
+def _rc(rc: int, op: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")
+
+
+def _streamed(t: torch.Tensor, streams: int) -> torch.Tensor:
+    """[S·R, …, C] → [S, R·…, C] in the plain versions' type."""
+    return acc(t).reshape(streams, -1, t.shape[-1])
+
+
+# --- bn_stats -------------------------------------------------------------
+
+def bn_stats_plain(x: torch.Tensor, streams: int, gamma: torch.Tensor,
+                   beta: torch.Tensor, run_mean: torch.Tensor,
+                   run_var: torch.Tensor, momentum: float = 0.9,
+                   eps: float = 1e-5):
+    """The plain PyTorch version of `bn_stats`: per stream the f32 batch
+    mean and biased variance, rstd = rsqrt(var + eps), a = γ·rstd and
+    b = β − mean·a; the new running state is the mean over streams of
+    ``momentum·old + (1 − momentum)·batch``."""
+    var, mean = torch.var_mean(_streamed(x, streams), dim=1, unbiased=False)
+    rstd = torch.rsqrt(var + eps)
+    a = rstd * acc(gamma)
+    b = acc(beta) - mean * a
+    new_mean = (momentum * acc(run_mean) + (1.0 - momentum) * mean).mean(0)
+    new_var = (momentum * acc(run_var) + (1.0 - momentum) * var).mean(0)
+    return mean, rstd, a, b, new_mean, new_var
+
+
+def _bn_stats_launch(x, streams, gamma, beta, run_mean, run_var, momentum,
+                     eps, y=None, act="none"):
+    """One launch of the statistics kernel; with y, its one-launch form."""
+    _bn_check(x, streams, act, gamma=gamma, beta=beta, run_mean=run_mean,
+              run_var=run_var)
+    c = x.shape[-1]
+    rows = x.numel() // c
+    sc = streams * c
+    sms = _sms(x.device.index)
+    ws = _bn_workspace(x.device, bn_plan(rows, streams, c, sms=sms).ws_bytes)
+    out = torch.empty(4 * sc + 2 * c, dtype=torch.float32, device=x.device)
+    _rc(_bn_lib().t2i_bn_stats(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), run_mean.data_ptr(),
+        run_var.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(), rows,
+        streams, c, int(x.dtype == torch.bfloat16), momentum, 1.0 - momentum,
+        eps, sms, y.data_ptr() if y is not None else None, ACT_CODES[act],
+        torch.cuda.current_stream(x.device).cuda_stream), "bn_stats")
+    return (*out[:4 * sc].view(4, streams, c), out[4 * sc:4 * sc + c],
+            out[4 * sc + c:])
+
+
+def bn_stats(x: torch.Tensor, streams: int, gamma: torch.Tensor,
+             beta: torch.Tensor, run_mean: torch.Tensor,
+             run_var: torch.Tensor, momentum: float = 0.9, eps: float = 1e-5):
+    """(mean, rstd, a, b) f32 [S, C] and the new running (mean, var) f32 [C]
+    of x's S streams, in one launch.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    if not _on_card(x, "bn_stats"):
+        return bn_stats_plain(x, streams, gamma, beta, run_mean, run_var,
+                              momentum, eps)
+    out = _bn_stats_launch(x, streams, gamma, beta, run_mean, run_var,
+                           momentum, eps)
+    bn_stats.launches += 1
+    return out
+
+
+bn_stats.launches = 0
+
+
+def bn_stats_act(x: torch.Tensor, streams: int, gamma: torch.Tensor,
+                 beta: torch.Tensor, run_mean: torch.Tensor,
+                 run_var: torch.Tensor, act: str, momentum: float = 0.9,
+                 eps: float = 1e-5):
+    """`bn_stats` and `bn_act` as one cooperative launch, where
+    `bn_plan(...).one_launch` allows it (x within 16 MiB, the grid
+    co-resident): (y, mean, rstd, a, b, new mean, new var).  CPU tensors
+    take the plain versions; CUDA tensors launch the kernel or raise."""
+    if not _on_card(x, "bn_stats_act"):
+        stats = bn_stats_plain(x, streams, gamma, beta, run_mean, run_var,
+                               momentum, eps)
+        return (bn_act_plain(x, stats[2], stats[3], act), *stats)
+    y = torch.empty_like(x)
+    stats = _bn_stats_launch(x, streams, gamma, beta, run_mean, run_var,
+                             momentum, eps, y, act)
+    bn_stats_act.launches += 1
+    return (y, *stats)
+
+
+bn_stats_act.launches = 0
+
+
+# --- bn_act -----------------------------------------------------------------
+
+def bn_act_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 act: str = "relu") -> torch.Tensor:
+    """The plain PyTorch version: f32 affine + activation, cast back; a and
+    b are [C], or [S, C] for S streams of x."""
+    c = x.shape[-1]
+    a2, b2 = acc(a).reshape(-1, 1, c), acc(b).reshape(-1, 1, c)
+    y = apply_act(_streamed(x, a2.shape[0]) * a2 + b2, act)
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def _check(x, a, b, act):
+    """The checks of the public `bn_act`: a and b f32 [C] or [S, C]."""
+    _bn_check(x, a.shape[0] if a.dim() == 2 else 1, act, a=a, b=b)
 
 
 def _bn_act_forward(x, a, b, act):
-    if x.device.type == "cpu":
+    if not _on_card(x, "bn_act"):
         return bn_act_plain(x, a, b, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"bn_act runs on cuda or cpu, not {x.device}")
     _check(x, a, b, act)
     c = x.shape[-1]
-    rows = x.numel() // c
+    streams = a.shape[0] if a.dim() == 2 else 1
     y = torch.empty_like(x)
-    block_c = min(128, 1 << (c - 1).bit_length())
-    block_r = 4096 // block_c
-    grid = ((rows + block_r - 1) // block_r, (c + block_c - 1) // block_c)
-    _kernel()[grid](x, a, b, y, rows, c, ACT=ACT_CODES[act], BLOCK_R=block_r,
-                    BLOCK_C=block_c, num_warps=4)
+    _rc(_bn_lib().t2i_bn_act(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
+        x.numel() // c, streams, c, ACT_CODES[act],
+        int(x.dtype == torch.bfloat16), _sms(x.device.index),
+        torch.cuda.current_stream(x.device).cuda_stream), "bn_act")
     bn_act.launches += 1
     return y
 
@@ -160,27 +373,194 @@ class _BnAct(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # _bn_act_bwd: dx = g·act'·a, da = Σ g·act'·x, db = Σ g·act'
+        # _bn_act_bwd per stream: dx = g·act'·a, da = Σ g·act'·x, db = Σ g·act'
         x, a, y = ctx.saved_tensors
-        ga = g.float() * act_grad_from_output(ctx.act, y)
-        rows = tuple(range(x.dim() - 1))
-        dx = (ga * a).to(x.dtype)
-        da = (ga * x.float()).sum(rows) if ctx.needs_input_grad[1] else None
-        db = ga.sum(rows) if ctx.needs_input_grad[2] else None
+        streams = a.shape[0] if a.dim() == 2 else 1
+        ga = _streamed(g.float() * act_grad_from_output(ctx.act, y), streams)
+        a2 = a.reshape(streams, 1, -1)
+        dx = (ga * a2).reshape(x.shape).to(x.dtype)
+        da = ((ga * _streamed(x, streams)).sum(1).reshape(a.shape)
+              if ctx.needs_input_grad[1] else None)
+        db = ga.sum(1).reshape(a.shape) if ctx.needs_input_grad[2] else None
         return dx, da, db, None
 
 
 def bn_act(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
            act: str = "relu") -> torch.Tensor:
-    """``act(x·a + b)`` over channels-last x with per-channel f32 a, b:
-    one read and one write of x.  CPU tensors take the plain version; CUDA
-    tensors launch the Triton kernel or raise.  Differentiable in x, a, b."""
+    """``act(x·a + b)`` over channels-last x with per-channel f32 a, b ([C],
+    or [S, C] for S streams of x): one read and one write of x.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise.
+    Differentiable in x, a, b."""
     if needs_grad(x, a, b):
         return _BnAct.apply(x, a, b, act)
     return _bn_act_forward(x, a, b, act)
 
 
 bn_act.launches = 0
+
+
+# --- the backward: bn_bwd_reduce, bn_bwd_apply ---------------------------------
+
+def _grad_act(g, y, act, streams):
+    """ga = g·act'(y) in f32 [S, R, C] (act' from the saved output)."""
+    ga = acc(g) if act == "none" else acc(g) * act_grad_from_output(act, y)
+    return _streamed(ga, streams)
+
+
+def _xhat(x, mean, rstd, streams):
+    return (_streamed(x, streams) - mean[:, None]) * rstd[:, None]
+
+
+def bn_bwd_reduce_plain(g: torch.Tensor, y, x: torch.Tensor,
+                        mean: torch.Tensor, rstd: torch.Tensor, streams: int,
+                        act: str):
+    """The plain PyTorch version of `bn_bwd_reduce`: per stream Σ ga and
+    Σ ga·x̂ [S, C] (ga = g·act'(y), x̂ = (x − mean)·rstd), then dγ and dβ
+    [C], their sums over the streams."""
+    ga = _grad_act(g, y, act, streams)
+    sga = ga.sum(1)
+    sgx = (ga * _xhat(x, mean, rstd, streams)).sum(1)
+    return sga, sgx, sgx.sum(0), sga.sum(0)
+
+
+def bn_bwd_reduce(g: torch.Tensor, y, x: torch.Tensor, mean: torch.Tensor,
+                  rstd: torch.Tensor, streams: int, act: str):
+    """(Σ ga, Σ ga·x̂) f32 [S, C] and (dγ, dβ) f32 [C] in one launch; y (the
+    saved output) may be None for act "none".  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if not _on_card(x, "bn_bwd_reduce"):
+        return bn_bwd_reduce_plain(g, y, x, mean, rstd, streams, act)
+    _bwd_check(g, y, x, mean, rstd, streams, act)
+    c = x.shape[-1]
+    rows = x.numel() // c
+    sc = streams * c
+    ws = _bn_workspace(x.device, bn_plan(rows, streams, c,
+                                         sms=_sms(x.device.index)).ws_bytes)
+    out = torch.empty(2 * sc + 2 * c, dtype=torch.float32, device=x.device)
+    _rc(_bn_lib().t2i_bn_bwd_reduce(
+        g.data_ptr(), y.data_ptr() if act != "none" else None, x.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        ws.numel(), rows, streams, c, ACT_CODES[act],
+        int(x.dtype == torch.bfloat16), _sms(x.device.index),
+        torch.cuda.current_stream(x.device).cuda_stream), "bn_bwd_reduce")
+    bn_bwd_reduce.launches += 1
+    return (*out[:2 * sc].view(2, streams, c), out[2 * sc:2 * sc + c],
+            out[2 * sc + c:])
+
+
+bn_bwd_reduce.launches = 0
+
+
+def bn_bwd_apply_plain(g: torch.Tensor, y, x: torch.Tensor,
+                       mean: torch.Tensor, rstd: torch.Tensor,
+                       gamma: torch.Tensor, sga: torch.Tensor,
+                       sgx: torch.Tensor, streams: int, act: str
+                       ) -> torch.Tensor:
+    """The plain PyTorch version of `bn_bwd_apply`: the exact gradient
+    through the batch statistics, dx = γ·rstd·(ga − Σga/R − x̂·Σ(ga·x̂)/R)
+    per stream, in x's dtype."""
+    ga = _grad_act(g, y, act, streams)
+    r = ga.shape[1]
+    dx = (acc(gamma) * rstd)[:, None] * (
+        ga - (sga / r)[:, None] - _xhat(x, mean, rstd, streams)
+        * (sgx / r)[:, None])
+    return dx.reshape(x.shape).to(x.dtype)
+
+
+def bn_bwd_apply(g: torch.Tensor, y, x: torch.Tensor, mean: torch.Tensor,
+                 rstd: torch.Tensor, gamma: torch.Tensor, sga: torch.Tensor,
+                 sgx: torch.Tensor, streams: int, act: str) -> torch.Tensor:
+    """dx of the train-mode BN in one launch (g, y, x read once, dx
+    written).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if not _on_card(x, "bn_bwd_apply"):
+        return bn_bwd_apply_plain(g, y, x, mean, rstd, gamma, sga, sgx,
+                                  streams, act)
+    _bwd_check(g, y, x, mean, rstd, streams, act, gamma=gamma, sga=sga,
+               sgx=sgx)
+    c = x.shape[-1]
+    dx = torch.empty_like(x)
+    _rc(_bn_lib().t2i_bn_bwd_apply(
+        g.data_ptr(), y.data_ptr() if act != "none" else None, x.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(), sga.data_ptr(),
+        sgx.data_ptr(), dx.data_ptr(), x.numel() // c, streams, c,
+        ACT_CODES[act], int(x.dtype == torch.bfloat16), _sms(x.device.index),
+        torch.cuda.current_stream(x.device).cuda_stream), "bn_bwd_apply")
+    bn_bwd_apply.launches += 1
+    return dx
+
+
+bn_bwd_apply.launches = 0
+
+
+def _bwd_check(g, y, x, mean, rstd, streams, act, **per_channel):
+    _bn_check(x, streams, act, mean=mean, rstd=rstd, **per_channel)
+    for name, t in (("g", g), ("y", y if act != "none" else x)):
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name} must match x ({tuple(x.shape)} "
+                             f"{x.dtype}), got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+# --- the train-mode batch norm ----------------------------------------------
+
+def _bn_train_forward(x, gamma, beta, run_mean, run_var, streams, act,
+                      momentum, eps):
+    """bn_stats then bn_act over its a and b: two launches, nothing else."""
+    mean, rstd, a, b, new_mean, new_var = bn_stats(
+        x, streams, gamma, beta, run_mean, run_var, momentum, eps)
+    return _bn_act_forward(x, a, b, act), mean, rstd, new_mean, new_var
+
+
+class _BatchNormAct(torch.autograd.Function):
+    """Train-mode BN + activation of S streams: bn_stats + bn_act forward,
+    bn_bwd_reduce + bn_bwd_apply backward (the exact gradient through the
+    statistics).  The running state is an output without gradient.  Nothing
+    differentiates a batch norm twice (WGAN-CLS's critic uses layer norm)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, run_mean, run_var, streams, act,
+                momentum, eps):
+        y, mean, rstd, new_mean, new_var = _bn_train_forward(
+            x, gamma, beta, run_mean, run_var, streams, act, momentum, eps)
+        ctx.streams, ctx.act = streams, act
+        ctx.save_for_backward(x, gamma, y if act != "none" else None, mean,
+                              rstd)
+        ctx.mark_non_differentiable(new_mean, new_var)
+        return y, new_mean, new_var
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, _mean_grad, _var_grad):
+        x, gamma, y, mean, rstd = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        sga, sgx, dgamma, dbeta = bn_bwd_reduce(g, y, x, mean, rstd,
+                                                ctx.streams, ctx.act)
+        need = ctx.needs_input_grad
+        dx = (bn_bwd_apply(g, y, x, mean, rstd, gamma, sga, sgx, ctx.streams,
+                           ctx.act) if need[0] else None)
+        return (dx, dgamma if need[1] else None, dbeta if need[2] else None,
+                None, None, None, None, None, None)
+
+
+def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     run_mean: torch.Tensor, run_var: torch.Tensor,
+                     streams: int = 1, act: str = "none",
+                     momentum: float = 0.9, eps: float = 1e-5):
+    """Train-mode batch norm + activation over x's S contiguous streams (each
+    with its own f32 batch statistics, biased variance): returns (y, new
+    running mean, new running var), the state the mean over streams of each
+    stream's ``momentum·old + (1 − momentum)·batch``.  γ (`gamma`), β and the
+    running state are f32 [C].  On the card two launches forward (bn_stats,
+    bn_act) and two backward (bn_bwd_reduce, bn_bwd_apply); CPU tensors take
+    the plain versions.  Differentiable in x, γ and β."""
+    if needs_grad(x, gamma, beta):
+        return _BatchNormAct.apply(x, gamma, beta, run_mean, run_var,
+                                   streams, act, momentum, eps)
+    y, _, _, new_mean, new_var = _bn_train_forward(
+        x, gamma, beta, run_mean, run_var, streams, act, momentum, eps)
+    return y, new_mean, new_var
 
 
 # ========================== conditioning join ================================

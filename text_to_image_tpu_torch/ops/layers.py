@@ -17,7 +17,8 @@ call, as the JAX layers do.  Training keeps f32 master weights, so autograd
 sees that cast and the optimizer updates the f32 leaves.  Serving casts the
 weights once when they are loaded (`cast_weights`): the cast inside a layer
 is then a no-op instead of a copy per call (``up0``'s weight alone is 52 MB
-in f32).  BatchNorm statistics are always taken in f32.
+in f32).  BatchNorm statistics are always taken in f32, by the batch-norm
+kernels of ``ops/kernels/fused.py``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ from text_to_image_tpu_torch.ops import initializers as init
 from text_to_image_tpu_torch.ops.kernels.conv import (  # noqa: F401
     conv5x5_s2_act, deconv5x5_s2,
     upsample_nearest)  # re-exported: the JAX package's `L.upsample_nearest`
-from text_to_image_tpu_torch.ops.kernels.fused import apply_act, bn_act
+from text_to_image_tpu_torch.ops.kernels.fused import (
+    apply_act, batch_norm_train, bn_act)
 
 Params = Dict[str, torch.Tensor]
 
@@ -160,50 +162,35 @@ def batch_norm_init(c: int, key: int | None = None) -> Tuple[Params, Params]:
     return params, state
 
 
-def _stats(state: Params, x: torch.Tensor, train: bool, momentum: float
-           ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
-    """(mean, var, new_state): batch statistics in f32 with the biased
-    variance and ``new = momentum·old + (1 − momentum)·batch`` in train mode,
-    the running statistics otherwise."""
-    if not train:
-        return state["mean"], state["var"], state
-    var, mean = torch.var_mean(x.float(), dim=(0, 1, 2), unbiased=False)
-    new_state = {"mean": momentum * state["mean"] + (1.0 - momentum) * mean,
-                 "var": momentum * state["var"] + (1.0 - momentum) * var}
-    return mean, var, new_state
-
-
 def batch_norm(p: Params, state: Params, x: torch.Tensor, train: bool,
                momentum: float = 0.9, eps: float = 1e-5
                ) -> Tuple[torch.Tensor, Params]:
-    """NHWC batch norm, plain torch (no activation)."""
-    mean, var, new_state = _stats(state, x, train, momentum)
-    inv = torch.rsqrt(var + eps) * p["scale"].float()
-    y = (x.float() - mean) * inv + p["bias"].float()
-    return y.to(x.dtype), new_state
+    """NHWC batch norm (no activation): `batch_norm_act` with act none."""
+    return batch_norm_act(p, state, x, train, "none", momentum, eps)
 
 
 def batch_norm_act(p: Params, state: Params, x: torch.Tensor, train: bool,
                    act: str = "relu", momentum: float = 0.9, eps: float = 1e-5,
                    streams: int = 1) -> Tuple[torch.Tensor, Params]:
-    """`batch_norm` + activation with the normalize-affine + activation
-    epilogue folded to ``act(x·a + b)`` (a = γ·rsqrt(σ²+ε), b = β − μ·a) and
-    run by the `bn_act` kernel; the statistics stay plain torch.
+    """`batch_norm` + activation as ``act(x·a + b)`` (a = γ·rsqrt(σ²+ε),
+    b = β − μ·a).
 
-    ``streams`` > 1 splits the batch into that many contiguous streams, as
-    the JAX package's ``vmap`` over stacked discriminator streams does: each
-    takes its own batch statistics (one `bn_act` launch per stream), and the
-    new running state is the mean over streams of each stream's update."""
-    if streams == 1:
-        mean, var, new_state = _stats(state, x, train, momentum)
-        a = torch.rsqrt(var + eps) * p["scale"].float()
-        b = p["bias"].float() - mean * a
-        return bn_act(x, a.contiguous(), b.contiguous(), act), new_state
-    outs = [batch_norm_act(p, state, xs, train, act, momentum, eps)
-            for xs in x.chunk(streams)]
-    new_state = {k: torch.stack([s[k] for _, s in outs]).mean(0)
-                 for k in state}
-    return torch.cat([y for y, _ in outs]), new_state
+    Train mode: `batch_norm_train`, f32 batch statistics with the biased
+    variance and ``new = momentum·old + (1 − momentum)·batch``; two launches
+    forward and two backward on the card.  ``streams`` > 1 splits the batch
+    into that many contiguous streams, as the JAX package's ``vmap`` over
+    stacked discriminator streams does: each takes its own batch statistics
+    and the new running state is the mean over streams of each stream's
+    update.  Eval mode: a and b from the running state, one `bn_act`
+    launch."""
+    if train:
+        y, mean, var = batch_norm_train(x, p["scale"], p["bias"],
+                                        state["mean"], state["var"], streams,
+                                        act, momentum, eps)
+        return y, {"mean": mean, "var": var}
+    a = torch.rsqrt(state["var"] + eps) * p["scale"].float()
+    b = p["bias"].float() - state["mean"] * a
+    return bn_act(x, a.contiguous(), b.contiguous(), act), state
 
 
 # --- activations ----------------------------------------------------------------
