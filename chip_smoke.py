@@ -162,6 +162,9 @@ BN_CALLS = list(dict.fromkeys(
 # the batch-norm statistics (mean, rstd, a, b, running state), kernel vs
 # plain version: f32 sums over up to 4 M rows in another order
 STATS_TOL = (1e-5, 1e-5)
+# ~2 ms of device spin: longer than the host takes to enqueue a batch-norm
+# call forward and backward through autograd
+HOST_SPIN = 4_000_000
 # the four batch-norm kernels by the step of a call each one times
 BN_STEPS = {"bn_stats": "stats", "bn_act": "apply", "bn_bwd_reduce": "reduce",
             "bn_bwd_apply": "dx"}
@@ -315,16 +318,18 @@ class L2Flush:
         self.buf.fill_(1)
 
 
-def time_ms(fn, flush, iters=20, warmup=3):
+def time_ms(fn, flush, iters=20, warmup=3, spin=200_000):
     """Median device time of fn() over `iters` launches, each measured
-    with CUDA events after an L2 flush.  A spin of ~0.1 ms on the device
-    after the flush keeps the host's launch overhead out of the window."""
+    with CUDA events after an L2 flush.  A spin of `spin` cycles (~0.1 ms
+    by default) on the device after the flush keeps the host's launch
+    overhead out of the window; a call whose host side takes longer (a
+    Python wrapper, autograd) needs a longer one (HOST_SPIN)."""
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(iters):
         flush()
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -458,14 +463,7 @@ def phase_bn_kernels(device):
                 [("dx", dx, fused.bn_bwd_apply_plain(
                     g, y, x, mean, rstd, gamma, *sums[:2], s, act))],
                 *BN_TOL[dtype], f"bn_bwd_apply {what}")
-            mirror = fused.bn_plan(x.numel() // c, s, c, not misaligned, sms,
-                                   x.element_size())
-            if mirror.one_launch:   # the same bits from one launch
-                one = fused.bn_stats_act(x, s, gamma, beta, rm, rv, act)
-                torch.cuda.synchronize()
-                check(all(torch.equal(u, v) for u, v in
-                          zip(one, (y, *stats))),
-                      f"bn_stats_act {what}: differs from bn_stats + bn_act")
+            mirror = fused.bn_plan(x.numel() // c, s, c, not misaligned, sms)
             for others in ((), (y,), (g, y), (g, y, dx)):
                 on_card = fused.bn_plan_on_card(x, s, *others)
                 check(on_card == mirror, f"bn plan {what}: C {on_card}, "
@@ -780,10 +778,11 @@ def smooth(act):
 
 
 def phase_backward(device):
-    """The backward of deconv5x5_s2, conv5x5_s2_act, conditioning_join and
-    bn_act (their autograd.Functions) against torch.autograd through the
-    plain version, f32, TF32 off, at the training paths' shapes (batch 64;
-    bn_act at the StackGAN paths' inputs too) and odd ones."""
+    """The backward of deconv5x5_s2, conv5x5_s2_act, conditioning_join, the
+    public bn_act and the train-mode batch norm (their autograd.Functions)
+    against torch.autograd through the plain version, f32, TF32 off, at the
+    training paths' shapes (batch 64; the batch norm at every BN call of
+    every path) and odd ones."""
     from text_to_image_tpu_torch.ops.kernels import conv, fused
     gen = torch.Generator().manual_seed(SEED + 3)
     f32 = torch.float32
@@ -1602,9 +1601,9 @@ def phase_bn_timing(device, flush):
         r = {"shape": list(shape), "streams": s, "act": act}
         for name, (fn, plain, lib, nb, flops) in kernels.items():
             bms, by = bound(nb, flops, torch.float32)
-            ms = time_ms(fn, flush)
+            ms = time_ms(fn, flush, spin=HOST_SPIN)
             r[name] = {"ms": ms, "plain_ms": time_ms(plain, flush, 5),
-                       "library_ms": time_ms(lib, flush),
+                       "library_ms": time_ms(lib, flush, spin=HOST_SPIN),
                        "bound_ms": bms, "bound_by": by,
                        "gbytes_per_s": nb / ms / 1e6}
         # a whole call: ours vs F.batch_norm + act, forward and with backward
@@ -1626,20 +1625,19 @@ def phase_bn_timing(device, flush):
             outs = [f_act[act](F.batch_norm(xi, rm2, rv2, gq, bq, True, 0.1,
                                             1e-5)) for xi in xsq]
             return torch.autograd.grad(outs, xsq + [gq, bq], gs)
+        # the device busy for the host's whole enqueue (autograd, Python):
+        # device time, not the host's
         r["fwd_ms"] = time_ms(lambda: fused.batch_norm_train(
-            x, gamma, beta, rm, rv, s, act), flush)
-        if fused.bn_plan(n // c, s, c).one_launch:   # the one-launch form
-            r["fwd_one_launch_ms"] = time_ms(lambda: fused.bn_stats_act(
-                x, s, gamma, beta, rm, rv, act), flush)
-        r["fwd_bwd_ms"] = time_ms(ours_fwd_bwd, flush)
-        r["f_batch_norm_fwd_ms"] = time_ms(torch_fwd, flush)
-        r["f_batch_norm_fwd_bwd_ms"] = time_ms(torch_fwd_bwd, flush)
+            x, gamma, beta, rm, rv, s, act), flush, spin=HOST_SPIN)
+        r["fwd_bwd_ms"] = time_ms(ours_fwd_bwd, flush, spin=HOST_SPIN)
+        r["f_batch_norm_fwd_ms"] = time_ms(torch_fwd, flush, spin=HOST_SPIN)
+        r["f_batch_norm_fwd_bwd_ms"] = time_ms(torch_fwd_bwd, flush,
+                                               spin=HOST_SPIN)
         rows.append(r)
         log(f"  bn {shape} S={s} {act}: " + ", ".join(
             f"{k} {r[k]['ms']:.4f} (bound {r[k]['bound_ms']:.4f}, torch "
             f"{r[k]['library_ms']:.4f})"
-            for k in kernels) + f"; call fwd {r['fwd_ms']:.4f} (one launch "
-            f"{r.get('fwd_one_launch_ms', float('nan')):.4f}) vs F.batch_norm "
+            for k in kernels) + f"; call fwd {r['fwd_ms']:.4f} vs F.batch_norm "
             f"{r['f_batch_norm_fwd_ms']:.4f}, fwd+bwd {r['fwd_bwd_ms']:.4f} vs "
             f"{r['f_batch_norm_fwd_bwd_ms']:.4f} ms")
         del x, y, g, dx, xs, gs, xq, xsq
@@ -1973,8 +1971,8 @@ def main() -> int:
         # one GAN-CLS generator forward (its four BN calls at batch 64), as
         # for deconv5x5_s2
         rows[name] = [e for e, r in zip(every, bn_rows)
-                      if (tuple(r["shape"]), r["streams"]) in
-                      {(sh, 1) for sh in BN_SHAPES}]
+                      if (tuple(r["shape"]), r["streams"], r["act"]) in
+                      {(sh, 1, "relu") for sh in BN_SHAPES}]
         rows[f"{name} (every call)"] = every
     tick, (tts, tstep, tbatch) = phase_tick_timing(device)
 

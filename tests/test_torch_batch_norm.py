@@ -196,19 +196,23 @@ def test_eval_mode_uses_running_state():
 def _good_args(shape=(6, 2, 2, 8), streams=3):
     x = torch.zeros(shape)
     c = shape[-1]
-    # gamma, beta and the running state: f32 [C]
+    # gamma, beta and the running state: f32 [C]; mean and rstd f32 [S, C]
     return x, streams, {"gamma": torch.ones(c), "beta": torch.zeros(c),
-                        "run_mean": torch.zeros(c), "run_var": torch.ones(c)}
+                        "run_mean": torch.zeros(c), "run_var": torch.ones(c)}, \
+        {"mean": torch.zeros(streams, c), "rstd": torch.ones(streams, c)}
 
 
 @pytest.mark.parametrize("bad", ["x_dtype", "x_noncontig", "streams",
                                  "streams_zero", "gamma_shape", "gamma_dtype",
-                                 "ab_streams", "act"])
+                                 "mean_per_channel", "act"])
 def test_bn_checks_reject(bad):
     """The checks every batch-norm wrapper makes before it launches."""
-    x, streams, per = _good_args()
+    x, streams, per, stream = _good_args()
     act = "relu"
-    fused._bn_check(x, streams, act, **per)      # the good call passes
+
+    def call():
+        fused._bn_check(x, streams, act, per.items(), stream.items())
+    call()                                        # the good call passes
     if bad == "x_dtype":
         x = x.double()
     elif bad == "x_noncontig":
@@ -221,16 +225,16 @@ def test_bn_checks_reject(bad):
         per["gamma"] = torch.ones(7)
     elif bad == "gamma_dtype":
         per["gamma"] = torch.ones(8, dtype=torch.bfloat16)
-    elif bad == "ab_streams":                     # a per stream: [S, C]
-        per = {"a": torch.ones(2, 8)}
+    elif bad == "mean_per_channel":               # mean is per stream
+        stream["mean"] = torch.zeros(8)
     else:
         act = "gelu"
     with pytest.raises((ValueError, TypeError)):
-        fused._bn_check(x, streams, act, **per)
+        call()
 
 
 def test_bwd_check_rejects_mismatched_cotangent():
-    x, streams, _ = _good_args()
+    x, streams, _, _ = _good_args()
     mean = torch.zeros(streams, 8)
     fused._bwd_check(torch.zeros_like(x), x, x, mean, mean, streams, "relu")
     with pytest.raises(ValueError):
@@ -292,27 +296,20 @@ def test_plan_covers_every_row_once(shape, streams):
     if plan.bands > 1 and ctas * 2 <= fused.BN_CTAS_PER_SM * 132:
         # under half full: every lane has rows to keep in flight
         assert plan.band_rows * 2 > plan.lanes * fused.BN_UNROLL
-    assert plan.ws_bytes == (8 * fused.BN_MAX_CHUNKS
+    assert plan.ws_bytes == (4 * fused.BN_MAX_CHUNKS
                              + 4 * fused.BN_SLOT * ctas)
     assert fused.bn_plan(rows, streams, c, aligned=False).vec == 0
-    # the one-launch form: x (bf16) within 16 MiB, the grid co-resident
-    assert plan.one_launch == int(rows * c * 2 <= 16 << 20
-                                  and ctas <= fused.BN_CTAS_PER_SM * 132)
-    if plan.one_launch:
-        assert not fused.bn_plan(rows, streams, c, elem_bytes=4).one_launch \
-            or rows * c * 4 <= 16 << 20
 
 
 @pytest.mark.parametrize("case,plan", [
-    # (B, H, W, C), S → vec, groups, tpr, chunks, lanes, bands, band_rows,
-    # one launch (bf16)
-    (((64, 4, 4, 1024), 1), (1, 128, 8, 16, 32, 8, 128, 1)),
-    (((64, 32, 32, 128), 1), (1, 16, 8, 2, 32, 132, 497, 1)),
-    (((192, 16, 16, 128), 3), (1, 16, 8, 2, 32, 44, 373, 1)),
-    (((64, 64, 64, 64), 1), (1, 8, 8, 1, 32, 264, 993, 0)),
-    (((64, 256, 256, 64), 1), (1, 8, 8, 1, 32, 264, 15888, 0)),
-    (((2, 3, 3, 200), 1), (1, 25, 8, 4, 32, 1, 18, 1)),
-    (((3, 5, 7, 20), 1), (0, 3, 3, 1, 85, 1, 105, 1)),
+    # (B, H, W, C), S → vec, groups, tpr, chunks, lanes, bands, band_rows
+    (((64, 4, 4, 1024), 1), (1, 128, 8, 16, 32, 8, 128)),
+    (((64, 32, 32, 128), 1), (1, 16, 8, 2, 32, 132, 497)),
+    (((192, 16, 16, 128), 3), (1, 16, 8, 2, 32, 44, 373)),
+    (((64, 64, 64, 64), 1), (1, 8, 8, 1, 32, 264, 993)),
+    (((64, 256, 256, 64), 1), (1, 8, 8, 1, 32, 264, 15888)),
+    (((2, 3, 3, 200), 1), (1, 25, 8, 4, 32, 1, 18)),
+    (((3, 5, 7, 20), 1), (0, 3, 3, 1, 85, 1, 105)),
 ])
 def test_plan_values(case, plan):
     """The plans of a few calls, written out: the numbers csrc/batch_norm.cu
@@ -320,8 +317,7 @@ def test_plan_values(case, plan):
     plan back from the C entry point)."""
     shape, streams = case
     rows = int(np.prod(shape[:-1]))
-    got = fused.bn_plan(rows, streams, shape[-1])
-    assert (*got[:7], got.one_launch) == plan
+    assert tuple(fused.bn_plan(rows, streams, shape[-1]))[:7] == plan
 
 
 @pytest.mark.parametrize("rows,streams,c", [(0, 1, 8), (7, 2, 8), (6, 0, 8),

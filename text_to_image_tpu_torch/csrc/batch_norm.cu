@@ -57,14 +57,16 @@
 //    the same grid with the same fixed-order merge; the last CTA of a slice
 //    also writes dgamma and dbeta, summed over streams in stream order.
 //  * bn_bwd_apply: dx from g, y, x and the per-stream sums, cast to x's type.
-//  * The one-launch form (t2i_bn_stats with y): where x fits in L2 beside y
-//    (at most 16 MiB) and the grid is co-resident, every CTA waits after the
-//    statistics for its slice's last CTA to publish a and b (a flag set to
-//    the call's number) and applies them to its band, the second read of x
-//    coming from L2: one cooperative launch instead of two.
+//  * The per-channel values a pass needs (a and b, mean and rstd, the sums)
+//    are loaded after the first rows' loads are in flight, so their trip to
+//    memory overlaps that of x.
 //  * Workspace (owned by the caller, allocated once per device): a ticket
-//    counter and a flag per channel slice, then the partials.  The launches
-//    of one stream run in order, so every call reuses it.
+//    counter per channel slice, then the partials.  The launches of one
+//    stream run in order, so every call reuses it.
+//  * Tried and not kept: statistics and apply as one cooperative launch for
+//    x up to 16 MiB (every CTA waiting for its slice's a and b, the second
+//    read of x from L2); 4-12 % slower than the two launches at every
+//    GAN-CLS shape on the H100 (PERF.md, PR 6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,7 +82,6 @@ constexpr int kTpr = 8;             // most threads a row: 64 channels a CTA
 constexpr int kUnroll = 4;          // rows in flight a lane (the plan's unit)
 constexpr int kCtasPerSm = 2;
 constexpr int kMaxChunks = 4096;    // ticket counters: C up to 262144
-constexpr long long kOneLaunchMaxBytes = 16LL << 20;   // x of the one-launch form
 constexpr int kSlot = 1 + 2 * kTpr * kVec;   // floats of one CTA's partial
 
 enum Act { kNone = 0, kRelu = 1, kLrelu = 2, kTanh = 3 };
@@ -119,17 +120,8 @@ Plan make_plan(long long R, int S, int C, bool vec_ok, int sms) {
 }
 
 long long ws_bytes_needed(const Plan& p, int S) {
-  return 8LL * kMaxChunks +
+  return 4LL * kMaxChunks +
          4LL * kSlot * p.chunks * static_cast<long long>(S) * p.bands;
-}
-
-// The one-launch form (statistics, a grid-wide wait per channel slice, the
-// apply pass) where x fits in L2 beside y and the grid is co-resident.
-bool one_launch_ok(const Plan& p, long long R, int S, int C, int elem_bytes,
-                   int sms) {
-  const long long ctas = static_cast<long long>(p.chunks) * S * p.bands;
-  return R * S * C * elem_bytes <= kOneLaunchMaxBytes &&
-         ctas <= static_cast<long long>(kCtasPerSm) * sms;
 }
 
 struct Args {
@@ -149,9 +141,7 @@ struct Args {
   const float* sgx;
   float* out;            // bn_stats, bn_bwd_reduce: the results
   unsigned* tickets;     // [kMaxChunks]
-  unsigned* flags;       // [kMaxChunks]: the epoch whose a, b are written
   float* part;           // [chunks][S][bands][kSlot]
-  unsigned epoch;        // the one-launch form's call number
   long long R;
   int S, C;
   float mom, omm, eps;   // momentum, 1 - momentum, eps
@@ -294,16 +284,14 @@ __device__ __forceinline__ Geo geo(const Args& a) {
   return t;
 }
 
-// Per-channel values of the thread's stream: v[j] = src[s * C + c0 + j]
-// (through L2 where another CTA of this launch wrote them).
+// Per-channel values of the thread's stream: v[j] = src[s * C + c0 + j].
 __device__ __forceinline__ void channel_vals(const float* src, const Geo& t,
-                                             int C, float v[8],
-                                             bool from_l2 = false) {
+                                             int C, float v[8]) {
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    const float* q = src + static_cast<long long>(t.s) * C + t.c0 + j;
-    v[j] = (t.live && t.c0 + j < C) ? (from_l2 ? __ldcg(q) : *q) : 0.f;
-  }
+  for (int j = 0; j < kVec; ++j)
+    v[j] = (t.live && t.c0 + j < C)
+               ? src[static_cast<long long>(t.s) * C + t.c0 + j]
+               : 0.f;
 }
 
 // --- merges in a fixed order ---------------------------------------------
@@ -485,34 +473,9 @@ __device__ __forceinline__ void finish_stats(const Args& a, const Geo& t,
   }
 }
 
-// y = act(x . ka + kb) over the thread's rows of the band.
-template <typename T, bool VEC, int ACT>
-__device__ __forceinline__ void apply_rows(const Args& a, const Geo& t,
-                                           const float ka[8], const float kb[8]) {
-  const T* x = static_cast<const T*>(a.x);
-  T* y = static_cast<T*>(a.out_t);
-  const int C = a.C;
-  const long long step = a.p.lanes;
-  for (long long r = t.r0 + t.lane; r < t.r1; r += step * kUnroll) {
-    float v[kUnroll][kVec];
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k)
-      load_row<T, VEC>(x, r + k * step, C, t.c0, r + k * step < t.r1, v[k]);
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      if (r + k * step >= t.r1) continue;
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) v[k][j] = act_fn<ACT>(fmaf(v[k][j], ka[j], kb[j]));
-      store_row<T, VEC>(y, r + k * step, C, t.c0, v[k]);
-    }
-  }
-}
-
-// Statistics (see finish_stats for out).  ONE_LAUNCH: every CTA then waits
-// for its slice's a and b (the flag its last CTA sets to the call's epoch)
-// and applies them to its band, y = act(x . a_s + b_s), the second read of
-// x coming from L2; the grid must be co-resident (a cooperative launch).
-template <typename T, bool VEC, int ACT, bool ONE_LAUNCH>
+// Statistics: out = mean [S, C], rstd [S, C], a [S, C], b [S, C], then the
+// new running mean [C] and var [C] (finish_stats).
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm) bn_stats_kernel(Args a) {
   __shared__ Smem sh;
   const Geo t = geo(a);
@@ -545,32 +508,7 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) bn_stats_kernel(Args a) 
     }
   }
   merge_lanes<true>(n, u, w, t, a.p, sh);
-  if (publish<true>(a, t, n, u, w, sh)) {
-    finish_stats(a, t, sh);
-    if (ONE_LAUNCH) {
-      __threadfence();
-      __syncthreads();
-      if (threadIdx.x == 0) atomicExch(a.flags + blockIdx.x, a.epoch);
-    }
-  }
-  if (!ONE_LAUNCH) return;
-  if (threadIdx.x == 0) {
-    // a co-resident grid publishes within microseconds; a wait of seconds
-    // is a fault, reported as one rather than a hung card
-    long long spins = 0;
-    while (*static_cast<volatile unsigned*>(a.flags + blockIdx.x) != a.epoch) {
-      __nanosleep(64);
-      if (++spins > (1LL << 26)) __trap();
-    }
-    __threadfence();
-  }
-  __syncthreads();
-  if (!t.live) return;
-  const long long SC = static_cast<long long>(a.S) * C;
-  float ka[kVec], kb[kVec];
-  channel_vals(a.out + 2 * SC, t, C, ka, true);
-  channel_vals(a.out + 3 * SC, t, C, kb, true);
-  apply_rows<T, VEC, ACT>(a, t, ka, kb);
+  if (publish<true>(a, t, n, u, w, sh)) finish_stats(a, t, sh);
 }
 
 // Apply: y = act(x . a_s + b_s), a_s and b_s in registers across the band.
@@ -578,31 +516,55 @@ template <typename T, bool VEC, int ACT>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm) bn_apply_kernel(Args a) {
   const Geo t = geo(a);
   if (!t.live) return;
+  const T* x = static_cast<const T*>(a.x);
+  T* y = static_cast<T*>(a.out_t);
+  const int C = a.C;
+  const long long step = a.p.lanes;
   float ka[kVec], kb[kVec];
-  channel_vals(a.a, t, a.C, ka);
-  channel_vals(a.b, t, a.C, kb);
-  apply_rows<T, VEC, ACT>(a, t, ka, kb);
+  bool first = true;
+  for (long long r = t.r0 + t.lane; r < t.r1; r += step * kUnroll) {
+    float v[kUnroll][kVec];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k)
+      load_row<T, VEC>(x, r + k * step, C, t.c0, r + k * step < t.r1, v[k]);
+    if (first) {   // behind the first rows' loads
+      channel_vals(a.a, t, C, ka);
+      channel_vals(a.b, t, C, kb);
+      first = false;
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (r + k * step >= t.r1) continue;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) v[k][j] = act_fn<ACT>(fmaf(v[k][j], ka[j], kb[j]));
+      store_row<T, VEC>(y, r + k * step, C, t.c0, v[k]);
+    }
+  }
 }
 
 constexpr int kBwdUnroll = 2;    // three tensors in flight a row
 
-// ga = g . act'(y) and xhat = (x - mean) . rstd of the thread's 8 channels of
-// row r.
+// The thread's 8 channels of g, x and (but for act none) y in row r.
 template <typename T, bool VEC, int ACT>
-__device__ __forceinline__ void grad_row(const Args& a, const Geo& t,
-                                         long long r, bool ok,
-                                         const float mu[8], const float rs[8],
-                                         float ga[8], float xh[8]) {
-  float gy[kVec];
-  load_row<T, VEC>(static_cast<const T*>(a.g), r, a.C, t.c0, ok, ga);
-  load_row<T, VEC>(static_cast<const T*>(a.x), r, a.C, t.c0, ok, xh);
-  if (ACT != kNone) {
-    load_row<T, VEC>(static_cast<const T*>(a.y), r, a.C, t.c0, ok, gy);
+__device__ __forceinline__ void load_grad_row(const Args& a, const Geo& t,
+                                              long long r, bool ok, float g[8],
+                                              float x[8], float y[8]) {
+  load_row<T, VEC>(static_cast<const T*>(a.g), r, a.C, t.c0, ok, g);
+  load_row<T, VEC>(static_cast<const T*>(a.x), r, a.C, t.c0, ok, x);
+  if (ACT != kNone)
+    load_row<T, VEC>(static_cast<const T*>(a.y), r, a.C, t.c0, ok, y);
+}
+
+// In place: g <- ga = g . act'(y), x <- xhat = (x - mean) . rstd.
+template <int ACT>
+__device__ __forceinline__ void grad_xhat(float g[8], float x[8],
+                                          const float y[8], const float mu[8],
+                                          const float rs[8]) {
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) ga[j] *= act_grad<ACT>(gy[j]);
+  for (int j = 0; j < kVec; ++j) {
+    if (ACT != kNone) g[j] *= act_grad<ACT>(y[j]);
+    x[j] = (x[j] - mu[j]) * rs[j];
   }
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) xh[j] = (xh[j] - mu[j]) * rs[j];
 }
 
 // Backward reduce: out = sum(ga) [S, C], sum(ga . xhat) [S, C], then
@@ -614,21 +576,27 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) bn_reduce_kernel(Args a)
   const int C = a.C;
   const long long SC = static_cast<long long>(a.S) * C;
   float mu[kVec], rs[kVec];
-  channel_vals(a.mean, t, C, mu);
-  channel_vals(a.rstd, t, C, rs);
   float n = 0.f, u[kVec], w[kVec];
 #pragma unroll
   for (int j = 0; j < kVec; ++j) u[j] = w[j] = 0.f;
   const long long step = a.p.lanes;
   if (t.lane_ok) {
+    bool first = true;
     for (long long r = t.r0 + t.lane; r < t.r1; r += step * kBwdUnroll) {
-      float ga[kBwdUnroll][kVec], xh[kBwdUnroll][kVec];
+      float ga[kBwdUnroll][kVec], xh[kBwdUnroll][kVec], yv[kBwdUnroll][kVec];
 #pragma unroll
       for (int k = 0; k < kBwdUnroll; ++k)
-        grad_row<T, VEC, ACT>(a, t, r + k * step, t.live && r + k * step < t.r1,
-                              mu, rs, ga[k], xh[k]);
+        load_grad_row<T, VEC, ACT>(a, t, r + k * step,
+                                   t.live && r + k * step < t.r1, ga[k], xh[k],
+                                   yv[k]);
+      if (first) {   // behind the first rows' loads
+        channel_vals(a.mean, t, C, mu);
+        channel_vals(a.rstd, t, C, rs);
+        first = false;
+      }
 #pragma unroll
       for (int k = 0; k < kBwdUnroll; ++k) {
+        grad_xhat<ACT>(ga[k], xh[k], yv[k], mu, rs);
 #pragma unroll
         for (int j = 0; j < kVec; ++j) {   // masked rows hold zeros
           u[j] += ga[k][j];
@@ -676,29 +644,34 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) bn_dx_kernel(Args a) {
   if (!t.live) return;
   const int C = a.C;
   float mu[kVec], rs[kVec], k1[kVec], k2[kVec], k3[kVec];
-  channel_vals(a.mean, t, C, mu);
-  channel_vals(a.rstd, t, C, rs);
-  channel_vals(a.sga, t, C, k2);
-  channel_vals(a.sgx, t, C, k3);
-  const float inv_r = 1.f / static_cast<float>(a.R);
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    const int c = t.c0 + j;
-    k1[j] = (c < C ? a.gamma[c] : 0.f) * rs[j];
-    k2[j] *= inv_r;
-    k3[j] *= inv_r;
-  }
   T* dx = static_cast<T*>(a.out_t);
   const long long step = a.p.lanes;
+  bool first = true;
   for (long long r = t.r0 + t.lane; r < t.r1; r += step * kBwdUnroll) {
-    float ga[kBwdUnroll][kVec], xh[kBwdUnroll][kVec];
+    float ga[kBwdUnroll][kVec], xh[kBwdUnroll][kVec], yv[kBwdUnroll][kVec];
 #pragma unroll
     for (int k = 0; k < kBwdUnroll; ++k)
-      grad_row<T, VEC, ACT>(a, t, r + k * step, r + k * step < t.r1, mu, rs,
-                            ga[k], xh[k]);
+      load_grad_row<T, VEC, ACT>(a, t, r + k * step, r + k * step < t.r1,
+                                 ga[k], xh[k], yv[k]);
+    if (first) {   // behind the first rows' loads
+      channel_vals(a.mean, t, C, mu);
+      channel_vals(a.rstd, t, C, rs);
+      channel_vals(a.sga, t, C, k2);
+      channel_vals(a.sgx, t, C, k3);
+      const float inv_r = 1.f / static_cast<float>(a.R);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const int c = t.c0 + j;
+        k1[j] = (c < C ? a.gamma[c] : 0.f) * rs[j];
+        k2[j] *= inv_r;
+        k3[j] *= inv_r;
+      }
+      first = false;
+    }
 #pragma unroll
     for (int k = 0; k < kBwdUnroll; ++k) {
       if (r + k * step >= t.r1) continue;
+      grad_xhat<ACT>(ga[k], xh[k], yv[k], mu, rs);
 #pragma unroll
       for (int j = 0; j < kVec; ++j)
         ga[k][j] = k1[j] * (ga[k][j] - k2[j] - xh[k][j] * k3[j]);
@@ -755,26 +728,24 @@ bool setup(Args& a, const void* x, const void* p1, const void* p2,
 bool set_ws(Args& a, void* ws, long long ws_bytes) {
   if (ws_bytes < ws_bytes_needed(a.p, a.S) || !aligned16(ws)) return false;
   a.tickets = static_cast<unsigned*>(ws);
-  a.flags = a.tickets + kMaxChunks;
-  a.part = reinterpret_cast<float*>(static_cast<char*>(ws) + 8LL * kMaxChunks);
+  a.part = reinterpret_cast<float*>(static_cast<char*>(ws) + 4LL * kMaxChunks);
   return true;
 }
 
 }  // namespace
 
 // The plan of a call: out = {vec, groups, tpr, chunks, lanes, bands,
-// band_rows, workspace bytes, one-launch form allowed}.  x, p1, p2, p3 are
-// the call's full-size tensors (nullptr where absent); returns 0, or 1 for
-// arguments no launch takes.
+// band_rows, workspace bytes}.  x, p1, p2, p3 are the call's full-size
+// tensors (nullptr where absent); returns 0, or 1 for arguments no launch
+// takes.
 extern "C" int t2i_bn_plan(const void* x, const void* p1, const void* p2,
                            const void* p3, long long rows, int S, int C,
-                           int bf16, int sms, long long* out) {
+                           int sms, long long* out) {
   Args a{};
   if (!setup(a, x, p1, p2, p3, rows, S, C, sms)) return 1;
-  const long long v[9] = {a.p.vec, a.p.groups, a.p.tpr, a.p.chunks, a.p.lanes,
-                          a.p.bands, a.p.band_rows, ws_bytes_needed(a.p, S),
-                          one_launch_ok(a.p, a.R, S, C, bf16 ? 2 : 4, sms)};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  const long long v[8] = {a.p.vec, a.p.groups, a.p.tpr, a.p.chunks, a.p.lanes,
+                          a.p.bands, a.p.band_rows, ws_bytes_needed(a.p, S)};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -783,24 +754,17 @@ extern "C" int t2i_bn_plan(const void* x, const void* p1, const void* p2,
 // kernel does not take).
 
 // out: mean [S, C], rstd [S, C], a [S, C], b [S, C], new mean [C], new var
-// [C].  With y non-null, the one-launch form also writes y = act(x . a_s +
-// b_s) (a cooperative launch; only where the plan allows it).
+// [C].
 extern "C" int t2i_bn_stats(const void* x, const float* gamma,
                             const float* beta, const float* run_mean,
                             const float* run_var, float* out, void* ws,
                             long long ws_bytes, long long rows, int S, int C,
                             int bf16, float momentum, float one_minus_momentum,
-                            float eps, int sms, void* y, int act,
-                            void* stream) {
-  static unsigned epoch = 0;   // the one-launch form's calls, for its flags
+                            float eps, int sms, void* stream) {
   Args a{};
-  if (!setup(a, x, y, nullptr, nullptr, rows, S, C, sms) ||
-      !set_ws(a, ws, ws_bytes) ||
-      (y && !one_launch_ok(a.p, a.R, S, C, bf16 ? 2 : 4, sms)))
+  if (!setup(a, x, nullptr, nullptr, nullptr, rows, S, C, sms) ||
+      !set_ws(a, ws, ws_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
-  a.out_t = y;
-  if (++epoch == 0) ++epoch;   // the workspace's flags start at 0
-  a.epoch = epoch;
   a.x = x;
   a.gamma = gamma;
   a.beta = beta;
@@ -812,22 +776,11 @@ extern "C" int t2i_bn_stats(const void* x, const float* gamma,
   a.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid = grid_of(a.p, S);
-  if (!y)
-    return static_cast<int>(dispatch(bf16 != 0, a.p.vec != 0, kNone,
-                                     [&](auto t, auto v, auto) -> cudaError_t {
-      using T = typename decltype(t)::type;
-      bn_stats_kernel<T, decltype(v)::value, kNone, false>
-          <<<grid, kThreads, 0, st>>>(a);
-      return cudaGetLastError();
-    }));
-  return static_cast<int>(dispatch(bf16 != 0, a.p.vec != 0, act,
-                                   [&](auto t, auto v, auto k) -> cudaError_t {
+  return static_cast<int>(dispatch(bf16 != 0, a.p.vec != 0, kNone,
+                                   [&](auto t, auto v, auto) -> cudaError_t {
     using T = typename decltype(t)::type;
-    void* args[] = {&a};
-    return cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(
-            &bn_stats_kernel<T, decltype(v)::value, decltype(k)::value, true>),
-        grid, dim3(kThreads), args, 0, st);
+    bn_stats_kernel<T, decltype(v)::value><<<grid, kThreads, 0, st>>>(a);
+    return cudaGetLastError();
   }));
 }
 

@@ -69,8 +69,8 @@ def act_grad_from_output(act: str, y: torch.Tensor) -> torch.Tensor:
         return torch.ones_like(y32)
     if act == "relu":
         return (y32 > 0).to(y32.dtype)
-    if act == "lrelu":
-        return torch.full_like(y32, 0.2).masked_fill_(y32 >= 0, 1.0)
+    if act == "lrelu":   # the slope as a scalar of y's type: no fill pass
+        return torch.where(y32 >= 0, 1.0, torch.tensor(0.2, dtype=y32.dtype))
     if act == "tanh":
         return 1.0 - y32 * y32
     raise ValueError(f"act {act!r} not in {sorted(ACT_CODES)}")
@@ -93,9 +93,8 @@ BN_VEC = 8             # channels a thread owns
 BN_TPR = 8             # most threads a row: a CTA covers 64 channels
 BN_UNROLL = 4          # rows in flight a lane
 BN_CTAS_PER_SM = 2
-BN_MAX_CHUNKS = 4096   # ticket counters and flags at the workspace's head
+BN_MAX_CHUNKS = 4096   # ticket counters at the head of the workspace
 BN_SLOT = 1 + 2 * BN_TPR * BN_VEC   # floats of one CTA's partial
-BN_ONE_LAUNCH_MAX_BYTES = 16 << 20  # x of the one-launch form
 
 
 class BnPlan(NamedTuple):
@@ -109,21 +108,18 @@ class BnPlan(NamedTuple):
     bands: int      # CTAs per stream and slice: the grid's y is S·bands
     band_rows: int  # rows of a band
     ws_bytes: int   # the workspace bn_stats and bn_bwd_reduce need
-    one_launch: int  # 1: bn_stats may apply too, in one cooperative launch
 
 
+@functools.lru_cache(maxsize=4096)
 def bn_plan(rows: int, streams: int, c: int, aligned: bool = True,
-            sms: int = 132, elem_bytes: int = 2) -> BnPlan:
-    """The Python mirror of `make_plan` and `one_launch_ok` in
-    csrc/batch_norm.cu: x of `rows` rows of `c` channels in `streams`
-    streams, `elem_bytes` an element, on a card of `sms` SMs.
+            sms: int = 132) -> BnPlan:
+    """The Python mirror of `make_plan` in csrc/batch_norm.cu: x of `rows`
+    rows of `c` channels in `streams` streams on a card of `sms` SMs.
 
     A thread owns 8 channels, a CTA 64 (or C below that) and 256 // tpr row
     lanes; each stream's R rows are cut into bands, as many as give
     BN_CTAS_PER_SM CTAs an SM over the whole grid but no fewer than
-    BN_UNROLL rows a lane.  The one-launch form needs x within
-    BN_ONE_LAUNCH_MAX_BYTES and the grid within BN_CTAS_PER_SM CTAs an SM.
-    Raises ValueError where no launch is made."""
+    BN_UNROLL rows a lane.  Raises ValueError where no launch is made."""
     if streams < 1 or c < 1 or rows < streams or rows % streams or sms < 1:
         raise ValueError(f"{streams} streams do not divide {rows} rows "
                          f"(C = {c}, {sms} SMs)")
@@ -140,24 +136,21 @@ def bn_plan(rows: int, streams: int, c: int, aligned: bool = True,
     bands = -(-r // band_rows)
     if bands > 65535 // streams:
         raise ValueError(f"{streams}×{bands} bands over the grid's 65535")
-    ctas = chunks * streams * bands
-    one = (rows * c * elem_bytes <= BN_ONE_LAUNCH_MAX_BYTES
-           and ctas <= BN_CTAS_PER_SM * sms)
     return BnPlan(int(c % BN_VEC == 0 and aligned), groups, tpr, chunks,
                   lanes, bands, band_rows,
-                  8 * BN_MAX_CHUNKS + 4 * BN_SLOT * ctas, int(one))
+                  4 * BN_MAX_CHUNKS + 4 * BN_SLOT * chunks * streams * bands)
 
 
 def _bn_lib() -> ctypes.CDLL:
     ptr, integer, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_float)
     return _build.bind("batch_norm", {
-        # x, p1, p2, p3; rows, S, C, bf16, sms; out[9]
-        "t2i_bn_plan": [ptr] * 4 + [i64] + [integer] * 4 + [ptr],
+        # x, p1, p2, p3; rows, S, C, sms; out[8]
+        "t2i_bn_plan": [ptr] * 4 + [i64] + [integer] * 3 + [ptr],
         # x, gamma, beta, run_mean, run_var, out, ws; ws_bytes, rows; S, C,
-        # bf16; momentum, 1 - momentum, eps; sms; y (one launch), act; stream
+        # bf16; momentum, 1 - momentum, eps; sms; stream
         "t2i_bn_stats": [ptr] * 7 + [i64, i64] + [integer] * 3 + [f32] * 3
-                        + [integer, ptr, integer, ptr],
+                        + [integer, ptr],
         # x, a, b, y; rows; S, C, act, bf16, sms; stream
         "t2i_bn_act": [ptr] * 4 + [i64] + [integer] * 5 + [ptr],
         # g, y, x, mean, rstd, out, ws; ws_bytes, rows; S, C, act, bf16,
@@ -177,11 +170,10 @@ def bn_plan_on_card(x: torch.Tensor, streams: int, *others) -> BnPlan:
     """The plan the C entry point itself makes for x and the call's other
     full-size tensors (None where absent)."""
     c = x.shape[-1]
-    out = (ctypes.c_longlong * 9)()
+    out = (ctypes.c_longlong * 8)()
     ptrs = [t.data_ptr() if t is not None else None for t in others]
     rc = _bn_lib().t2i_bn_plan(x.data_ptr(), *(ptrs + [None] * 3)[:3],
                                x.numel() // c, streams, c,
-                               int(x.dtype == torch.bfloat16),
                                _sms(x.device.index), out)
     if rc != 0:
         raise ValueError(f"no batch-norm launch takes x {tuple(x.shape)} in "
@@ -204,11 +196,12 @@ def _bn_workspace(device: torch.device, nbytes: int) -> torch.Tensor:
     return ws
 
 
-def _bn_check(x: torch.Tensor, streams: int, act: str,
-              **per_channel: torch.Tensor) -> None:
+def _bn_check(x: torch.Tensor, streams: int, act: str, per_channel=(),
+              per_stream=()) -> None:
     """What every batch-norm launch needs: x bf16 or f32, contiguous, its
-    batch cut into `streams` equal streams; each per-channel tensor f32,
-    contiguous, on x's device, of its shape (C) or (S, C)."""
+    batch cut into `streams` equal streams; each (name, tensor) of
+    `per_channel` f32 [C] and of `per_stream` f32 [S, C], contiguous, on
+    x's device."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"batch norm takes bf16 or f32 x, got {x.dtype}")
     if not x.is_contiguous():
@@ -220,8 +213,8 @@ def _bn_check(x: torch.Tensor, streams: int, act: str,
     if act not in ACT_CODES:
         raise ValueError(f"act {act!r} not in {sorted(ACT_CODES)}")
     c = x.shape[-1]
-    for name, v in per_channel.items():
-        want = (c,) if v.dim() <= 1 else (streams, c)
+    for (name, v), want in ([(nv, (c,)) for nv in per_channel]
+                            + [(nv, (streams, c)) for nv in per_stream]):
         if v.dtype != torch.float32 or tuple(v.shape) != want:
             raise ValueError(f"{name} must be float32 {list(want)}, got "
                              f"{v.dtype} {tuple(v.shape)}")
@@ -269,11 +262,18 @@ def bn_stats_plain(x: torch.Tensor, streams: int, gamma: torch.Tensor,
     return mean, rstd, a, b, new_mean, new_var
 
 
-def _bn_stats_launch(x, streams, gamma, beta, run_mean, run_var, momentum,
-                     eps, y=None, act="none"):
-    """One launch of the statistics kernel; with y, its one-launch form."""
-    _bn_check(x, streams, act, gamma=gamma, beta=beta, run_mean=run_mean,
-              run_var=run_var)
+def bn_stats(x: torch.Tensor, streams: int, gamma: torch.Tensor,
+             beta: torch.Tensor, run_mean: torch.Tensor,
+             run_var: torch.Tensor, momentum: float = 0.9, eps: float = 1e-5):
+    """(mean, rstd, a, b) f32 [S, C] and the new running (mean, var) f32 [C]
+    of x's S streams, in one launch.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    if not _on_card(x, "bn_stats"):
+        return bn_stats_plain(x, streams, gamma, beta, run_mean, run_var,
+                              momentum, eps)
+    _bn_check(x, streams, "none", (("gamma", gamma), ("beta", beta),
+                                   ("run_mean", run_mean),
+                                   ("run_var", run_var)))
     c = x.shape[-1]
     rows = x.numel() // c
     sc = streams * c
@@ -284,50 +284,13 @@ def _bn_stats_launch(x, streams, gamma, beta, run_mean, run_var, momentum,
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), run_mean.data_ptr(),
         run_var.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(), rows,
         streams, c, int(x.dtype == torch.bfloat16), momentum, 1.0 - momentum,
-        eps, sms, y.data_ptr() if y is not None else None, ACT_CODES[act],
-        torch.cuda.current_stream(x.device).cuda_stream), "bn_stats")
+        eps, sms, torch.cuda.current_stream(x.device).cuda_stream), "bn_stats")
+    bn_stats.launches += 1
     return (*out[:4 * sc].view(4, streams, c), out[4 * sc:4 * sc + c],
             out[4 * sc + c:])
 
 
-def bn_stats(x: torch.Tensor, streams: int, gamma: torch.Tensor,
-             beta: torch.Tensor, run_mean: torch.Tensor,
-             run_var: torch.Tensor, momentum: float = 0.9, eps: float = 1e-5):
-    """(mean, rstd, a, b) f32 [S, C] and the new running (mean, var) f32 [C]
-    of x's S streams, in one launch.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
-    if not _on_card(x, "bn_stats"):
-        return bn_stats_plain(x, streams, gamma, beta, run_mean, run_var,
-                              momentum, eps)
-    out = _bn_stats_launch(x, streams, gamma, beta, run_mean, run_var,
-                           momentum, eps)
-    bn_stats.launches += 1
-    return out
-
-
 bn_stats.launches = 0
-
-
-def bn_stats_act(x: torch.Tensor, streams: int, gamma: torch.Tensor,
-                 beta: torch.Tensor, run_mean: torch.Tensor,
-                 run_var: torch.Tensor, act: str, momentum: float = 0.9,
-                 eps: float = 1e-5):
-    """`bn_stats` and `bn_act` as one cooperative launch, where
-    `bn_plan(...).one_launch` allows it (x within 16 MiB, the grid
-    co-resident): (y, mean, rstd, a, b, new mean, new var).  CPU tensors
-    take the plain versions; CUDA tensors launch the kernel or raise."""
-    if not _on_card(x, "bn_stats_act"):
-        stats = bn_stats_plain(x, streams, gamma, beta, run_mean, run_var,
-                               momentum, eps)
-        return (bn_act_plain(x, stats[2], stats[3], act), *stats)
-    y = torch.empty_like(x)
-    stats = _bn_stats_launch(x, streams, gamma, beta, run_mean, run_var,
-                             momentum, eps, y, act)
-    bn_stats_act.launches += 1
-    return (y, *stats)
-
-
-bn_stats_act.launches = 0
 
 
 # --- bn_act -----------------------------------------------------------------
@@ -344,7 +307,11 @@ def bn_act_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 def _check(x, a, b, act):
     """The checks of the public `bn_act`: a and b f32 [C] or [S, C]."""
-    _bn_check(x, a.shape[0] if a.dim() == 2 else 1, act, a=a, b=b)
+    ab = (("a", a), ("b", b))
+    if a.dim() == 2:
+        _bn_check(x, a.shape[0], act, per_stream=ab)
+    else:
+        _bn_check(x, 1, act, per_channel=ab)
 
 
 def _bn_act_forward(x, a, b, act):
@@ -476,8 +443,8 @@ def bn_bwd_apply(g: torch.Tensor, y, x: torch.Tensor, mean: torch.Tensor,
     if not _on_card(x, "bn_bwd_apply"):
         return bn_bwd_apply_plain(g, y, x, mean, rstd, gamma, sga, sgx,
                                   streams, act)
-    _bwd_check(g, y, x, mean, rstd, streams, act, gamma=gamma, sga=sga,
-               sgx=sgx)
+    _bwd_check(g, y, x, mean, rstd, streams, act, (("gamma", gamma),),
+               (("sga", sga), ("sgx", sgx)))
     c = x.shape[-1]
     dx = torch.empty_like(x)
     _rc(_bn_lib().t2i_bn_bwd_apply(
@@ -493,8 +460,10 @@ def bn_bwd_apply(g: torch.Tensor, y, x: torch.Tensor, mean: torch.Tensor,
 bn_bwd_apply.launches = 0
 
 
-def _bwd_check(g, y, x, mean, rstd, streams, act, **per_channel):
-    _bn_check(x, streams, act, mean=mean, rstd=rstd, **per_channel)
+def _bwd_check(g, y, x, mean, rstd, streams, act, per_channel=(),
+               per_stream=()):
+    _bn_check(x, streams, act, per_channel,
+              (("mean", mean), ("rstd", rstd), *per_stream))
     for name, t in (("g", g), ("y", y if act != "none" else x)):
         if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"{name} must match x ({tuple(x.shape)} "
@@ -528,11 +497,14 @@ class _BatchNormAct(torch.autograd.Function):
         ctx.save_for_backward(x, gamma, y if act != "none" else None, mean,
                               rstd)
         ctx.mark_non_differentiable(new_mean, new_var)
+        ctx.set_materialize_grads(False)   # no zero fills for the state
         return y, new_mean, new_var
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g, _mean_grad, _var_grad):
+        if g is None:
+            return (None,) * 9
         x, gamma, y, mean, rstd = ctx.saved_tensors
         g = g.to(x.dtype).contiguous()
         sga, sgx, dgamma, dbeta = bn_bwd_reduce(g, y, x, mean, rstd,
