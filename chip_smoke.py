@@ -45,6 +45,18 @@
    kernels, finite losses (``kl`` too), every trained leaf moved and the
    frozen Stage-I bit-identical; both generators against the CPU; one f32
    Stage-II tick at batch 4 on the card against the CPU;
+4c. drives the data, checkpoint and resume path: writes an
+   Oxford-102-sized StackGAN-format split from the seed (7,034 + 1,155
+   examples, 76²×3 uint8, 10 × 1024 f32 captions, 102 classes), trains
+   GAN-CLS from it with ``main.py --train`` at full width on the resident
+   tier (snapshots, grids, metrics, launches a tick and a grid,
+   ``max_to_keep``), stops at step 3 and resumes in a second call (the
+   restore bit-equal to the snapshot, every tick's batch bit-identical to
+   the straight run's, the final state against the straight run's), trains
+   Stage-I with the EMA and Stage-II over that run directory (the frozen
+   Stage-I bit-equal to the EMA), and times the tick through the resident
+   and the host tier and a checkpoint's save and restore at full width;
+   every run writes under ``build/smoke_runs_*``, removed at the end;
 5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
    kernel's bound, prints the path, tile and split of each conv, join,
@@ -67,11 +79,16 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -932,12 +949,14 @@ def phase_upconv_backward(device):
     return errs
 
 
-def phase_stackgan_sampling(device, model, sample_dir):
+def phase_stackgan_sampling(device, model, sample_dir, runs):
     """``python -m text_to_image_tpu_torch.main --cfg
     configs/<model>_flowers.yml --set data.dataset_name=synthetic
-    stage1_checkpoint=`` on the card: the three grids at full width, batch
-    64, bf16, with the launch counts; then the generator (for Stage-II with
-    its frozen Stage-I) against the same code on the CPU."""
+    stage1_checkpoint=`` on the card (with an empty checkpoint directory
+    under `runs`, so the generator comes from the seed): the three grids at
+    full width, batch 64, bf16, with the launch counts; then the generator
+    (for Stage-II with its frozen Stage-I) against the same code on the
+    CPU."""
     from text_to_image_tpu_torch import main as port_main
     from text_to_image_tpu_torch.data import get_dataset
     from text_to_image_tpu_torch.eval import sampler
@@ -951,7 +970,8 @@ def phase_stackgan_sampling(device, model, sample_dir):
         k.launches = 0
     out = port_main.main(["--cfg", config_path(model), "--device", str(device),
                           "--set", "data.dataset_name=synthetic",
-                          "stage1_checkpoint=", f"sample_dir={sample_dir}"])
+                          "stage1_checkpoint=", f"sample_dir={sample_dir}",
+                          f"checkpoint_dir={os.path.join(runs, 'none')}"])
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in counters}
     log(f"  {model} sampling-path launches (3 grids): {launches}")
@@ -959,8 +979,8 @@ def phase_stackgan_sampling(device, model, sample_dir):
     want.update({k: 3 * v for k, v in STACKGAN_FORWARD_LAUNCHES[model].items()})
     check(launches == want, f"unexpected launch counts {launches}")
     for name in ("eval_grid", "z_interp", "t_interp"):
-        check(any(os.path.exists(os.path.join(out, name + ext))
-                  for ext in (".png", ".png.npy")), f"{name} not written")
+        check(png_size(os.path.join(out, name + ".png"))[0] > 0,
+              f"{name} not written")
 
     # the same generator through the sampler, on the card and on the CPU
     cfg = train_config(model)
@@ -1189,12 +1209,20 @@ def flat(tree):
     return dict(flatten(tree))
 
 
-def phase_train_path(device, model="gancls"):
+def run_dirs(root):
+    """``--set`` pairs that put a run's checkpoints, logs and grids under
+    `root` (a fresh directory, so that nothing is restored from an earlier
+    run)."""
+    return [f"{k}={os.path.join(root, k.split('_')[0])}"
+            for k in ("checkpoint_dir", "log_dir", "sample_dir")]
+
+
+def phase_train_path(device, runs, model="gancls"):
     """``python -m text_to_image_tpu_torch.main --cfg
     configs/<model>_flowers.yml --train --steps 3 --set
     data.dataset_name=synthetic stage1_checkpoint=`` on the card (the
-    config's full widths, batch 64, bf16), with the launch counts of all
-    eight kernels."""
+    config's full widths, batch 64, bf16; checkpoints, logs and grids under
+    `runs`), with the launch counts of all eight kernels."""
     from text_to_image_tpu_torch import main as port_main
     from text_to_image_tpu_torch.models.registry import get_model
     from text_to_image_tpu_torch.train.steps import stage1_aux
@@ -1202,7 +1230,7 @@ def phase_train_path(device, model="gancls"):
     argv = ["--cfg", config_path(model),
             "--train", "--steps", str(TRAIN_TICKS), "--device", str(device),
             "--set", "data.dataset_name=synthetic", "train.summary_interval=1",
-            "stage1_checkpoint="]
+            "stage1_checkpoint=", *run_dirs(os.path.join(runs, model))]
     counters = all_counters()
     for k in counters:
         k.launches = 0
@@ -1374,6 +1402,421 @@ def phase_card_vs_cpu(device, model="gancls", batch_size=8,
                         "params": params_close(
                             gts, cts, net, (kink_share or {}).get(net, 0.0))}
     return out
+
+
+# --- the data, checkpoint and resume path (slice 7) -----------------------
+
+# Oxford-102 as StackGAN's pickles split it: 7,034 train and 1,155 test
+# examples, 76×76×3 uint8 crop sources, 10 char-CNN-RNN captions × 1024 f32
+# each, 102 classes
+FLOWERS_SPLITS = {"train": 7034, "test": 1155}
+FLOWERS_CLASSES = 102
+FLOWERS_CAPTIONS = 10
+FLOWERS_EMBED = 1024
+# one GAN-CLS sample grid: a train-mode G forward without gradient
+GRID_LAUNCHES = {"deconv5x5_s2": 4, "bn_stats": 4, "bn_act": 4}
+DATA_TICKS = 6
+# the resumed run against the straight one, when the tick is not bit for
+# bit deterministic on the card (cuDNN may pick backward convolutions that
+# sum in no fixed order): each of the 3 ticks after the restore moves a
+# param by at most ≈ 2·lr where round-off flips the sign of a near-zero
+# gradient (Adam's normalised step), so params within 3·2·lr; the losses of
+# bf16 nets over 3 ticks within 5e-2·(1 + |ref|)
+RESUME_PARAM_TOL = 3 * 2 * 2e-4
+RESUME_LOSS_TOL = 5e-2
+
+
+def write_flowers_split(root, seed=SEED):
+    """A split of Oxford-102's size in the reference pickle format (what
+    ``data/preprocess.py`` writes), drawn from `seed`."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    for split, n in FLOWERS_SPLITS.items():
+        base = os.path.join(root, split)
+        os.makedirs(base)
+        classes = rng.permutation(np.arange(n) % FLOWERS_CLASSES + 1)
+        for name, obj in (
+                ("76images.pickle",
+                 list(rng.integers(0, 256, (n, 76, 76, 3), dtype=np.uint8))),
+                ("char-CNN-RNN-embeddings.pickle",
+                 rng.standard_normal((n, FLOWERS_CAPTIONS, FLOWERS_EMBED),
+                                     dtype=np.float32)),
+                ("filenames.pickle", [f"image_{i:05d}.jpg" for i in range(n)]),
+                ("class_info.pickle", [int(c) for c in classes])):
+            with open(os.path.join(base, name), "wb") as f:
+                pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def png_size(path):
+    """(width, height) from a PNG's header; (0, 0) if it is not a PNG."""
+    if not os.path.isfile(path):
+        return 0, 0
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        return 0, 0
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+
+class Tee(io.StringIO):
+    """Keeps what is printed and prints it."""
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
+class RunRecorder:
+    """Around `main.main` runs: each tick's resident batch as the tick got
+    it (by step), the launches of the sample grids, and the state each
+    restore produced (host copies)."""
+
+    def __init__(self):
+        self.batches, self.grid_launches, self.restored = {}, [], []
+
+    @contextlib.contextmanager
+    def recording(self):
+        from text_to_image_tpu_torch.train import checkpoint as ckpt
+        from text_to_image_tpu_torch.train import trainer as T
+        rec = self
+        real_step, real_samples = T.make_resident_step, T.Trainer.save_samples
+        real_restore = ckpt.CheckpointManager.restore
+
+        def make_resident_step(cfg, spe, device):
+            inner = real_step(cfg, spe, device)
+
+            def step(ts, data):
+                batch = inner.batch_at(data, ts.step)
+                rec.batches[ts.step] = {k: v.clone() for k, v in batch.items()}
+                return inner.tick(ts, batch)
+            return step
+
+        def save_samples(trainer, step):
+            before = {k.__name__: k.launches for k in all_counters()}
+            out = real_samples(trainer, step)
+            rec.grid_launches.append({k.__name__: k.launches - before[k.__name__]
+                                      for k in all_counters()})
+            return out
+
+        def restore(mgr, ts_like, step=None):
+            ts, got = real_restore(mgr, ts_like, step)
+            if got is not None:
+                rec.restored.append((got, ckpt.state_dict(ts)))
+            return ts, got
+
+        T.make_resident_step, T.Trainer.save_samples = (make_resident_step,
+                                                         save_samples)
+        ckpt.CheckpointManager.restore = restore
+        try:
+            yield self
+        finally:
+            T.make_resident_step, T.Trainer.save_samples = (real_step,
+                                                             real_samples)
+            ckpt.CheckpointManager.restore = real_restore
+
+
+def drive(argv, rec=None):
+    """`main.main(argv)` with every launch count set to 0 just before and
+    read just after; returns (result, launches, what it printed)."""
+    from text_to_image_tpu_torch import main as port_main
+    counters = all_counters()
+    for k in counters:
+        k.launches = 0
+    out = Tee()
+    with contextlib.redirect_stdout(out), \
+            (rec.recording() if rec else contextlib.nullcontext()):
+        res = port_main.main(argv)
+    torch.cuda.synchronize()
+    return res, {k.__name__: k.launches for k in counters}, out.getvalue()
+
+
+def flat_state(sd):
+    """A checkpoint's state dict as {name: tensor or int}."""
+    out = {"step": sd["step"]}
+    for k, v in sd.items():
+        if k == "step":
+            continue
+        if k == "aux":
+            for a, tree in v.items():
+                out.update({f"aux/{a}/{n}": t for n, t in tree.items()})
+        elif k.endswith("_opt"):
+            out[f"{k}/count"] = v["count"]
+            for m in ("mu", "nu"):
+                out.update({f"{k}/{m}/{n}": t for n, t in v[m].items()})
+        else:
+            out.update({f"{k}/{n}": t for n, t in v.items()})
+    return out
+
+
+def state_diff(a, b):
+    """Names that differ between two flat states (bit for bit)."""
+    check(a.keys() == b.keys(), f"state keys differ: {a.keys() ^ b.keys()}")
+    return sorted(k for k in a if not (
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+        else a[k] == b[k]))
+
+
+def tick_windows(step, ts, feed, ticks=10, windows=3):
+    """ms a tick, median of `windows` windows of `ticks` ticks, each ended
+    by reading a metric; returns (median ms, windows, ts)."""
+    for _ in range(2):
+        ts, m = step(ts, feed())
+    float(m["g_loss"])
+    got = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            ts, m = step(ts, feed())
+        float(m["g_loss"])
+        got.append((time.perf_counter() - t0) / ticks * 1e3)
+    return sorted(got)[windows // 2], got, ts
+
+
+def phase_data_checkpoint(device, runs):
+    """The GAN-CLS run of ``main.py --train`` from an Oxford-102-sized
+    StackGAN-format split at full width (gf 128, df 64, batch 64, bf16) on
+    the resident tier: snapshots, grids, metrics, max_to_keep; a run
+    stopped at step 3 and resumed (the restore bit-equal to the snapshot,
+    every tick's batch bit-identical to the straight run's); Stage-II
+    taking its frozen Stage-I from a Stage-I run directory; then the tick
+    through the resident and the host tier, and the checkpoint's save and
+    restore at full width, timed."""
+    import numpy as np
+
+    from text_to_image_tpu_torch.config import load_config
+    from text_to_image_tpu_torch.train import checkpoint as ckpt
+    from text_to_image_tpu_torch.train.steps import init_train_state
+    from text_to_image_tpu_torch.train.trainer import Trainer
+    from text_to_image_tpu_torch.utils.tensorboard import read_events
+
+    report = {"launches": {}}
+    data_dir = os.path.join(runs, "flowers")
+    t0 = time.perf_counter()
+    write_flowers_split(data_dir)
+    log(f"  wrote the Oxford-102-sized split ({FLOWERS_SPLITS}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    flowers = ["data.dataset_name=flowers", f"data.data_dir={data_dir}",
+               "train.summary_interval=1"]
+
+    def gancls(root, steps, *extra):
+        return (["--cfg", config_path("gancls"), "--train", "--steps",
+                 str(steps), "--device", str(device), "--set", *flowers,
+                 *run_dirs(root), *extra])
+
+    # the straight run
+    straight = RunRecorder()
+    a = os.path.join(runs, "a")
+    trainer, launches, said = drive(gancls(a, DATA_TICKS,
+                                           "train.snapshot_interval=2",
+                                           "train.sample_interval=3"),
+                                    straight)
+    check("data path: replicated" in said, "the data path is not the "
+          "replicated resident tier")
+    cfg = trainer.cfg
+    check((cfg.gan.gf_dim, cfg.gan.df_dim, cfg.gan.z_dim, cfg.gan.embed_dim,
+           cfg.train.batch_size, cfg.dtype, cfg.data.dataset_name) ==
+          (128, 64, 100, 1024, BATCH, "bfloat16", "flowers"),
+          f"not the full-width flowers config: {cfg}")
+    check(trainer.dataset.num_examples == FLOWERS_SPLITS["train"]
+          and trainer.dataset.embeddings.shape[1:] == (FLOWERS_CAPTIONS,
+                                                       FLOWERS_EMBED),
+          "the split read back is not the one written")
+    ck = os.path.join(a, "checkpoint", "gancls", "flowers")
+    check(sorted(os.listdir(ck)) == ["step_2.pt", "step_4.pt", "step_6.pt"],
+          f"snapshots {sorted(os.listdir(ck))}")
+    grids = os.path.join(a, "sample", "gancls", "flowers")
+    check(sorted(os.listdir(grids)) == ["train_00000003.png",
+                                        "train_00000006.png"],
+          f"grids {sorted(os.listdir(grids))}")
+    for g in os.listdir(grids):
+        check(png_size(os.path.join(grids, g)) == (8 * 64, 8 * 64),
+              f"{g}: {png_size(os.path.join(grids, g))}")
+    logs = os.path.join(a, "log", "gancls", "flowers")
+    with open(os.path.join(logs, "train.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    check([r["step"] for r in recs] == list(range(1, DATA_TICKS + 1)),
+          f"metric records {[r['step'] for r in recs]}")
+    for r in recs:
+        for k in ("d_loss", "d_real", "d_fake", "d_wrong", "g_fake", "g_loss"):
+            check(math.isfinite(r[k]), f"step {r['step']} {k} {r[k]}")
+    (events,) = [os.path.join(logs, f) for f in os.listdir(logs)
+                 if f.startswith("events.out.tfevents.")]
+    ev = read_events(events)
+    check(sorted(e["step"] for e in ev if "g_loss" in e["scalars"])
+          == list(range(1, DATA_TICKS + 1)), "TensorBoard scalars")
+    check(sorted(e["step"] for e in ev if "samples" in e["images"]) == [3, 6],
+          "TensorBoard images")
+    check(len(straight.grid_launches) == 2 and all(
+        g == {k.__name__: GRID_LAUNCHES.get(k.__name__, 0)
+              for k in all_counters()} for g in straight.grid_launches),
+          f"grid launches {straight.grid_launches}")
+    per_tick = {k: (v - sum(g[k] for g in straight.grid_launches)) / DATA_TICKS
+                for k, v in launches.items()}
+    check(per_tick == {**TICK_LAUNCHES, "upconv3x3": 0},
+          f"launches per tick {per_tick}")
+    report["launches"]["flowers training (6 ticks, 2 grids)"] = launches
+    log(f"  straight run: {DATA_TICKS} ticks, snapshots 2, 4, 6, grids 3, 6, "
+        f"{len(recs)} metric records, launches {launches} (per tick "
+        f"{per_tick}; each grid {straight.grid_launches[0]})")
+    report["straight_history"] = trainer.history
+
+    # max_to_keep: a snapshot every step over 7 steps leaves the last five
+    b = os.path.join(runs, "b")
+    _, launches, _ = drive(gancls(b, 7, "train.snapshot_interval=1"))
+    kept = sorted(os.listdir(os.path.join(b, "checkpoint", "gancls", "flowers")))
+    check(kept == [f"step_{s}.pt" for s in range(3, 8)], f"kept {kept}")
+    report["launches"]["flowers training (7 ticks, a snapshot each)"] = launches
+    log(f"  max_to_keep: {kept}")
+
+    # stopped at step 3, resumed by a second call
+    resumed = RunRecorder()
+    c = os.path.join(runs, "c")
+    _, l1, _ = drive(gancls(c, 3, "train.snapshot_interval=2",
+                            "train.sample_interval=3"), resumed)
+    t2, l2, said = drive(gancls(c, DATA_TICKS, "train.snapshot_interval=2",
+                                "train.sample_interval=3"), resumed)
+    check("restored checkpoint at step 3" in said, "no restore at step 3")
+    report["launches"]["flowers training resumed (3 + 3 ticks)"] = {
+        k: l1[k] + l2[k] for k in l1}
+    (step, restored), = resumed.restored
+    snap = torch.load(os.path.join(c, "checkpoint", "gancls", "flowers",
+                                   "step_3.pt"), weights_only=True)
+    restored, snap = flat_state(restored), flat_state(snap)
+    differ = state_diff(restored, snap)
+    check(step == 3 and not differ, f"restore not bit-equal: {differ[:10]}")
+    log(f"  restore at step 3: {len(snap)} entries bit-equal to the snapshot "
+        f"(params, BN state, Adam counts and moments, step)")
+    check(sorted(resumed.batches) == sorted(straight.batches)
+          == list(range(DATA_TICKS)), "recorded batches")
+    for s in range(DATA_TICKS):
+        for k, v in straight.batches[s].items():
+            check(torch.equal(v, resumed.batches[s][k]),
+                  f"the batch of step {s} differs ({k})")
+    log(f"  every tick's batch of the resumed run bit-identical to the "
+        f"straight run's (steps 0..{DATA_TICKS - 1}, real / wrong / emb)")
+    end_a = flat_state(ckpt.state_dict(trainer.ts))
+    end_c = flat_state(ckpt.state_dict(t2.ts))
+    differ = state_diff(end_a, end_c)
+    worst = max((float((end_a[k].float() - end_c[k].float()).abs().max())
+                 for k in differ if isinstance(end_a[k], torch.Tensor)
+                 and "/mu/" not in k and "/nu/" not in k), default=0.0)
+    loss_diff = {k: abs(trainer.history[-1][k] - t2.history[-1][k])
+                 for k in ("d_loss", "g_loss", "d_real", "d_fake", "d_wrong")}
+    log(f"  final state of the resumed run vs the straight run: "
+        f"{len(end_a) - len(differ)}/{len(end_a)} entries bit-identical; "
+        f"largest param / BN-state difference {worst:.3e}; final losses "
+        f"|diff| {loss_diff}")
+    check(worst <= RESUME_PARAM_TOL, f"params {worst:.3e} apart")
+    for k, v in loss_diff.items():
+        check(v <= RESUME_LOSS_TOL * (1 + abs(trainer.history[-1][k])),
+              f"final {k} {v:.3e} apart")
+    report["resume"] = {"bit_identical_entries": len(end_a) - len(differ),
+                        "entries": len(end_a), "differing": differ[:50],
+                        "max_param_diff": worst, "final_loss_diff": loss_diff}
+    del straight, resumed, trainer, t2
+    torch.cuda.empty_cache()
+
+    # Stage-II takes its frozen Stage-I from a Stage-I run directory
+    s = os.path.join(runs, "s")
+    s1, launches, _ = drive(
+        ["--cfg", config_path("stackgan_stage1"), "--train", "--steps", "2",
+         "--device", str(device), "--set", *flowers, "train.ema_decay=0.999",
+         *run_dirs(os.path.join(s, "stage1"))])
+    check(s1.cfg.gan.gf_dim == 128 and s1.cfg.data.image_size == 64,
+          f"Stage-I config {s1.cfg}")
+    report["launches"]["Stage-I training from the split (2 ticks)"] = launches
+    run1 = os.path.join(s, "stage1", "checkpoint", "stackgan_stage1",
+                        "flowers")
+    snap = torch.load(os.path.join(run1, "step_2.pt"), weights_only=True)
+    ema = snap["aux"]["ema_g_params"]
+    check(any(not torch.equal(ema[k], snap["g_params"][k]) for k in ema),
+          "the Stage-I EMA equals its live params")
+    s2, launches, said = drive(
+        ["--cfg", config_path("stackgan_stage2"), "--train", "--steps", "1",
+         "--device", str(device), "--set", "data.dataset_name=synthetic",
+         f"stage1_checkpoint={run1}", *run_dirs(os.path.join(s, "stage2"))])
+    report["launches"]["Stage-II from the Stage-I run directory (1 tick)"] = \
+        launches
+    got = flat(s2.ts.aux["stage1_g_params"])
+    check(got.keys() == ema.keys(), "Stage-I leaves")
+    same = [k for k in got if torch.equal(got[k].cpu(), ema[k])]
+    check(len(same) == len(ema), f"frozen Stage-I differs from the EMA: "
+                                 f"{sorted(set(ema) - set(same))[:5]}")
+    state = flat(s2.ts.aux["stage1_g_state"])
+    check(all(torch.equal(state[k].cpu(), v)
+              for k, v in snap["g_state"].items()), "Stage-I BN state")
+    log(f"  Stage-II (256 px) took its frozen Stage-I from {run1}: "
+        f"{len(same)}/{len(ema)} leaves bit-equal to the step-2 EMA params")
+    del s1, s2
+    torch.cuda.empty_cache()
+
+    # timing: the tick through each tier, the checkpoint's save and restore
+    timing = {}
+    for tier, mode in (("resident", "auto"), ("host", "off")):
+        tcfg = load_config(config_path("gancls"), {
+            "data.dataset_name": "flowers", "data.data_dir": data_dir,
+            "data.device_resident": mode,
+            **dict(kv.split("=", 1) for kv in run_dirs(
+                os.path.join(runs, f"t_{tier}")))})
+        with contextlib.redirect_stdout(Tee()):
+            tr = Trainer(tcfg, device=device, restore=False)
+        check((tr.device_data is not None) == (tier == "resident"),
+              f"{tier} tier not taken")
+        if tr.device_data is not None:
+            def feed(tr=tr):
+                return tr.device_data
+        else:
+            def feed(tr=tr):
+                return next(tr.pipeline)
+        ms, windows, tr.ts = tick_windows(tr.step_fn, tr.ts, feed)
+        prof = phase_tick_profile(tr.ts, lambda ts, _: tr.step_fn(ts, feed()),
+                                  None, ms)
+        timing[f"{tier} tier"] = {
+            "tick_ms": ms, "windows_ms": windows,
+            "images_per_s": BATCH / ms * 1e3,
+            "device_busy_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"],
+            "kernels_per_tick": prof["kernels_per_tick"]}
+        log(f"  GAN-CLS tick, {tier} tier: {ms:.3f} ms (windows "
+            f"{', '.join(f'{w:.3f}' for w in windows)}), device busy "
+            f"{prof['device_busy_ms']:.3f} ms, idle share "
+            f"{prof['idle_share']:.1%}")
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+    for model in ("gancls", "stackgan_stage2"):
+        mcfg = train_config(model)
+        ts = init_train_state(mcfg.seed, mcfg, 100, device)
+        like = init_train_state(mcfg.seed + 1, mcfg, 100, device)
+        size = sum(t.numel() * t.element_size()
+                   for t in flat_state(ckpt.state_dict(ts)).values()
+                   if isinstance(t, torch.Tensor))
+        saves, restores = [], []
+        for rep in range(3):
+            mgr = ckpt.CheckpointManager(os.path.join(runs, f"ck_{model}_{rep}"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(1, ts)
+            saves.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            mgr.restore(like)
+            torch.cuda.synchronize()
+            restores.append((time.perf_counter() - t0) * 1e3)
+            shutil.rmtree(mgr.directory)
+        differ = state_diff(flat_state(ckpt.state_dict(like)),
+                            flat_state(ckpt.state_dict(ts)))
+        check(not differ, f"{model} restore: {differ[:5]}")
+        timing[f"{model} checkpoint"] = {
+            "bytes": size, "save_ms": sorted(saves)[1],
+            "restore_ms": sorted(restores)[1], "save_ms_all": saves,
+            "restore_ms_all": restores}
+        log(f"  {model} checkpoint ({size / 2**20:.1f} MiB): save "
+            f"{sorted(saves)[1]:.1f} ms, restore {sorted(restores)[1]:.1f} ms "
+            f"(medians of 3)")
+        del ts, like
+        torch.cuda.empty_cache()
+    report["timing"] = timing
+    return report
 
 
 def flagship_config():
@@ -1888,6 +2331,19 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    # checkpoints, logs, grids and the written split of the runs below; in
+    # the git-ignored build/ (they take a few GB, too much for the report
+    # directory), removed at the end
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    runs = tempfile.mkdtemp(prefix="smoke_runs_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        return run(runs)
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+
+
+def run(runs: str) -> int:
     sys.path.insert(0, ROOT)
     from text_to_image_tpu_torch.ops.kernels import _build
 
@@ -1929,7 +2385,7 @@ def main() -> int:
 
     log(f"phase 5: training path (main.py --train loop) at flagship widths, "
         f"batch 64, bf16, {TRAIN_TICKS} ticks")
-    history, launches_by_path["training"], moved = phase_train_path(device)
+    history, launches_by_path["training"], moved = phase_train_path(device, runs)
 
     log("phase 6: one tick on the card vs the CPU (flagship widths, batch 8, "
         "f32, TF32 off)")
@@ -1941,12 +2397,12 @@ def main() -> int:
         log(f"phase 4b: {model} sampling path (main.py) at full width, batch "
             f"64, bf16")
         launches_by_path[f"{model} sampling"], sg_err = \
-            phase_stackgan_sampling(device, model, sample_dir)
+            phase_stackgan_sampling(device, model, sample_dir, runs)
         g_err.update(sg_err)
         log(f"phase 5b: {model} training path (main.py --train) at full "
             f"width, batch 64, bf16, {TRAIN_TICKS} ticks")
         s_history, launches_by_path[f"{model} training"], s_moved = \
-            phase_train_path(device, model)
+            phase_train_path(device, runs, model)
         stackgan[model] = {"training_history": s_history,
                            "training_leaves_changed": s_moved}
         torch.cuda.empty_cache()
@@ -1955,6 +2411,15 @@ def main() -> int:
     stackgan["stackgan_stage2"]["tick_vs_cpu"] = phase_card_vs_cpu(
         device, "stackgan_stage2", batch_size=4, g_after_d_tol=1e-2,
         kink_share={"d": 2e-4, "g": 3e-3})
+    torch.cuda.empty_cache()
+
+    log("phase 6c: the data, checkpoint and resume path: GAN-CLS from an "
+        "Oxford-102-sized StackGAN-format split (main.py --train, full width, "
+        "resident tier), stopped and resumed; Stage-II from a Stage-I run "
+        "directory; the tick through each data tier and the checkpoint's "
+        "save and restore, timed")
+    data_ckpt = phase_data_checkpoint(device, runs)
+    launches_by_path.update(data_ckpt["launches"])
     torch.cuda.empty_cache()
 
     log("phase 7: timing")
@@ -2069,6 +2534,7 @@ def main() -> int:
               "training_leaves_changed": moved, "tick_vs_cpu": tick_vs_cpu,
               "tick": tick, "tick_profile": tick_profile,
               "launches_by_path": launches_by_path, "stackgan": stackgan,
+              "data_checkpoint": data_ckpt,
               "conv5x5_s2_act_256px_d": conv_256_rows,
               "conv5x5_s2_act_paths": conv_paths,
               "batch_norm_calls": bn_rows, "batch_norm_plans": bn_plans}

@@ -1,8 +1,10 @@
 """The port's package boundary and entry points on the CPU: it imports
 neither JAX nor the JAX package, its CLI writes the three grids (from a
-seed or from JAX weights) and trains, for GAN-CLS and both StackGAN stages,
-unported models, datasets and checkpoints name their ROADMAP item, and
-weights survive the ``.npz`` round trip."""
+seed, from JAX weights or from its latest checkpoint) and trains, writing
+snapshots and grids, for GAN-CLS and both StackGAN stages; Stage-II takes
+its Stage-I from an ``.npz`` or a Stage-I run directory; the StackGAN
+reader refuses a missing split naming the preprocessing; unported models
+name their ROADMAP item, and weights survive the ``.npz`` round trip."""
 
 import os
 import subprocess
@@ -18,9 +20,11 @@ from tests.helpers import tiny_config
 from text_to_image_tpu.models import gancls as jgancls
 from text_to_image_tpu.models import stackgan as jstackgan
 from text_to_image_tpu_torch import convert, main
-from text_to_image_tpu_torch.config import Config, load_config
+from text_to_image_tpu_torch.config import (Config, DataConfig, GanConfig,
+                                            load_config)
 from text_to_image_tpu_torch.data import get_dataset
 from text_to_image_tpu_torch.models import gancls, registry, stackgan
+from text_to_image_tpu_torch.train.optim import flatten
 from text_to_image_tpu_torch.utils import prng
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,6 +49,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import text_to_image_tpu_torch.train.state
         import text_to_image_tpu_torch.train.steps
         import text_to_image_tpu_torch.train.trainer
+        import text_to_image_tpu_torch.train.checkpoint
+        import text_to_image_tpu_torch.data.device
+        import text_to_image_tpu_torch.data.native
+        import text_to_image_tpu_torch.data.natural
+        import text_to_image_tpu_torch.data.pipeline
+        import text_to_image_tpu_torch.data.preprocess
+        import text_to_image_tpu_torch.data.t7
+        import text_to_image_tpu_torch.data.textdataset
+        import text_to_image_tpu_torch.utils.metrics
+        import text_to_image_tpu_torch.utils.tensorboard
         bad = sorted(m for m in sys.modules
                      if m == "text_to_image_tpu"
                      or m.startswith("text_to_image_tpu."))
@@ -65,12 +79,14 @@ def _tiny_yaml(tmp_path):
         gan: {{gf_dim: 8, z_dim: 8, embed_dim: 32, compressed_embed_dim: 16}}
         dtype: float32
         sample_dir: {tmp_path / "samples"}
+        checkpoint_dir: {tmp_path / "ck"}
+        log_dir: {tmp_path / "logs"}
     """))
     return str(path)
 
 
 @pytest.mark.parametrize("weights", [False, True])
-def test_cli_writes_three_grids(tmp_path, weights):
+def test_cli_writes_three_grids(tmp_path, weights, capsys):
     """From a seed, and from weights the JAX package initialised."""
     argv = ["--cfg", _tiny_yaml(tmp_path), "--device", "cpu"]
     if weights:
@@ -82,14 +98,17 @@ def test_cli_writes_three_grids(tmp_path, weights):
     main.main(argv)
     out = tmp_path / "samples" / "gancls" / "synthetic"
     for name in ("eval_grid", "z_interp", "t_interp"):
-        assert (out / f"{name}.png").exists() or \
-            (out / f"{name}.png.npy").exists(), name
+        assert (out / f"{name}.png").exists(), name
+    said = capsys.readouterr().out
+    assert ("sampling from " + str(tmp_path / "g.npz") if weights else
+            "initialised from seed 0") in said
 
 
 def test_cli_train_is_not_ported(tmp_path, capsys):
     """Training runs (``--train --steps 2 --device cpu`` prints finite
-    metrics); what is not ported of it, checkpoints and sample grids, raises
-    naming ROADMAP item 3 before the first step."""
+    metrics) and writes what was once not ported: a snapshot every
+    ``snapshot_interval`` steps and at the end, a grid every
+    ``sample_interval`` steps; sampling then takes the latest checkpoint."""
     argv = ["--cfg", _tiny_yaml(tmp_path), "--train", "--device", "cpu"]
     main.main(argv + ["--steps", "2"])
     lines = [ln for ln in capsys.readouterr().out.splitlines()
@@ -99,9 +118,18 @@ def test_cli_train_is_not_ported(tmp_path, capsys):
     for k in ("d_loss", "d_real", "d_fake", "d_wrong", "g_loss",
               "images_per_sec"):
         assert np.isfinite(float(fields[k])), k
-    for key in ("snapshot_interval", "sample_interval"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
-            main.main(argv + ["--steps", "2", "--set", f"train.{key}=2"])
+    run = os.path.join("gancls", "synthetic")
+    assert os.listdir(tmp_path / "ck" / run) == ["step_2.pt"]
+    main.main(argv + ["--steps", "5", "--set", "train.snapshot_interval=2",
+                      "train.sample_interval=2"])
+    assert "restored checkpoint at step 2" in capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path / "ck" / run)) == [
+        "step_2.pt", "step_4.pt", "step_5.pt"]
+    assert sorted(os.listdir(tmp_path / "samples" / run)) == [
+        "train_00000004.png"]
+    main.main(argv[:-3] + ["--device", "cpu"])
+    assert "sampling from the step-5 checkpoint" in capsys.readouterr().out
+    assert (tmp_path / "samples" / run / "eval_grid.png").exists()
 
 
 def test_cli_overrides_are_typed():
@@ -126,6 +154,14 @@ def test_ported_models_have_a_bundle(model):
         registry.get_model(Config(model="dcgan"))
 
 
+def _run_dirs(tmp_path):
+    """``--set`` pairs that keep a run's checkpoints, logs and grids under
+    `tmp_path` (else a run would restore another's checkpoint)."""
+    return [f"{k}={tmp_path / v}" for k, v in (
+        ("checkpoint_dir", "ck"), ("log_dir", "logs"),
+        ("sample_dir", "samples"))]
+
+
 STACKGAN_TINY = ["data.dataset_name=synthetic", "gan.gf_dim=8", "gan.df_dim=8",
                  "gan.z_dim=8", "gan.embed_dim=32", "gan.ca_dim=8",
                  "gan.res_blocks=1", "train.batch_size=4", "dtype=float32",
@@ -141,12 +177,11 @@ def test_stackgan_cli_writes_grids_and_trains(tmp_path, capsys, stage, res):
                                   f"stackgan_stage{stage}_flowers.yml"),
             "--device", "cpu"]
     sets = ["--set", *STACKGAN_TINY, f"data.image_size={res}",
-            f"sample_dir={tmp_path / 'samples'}", "stage1_checkpoint="]
+            *_run_dirs(tmp_path), "stage1_checkpoint="]
     main.main(argv + sets)
     out = tmp_path / "samples" / f"stackgan_stage{stage}" / "synthetic"
     for name in ("eval_grid", "z_interp", "t_interp"):
-        assert (out / f"{name}.png").exists() or \
-            (out / f"{name}.png.npy").exists(), name
+        assert (out / f"{name}.png").exists(), name
     capsys.readouterr()
     main.main(argv + ["--train", "--steps", "2"] + sets)
     lines = [ln for ln in capsys.readouterr().out.splitlines()
@@ -157,32 +192,75 @@ def test_stackgan_cli_writes_grids_and_trains(tmp_path, capsys, stage, res):
         assert np.isfinite(float(fields[k])), k
 
 
-def test_stage2_takes_stage1_from_an_npz_and_refuses_a_directory(tmp_path):
-    """``stage1_checkpoint``: an ``.npz`` is loaded into ``aux``; the shipped
-    YAML's checkpoint directory raises naming ROADMAP item 3, for sampling
-    and for training."""
+def test_stage2_takes_stage1_from_an_npz_and_refuses_a_directory(tmp_path,
+                                                                 capsys):
+    """``stage1_checkpoint``: an ``.npz`` is loaded into ``aux``; so is the
+    latest checkpoint of a Stage-I run directory (its EMA weights), named
+    by the option or found under ``<checkpoint_dir>/stackgan_stage1/
+    <dataset>`` when the option names no directory (the shipped YAML's
+    path before a Stage-I run), for training and for sampling; with no
+    Stage-I run there it raises `FileNotFoundError`."""
     cfg = os.path.join(ROOT, "configs", "stackgan_stage2_flowers.yml")
     sets = ["--set", *STACKGAN_TINY, "data.image_size=32",
-            f"sample_dir={tmp_path / 'samples'}"]
-    for extra in ([], ["--train", "--steps", "1"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
-            main.main(["--cfg", cfg, "--device", "cpu", *extra, *sets])
+            *_run_dirs(tmp_path)]
+
+    def stage2(*extra, train=True):
+        flags = ["--train", "--steps", "1"] if train else []
+        return main.main(["--cfg", cfg, "--device", "cpu", *flags, *sets,
+                          *extra])
+
+    for train in (False, True):
+        with pytest.raises(FileNotFoundError, match="no Stage-I checkpoint"):
+            stage2(train=train)
+    # a Stage-I run with the EMA under checkpoint_dir; Stage-II finds it
+    # there, or where stage1_checkpoint names it
+    s1 = main.main(["--cfg", os.path.join(ROOT, "configs",
+                                          "stackgan_stage1_flowers.yml"),
+                    "--device", "cpu", "--train", "--steps", "2", "--set",
+                    *STACKGAN_TINY, "data.image_size=8", "train.ema_decay=0.5",
+                    *_run_dirs(tmp_path)])
+    ema = dict(flatten(s1.ts.aux["ema_g_params"]))
+    run1 = str(tmp_path / "ck" / "stackgan_stage1" / "synthetic")
+    for extra in ([], [f"stage1_checkpoint={run1}",
+                       f"checkpoint_dir={tmp_path / 'ck2'}"]):
+        s2 = stage2(*extra)
+        got = dict(flatten(s2.ts.aux["stage1_g_params"]))
+        assert got.keys() == ema.keys()
+        for k in got:
+            assert torch.equal(got[k], ema[k]), k
+    capsys.readouterr()
+    stage2(f"stage1_checkpoint={run1}", f"checkpoint_dir={tmp_path / 'ck3'}",
+           train=False)
+    assert f"frozen Stage-I generator: {run1}" in capsys.readouterr().out
+
     gan = load_config(cfg, main.parse_overrides(STACKGAN_TINY)).gan
     params, state = jax.device_get(
         jstackgan.stage1_generator_init(jax.random.PRNGKey(1), gan, 8))
     path = str(tmp_path / "stage1.npz")
     convert.save_npz(path, params, state)
-    trainer = main.main(["--cfg", cfg, "--device", "cpu", "--train", "--steps",
-                         "1", *sets, f"stage1_checkpoint={path}"])
+    trainer = stage2(f"stage1_checkpoint={path}",
+                     f"checkpoint_dir={tmp_path / 'ck4'}")
     np.testing.assert_array_equal(
         trainer.ts.aux["stage1_g_params"]["up0"]["conv"]["w"].numpy(),
         params["up0"]["conv"]["w"])
     assert convert.load_stage1_generator("", "cpu") is None
 
 
-def test_unported_datasets_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_dataset(Config())
+def test_unported_datasets_name_their_roadmap_item(tmp_path):
+    """The StackGAN-format reader: a missing split raises
+    `FileNotFoundError` naming the preprocessing step; a split written by
+    the test loads (train and test)."""
+    from tests.test_torch_data import write_split
+    cfg = Config(data=DataConfig(data_dir=str(tmp_path / "flowers")),
+                 gan=GanConfig(embed_dim=32))
+    with pytest.raises(FileNotFoundError,
+                       match="text_to_image_tpu_torch.data.preprocess"):
+        get_dataset(cfg)
+    write_split(tmp_path / "flowers", "train", n=10)
+    write_split(tmp_path / "flowers", "test", n=4)
+    assert get_dataset(cfg).num_examples == 10
+    test = get_dataset(cfg, split="test")
+    assert test.num_examples == 4 and test.test_embeddings(2).shape == (2, 32)
 
 
 @pytest.mark.parametrize("cfg", ["gancls_flowers.yml", "gancls_birds.yml",

@@ -10,11 +10,9 @@ JAX package it is written with
 
     save_npz("g.npz", *jax.device_get((ts.g_params, ts.g_state)))
 
-and ``python -m text_to_image_tpu_torch.main --weights g.npz`` serves it.
-
 and ``python -m text_to_image_tpu_torch.main --weights g.npz`` serves it; a
-Stage-I ``.npz`` named by ``cfg.stage1_checkpoint`` is the frozen generator
-inside Stage-II (`load_stage1_generator`).
+Stage-I ``.npz`` or Stage-I run directory named by ``cfg.stage1_checkpoint``
+gives the frozen generator inside Stage-II (`load_stage1_generator`).
 
 `from_jax_train_state` carries a whole JAX ``TrainState`` (as
 ``jax.device_get`` returns it): both networks, both BN states, the step,
@@ -25,7 +23,6 @@ moments, so the port computes the same next tick.
 
 from __future__ import annotations
 
-import os
 import re
 from typing import Dict, Optional, Tuple
 
@@ -168,17 +165,15 @@ def load_npz(path: str, device="cuda") -> Tuple[Dict, Dict]:
 
 def load_stage1_generator(path: str, device="cuda"
                           ) -> Optional[Tuple[Dict, Dict]]:
-    """The Stage-I generator that ``cfg.stage1_checkpoint`` names: None for
-    an empty path (the caller draws one from its seed), (params, state) for
-    an ``.npz`` written by `save_npz`.  A checkpoint directory of the
-    trainer raises: checkpoints are not ported yet."""
+    """A Stage-I generator for Stage-II's frozen slot: None for an empty
+    path (the caller draws one from its seed), (params, state) from an
+    ``.npz`` written by `save_npz`, else from the latest checkpoint of the
+    Stage-I run directory `path` (its EMA params where it kept them;
+    ``train/checkpoint.load_stage1_generator``)."""
     if not path:
         return None
-    if path.endswith(".npz") and os.path.isfile(path):
+    if path.endswith(".npz"):
         return load_npz(path, device)
-    raise NotImplementedError(
-        f"stage1_checkpoint={path!r}: restoring a Stage-I generator from a "
-        f"checkpoint directory is not ported yet (ROADMAP.md, 'Modules to "
-        f"port' item 3: train/checkpoint.py); name an .npz written by "
-        f"convert.save_npz, or leave it empty for a Stage-I drawn from the "
-        f"seed")
+    from text_to_image_tpu_torch.train import checkpoint
+    return from_jax_generator(*checkpoint.load_stage1_generator(path, "cpu"),
+                              device)

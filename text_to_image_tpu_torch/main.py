@@ -2,20 +2,26 @@
 
     python -m text_to_image_tpu_torch.main --cfg configs/gancls_flowers.yml \
         [--train [--steps N]] [--weights g.npz] \
-        [--set data.dataset_name=synthetic ...] [--device cuda]
+        [--set data.data_dir=... ...] [--device cuda]
 
-Without ``--train`` it writes the fixed-z eval grid and the latent- and
-text-interpolation grids under ``<sample_dir>/<model>/<dataset>/``.
-``--weights`` serves a generator saved with `convert.save_npz` (for example
-from the JAX package); without it the generator is initialised from
-``cfg.seed``.  ``--train`` runs the training loop (``train/trainer.py``) to
-step N, printing ``[step N]`` metric lines; checkpoints, sample grids and
-the real datasets are not ported yet and raise `NotImplementedError`.
-``stackgan_stage2`` takes its frozen Stage-I generator from
-``stage1_checkpoint`` when that names an ``.npz`` (`convert.save_npz`) and
-draws one from ``cfg.seed`` when it is empty (``--set stage1_checkpoint=``);
-a checkpoint directory there raises `NotImplementedError` too.
-Everything runs on the card unless ``--device cpu`` is given.
+``--train`` runs the training loop (``train/trainer.py``) to step N: on a
+directory that holds checkpoints (``<checkpoint_dir>/<model>/<dataset>``)
+it continues from the latest one; it writes checkpoints, sample grids
+(``<sample_dir>/…``) and metrics (``<log_dir>/…/train.jsonl`` and
+TensorBoard events).  Without ``--train`` it writes the fixed-z eval grid
+and the latent- and text-interpolation grids under
+``<sample_dir>/<model>/<dataset>/``, from the generator of ``--weights``
+(an ``.npz`` of `convert.save_npz`, for example from the JAX package), else
+of the latest checkpoint, else one initialised from ``cfg.seed`` (the root
+``main.py`` refuses that last case: "train first"; the port samples it, so
+that the serving path runs without a training run).  It prints which.
+``stackgan_stage2`` takes its frozen Stage-I generator from the Stage-I
+run directory or ``.npz`` that ``stage1_checkpoint`` names
+(`train.trainer.stage1_source`), and draws one from ``cfg.seed`` when that
+is empty (``--set stage1_checkpoint=``).  The datasets are read from
+``data.data_dir`` (StackGAN-format pickles, ``data/preprocess.py``);
+nothing is downloaded.  Everything runs on the card unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations
@@ -33,8 +39,8 @@ def parse_args(argv=None):
                     "CUDA")
     p.add_argument("--cfg", required=True, help="YAML config path")
     p.add_argument("--weights", default=None,
-                   help="generator .npz (convert.save_npz); default: "
-                        "initialise from cfg.seed")
+                   help="generator .npz (convert.save_npz); default: the "
+                        "latest checkpoint, else initialise from cfg.seed")
     p.add_argument("--train", action="store_true",
                    help="train (else: sample the three grids)")
     p.add_argument("--steps", type=int, default=None,
@@ -75,30 +81,45 @@ def evaluate(cfg: Config, weights: str | None = None, device="cuda") -> str:
         sample_grid, text_interpolation_grid)
     from text_to_image_tpu_torch.models.registry import get_model
     from text_to_image_tpu_torch.ops import layers as L
-    from text_to_image_tpu_torch.train.steps import stage1_aux
+    from text_to_image_tpu_torch.train.checkpoint import CheckpointManager
+    from text_to_image_tpu_torch.train.steps import (init_train_state,
+                                                     stage1_aux)
+    from text_to_image_tpu_torch.train.trainer import run_dir, stage1_source
     from text_to_image_tpu_torch.utils import prng
     from text_to_image_tpu_torch.utils.images import save_images
 
     dataset = get_dataset(cfg, split="test")
     bundle = get_model(cfg)
     policy = L.Policy.from_str(cfg.dtype)
+    mgr = CheckpointManager(run_dir(cfg, cfg.checkpoint_dir))
+    step = None if weights else mgr.latest_step()
     if weights:
         g_params, g_state = convert.load_npz(weights, device)
         print(f"sampling from {weights}")
+    elif step is not None:
+        ts, _ = mgr.restore(init_train_state(cfg.seed, cfg, device=device),
+                            step)
+        g_params, g_state, aux = ts.g_params, ts.g_state, dict(ts.aux)
+        print(f"sampling from the step-{step} checkpoint under "
+              f"{mgr.directory}")
     else:
         g_params, g_state = bundle.init(cfg.seed, device)[:2]
         print(f"sampling from a generator initialised from seed {cfg.seed}")
-    aux = {}
-    if bundle.needs_stage1:
-        aux = stage1_aux(cfg, cfg.seed, device, convert.load_stage1_generator(
-            cfg.stage1_checkpoint, device))
-        aux["stage1_g_params"] = L.cast_weights(aux["stage1_g_params"], policy)
-        print("frozen Stage-I generator: "
-              + (cfg.stage1_checkpoint or f"initialised from seed {cfg.seed}"))
-    ts = GeneratorState(L.cast_weights(g_params, policy), g_state, aux)
+    if step is None:
+        aux = {}
+        if bundle.needs_stage1:
+            source = stage1_source(cfg)
+            aux = stage1_aux(cfg, cfg.seed, device,
+                             convert.load_stage1_generator(source, device))
+            print("frozen Stage-I generator: "
+                  + (source or f"initialised from seed {cfg.seed}"))
+    ts = GeneratorState(
+        L.cast_weights(g_params, policy), g_state,
+        {k: L.cast_weights(v, policy) if k.endswith("params") else v
+         for k, v in aux.items()})
 
     gen = make_generator_fn(cfg, device=device)
-    out = os.path.join(cfg.sample_dir, cfg.model, cfg.data.dataset_name)
+    out = run_dir(cfg, cfg.sample_dir)
     emb = np.asarray(dataset.test_embeddings(64), np.float32)
     g = prng.generator(prng.fold_in(cfg.seed, 1))
 
@@ -116,11 +137,15 @@ def evaluate(cfg: Config, weights: str | None = None, device="cuda") -> str:
 
 
 def train(cfg: Config, steps: int | None = None, device="cuda"):
-    """Run the training loop to `steps`; returns the trainer."""
+    """Run the training loop to `steps` (continuing from the latest
+    checkpoint); returns the closed trainer."""
     from text_to_image_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(cfg, device=device)
-    trainer.train(num_steps=steps)
+    try:
+        trainer.train(num_steps=steps)
+    finally:
+        trainer.close()
     return trainer
 
 

@@ -227,3 +227,32 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda"):
                                                **g_metrics}.items()}
 
     return step
+
+
+def make_resident_step(cfg: Config, steps_per_epoch: int = 1000,
+                       device="cuda"):
+    """Returns ``step(ts, data) -> (ts, metrics)`` for the device-resident
+    tier (counterpart of the JAX ``make_resident_step``): the tick's
+    [n_critic, B, …] batch is drawn and gathered on the data's device from
+    ``data/device.batch_key(seed, ts.step)`` (`data` is a
+    ``data/device.DeviceData``), then goes through `make_train_step`'s tick.
+    The batch depends on (seed, step) alone, so a restored run replays it.
+    ``step.batch_at(data, step)`` and ``step.tick(ts, batch)`` are the two
+    halves."""
+    from text_to_image_tpu_torch.data import device as DD
+
+    tick = make_train_step(cfg, steps_per_epoch, device)
+    dcfg, tcfg = cfg.data, cfg.train
+
+    def batch_at(data, step: int) -> Dict[str, torch.Tensor]:
+        return DD.sample_stacked(data, DD.batch_key(cfg.seed, step),
+                                 tcfg.n_critic, tcfg.batch_size,
+                                 dcfg.image_size, dcfg.caption_window,
+                                 dcfg.random_crop, dcfg.random_flip)
+
+    def step(ts: TrainState, data) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        return tick(ts, batch_at(data, ts.step))
+
+    step.batch_at = batch_at
+    step.tick = tick
+    return step

@@ -1,120 +1,217 @@
-"""Host training loop (counterpart of ``text_to_image_tpu/train/trainer.py``,
-the loop only): stacked [n_critic, B, …] batches from the dataset, one tick
-per step, metrics read every ``summary_interval`` steps and after the last
-one (each read is also the NaN guard) and printed as ``[step N] …`` lines
-with ``images_per_sec``.
+"""Host training loop (counterpart of ``text_to_image_tpu/train/trainer.py``):
+one tick per step, fed by the device-resident tier (the split staged on the
+card, each tick's batch drawn there from (seed, step): ``data/device.py``)
+or by the host tier (``data/pipeline.py``), as `Trainer._resident_tier`
+chooses by the JAX package's rule; metrics every ``summary_interval`` steps
+and after the last one (each read is also the NaN guard) to JSON lines,
+TensorBoard and ``[step N]`` lines; sample grids every ``sample_interval``
+steps; a checkpoint every ``snapshot_interval`` steps and at the end; the
+latest checkpoint restored on start.  ``stackgan_stage2`` takes its frozen
+Stage-I generator from a Stage-I run directory or an ``.npz``
+(`stage1_source`), or draws it from the seed when ``stage1_checkpoint`` is
+empty.
 
-Checkpoints, sample grids, the real datasets and the device-resident data
-tier are ROADMAP.md 'Modules to port' item 3.  A run that would need one
-of them raises `NotImplementedError` before its first step; none is
-skipped silently.  ``stackgan_stage2`` takes its frozen Stage-I generator
-from the ``.npz`` that ``cfg.stage1_checkpoint`` names, or draws it from the
-seed when that is empty; a checkpoint directory there raises as well.
+Left out: the sharded resident tier (multi-GPU, ROADMAP.md item 9) and
+``train_progressive`` (C-PGGAN, item 7).
 """
 
 from __future__ import annotations
 
-import collections
-import time
+import os
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from text_to_image_tpu_torch import convert
 from text_to_image_tpu_torch.config import Config
-from text_to_image_tpu_torch.convert import load_stage1_generator
-from text_to_image_tpu_torch.data import get_dataset
+from text_to_image_tpu_torch.data import TextDataset, get_dataset
+from text_to_image_tpu_torch.data import device as device_data
+from text_to_image_tpu_torch.data import native
+from text_to_image_tpu_torch.data.pipeline import InputPipeline
+from text_to_image_tpu_torch.eval.sampler import make_generator_fn, sample_grid
+from text_to_image_tpu_torch.train import checkpoint as ckpt
 from text_to_image_tpu_torch.train.steps import (init_train_state,
+                                                 make_resident_step,
                                                  make_train_step)
+from text_to_image_tpu_torch.utils import prng
+from text_to_image_tpu_torch.utils.images import (inverse_transform, merge,
+                                                  save_images)
+from text_to_image_tpu_torch.utils.metrics import (MetricWriter,
+                                                   ThroughputMeter, hbm_stats)
 
-ITEM_3 = "ROADMAP.md, 'Modules to port' item 3 (data, checkpoint, trainer)"
+ITEM_9 = "ROADMAP.md, 'Modules to port' item 9 (multi-GPU)"
 
 
-class ThroughputMeter:
-    """Images/s over a sliding window of recent ticks; the first tick
-    (kernel builds, warm-up) only opens the window."""
+def run_dir(cfg: Config, root: str) -> str:
+    """``<root>/<model>/<dataset>``: where a run's checkpoints, logs and
+    grids go."""
+    return os.path.join(root, cfg.model, cfg.data.dataset_name)
 
-    WINDOW = 200
 
-    def __init__(self, images_per_step: int):
-        self.images_per_step = images_per_step
-        self._ticks: collections.deque = collections.deque(maxlen=self.WINDOW)
-
-    def tick(self) -> Optional[float]:
-        self._ticks.append(time.perf_counter())
-        if len(self._ticks) < 2:
-            return None
-        dt = self._ticks[-1] - self._ticks[0]
-        return self.images_per_step * (len(self._ticks) - 1) / dt if dt > 0 else None
+def stage1_source(cfg: Config) -> str:
+    """Where Stage-II's frozen Stage-I comes from: ``stage1_checkpoint``
+    when it names an ``.npz`` or a directory, else (for a path that does
+    not exist, as the shipped YAML's before a Stage-I run) the Stage-I run
+    directory ``<checkpoint_dir>/stackgan_stage1/<dataset>``, as the JAX
+    trainer resolves it; empty (draw from the seed) when it is empty."""
+    path = cfg.stage1_checkpoint
+    if not path or path.endswith(".npz") or os.path.isdir(path):
+        return path
+    return os.path.join(cfg.checkpoint_dir, "stackgan_stage1",
+                        cfg.data.dataset_name)
 
 
 class Trainer:
-    def __init__(self, cfg: Config, device="cuda"):
-        if cfg.data.device_resident in ("on", "sharded"):
-            raise NotImplementedError(
-                f"data.device_resident={cfg.data.device_resident!r}: the "
-                f"device-resident data tier is not ported yet: {ITEM_3}")
+    def __init__(self, cfg: Config, dataset=None, device="cuda",
+                 restore: bool = True):
         self.cfg = cfg
-        self.dataset = get_dataset(cfg)
+        self.device = torch.device(device)
+        self.dataset = dataset if dataset is not None else get_dataset(cfg)
         self.steps_per_epoch = max(
             1, self.dataset.num_examples // cfg.train.batch_size)
-        stage1 = (load_stage1_generator(cfg.stage1_checkpoint, device)
-                  if cfg.model == "stackgan_stage2" else None)
-        self.ts = init_train_state(cfg.seed, cfg, self.steps_per_epoch, device,
-                                   stage1=stage1)
-        self.step_fn = make_train_step(cfg, self.steps_per_epoch, device)
-        self.meter = ThroughputMeter(cfg.train.batch_size * cfg.train.n_critic)
+        stage1 = None
+        if cfg.model == "stackgan_stage2":
+            stage1 = convert.load_stage1_generator(stage1_source(cfg), device)
+        ts = init_train_state(cfg.seed, cfg, self.steps_per_epoch, device,
+                              stage1=stage1)
+        self.ckpt = ckpt.CheckpointManager(run_dir(cfg, cfg.checkpoint_dir),
+                                           async_save=cfg.async_checkpoint)
+        if restore:
+            ts, restored = self.ckpt.restore(ts)
+            if restored is not None:
+                print(f"restored checkpoint at step {restored} from "
+                      f"{self.ckpt.directory}")
+        self.ts = ts
+
+        self.device_data = None
+        self.pipeline = None
+        tier = self._resident_tier()
+        if tier == "replicated":
+            self.device_data = device_data.stage(self.dataset, device)
+            self.step_fn = make_resident_step(cfg, self.steps_per_epoch,
+                                              device)
+            print(f"data path: replicated (the split on {self.device}, "
+                  f"{device_data.nbytes(self.dataset) / 2**20:.1f} MiB; each "
+                  f"tick's batch drawn and gathered there)")
+        else:
+            self.step_fn = make_train_step(cfg, self.steps_per_epoch, device)
+            self.pipeline = InputPipeline(
+                self.dataset, cfg.train.batch_size, device,
+                window=cfg.data.caption_window,
+                batches_per_step=cfg.train.n_critic,
+                prefetch=cfg.data.prefetch)
+            helpers = ("native C++" if isinstance(self.dataset, TextDataset)
+                       and native.available() else "numpy")
+            print(f"data path: host-pipeline ({helpers} batch assembly, one "
+                  f"worker thread)")
+        self.metrics = MetricWriter(run_dir(cfg, cfg.log_dir))
+        self.meter = ThroughputMeter(
+            cfg.train.batch_size * cfg.train.n_critic)
         self.history: list = []
-        print("data path: host feed (synthetic dataset, stacked per tick)")
+        self._summaries = 0
+        self._hbm: Dict[str, float] = {}
 
-    def next_batch(self) -> Dict[str, np.ndarray]:
-        """One tick's data: n_critic batches stacked to [K, B, …]."""
-        cfg = self.cfg
-        parts = [self.dataset.next_batch(cfg.train.batch_size,
-                                         window=cfg.data.caption_window)
-                 for _ in range(cfg.train.n_critic)]
-        return {k: np.stack([p[k] for p in parts]) for k in parts[0]}
+        # fixed inputs, so that the grids of a run are comparable
+        self._gen = make_generator_fn(cfg, device=device)
+        self._sample_emb = np.asarray(self.dataset.test_embeddings(
+            min(64, cfg.train.batch_size)), np.float32)
+        self._sample_key = prng.fold_in(cfg.seed, 2**30)
 
-    def train(self, num_steps: Optional[int] = None) -> None:
-        """Run to ``num_steps`` (absolute; default max_epoch epochs)."""
-        cfg = self.cfg
-        tcfg = cfg.train
+    def _resident_tier(self) -> Optional[str]:
+        """'replicated' (the split staged on the card) or None (host
+        pipeline), by the JAX trainer's rule on one device: ``off`` → None;
+        ``on`` → replicated; ``auto`` → replicated when the dataset exposes
+        images, embeddings and class_ids and fits ``resident_budget_mb``;
+        ``sharded`` raises (ROADMAP item 9)."""
+        mode = self.cfg.data.device_resident
+        if mode == "off":
+            return None
+        ds = self.dataset
+        stageable = all(hasattr(ds, a)
+                        for a in ("images", "embeddings", "class_ids"))
+        if mode in ("on", "sharded"):
+            if not stageable:
+                raise ValueError(
+                    f"device_resident={mode} but the dataset does not "
+                    "expose in-memory images/embeddings/class_ids arrays")
+            if mode == "sharded":
+                raise NotImplementedError(
+                    f"data.device_resident='sharded': the sharded resident "
+                    f"tier is not ported yet: {ITEM_9}")
+            return "replicated"
+        if not stageable:
+            return None
+        budget = self.cfg.data.resident_budget_mb * 2**20
+        return "replicated" if device_data.nbytes(ds) <= budget else None
+
+    def train(self, num_steps: Optional[int] = None, eval_fn=None,
+              eval_interval: int = 0) -> None:
+        """Run to ``num_steps`` (absolute; default max_epoch epochs).
+        ``eval_fn(trainer, step)`` is called every ``eval_interval`` steps
+        (never at step 0)."""
+        tcfg = self.cfg.train
         total = (num_steps if num_steps is not None
                  else tcfg.max_epoch * self.steps_per_epoch)
-        start = self.ts.step
-        for what, every in (("checkpoints", tcfg.snapshot_interval),
-                            ("sample grids", tcfg.sample_interval)):
-            if total // every > start // every:
-                raise NotImplementedError(
-                    f"steps {start}..{total} reach train."
-                    f"{'snapshot' if what == 'checkpoints' else 'sample'}"
-                    f"_interval={every}, but {what} are not ported yet: "
-                    f"{ITEM_3}; raise the interval past the run's length")
-        for i in range(start, total):
-            self.ts, metrics = self.step_fn(self.ts, self.next_batch())
+        for i in range(self.ts.step, total):
+            feed = (self.device_data if self.device_data is not None
+                    else next(self.pipeline))
+            self.ts, metrics = self.step_fn(self.ts, feed)
             ips = self.meter.tick()
             if (i + 1) % tcfg.summary_interval == 0 or i + 1 == total:
                 self.summary(i + 1, metrics, ips)
-        print(f"trained to step {total}; the weights are not saved: "
-              f"checkpoints are not ported yet ({ITEM_3})")
+            if (i + 1) % tcfg.sample_interval == 0:
+                self.save_samples(i + 1)
+            if (i + 1) % tcfg.snapshot_interval == 0:
+                self.save_checkpoint()
+            if eval_fn is not None and eval_interval > 0 \
+                    and (i + 1) % eval_interval == 0:
+                eval_fn(self, i + 1)
+        self.save_checkpoint()
+        if self.pipeline is not None:
+            self.pipeline.close()
 
     def summary(self, step: int, metrics: Dict[str, torch.Tensor],
                 ips: Optional[float]) -> Dict[str, float]:
         """Read the metrics (one device→host copy), stop on a non-finite
-        one, and print a ``[step N]`` line."""
+        one, and write them (JSON line, TensorBoard, ``[step N]``)."""
         names = sorted(metrics)
         vals = torch.stack([metrics[k].float() for k in names]).cpu().tolist()
         host = dict(zip(names, vals))
         bad = [k for k, v in host.items() if not np.isfinite(v)]
         if bad:
+            self.metrics.write(step, host)
             raise FloatingPointError(
-                f"non-finite metrics {bad} at step {step}: diverged "
-                f"(consider a lower lr or another n_critic)")
+                f"non-finite metrics {bad} at step {step}: diverged; restart "
+                f"from the last checkpoint (consider a lower lr or another "
+                f"n_critic)")
         if ips is not None:
             host["images_per_sec"] = ips
         host["epoch"] = (step - 1) // self.steps_per_epoch
+        self._summaries += 1
+        if self._summaries % 10 == 1:   # an allocator query: sparsely
+            self._hbm = hbm_stats(self.device)
+        host.update(self._hbm)
+        self.metrics.write(step, host)
         self.history.append({"step": step, **host})
-        body = " ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-                        for k, v in host.items())
-        print(f"[step {step}] {body}", flush=True)
         return host
+
+    def save_samples(self, step: int) -> str:
+        """The fixed-z grid of this step: a PNG under ``sample_dir`` and an
+        image summary."""
+        imgs = sample_grid(self._gen, self.ts, self.cfg, self._sample_emb,
+                           generator=prng.generator(self._sample_key))
+        out = save_images(imgs, os.path.join(
+            run_dir(self.cfg, self.cfg.sample_dir), f"train_{step:08d}.png"))
+        self.metrics.write_image(step, "samples",
+                                 merge(inverse_transform(imgs)))
+        return out
+
+    def save_checkpoint(self) -> None:
+        self.ckpt.save(self.ts.step, self.ts)
+
+    def close(self) -> None:
+        if self.pipeline is not None:
+            self.pipeline.close()
+        self.metrics.close()
+        self.ckpt.close()

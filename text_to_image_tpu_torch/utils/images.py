@@ -1,6 +1,7 @@
 """Image grid utilities (rebuild of the reference's ``utils/utils.py``
 ``save_images``/``merge``/``image_manifold_size`` — SURVEY.md §2 Misc utils;
-a numpy copy of ``text_to_image_tpu/utils/images.py``).
+a numpy copy of ``text_to_image_tpu/utils/images.py`` that writes its PNGs
+without PIL).
 
 Generators emit tanh-range float images; these helpers inverse-transform to
 uint8, tile into manifold grids and write PNGs.
@@ -13,6 +14,8 @@ import os
 from typing import Optional, Tuple
 
 import numpy as np
+
+from text_to_image_tpu_torch.utils.tensorboard import encode_png
 
 
 def inverse_transform(images: np.ndarray) -> np.ndarray:
@@ -43,13 +46,9 @@ def merge(images: np.ndarray, grid: Optional[Tuple[int, int]] = None
 
 def save_images(images: np.ndarray, path: str,
                 grid: Optional[Tuple[int, int]] = None) -> str:
-    """Write a tanh-range image batch as one PNG grid."""
+    """Write a tanh-range image batch as one PNG grid (the port's own
+    encoder, `utils.tensorboard.encode_png`: no image library needed)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tile = merge(inverse_transform(images), grid)
-    try:
-        from PIL import Image
-        Image.fromarray(tile).save(path)
-    except ImportError:  # environment without PIL: raw npy fallback
-        np.save(path + ".npy", tile)
-        path = path + ".npy"
+    with open(path, "wb") as f:
+        f.write(encode_png(merge(inverse_transform(images), grid)))
     return path
