@@ -57,6 +57,23 @@
    Stage-I bit-equal to the EMA), and times the tick through the resident
    and the host tier and a checkpoint's save and restore at full width;
    every run writes under ``build/smoke_runs_*``, removed at the end;
+4d. drives WGAN-CLS and C-PGGAN: 3 ticks of ``main.py --train`` at the
+   full width of ``configs/wgancls_flowers.yml`` (n_critic 5, the gradient
+   penalty through the conv and join kernels, the layer-norm critic; the
+   launches a tick of every kernel, the critic's GP forwards counted;
+   finite d_loss, w_dist, d_wrong, gp, g_loss); one critic update's
+   parameter gradients (GP included) of the kernel critic against the plain
+   critic on the card at batch 64, f32 and bf16; one WGAN-CLS tick on the
+   card against the CPU (n_critic 1, batch 8, f32); ``upconv3x3_bias`` with
+   lrelu against its plain version at the six C-PGGAN up-block shapes (bf16
+   and f32, path read back from C, bf16 timed); the whole C-PGGAN
+   progression of ``configs/pggan_flowers.yml`` through ``main.py --train``
+   at full width (5 stages × 2 ticks: each stage restores the last, α ramps
+   0 → 1, grids at α = 1 and the stage's resolution, upconv launches per
+   stage); one stage-7 tick of ``configs/pggan_flowers_256.yml`` (batch 32);
+   then the WGAN-CLS and the stage-5 C-PGGAN ticks timed and profiled, and
+   the gradient penalty's share of a critic update and the cost of the dw
+   its inner gradient forms unasked;
 5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
    kernel's bound, prints the path, tile and split of each conv, join,
@@ -1337,7 +1354,8 @@ def params_close(gts, cts, net, kink_share=0.0):
 
 
 def phase_card_vs_cpu(device, model="gancls", batch_size=8,
-                      g_after_d_tol=LOSS_TOL, kink_share=None):
+                      g_after_d_tol=LOSS_TOL, kink_share=None,
+                      overrides=None):
     """One tick at the config's full widths, a small batch, f32, TF32 off,
     on the card and on the CPU (plain versions), same weights, data and
     noise: losses, then params after Adam.
@@ -1369,15 +1387,22 @@ def phase_card_vs_cpu(device, model="gancls", batch_size=8,
     gradient is too small to survive round-off, so G's params after the
     default tick differ between any two devices by a few lr.  The default
     tick therefore holds the losses and D's params, and a second tick with D
-    frozen (discriminator_lr 0) holds G's params."""
+    frozen (discriminator_lr 0) holds G's params.
+
+    A critic (WGAN-CLS) has no g_fake: its g_loss, −E[D(fake)], is what
+    the G step reads through the updated critic, and takes
+    `g_after_d_tol`.  `overrides` are further config settings."""
     from text_to_image_tpu_torch.data import get_dataset
+    from text_to_image_tpu_torch.models.registry import get_model
     from text_to_image_tpu_torch.train.steps import draw_noise
     out = {}
     for variant, extra in (("tick", {}),
                            ("tick with D frozen", {"train.discriminator_lr": 0.0})):
         log(f"  {variant}:")
         cfg = train_config(model, **{"train.batch_size": batch_size,
-                                     "dtype": "float32", **extra})
+                                     "dtype": "float32", **(overrides or {}),
+                                     **extra})
+        after_d = "g_loss" if get_model(cfg).is_wgan else "g_fake"
         ds = get_dataset(cfg)
         spe = max(1, ds.num_examples // batch_size)
         batch = {k: v[None] for k, v in ds.next_batch(
@@ -1391,7 +1416,7 @@ def phase_card_vs_cpu(device, model="gancls", batch_size=8,
             log(f"  {k}: card {gm[k]:.7f} cpu {cm[k]:.7f} |diff| "
                 f"{loss_err[k]:.2e}")
             got, ref, tol = gm[k], cm[k], LOSS_TOL
-            if not extra and k == "g_fake":
+            if not extra and k == after_d:
                 tol = g_after_d_tol
             elif not extra and k == "g_loss":     # the rest of g_loss
                 got, ref = got - gm["g_fake"], ref - cm["g_fake"]
@@ -2207,8 +2232,9 @@ def phase_tick_timing(device, model="gancls", ticks=10):
     spe = max(1, ds.num_examples // BATCH)
     ts = init_train_state(cfg.seed, cfg, spe, device)
     step = make_train_step(cfg, spe, device)
-    batch = {k: torch.as_tensor(v[None]).to(device)
-             for k, v in ds.next_batch(BATCH).items()}
+    slices = [ds.next_batch(BATCH) for _ in range(cfg.train.n_critic)]
+    batch = {k: torch.stack([torch.as_tensor(b[k]) for b in slices]).to(device)
+             for k in slices[0]}
     for _ in range(2):
         ts, m = step(ts, batch)
     torch.cuda.synchronize()
@@ -2326,6 +2352,441 @@ def phase_profile(gen, ts, z, emb, device, rate):
             "kernels_per_forward": launches / n}
 
 
+# --- WGAN-CLS and C-PGGAN ------------------------------------------------
+
+# (B, H, W, Cin) → Co: the upconv3x3_bias calls of the C-PGGAN generator's
+# up-blocks (lrelu fused, PixelNorm after): stages 2-5 at 64 px (B 64), and
+# the two calls only the 256 px progression adds (stages 6-7, B 32)
+PGGAN_UPCONV_SHAPES = [((BATCH, 4, 4, 512), 512), ((BATCH, 8, 8, 512), 512),
+                       ((BATCH, 16, 16, 512), 256), ((BATCH, 32, 32, 256), 128),
+                       ((32, 64, 64, 128), 64), ((32, 128, 128, 64), 32)]
+PGGAN_TICKS_PER_STAGE = 2
+# the kernel critic's parameter gradients of one critic update (GP included)
+# against the plain critic's on the card, held as the backward checks hold
+# theirs: within tol of the critic's largest gradient element plus tol of
+# the element (f32 with TF32 off: GRAD_REL; bf16: one rounding of every
+# layer's output).  A leaf's own scale is no yardstick: a leaf whose true
+# gradient is near 0 (join_ln's bias) reads the other leaves' round-off (on
+# an H100 80GB HBM3, f32: 1.6e-4 apart on a critic whose largest element is
+# 113, 1.5 % of that leaf's own largest)
+CRITIC_GRAD_TOL = {torch.float32: GRAD_REL, torch.bfloat16: 1e-2}
+
+
+def wgan_tick_launches(n_critic, g_steps):
+    """Launches per WGAN-CLS tick.  Each critic update: G without gradient
+    (4 deconv; 4 BN calls: stem, up0-2), the layer-norm critic over the
+    three streams (4 conv, 1 join) and once more at x̂ inside the gradient
+    penalty (4 conv, 1 join; its two backwards are plain torch); each G
+    update: G (4 deconv, 4 BN calls, differentiated) and the critic on one
+    stream (4 conv, 1 join).  The layer norm launches none of the
+    kernels."""
+    return {"deconv5x5_s2": 4 * (n_critic + g_steps),
+            "bn_stats": 4 * (n_critic + g_steps),
+            "bn_act": 4 * (n_critic + g_steps),
+            "bn_bwd_reduce": 4 * g_steps, "bn_bwd_apply": 4 * g_steps,
+            "conv5x5_s2_act": 8 * n_critic + 4 * g_steps,
+            "conditioning_join": 2 * n_critic + g_steps, "upconv3x3": 0}
+
+
+def pggan_launches(stage, ticks, grids, cfg):
+    """upconv3x3 launches of C-PGGAN ticks and grids at `stage`: every
+    generator forward (one per critic update, one per G update, one per
+    grid) runs stage − 1 up-blocks; nothing else launches a kernel."""
+    forwards = ticks * (cfg.train.n_critic + cfg.train.g_steps) + grids
+    return {**{k.__name__: 0 for k in all_counters()},
+            "upconv3x3": forwards * (stage - 1)}
+
+
+def check_metrics(last, names, what):
+    for k in names:
+        check(k in last and math.isfinite(last[k]), f"{what} {k}: "
+                                                    f"{last.get(k)}")
+
+
+def phase_wgan_train(device, runs):
+    """``python -m text_to_image_tpu_torch.main --cfg
+    configs/wgancls_flowers.yml --train --steps 3 --set
+    data.dataset_name=synthetic`` at the config's full widths (gf 128, df 64,
+    embed 1024, B 64, n_critic 5, λ 10, α 0.5, drift 1e-3, bf16), with the
+    launch counts of every kernel."""
+    argv = ["--cfg", config_path("wgancls"), "--train", "--steps",
+            str(TRAIN_TICKS), "--device", str(device), "--set",
+            "data.dataset_name=synthetic", "train.summary_interval=1",
+            *run_dirs(os.path.join(runs, "wgancls"))]
+    t0 = time.perf_counter()
+    trainer, launches, _ = drive(argv)
+    wall = time.perf_counter() - t0
+    cfg = trainer.cfg
+    check((cfg.model, cfg.gan.gf_dim, cfg.gan.df_dim, cfg.gan.z_dim,
+           cfg.gan.embed_dim, cfg.train.batch_size, cfg.train.n_critic,
+           cfg.train.coeff.gp_lambda, cfg.train.coeff.mismatch_alpha,
+           cfg.train.coeff.drift_epsilon, cfg.dtype) == (
+               "wgancls", 128, 64, 100, 1024, BATCH, 5, 10.0, 0.5, 1e-3,
+               "bfloat16"), f"not the full-width config: {cfg}")
+    per_tick = wgan_tick_launches(cfg.train.n_critic, cfg.train.g_steps)
+    log(f"  wgancls launches over {TRAIN_TICKS} ticks: {launches} "
+        f"({wall:.1f} s; per tick {per_tick})")
+    check(launches == {k: v * TRAIN_TICKS for k, v in per_tick.items()},
+          f"unexpected launch counts {launches}")
+    check(trainer.ts.step == TRAIN_TICKS, f"step {trainer.ts.step}")
+    check(trainer.ts.d_state == {}, "the critic keeps state")
+    last = trainer.history[-1]
+    check_metrics(last, ("d_loss", "w_dist", "d_wrong", "gp", "g_loss"),
+                  "wgancls")
+    log("  last tick: " + ", ".join(f"{k} {last[k]:.4f}" for k in
+                                    ("d_loss", "w_dist", "d_wrong", "gp",
+                                     "g_loss")))
+    return trainer.history, launches
+
+
+@contextlib.contextmanager
+def plain_critic():
+    """The critic with its kernels swapped for their plain versions (plain
+    torch, differentiable twice by autograd itself), whatever the tensors'
+    device."""
+    from text_to_image_tpu_torch.models import gancls
+    from text_to_image_tpu_torch.ops import layers
+    from text_to_image_tpu_torch.ops.kernels import conv, fused
+    saved = layers.conv5x5_s2_act, gancls.conditioning_join
+    layers.conv5x5_s2_act = conv.conv5x5_s2_act_plain
+    gancls.conditioning_join = fused.conditioning_join_plain
+    try:
+        yield
+    finally:
+        layers.conv5x5_s2_act, gancls.conditioning_join = saved
+
+
+def critic_update_inputs(device, dtype):
+    """The full-width WGAN-CLS bundle, its critic as leaves that require
+    grad, and one critic update's inputs at batch 64: f32 real and wrong
+    images, G's fakes in `dtype`, the embeddings and the GP's ε."""
+    from text_to_image_tpu_torch.models.registry import get_model
+    from text_to_image_tpu_torch.ops import layers as L
+    from text_to_image_tpu_torch.train.steps import _leaf_params
+    cfg = train_config("wgancls")
+    bundle = get_model(cfg)
+    gp, gs, dp, _ = bundle.init(cfg.seed, device)
+    policy = L.Policy(dtype)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    real, wrong = (torch.rand(BATCH, 64, 64, 3, generator=gen) * 2 - 1
+                   for _ in range(2))
+    emb = torch.randn(BATCH, cfg.gan.embed_dim, generator=gen)
+    z = torch.randn(BATCH, cfg.gan.z_dim, generator=gen)
+    eps = torch.rand(BATCH, 1, 1, 1, generator=gen)
+    real, wrong, emb, z, eps = (v.to(device) for v in (real, wrong, emb, z,
+                                                       eps))
+    with torch.no_grad():
+        fake = bundle.gen_apply(gp, gs, {}, z, emb, None, True, policy)[0]
+    return cfg, bundle, _leaf_params(dp), policy, (real, fake, wrong, emb,
+                                                   eps)
+
+
+def critic_loss(cfg, bundle, params, policy, data, with_gp=True):
+    """One critic update's loss (`train/steps.py` d_step): the three
+    streams, the gradient penalty at x̂, the Wasserstein loss."""
+    from text_to_image_tpu_torch.models import losses as LL
+    real, fake, wrong, emb, eps = data
+    co = cfg.train.coeff
+    xs = torch.stack([policy.cast(v) for v in (real, fake, wrong)])
+    logits, _ = bundle.disc_streams(params, {}, {}, xs,
+                                    emb.expand(3, *emb.shape), True, policy)
+    gp = torch.zeros((), device=real.device)
+    if with_gp:
+        gp = LL.gradient_penalty(
+            lambda x: bundle.disc_apply(params, {}, {}, x, emb, True,
+                                        policy)[0], real, fake, eps)
+    return LL.wgan_cls_d_loss(logits[0], logits[1], logits[2], gp,
+                              co.mismatch_alpha, co.gp_lambda,
+                              co.drift_epsilon)
+
+
+def phase_wgan_critic_grads(device):
+    """One critic update's parameter gradients at full width (batch 64, the
+    three streams and the gradient penalty, whose second derivative runs
+    through the conv and join autograd Functions), the kernel critic
+    against the plain critic on the card, f32 (TF32 off) and bf16."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg, bundle, params, policy, data = critic_update_inputs(device,
+                                                                 dtype)
+        leaves = list(flat(params).values())
+        grads = {}
+        for variant, ctx in (("kernels", contextlib.nullcontext()),
+                             ("plain", plain_critic())):
+            with ctx:
+                ld = critic_loss(cfg, bundle, params, policy, data)
+                gs = torch.autograd.grad(ld["d_loss"], leaves,
+                                         allow_unused=True)
+            grads[variant] = [torch.zeros_like(p) if g is None else g
+                              for p, g in zip(leaves, gs)]
+            grads[variant + " gp"] = float(ld["gp"].detach())
+        scale = max(float(r.abs().max()) for r in grads["plain"])
+        tol = CRITIC_GRAD_TOL[dtype]
+        dt = str(dtype)[6:]
+        by_leaf, far = {}, 0
+        for name, g, r in zip(flat(params), grads["kernels"],
+                              grads["plain"]):
+            diff = (g.float() - r.float()).abs()
+            by_leaf[name] = float(diff.max()) / scale
+            far += int((diff > tol * (scale + r.float().abs())).sum())
+        worst = max(by_leaf.values())
+        log(f"  critic update gradients, kernels vs plain ({dt}): largest "
+            f"difference of each leaf over the critic's largest gradient "
+            f"element {scale:.4g} (tol {tol:g} of it + {tol:g} of the "
+            f"element; {far} elements outside): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in by_leaf.items())
+            + f"; gp {grads['kernels gp']:.6f} vs {grads['plain gp']:.6f}")
+        out[dt] = {"max_diff_over_scale": worst, "scale": scale,
+                   "elements_outside": far, "by_leaf": by_leaf,
+                   "gp_kernels": grads["kernels gp"],
+                   "gp_plain": grads["plain gp"]}
+        del grads, params, data
+        torch.cuda.empty_cache()
+    for dt, r in out.items():
+        check(r["elements_outside"] == 0,
+              f"critic gradients {dt}: {r['elements_outside']} elements "
+              f"apart")
+    return out
+
+
+def device_profile(fn, n=3):
+    """(wall ms, device-busy ms, kernel launches) per call of fn, over n
+    calls after one warm-up: host clock to a sync, torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if is_kernel(e)]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    return wall, busy, sum(e.count for e in kernels) / n
+
+
+def phase_gp_cost(device):
+    """At full width, bf16, batch 64: one critic update (forward and
+    backward) with and without the gradient penalty, and the penalty's inner
+    gradient with the critic's weights requiring grad (the conv and join
+    backwards then also form dw, which the inner gradient does not ask for)
+    and detached (no dw): wall ms, device-busy ms and launches of each."""
+    from text_to_image_tpu_torch.train.steps import _detached
+    cfg, bundle, params, policy, data = critic_update_inputs(
+        device, torch.bfloat16)
+    leaves = list(flat(params).values())
+    real, fake, _, emb, eps = data
+
+    def update(with_gp):
+        return lambda: torch.autograd.grad(
+            critic_loss(cfg, bundle, params, policy, data, with_gp)[
+                "d_loss"], leaves, allow_unused=True)
+
+    def inner(p):
+        def fn():
+            x = (fake.float() + eps * (real - fake.float())).requires_grad_()
+            s = bundle.disc_apply(p, {}, {}, x, emb, True, policy)[0]
+            return torch.autograd.grad(s.float().sum(), x, create_graph=True)
+        return fn
+
+    r = {}
+    for name, fn in (("update", update(True)),
+                     ("update_without_gp", update(False)),
+                     ("inner_grad", inner(params)),
+                     ("inner_grad_without_dw", inner(_detached(params)))):
+        wall, busy, n = device_profile(fn)
+        r[name] = {"wall_ms": wall, "device_ms": busy, "launches": n}
+        log(f"  {name}: wall {wall:.3f} ms, device busy {busy:.4f} ms, "
+            f"{n:.0f} launches")
+    r["gp_share_of_update_device"] = 1 - (
+        r["update_without_gp"]["device_ms"] / r["update"]["device_ms"])
+    r["unrequested_dw_device_ms"] = (r["inner_grad"]["device_ms"]
+                                     - r["inner_grad_without_dw"]["device_ms"])
+    log(f"  GP share of a critic update's device time "
+        f"{r['gp_share_of_update_device']:.1%}; the unrequested dw "
+        f"{r['unrequested_dw_device_ms']:.4f} ms of the inner gradient's "
+        f"{r['inner_grad']['device_ms']:.4f} ms")
+    return r
+
+
+def phase_pggan_upconv(device, flush):
+    """upconv3x3_bias with lrelu (the C-PGGAN up-block; equalized-LR
+    weights N(0, 2/(9·Cin)), inputs of unit scale as PixelNorm leaves them)
+    against its plain version at the six C-PGGAN shapes, bf16 and f32, the
+    path read back from the C entry point; bf16 timed beside the plain
+    version and F.interpolate + cuDNN."""
+    import torch.nn.functional as F
+
+    from text_to_image_tpu_torch.ops.kernels import conv
+    gen = torch.Generator().manual_seed(SEED + 13)
+    errs, rows = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for shape, co in PGGAN_UPCONV_SHAPES:
+            b, h, wd, cin = shape
+            x = torch.randn(shape, generator=gen).to(dtype).to(device)
+            w = (torch.randn(3, 3, cin, co, generator=gen)
+                 * math.sqrt(2.0 / (9 * cin))).to(dtype).to(device)
+            t = (0.1 * torch.randn(co, generator=gen)).to(device)
+            got = conv.upconv3x3_bias(x, w, t, "lrelu")
+            torch.cuda.synchronize()
+            path = conv.upconv_path_on_card(x, conv.combined_weights(w), got)
+            check(path == expected_upconv_path(cin, co, dtype),
+                  f"upconv {dt} {shape}->{co}: path {path}")
+            ref = upconv_bias_plain(x, w, t, "lrelu")
+            errs[(dtype, shape)] = compare(
+                got, ref, *TOL[dtype],
+                f"upconv3x3_bias {dt} {shape}->{co} lrelu [{path}]")
+            if dtype == torch.bfloat16:
+                x_cl = x.permute(0, 3, 1, 2)
+                w_t = w.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                t16 = t.to(dtype)
+
+                def lib():
+                    return F.leaky_relu(F.conv2d(
+                        F.interpolate(x_cl, scale_factor=2, mode="nearest"),
+                        w_t, t16, padding=1), 0.2)
+                flops = 2 * 16 * b * h * wd * cin * co
+                nb = nbytes(x, w, t, got)
+                bms, by = bound(nb, flops, dtype)
+                r = {"shape": [list(shape), co, "lrelu"], "path": path,
+                     "ms": time_ms(lambda: conv.upconv3x3_bias(x, w, t,
+                                                               "lrelu"),
+                                   flush),
+                     "plain_ms": time_ms(lambda: upconv_bias_plain(
+                         x, w, t, "lrelu"), flush, 5),
+                     "library_ms": time_ms(lib, flush),
+                     "bound_ms": bms, "bound_by": by}
+                rows.append(r)
+                log(f"  upconv3x3_bias {shape}->{co} lrelu [{path}]: "
+                    f"{r['ms']:.4f} ms (bound {bms:.4f} by {by}, "
+                    f"{flops / r['ms'] / 1e9:.1f} TFLOP/s), plain "
+                    f"{r['plain_ms']:.4f}, interpolate+cuDNN+lrelu "
+                    f"{r['library_ms']:.4f}")
+            del x, w, got, ref
+        torch.cuda.empty_cache()
+    return errs, rows
+
+
+@contextlib.contextmanager
+def alpha_spy(seen):
+    """Records (stage, α, under inference mode) of every C-PGGAN generator
+    forward: ticks run with gradient, grids under inference mode."""
+    from text_to_image_tpu_torch.models import pggan
+    real = pggan.generator_apply
+
+    def spy(params, z, emb, eps, stage, alpha, gan, policy):
+        seen.append((stage, float(torch.as_tensor(alpha)),
+                     torch.is_inference_mode_enabled()))
+        return real(params, z, emb, eps, stage, alpha, gan, policy)
+
+    pggan.generator_apply = spy
+    try:
+        yield
+    finally:
+        pggan.generator_apply = real
+
+
+def phase_pggan_progression(device, runs):
+    """``python -m text_to_image_tpu_torch.main --cfg
+    configs/pggan_flowers.yml --train --steps 10 --set
+    data.dataset_name=synthetic train.sample_interval=2`` at full width
+    (gf 128, compressed 128, ca 128, B 64, n_critic 2, bf16): all 5 stages
+    (4 → 64 px), 2 ticks each; every stage after the first restores the
+    checkpoint of the one before, α ramps 0 → 1 over each stage's fade
+    (1 tick: fade_fraction 0.5 of 2), each stage's grid is drawn at α = 1
+    and its own resolution, launches per stage as `pggan_launches`."""
+    n = 5
+    steps = n * PGGAN_TICKS_PER_STAGE
+    root = os.path.join(runs, "pggan")
+    argv = ["--cfg", config_path("pggan"), "--train", "--steps", str(steps),
+            "--device", str(device), "--set", "data.dataset_name=synthetic",
+            "train.summary_interval=1",
+            f"train.sample_interval={PGGAN_TICKS_PER_STAGE}",
+            *run_dirs(root)]
+    seen = []
+    t0 = time.perf_counter()
+    with alpha_spy(seen):
+        trainers, launches, printed = drive(argv)
+    wall = time.perf_counter() - t0
+    cfg = trainers[-1].cfg
+    check((cfg.gan.gf_dim, cfg.gan.compressed_embed_dim, cfg.gan.ca_dim,
+           cfg.gan.z_dim, cfg.gan.embed_dim, cfg.train.batch_size,
+           cfg.train.n_critic, cfg.data.image_size, cfg.dtype) == (
+               128, 128, 128, 100, 1024, BATCH, 2, 64, "bfloat16"),
+          f"not the full-width config: {cfg}")
+    check([t.cfg.pggan.stage for t in trainers] == list(range(1, n + 1)),
+          f"stages {[t.cfg.pggan.stage for t in trainers]}")
+    want = {k.__name__: 0 for k in all_counters()}
+    for s in range(1, n + 1):
+        for k, v in pggan_launches(s, PGGAN_TICKS_PER_STAGE, 1, cfg).items():
+            want[k] += v
+    log(f"  pggan progression launches: {launches} ({wall:.1f} s)")
+    check(launches == want, f"launches {launches}, expected {want}")
+    per = PGGAN_TICKS_PER_STAGE
+    stages = {}
+    for t in trainers:
+        s = t.cfg.pggan.stage
+        check(t.ts.step == s * per, f"stage {s} ended at step {t.ts.step}")
+        if s > 1:
+            check(f"restored checkpoint at step {(s - 1) * per}" in printed,
+                  f"stage {s} did not restore step {(s - 1) * per}")
+        check_metrics(t.history[-1], ("d_loss", "w_dist", "d_wrong", "gp",
+                                      "g_loss", "kl"), f"stage {s}")
+        ticks = [a for st, a, grid in seen if st == s and not grid]
+        grids = [a for st, a, grid in seen if st == s and grid]
+        # per tick n_critic + g_steps forwards; α 0 in the first tick of a
+        # stage that fades, 1 from the fade's end on
+        f = cfg.train.n_critic + cfg.train.g_steps
+        expect = ([1.0] * (per * f) if s == 1
+                  else [0.0] * f + [1.0] * ((per - 1) * f))
+        check(ticks == expect, f"stage {s}: α {ticks}, expected {expect}")
+        check(grids == [1.0], f"stage {s}: grid α {grids}")
+        res = 4 * 2 ** (s - 1)
+        png = os.path.join(root, "sample", "pggan", "synthetic",
+                           f"train_{s * per:08d}.png")
+        check(png_size(png) == (8 * res, 8 * res),
+              f"stage {s} grid {png}: {png_size(png)}")
+        stages[s] = {"history": t.history, "alphas": ticks,
+                     "grid": os.path.basename(png)}
+        log(f"  stage {s} ({res} px): steps {(s - 1) * per}→{s * per}, α "
+            f"{ticks[::f]}, grid {8 * res}×{8 * res}, last d_loss "
+            f"{t.history[-1]['d_loss']:.4f} gp {t.history[-1]['gp']:.4f}")
+    return {"stages": stages, "wall_s": wall}, launches
+
+
+def phase_pggan_256(device, runs):
+    """One stage-7 tick of configs/pggan_flowers_256.yml (256 px, B 32,
+    bf16) through ``main.py --train``: the 128²×64→32 up-block call runs
+    on the training path with lrelu."""
+    from text_to_image_tpu_torch.ops.kernels import conv
+    argv = ["--cfg", os.path.join(ROOT, "configs", "pggan_flowers_256.yml"),
+            "--train", "--steps", "1", "--device", str(device), "--set",
+            "data.dataset_name=synthetic", "train.summary_interval=1",
+            "pggan.stage=7", *run_dirs(os.path.join(runs, "pggan256"))]
+    t0 = time.perf_counter()
+    trainer, launches, _ = drive(argv)
+    wall = time.perf_counter() - t0
+    cfg = trainer.cfg
+    check((cfg.data.image_size, cfg.train.batch_size, cfg.pggan.stage,
+           cfg.dtype) == (256, 32, 7, "bfloat16"), f"config {cfg}")
+    want = pggan_launches(7, 1, 0, cfg)
+    log(f"  pggan 256 px stage-7 tick: launches {launches} ({wall:.1f} s); "
+        f"the 128²×64→32 call's path "
+        f"{conv.upconv_path(64, 32, torch.bfloat16)}")
+    check(launches == want, f"launches {launches}, expected {want}")
+    last = trainer.history[-1]
+    check_metrics(last, ("d_loss", "w_dist", "d_wrong", "gp", "g_loss",
+                         "kl"), "pggan 256")
+    return last, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -2422,8 +2883,43 @@ def run(runs: str) -> int:
     launches_by_path.update(data_ckpt["launches"])
     torch.cuda.empty_cache()
 
-    log("phase 7: timing")
+    log("phase 9a: WGAN-CLS training path (main.py --train) at the full "
+        f"width of configs/wgancls_flowers.yml, batch 64, bf16, "
+        f"{TRAIN_TICKS} ticks")
+    wgan = {}
+    wgan["training_history"], launches_by_path["wgancls training"] = \
+        phase_wgan_train(device, runs)
+    log("phase 9a: one critic update's gradients (GP included), kernel "
+        "critic vs plain critic on the card, full width, batch 64")
+    wgan["critic_grads"] = phase_wgan_critic_grads(device)
+    log("phase 9a: one WGAN-CLS tick on the card vs the CPU (full width, "
+        "n_critic 1, batch 8, f32, TF32 off)")
+    # one critic update: further updates compound the ±lr Adam steps of
+    # round-off gradients (β1 = 0); the kink allowance as Stage-II's
+    wgan["tick_vs_cpu"] = phase_card_vs_cpu(
+        device, "wgancls", batch_size=8, g_after_d_tol=1e-3,
+        kink_share={"d": 5e-4, "g": 3e-3}, overrides={"train.n_critic": 1})
+    torch.cuda.empty_cache()
+
     flush = L2Flush(device)
+    log("phase 9b: upconv3x3_bias with lrelu vs its plain version at the "
+        "C-PGGAN shapes (bf16 and f32), timed")
+    pg_errs, pg_upconv_rows = phase_pggan_upconv(device, flush)
+    errs["upconv3x3"].update(pg_errs)
+    log(f"phase 9c: the C-PGGAN progression (main.py --train, "
+        f"configs/pggan_flowers.yml at full width, 5 stages × "
+        f"{PGGAN_TICKS_PER_STAGE} ticks)")
+    pggan = {}
+    pggan["progression"], launches_by_path["pggan progression"] = \
+        phase_pggan_progression(device, runs)
+    torch.cuda.empty_cache()
+    log("phase 9d: one stage-7 tick of configs/pggan_flowers_256.yml "
+        "(256 px, batch 32)")
+    pggan["stage7_256px"], launches_by_path["pggan 256 px stage-7 tick"] = \
+        phase_pggan_256(device, runs)
+    torch.cuda.empty_cache()
+
+    log("phase 7: timing")
     rows, rates = phase_timing(device, cfg, bundle, ts, gen, z, emb)
     train_rows, bwd_rows = phase_train_timing(device, flush)
     rows.update(train_rows)
@@ -2458,6 +2954,17 @@ def run(runs: str) -> int:
                 *tick_state, stackgan[model]["tick"]["tick_ms"])
         del tick_state
         torch.cuda.empty_cache()
+
+    log("phase 9e: WGAN-CLS and C-PGGAN stage-5 ticks, their device time, "
+        "and the gradient penalty's cost")
+    for model, store in (("wgancls", wgan), ("pggan", pggan)):
+        store["tick"], tick_state = phase_tick_timing(device, model)
+        store["tick_profile"] = phase_tick_profile(*tick_state,
+                                                   store["tick"]["tick_ms"])
+        del tick_state
+        torch.cuda.empty_cache()
+    wgan["gp_cost"] = phase_gp_cost(device)
+    torch.cuda.empty_cache()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2520,7 +3027,8 @@ def run(runs: str) -> int:
                                         "batch_norm_train" if name in BN_STEPS
                                         else name)),
             "shapes": (rows.get(f"{name} (every call)", per)
-                       + bwd_rows.get(name, [])),
+                       + bwd_rows.get(name, [])
+                       + (pg_upconv_rows if name == "upconv3x3" else [])),
         })
 
     report = {"card": card, "torch": torch.__version__,
@@ -2534,7 +3042,8 @@ def run(runs: str) -> int:
               "training_leaves_changed": moved, "tick_vs_cpu": tick_vs_cpu,
               "tick": tick, "tick_profile": tick_profile,
               "launches_by_path": launches_by_path, "stackgan": stackgan,
-              "data_checkpoint": data_ckpt,
+              "data_checkpoint": data_ckpt, "wgancls": wgan,
+              "pggan": pggan, "upconv3x3_pggan_shapes": pg_upconv_rows,
               "conv5x5_s2_act_256px_d": conv_256_rows,
               "conv5x5_s2_act_paths": conv_paths,
               "batch_norm_calls": bn_rows, "batch_norm_plans": bn_plans}

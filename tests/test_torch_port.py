@@ -3,8 +3,9 @@ neither JAX nor the JAX package, its CLI writes the three grids (from a
 seed, from JAX weights or from its latest checkpoint) and trains, writing
 snapshots and grids, for GAN-CLS and both StackGAN stages; Stage-II takes
 its Stage-I from an ``.npz`` or a Stage-I run directory; the StackGAN
-reader refuses a missing split naming the preprocessing; unported models
-name their ROADMAP item, and weights survive the ``.npz`` round trip."""
+reader refuses a missing split naming the preprocessing; the models once
+left to port (WGAN-CLS, C-PGGAN) have bundles, and weights survive the
+``.npz`` round trip."""
 
 import os
 import subprocess
@@ -24,6 +25,7 @@ from text_to_image_tpu_torch.config import (Config, DataConfig, GanConfig,
                                             load_config)
 from text_to_image_tpu_torch.data import get_dataset
 from text_to_image_tpu_torch.models import gancls, registry, stackgan
+from text_to_image_tpu_torch.ops import layers
 from text_to_image_tpu_torch.train.optim import flatten
 from text_to_image_tpu_torch.utils import prng
 
@@ -41,6 +43,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import text_to_image_tpu_torch.utils.images
         import text_to_image_tpu_torch.models.registry
         import text_to_image_tpu_torch.models.stackgan
+        import text_to_image_tpu_torch.models.pggan
         import text_to_image_tpu_torch.ops.kernels.conv
         import text_to_image_tpu_torch.ops.kernels.fused
         import text_to_image_tpu_torch.ops.kernels._build
@@ -140,8 +143,23 @@ def test_cli_overrides_are_typed():
 @pytest.mark.parametrize("model,item", [("wgancls", "item 5"),
                                         ("pggan", "item 7")])
 def test_unported_models_name_their_roadmap_item(model, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        registry.get_model(Config(model=model))
+    """The two families once refused here (WGAN-CLS, ROADMAP item 5;
+    C-PGGAN, item 7) now have bundles: a critic with the GP loss, drawn and
+    applied on the CPU, and a tick that runs."""
+    cfg = Config(model=model, gan=GanConfig(
+        gf_dim=8, df_dim=8, z_dim=8, embed_dim=32, compressed_embed_dim=16,
+        ca_dim=8), data=DataConfig(dataset_name="synthetic", image_size=8))
+    bundle = registry.get_model(cfg)
+    assert bundle.name == model and bundle.is_wgan
+    assert bundle.has_ca == (model == "pggan")
+    gp, gs, dp, ds = bundle.init(0, "cpu")
+    x = torch.zeros(2, bundle.resolution, bundle.resolution, 3)
+    scores, new_ds = bundle.disc_apply(dp, ds, {}, x, torch.zeros(2, 32),
+                                       True, layers.FP32)
+    assert tuple(scores.shape) == (2,) and new_ds == {}
+    from text_to_image_tpu_torch.train import steps
+    noise = steps.draw_noise(cfg, 0, 2)
+    assert noise["gp_eps"].shape == (cfg.train.n_critic, 2, 1, 1, 1)
 
 
 @pytest.mark.parametrize("model", ["gancls", "stackgan_stage1",

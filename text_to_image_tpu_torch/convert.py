@@ -3,7 +3,8 @@
 The port keeps the JAX package's layouts (linear ``[in, out]``, conv HWIO,
 BN ``scale``/``bias``/``mean``/``var``) and its tree of names, so converting
 is a tree map from numpy to torch plus a check of the names.  An ``.npz``
-holds one generator (GAN-CLS, StackGAN Stage-I or Stage-II) as
+holds one generator (GAN-CLS / WGAN-CLS, StackGAN Stage-I or Stage-II,
+C-PGGAN) as
 ``params/<layer>/…/<leaf>`` and ``state/<layer>/…/<leaf>`` keys (StackGAN's
 up-blocks and residual blocks nest ``conv``/``bn`` one level down); from the
 JAX package it is written with
@@ -32,12 +33,15 @@ import torch
 # a layer holds leaves; StackGAN's CA, up-blocks and residual blocks hold a
 # second level of layers instead
 _LEAVES = {"w", "b", "scale", "bias", "mean", "var"}
-_G_LAYER = re.compile(                         # GAN-CLS; StackGAN I and II
-    r"^(embed|stem|stem_bn|out|up\d+|up\d+_bn|enc\d+|enc\d+_bn|join|join_bn)$")
+_G_LAYER = re.compile(            # GAN-CLS; StackGAN I and II; C-PGGAN
+    r"^(embed|stem|stem_bn|stem_conv|out|ca|rgb\d+|up\d+|up\d+[ab]|up\d+_bn"
+    r"|enc\d+|enc\d+_bn|join|join_bn)$")
 _G_NESTED = {re.compile(r"^ca$"): {"fc"},
              re.compile(r"^up\d+$"): {"conv", "bn"},
              re.compile(r"^res\d+$"): {"conv1", "bn1", "conv2", "bn2"}}
-_D_LAYER = re.compile(r"^(down\d+|down\d+_bn|embed|join|join_bn|logit)$")
+_D_LAYER = re.compile(           # batch- and layer-norm D; C-PGGAN's critic
+    r"^(down\d+|down\d+_bn|down\d+_ln|down\d+[ab]|from\d+|embed|join"
+    r"|join_bn|join_ln|conv4|dense|logit)$")
 
 
 def _to_torch(tree: Dict, device) -> Dict:
@@ -80,17 +84,21 @@ def from_jax_generator(params: Dict, state: Dict, device="cuda"
     """JAX generator (params, state) as nested dicts of numpy arrays, as
     ``jax.device_get`` returns them, → the port's (params, state): f32
     tensors on `device`.  Takes the GAN-CLS generator (``embed``, ``stem``,
-    ``up<i>``, ``up<i>_bn``, ``out``) and the StackGAN ones (``ca/fc``,
+    ``up<i>``, ``up<i>_bn``, ``out``), the StackGAN ones (``ca/fc``,
     ``stem``, ``enc<i>``, ``join``, their ``_bn``s, ``res<i>/conv1|bn1|…``,
-    ``up<i>/conv|bn``, ``out``); raises on any other layer name."""
+    ``up<i>/conv|bn``, ``out``) and C-PGGAN's (``embed``, a flat ``ca``,
+    ``stem``, ``stem_conv``, ``rgb<s>``, ``up<s>a``, ``up<s>b``); raises on
+    any other layer name."""
     return _checked(params, state, _G_LAYER, "generator", device, _G_NESTED)
 
 
 def from_jax_discriminator(params: Dict, state: Dict, device="cuda"
                            ) -> Tuple[Dict, Dict]:
-    """As `from_jax_generator`, for the batch-norm discriminator (layers
-    ``down<i>``, ``down<i>_bn``, ``embed``, ``join``, ``join_bn``,
-    ``logit``)."""
+    """As `from_jax_generator`, for the discriminators: batch norm
+    (``down<i>``, ``down<i>_bn``, ``embed``, ``join``, ``join_bn``,
+    ``logit``), WGAN-CLS's layer norm (``down<i>_ln``, ``join_ln``) and
+    C-PGGAN's critic (``from<s>``, ``down<s>a``, ``down<s>b``, ``embed``,
+    ``join``, ``conv4``, ``dense``, ``logit``)."""
     return _checked(params, state, _D_LAYER, "discriminator", device)
 
 
@@ -105,7 +113,7 @@ def _adam_state(opt_state) -> Tuple[int, Dict, Dict]:
 
 
 def from_jax_train_state(ts, cfg, steps_per_epoch: int, device="cuda"):
-    """A JAX ``TrainState`` (GAN-CLS or StackGAN) held as numpy → the port's
+    """A JAX ``TrainState`` (any model) held as numpy → the port's
     TrainState on `device` for `cfg` (the same config as the JAX run), with
     the Adam counts and moments, the EMA and Stage-II's frozen Stage-I
     generator carried."""

@@ -4,7 +4,9 @@
         [--train [--steps N]] [--weights g.npz] \
         [--set data.data_dir=... ...] [--device cuda]
 
-``--train`` runs the training loop (``train/trainer.py``) to step N: on a
+``--train`` runs the training loop (``train/trainer.py``) to step N (for
+``model: pggan`` with ``pggan.stage: 0`` the whole progression,
+`train.trainer.train_progressive`, N spread over the stages): on a
 directory that holds checkpoints (``<checkpoint_dir>/<model>/<dataset>``)
 it continues from the latest one; it writes checkpoints, sample grids
 (``<sample_dir>/…``) and metrics (``<log_dir>/…/train.jsonl`` and
@@ -138,9 +140,13 @@ def evaluate(cfg: Config, weights: str | None = None, device="cuda") -> str:
 
 def train(cfg: Config, steps: int | None = None, device="cuda"):
     """Run the training loop to `steps` (continuing from the latest
-    checkpoint); returns the closed trainer."""
-    from text_to_image_tpu_torch.train.trainer import Trainer
+    checkpoint); returns the closed trainer, or for the C-PGGAN
+    progression (``pggan.stage`` 0) the list of its stages' trainers."""
+    from text_to_image_tpu_torch.train.trainer import (Trainer,
+                                                       train_progressive)
 
+    if cfg.model == "pggan" and cfg.pggan.stage == 0:
+        return train_progressive(cfg, total_steps=steps, device=device)
     trainer = Trainer(cfg, device=device)
     try:
         trainer.train(num_steps=steps)
@@ -150,7 +156,8 @@ def train(cfg: Config, steps: int | None = None, device="cuda"):
 
 
 def main(argv=None):
-    """Returns the trainer (``--train``) or the grids' directory."""
+    """Returns what `train` returns (``--train``) or the grids'
+    directory."""
     args = parse_args(argv)
     cfg = load_config(args.cfg, parse_overrides(args.set) or None)
     if args.train:

@@ -18,11 +18,19 @@ and, for its 4 BN calls, 4 bn_stats + 4 bn_act at 64 px; the folded forward
 Each D down-block is the `conv5x5_s2_act` kernel (bias, and on ``down0``
 the lrelu, fused) followed by a batch norm; the text join is the
 `conditioning_join` kernel.  The JAX package computes the same function
-with ``L.conv2d`` + ``batch_norm_act`` and its lax join.  Only batch norm
-is ported: the layer-norm critic belongs to WGAN-CLS.  A 64 px D forward
+with ``L.conv2d`` + ``batch_norm_act`` and its lax join.  A 64 px D forward
 launches 4 conv + 1 join and, for its 4 BN calls, 4 bn_stats + 4 bn_act
 whatever its number of streams (each stream takes its own statistics
 inside the kernels).
+
+``norm="layer"`` is WGAN-CLS's critic: a per-example layer norm (plain
+torch, ``L.layer_norm``) after every down-block from the second and after
+the join, no D state.  Its convolutions and join stay on the same kernels
+(4 conv + 1 join a forward): the gradient penalty differentiates the
+critic twice, and the kernels' autograd Functions carry that second
+derivative because their backwards are differentiable torch ops.  (The JAX
+critic leaves its join to lax there, because a ``custom_vjp`` is not
+differentiable twice.)
 """
 
 from __future__ import annotations
@@ -127,9 +135,11 @@ def generator_apply_inference(params: Dict, state: Dict, z: torch.Tensor,
 
 # --- discriminator ---------------------------------------------------------------
 
-def discriminator_init(key: int, gan: GanConfig, resolution: int = 64
-                       ) -> Tuple[Dict, Dict]:
-    """(params, state) as f32 CPU tensors, drawn from `key` (batch norm)."""
+def discriminator_init(key: int, gan: GanConfig, resolution: int = 64,
+                       norm: str = "batch") -> Tuple[Dict, Dict]:
+    """(params, state) as f32 CPU tensors, drawn from `key`; `norm` is
+    "batch" (GAN-CLS, StackGAN) or "layer" (the WGAN-CLS critic)."""
+    _check_norm(norm)
     n_down = _n_stages(resolution)
     df = gan.df_dim
     ks = prng.split_tree(key, ("embed", "downs", "join", "logit"))
@@ -142,16 +152,21 @@ def discriminator_init(key: int, gan: GanConfig, resolution: int = 64
         c_out = df * min(2 ** i, 8)
         ki = prng.fold_in(ks["downs"], i)
         params[f"down{i}"] = L.conv2d_init(ki, 5, c_in, c_out)
-        if i > 0:  # no norm on the first conv
+        if i > 0 and norm == "batch":  # no norm on the first conv
             params[f"down{i}_bn"], state[f"down{i}_bn"] = L.batch_norm_init(
                 c_out, prng.fold_in(ki, 1))
+        elif i > 0:
+            params[f"down{i}_ln"] = L.layer_norm_init(c_out)
         c_in = c_out
     params["embed"] = L.linear_init(ks["embed"], gan.embed_dim,
                                     gan.compressed_embed_dim)
     params["join"] = L.conv2d_init(ks["join"], 1,
                                    c_in + gan.compressed_embed_dim, c_in)
-    params["join_bn"], state["join_bn"] = L.batch_norm_init(
-        c_in, prng.fold_in(ks["join"], 1))
+    if norm == "batch":
+        params["join_bn"], state["join_bn"] = L.batch_norm_init(
+            c_in, prng.fold_in(ks["join"], 1))
+    else:
+        params["join_ln"] = L.layer_norm_init(c_in)
     params["logit"] = L.conv2d_init(ks["logit"], 4, c_in, 1)
     return params, state
 
@@ -167,11 +182,31 @@ def _text_join(join_params: Dict, h: torch.Tensor, t: torch.Tensor
                              join_params["b"].float(), "none")
 
 
+def _check_norm(norm: str) -> None:
+    if norm not in ("batch", "layer"):
+        raise ValueError(f"norm {norm!r} not in ('batch', 'layer')")
+
+
+def _norm_act(params: Dict, state: Dict, name: str, h: torch.Tensor,
+              train: bool, norm: str, streams: int, new_state: Dict
+              ) -> torch.Tensor:
+    """lrelu(norm(h)): the batch-norm kernels (state under ``<name>_bn``)
+    or the layer norm (``<name>_ln``, stateless) and an lrelu."""
+    if norm == "batch":
+        h, new_state[f"{name}_bn"] = L.batch_norm_act(
+            params[f"{name}_bn"], state[f"{name}_bn"], h, train, act="lrelu",
+            streams=streams)
+        return h
+    return L.lrelu(L.layer_norm(params[f"{name}_ln"], h))
+
+
 def _discriminator(params: Dict, state: Dict, x: torch.Tensor,
                    emb: torch.Tensor, train: bool, policy: L.Policy,
-                   resolution: int, streams: int) -> Tuple[torch.Tensor, Dict]:
+                   resolution: int, streams: int, norm: str
+                   ) -> Tuple[torch.Tensor, Dict]:
     """D over a batch of `streams` contiguous streams, each with its own
     batch statistics; convolutions and the join run once over all of it."""
+    _check_norm(norm)
     n_down = _n_stages(resolution)
     h = policy.cast(x)
     new_state: Dict = {}
@@ -180,31 +215,29 @@ def _discriminator(params: Dict, state: Dict, x: torch.Tensor,
             h = L.conv2d(params["down0"], h, act="lrelu")
             continue
         h = L.conv2d(params[f"down{i}"], h)
-        h, new_state[f"down{i}_bn"] = L.batch_norm_act(
-            params[f"down{i}_bn"], state[f"down{i}_bn"], h, train,
-            act="lrelu", streams=streams)
+        h = _norm_act(params, state, f"down{i}", h, train, norm, streams,
+                      new_state)
     t = L.lrelu(L.linear(params["embed"], policy.cast(emb)))
     h = _text_join(params["join"], h, t)
-    h, new_state["join_bn"] = L.batch_norm_act(
-        params["join_bn"], state["join_bn"], h, train, act="lrelu",
-        streams=streams)
+    h = _norm_act(params, state, "join", h, train, norm, streams, new_state)
     logit = L.conv2d(params["logit"], h, stride=1, padding="VALID")
     return logit.reshape(logit.shape[0]), new_state
 
 
 def discriminator_apply(params: Dict, state: Dict, x: torch.Tensor,
                         emb: torch.Tensor, train: bool,
-                        policy: L.Policy = L.FP32, resolution: int = 64
-                        ) -> Tuple[torch.Tensor, Dict]:
-    """x[B,res,res,3], emb[B,embed_dim] → (logits[B] before the sigmoid,
-    new BN state)."""
-    return _discriminator(params, state, x, emb, train, policy, resolution, 1)
+                        policy: L.Policy = L.FP32, resolution: int = 64,
+                        norm: str = "batch") -> Tuple[torch.Tensor, Dict]:
+    """x[B,res,res,3], emb[B,embed_dim] → (logits[B] before the sigmoid, or
+    the critic's scores, new BN state; {} for the layer norm)."""
+    return _discriminator(params, state, x, emb, train, policy, resolution, 1,
+                          norm)
 
 
 def discriminator_apply_streams(params: Dict, state: Dict, xs: torch.Tensor,
                                 embs: torch.Tensor, train: bool,
                                 policy: L.Policy = L.FP32,
-                                resolution: int = 64
+                                resolution: int = 64, norm: str = "batch"
                                 ) -> Tuple[torch.Tensor, Dict]:
     """D on S stacked streams xs[S,B,...], embs[S,B,E] in one pass of batch
     S·B: each stream keeps its own BN batch statistics (the JAX package
@@ -213,5 +246,6 @@ def discriminator_apply_streams(params: Dict, state: Dict, xs: torch.Tensor,
     s, b = xs.shape[:2]
     logits, new_state = _discriminator(
         params, state, xs.reshape(s * b, *xs.shape[2:]),
-        embs.reshape(s * b, embs.shape[-1]), train, policy, resolution, s)
+        embs.reshape(s * b, embs.shape[-1]), train, policy, resolution, s,
+        norm)
     return logits.reshape(s, b), new_state

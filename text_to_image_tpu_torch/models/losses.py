@@ -6,13 +6,19 @@ et al. 2016, and the conditioning-augmentation KL, Zhang et al. 2017):
     g_loss = CE(D(fake, t), 1)   (+ w·CE(D(G(z, t_int), t_int), 1), GAN-INT)
                                  (+ w_kl·KL(N(μ, σ) ‖ N(0, I)), StackGAN)
 
-Every reduction is a mean over the batch, in f32.  The WGAN-GP terms belong
-to WGAN-CLS (ROADMAP.md, 'Modules to port' item 5).
+and the conditional Wasserstein family of WGAN-CLS and C-PGGAN (critic
+scores, no sigmoid; Gulrajani et al. 2017 for the gradient penalty):
+
+    d_loss = E[D(fake)] − E[D(real)] + α·(E[D(wrong)] − E[D(real)]) + λ·GP
+             (+ ε_drift·(E[D(real)²] + E[D(wrong)²]))
+    g_loss = −E[D(fake)]
+
+Every reduction is a mean over the batch, in f32.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -56,6 +62,45 @@ def interpolate_embeddings(emb: torch.Tensor, beta: float = 0.5
     """GAN-INT: β·t₁ + (1−β)·t₂, pairing each embedding with the previous
     one in the batch (a roll by one)."""
     return beta * emb + (1.0 - beta) * torch.roll(emb, shifts=1, dims=0)
+
+
+def wgan_cls_d_loss(real_score: torch.Tensor, fake_score: torch.Tensor,
+                    wrong_score: torch.Tensor, gp: torch.Tensor,
+                    mismatch_alpha: float, gp_lambda: float,
+                    drift_epsilon: float = 0.0) -> Dict[str, torch.Tensor]:
+    """The matching-aware critic loss.  The drift term anchors the real
+    **and** the wrong scores: the GP bounds the real↔fake direction but not
+    the text direction, so the mismatch term alone would push D(x, t̄)
+    towards −∞."""
+    real, fake, wrong = (s.float() for s in (real_score, fake_score,
+                                             wrong_score))
+    e_real, e_fake, e_wrong = real.mean(), fake.mean(), wrong.mean()
+    total = ((e_fake - e_real) + mismatch_alpha * (e_wrong - e_real)
+             + gp_lambda * gp)
+    if drift_epsilon:
+        total = total + drift_epsilon * ((real**2).mean() + (wrong**2).mean())
+    return {"d_loss": total, "w_dist": e_real - e_fake, "d_wrong": e_wrong,
+            "gp": gp}
+
+
+def wgan_cls_g_loss(fake_score: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return {"g_loss": -fake_score.float().mean()}
+
+
+def gradient_penalty(critic_on_images: Callable[[torch.Tensor], torch.Tensor],
+                     real: torch.Tensor, fake: torch.Tensor, eps: torch.Tensor
+                     ) -> torch.Tensor:
+    """WGAN-GP: mean of (‖∇x̂ Σ D(x̂)‖₂ − 1)² at x̂ = fake + ε·(real − fake),
+    formed in f32 (ε [B,1,1,1]).  `critic_on_images` maps images to
+    per-example scores with the text bound.  The inner gradient keeps its
+    graph (``create_graph``), so differentiating the penalty reaches the
+    critic's parameters through it."""
+    x_hat = (fake.float() + eps.float() * (real.float() - fake.float()))
+    x_hat = x_hat.detach().requires_grad_(True)
+    score = critic_on_images(x_hat).float().sum()
+    grads, = torch.autograd.grad(score, x_hat, create_graph=True)
+    norms = torch.sqrt((grads.float()**2).sum((1, 2, 3)) + 1e-12)
+    return ((norms - 1.0)**2).mean()
 
 
 def ca_kl_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,8 @@
 """Model registry (counterpart of ``text_to_image_tpu/models/registry.py``):
-maps the config's ``model`` name onto a `ModelBundle`.
-
-``gancls``, ``stackgan_stage1`` and ``stackgan_stage2`` are ported.
-``wgancls`` and ``pggan`` raise `NotImplementedError` naming their ROADMAP
-item.
+maps the config's ``model`` name onto a `ModelBundle`: ``gancls``,
+``wgancls`` (the GAN-CLS generator with the layer-norm critic),
+``stackgan_stage1``, ``stackgan_stage2`` and ``pggan`` (one stage of the
+C-PGGAN progression, ``pggan.stage``; 0 = the last).
 """
 
 from __future__ import annotations
@@ -16,15 +15,11 @@ from torch.utils.checkpoint import checkpoint
 
 from text_to_image_tpu_torch.config import Config
 from text_to_image_tpu_torch.models import gancls, stackgan
+from text_to_image_tpu_torch.models import pggan as PG
 from text_to_image_tpu_torch.utils import prng
 
 MODEL_NAMES = ("gancls", "wgancls", "stackgan_stage1", "stackgan_stage2",
                "pggan")
-
-_NOT_PORTED = {
-    "wgancls": "ROADMAP.md, 'Modules to port' item 5 (WGAN-CLS)",
-    "pggan": "ROADMAP.md, 'Modules to port' item 7 (C-PGGAN)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +34,10 @@ class ModelBundle:
       Stage-I generator, ``stage1_g_params`` / ``stage1_g_state``, from
       it).  `eps` stands where the JAX bundle takes a key: the
       conditioning-augmentation noise, of shape ``eps_shape(batch)`` — None
-      for GAN-CLS, [B, ca_dim] for Stage-I, [2, B, ca_dim] for Stage-II
-      (row 0 for the frozen Stage-I's CA, row 1 for its own).  `gen_aux`
+      for GAN-CLS and WGAN-CLS, [B, ca_dim] for Stage-I and C-PGGAN,
+      [2, B, ca_dim] for Stage-II (row 0 for the frozen Stage-I's CA, row
+      1 for its own).  C-PGGAN reads its fade-in α from ``aux["alpha"]``
+      (1 when absent: sampling).  `gen_aux`
       holds ``mu``, ``logvar`` and ``c`` when the model has CA, else
       nothing;
     * ``gen_apply_inference(gp, gs, z, emb, policy)`` → img with eval-mode
@@ -50,7 +47,12 @@ class ModelBundle:
     * ``disc_streams(dp, ds, aux, xs, embs, train, policy)`` → (logits[S,B],
       new_ds), per-stream BN statistics;
     * ``is_wgan`` (critic + GP loss), ``has_ca`` (KL term in the G loss),
-      ``needs_stage1`` (the train state carries a frozen Stage-I generator).
+      ``needs_stage1`` (the train state carries a frozen Stage-I generator);
+    * hooks: ``step_aux(step)`` → a dict merged into ``aux`` for the tick
+      of `step` (C-PGGAN's α); ``prep_images(x)`` on the f32 images before
+      any cast (C-PGGAN downsamples to the stage's resolution);
+      ``ema_anchor``, the step from which the fade-aware EMA ramp counts
+      (C-PGGAN: the end of this stage's fade).
     """
 
     name: str
@@ -64,6 +66,9 @@ class ModelBundle:
     is_wgan: bool = False
     has_ca: bool = False
     needs_stage1: bool = False
+    step_aux: Optional[Callable] = None
+    prep_images: Optional[Callable] = None
+    ema_anchor: int = 0
 
 
 def tree_to(tree: Dict, device) -> Dict:
@@ -72,20 +77,22 @@ def tree_to(tree: Dict, device) -> Dict:
 
 
 def _bundle(name: str, res: int, d_gan, g_init: Callable, gen_apply: Callable,
-            **flags) -> ModelBundle:
-    """A bundle around a generator with the matching-aware batch-norm
-    discriminator at `res` px, which every ported model shares."""
+            norm: str = "batch", **flags) -> ModelBundle:
+    """A bundle around a generator with the matching-aware discriminator of
+    GAN-CLS at `res` px (batch norm; WGAN-CLS's critic with `norm`
+    "layer")."""
     def init(key, device="cuda"):
         g = g_init(prng.fold_in(key, 0))
-        d = gancls.discriminator_init(prng.fold_in(key, 1), d_gan, res)
+        d = gancls.discriminator_init(prng.fold_in(key, 1), d_gan, res, norm)
         return tuple(tree_to(t, device) for t in (*g, *d))
 
     def disc_apply(dp, ds, aux, x, emb, train, policy):
-        return gancls.discriminator_apply(dp, ds, x, emb, train, policy, res)
+        return gancls.discriminator_apply(dp, ds, x, emb, train, policy, res,
+                                          norm)
 
     def disc_streams(dp, ds, aux, xs, embs, train, policy):
         return gancls.discriminator_apply_streams(dp, ds, xs, embs, train,
-                                                  policy, res)
+                                                  policy, res, norm)
 
     return ModelBundle(name, res, init, gen_apply, disc_apply, disc_streams,
                        **flags)
@@ -96,7 +103,7 @@ def get_model(cfg: Config) -> ModelBundle:
     res = cfg.data.image_size
     gan = cfg.gan
 
-    if name == "gancls":
+    if name in ("gancls", "wgancls"):
         def gen_apply(gp, gs, aux, z, emb, eps, train, policy):
             img, new_gs = gancls.generator_apply(gp, gs, z, emb, train,
                                                  policy, res)
@@ -108,7 +115,9 @@ def get_model(cfg: Config) -> ModelBundle:
 
         return _bundle(name, res, gan,
                        lambda k: gancls.generator_init(k, gan, res),
-                       gen_apply, gen_apply_inference=gen_apply_inference)
+                       gen_apply, gen_apply_inference=gen_apply_inference,
+                       norm="batch" if name == "gancls" else "layer",
+                       is_wgan=name == "wgancls")
 
     if name in ("stackgan_stage1", "stackgan_stage2"):
         # StackGAN's D compresses the raw text to ca_dim before the join
@@ -150,7 +159,54 @@ def get_model(cfg: Config) -> ModelBundle:
             gen_apply, eps_shape=lambda b: (2, b, gan.ca_dim), has_ca=True,
             needs_stage1=True)
 
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet: {_NOT_PORTED[name]}")
+    if name == "pggan":
+        return _pggan(cfg)
     raise ValueError(f"unknown model {name!r}; expected one of {MODEL_NAMES}")
+
+
+def _pggan(cfg: Config) -> ModelBundle:
+    """One stage of the C-PGGAN progression: stage ``pggan.stage`` (0 = the
+    last) at its resolution, α ramping from ``start_step`` (−1: (stage −
+    1)·steps_per_stage) over ``fade_fraction`` of the stage."""
+    res, gan, pcfg = cfg.data.image_size, cfg.gan, cfg.pggan
+    n_total = PG.num_stages(res)
+    stage = pcfg.stage if pcfg.stage > 0 else n_total
+    if stage > n_total:
+        raise ValueError(f"pggan.stage {stage} exceeds {n_total} stages for "
+                         f"image_size {res}")
+    sres = PG.stage_resolution(stage)
+    fade = int(pcfg.steps_per_stage * pcfg.fade_fraction)
+    start = (pcfg.start_step if pcfg.start_step >= 0
+             else (stage - 1) * pcfg.steps_per_stage)
+
+    def init(key, device="cuda"):
+        g = PG.generator_init(prng.fold_in(key, 0), gan, res)    # full depth
+        d = PG.discriminator_init(prng.fold_in(key, 1), gan, res)
+        return tuple(tree_to(t, device) for t in (*g, *d))
+
+    def step_aux(step):
+        """α = clip((step − start)/fade, 0, 1) in f32, as the JAX bundle
+        computes it; a 0-dim CPU tensor."""
+        if stage == 1 or fade <= 0:
+            return {"alpha": torch.tensor(1.0)}
+        a = (torch.tensor(step, dtype=torch.float32) - float(start)) / fade
+        return {"alpha": a.clamp(0.0, 1.0)}
+
+    def gen_apply(gp, gs, aux, z, emb, eps, train, policy):
+        img, ca = PG.generator_apply(gp, z, emb, eps, stage,
+                                     aux.get("alpha", 1.0), gan, policy)
+        return img, gs, ca
+
+    def disc_apply(dp, ds, aux, x, emb, train, policy):
+        return PG.discriminator_apply(dp, x, emb, stage,
+                                      aux.get("alpha", 1.0), gan, policy), ds
+
+    def disc_streams(dp, ds, aux, xs, embs, train, policy):
+        return PG.discriminator_apply_streams(
+            dp, xs, embs, stage, aux.get("alpha", 1.0), gan, policy), ds
+
+    return ModelBundle(
+        "pggan", sres, init, gen_apply, disc_apply, disc_streams,
+        eps_shape=lambda b: (b, gan.ca_dim), is_wgan=True, has_ca=True,
+        step_aux=step_aux, prep_images=lambda x: PG.downsample_to(x, sres),
+        ema_anchor=start + fade if stage > 1 else 0)

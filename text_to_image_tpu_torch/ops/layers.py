@@ -18,7 +18,8 @@ sees that cast and the optimizer updates the f32 leaves.  Serving casts the
 weights once when they are loaded (`cast_weights`): the cast inside a layer
 is then a no-op instead of a copy per call (``up0``'s weight alone is 52 MB
 in f32).  BatchNorm statistics are always taken in f32, by the batch-norm
-kernels of ``ops/kernels/fused.py``.
+kernels of ``ops/kernels/fused.py``; the WGAN critic's layer norm is plain
+torch in f32, as the JAX package computes it outside any kernel.
 """
 
 from __future__ import annotations
@@ -191,6 +192,23 @@ def batch_norm_act(p: Params, state: Params, x: torch.Tensor, train: bool,
     a = torch.rsqrt(state["var"] + eps) * p["scale"].float()
     b = p["bias"].float() - state["mean"] * a
     return bn_act(x, a.contiguous(), b.contiguous(), act), state
+
+
+# --- layer norm (the WGAN-GP critic: no batch statistics under the GP) -----------
+
+def layer_norm_init(c: int) -> Params:
+    return {"scale": torch.ones(c), "bias": init.zeros((c,))}
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-example norm over (H, W, C) in f32 (biased variance), then the
+    per-channel affine; returns x's dtype.  Each example is normalised on
+    its own, so the gradient penalty's per-input gradient stays defined."""
+    x32 = x.float()
+    var, mean = torch.var_mean(x32, dim=(1, 2, 3), keepdim=True,
+                               correction=0)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 # --- activations ----------------------------------------------------------------

@@ -1,14 +1,24 @@
-"""The training tick of GAN-CLS and StackGAN (counterpart of
+"""The training tick of every model (counterpart of
 ``text_to_image_tpu/train/steps.py``):
 
 1. ``n_critic`` matching-aware D updates, each on its own data slice, over
    the real, fake and wrong streams (three streams in one D pass, each with
-   its own BN statistics);
-2. ``g_steps`` G updates on the last slice, all with one z (StackGAN adds
-   ``coeff.kl``·KL of its conditioning augmentation to the G loss, metric
-   ``kl``);
-3. Adam (β1 0.5, β2 0.9) with the staircase LR decay on each net;
-4. the optional generator EMA with the fade-aware ramp.
+   its own BN statistics).  WGAN-CLS and C-PGGAN (``bundle.is_wgan``) train
+   a critic: the Wasserstein loss with the gradient penalty at x̂ = fake +
+   ε·(real − fake), each update with its own ε, and the drift term;
+2. ``g_steps`` G updates on the last slice, all with one z (StackGAN and
+   C-PGGAN add ``coeff.kl``·KL of their conditioning augmentation to the G
+   loss, metric ``kl``);
+3. Adam with the config's betas and the staircase LR decay on each net;
+   a leaf the tick does not reach (the deeper C-PGGAN stages) takes a zero
+   gradient, so every leaf's moments decay and its count advances with
+   the rest, as optax does;
+4. the optional generator EMA with the fade-aware ramp, counted from the
+   bundle's ``ema_anchor``.
+
+The bundle's hooks: ``step_aux(step)`` is merged into ``aux`` for the
+tick (C-PGGAN's fade-in α) and ``prep_images`` runs on the f32 images
+before the compute-dtype cast (C-PGGAN's downsample), as the JAX step does.
 
 The JAX package compiles the tick into one XLA program; here it runs
 eagerly, and every convolution, join and BN epilogue on the card is a
@@ -20,7 +30,7 @@ call is one stream in train mode and its new D state is thrown away; only
 the G steps update the G state.  Stage-II's frozen Stage-I generator
 rides in ``aux`` (``stage1_g_params`` / ``stage1_g_state``): no gradient
 reaches it, and it is in neither optimizer nor the EMA.  The noise of step
-``s`` (z, and StackGAN's conditioning-augmentation ε) comes from keys
+``s`` (z, the conditioning-augmentation ε and the GP's ε) comes from keys
 ``fold_in(fold_in(seed, s), 0 | 1)``, drawn on the CPU and moved to the
 device, so a tick gives the same numbers on every device; a caller may pass
 its own instead (``noise=``), as the tests do with the JAX step's draws.
@@ -52,6 +62,14 @@ def _leaf_params(tree: Dict) -> Dict:
 def _detached(tree: Dict) -> Dict:
     return {k: _detached(v) if isinstance(v, dict) else v.detach()
             for k, v in tree.items()}
+
+
+def _grads(loss: torch.Tensor, leaves) -> Tuple[torch.Tensor, ...]:
+    """d loss / d leaf for every leaf; zeros where the loss does not reach
+    the leaf (the C-PGGAN layers deeper than the stage)."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return tuple(torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads))
 
 
 def _clone(tree: Dict) -> Dict:
@@ -111,10 +129,12 @@ def draw_noise(cfg: Config, step: int, batch: int) -> Dict[str, torch.Tensor]:
     update), ``g`` [B, z] (shared by the G updates) and, with GAN-INT,
     ``g2`` [B, z] for the interpolated-caption term; for a model with
     conditioning augmentation also its ε under ``d_eps`` [n_critic, …],
-    ``g_eps`` and ``g2_eps``, each of the bundle's ``eps_shape(B)``."""
+    ``g_eps`` and ``g2_eps``, each of the bundle's ``eps_shape(B)``; for a
+    critic the GP's ε ∈ U[0, 1) as ``gp_eps`` [n_critic, B, 1, 1, 1]."""
     key = prng.fold_in(cfg.seed, step)
     dkey, gkey = prng.fold_in(key, 0), prng.fold_in(key, 1)
-    eps_shape = get_model(cfg).eps_shape(batch)
+    bundle = get_model(cfg)
+    eps_shape = bundle.eps_shape(batch)
 
     def normal(k, shape=(batch, cfg.gan.z_dim)):
         return torch.randn(*shape, generator=prng.generator(k))
@@ -129,6 +149,10 @@ def draw_noise(cfg: Config, step: int, batch: int) -> Dict[str, torch.Tensor]:
         noise["g_eps"] = normal(prng.fold_in(gkey, 2), eps_shape)
         if cfg.train.use_interpolation:
             noise["g2_eps"] = normal(prng.fold_in(gkey, 3), eps_shape)
+    if bundle.is_wgan:
+        noise["gp_eps"] = torch.stack([prng.uniform_eps(prng.fold_in(k, 3),
+                                                        batch)
+                                       for k in d_keys])
     return noise
 
 
@@ -140,53 +164,68 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda"):
     `draw_noise`'s dict, drawn from (seed, step) when None.  `ts` is updated
     in place and returned; metrics are 0-dim device tensors."""
     bundle = get_model(cfg)
-    if bundle.is_wgan:
-        raise NotImplementedError(
-            "the WGAN-GP critic tick is not ported yet: ROADMAP.md, "
-            "'Modules to port' item 5 (WGAN-CLS)")
     policy = L.Policy.from_str(cfg.dtype)
     tcfg = cfg.train
     co = tcfg.coeff
 
     def images(x) -> torch.Tensor:
+        """f32 images in [-1, 1] after the bundle's prep; the networks
+        cast them."""
         x = torch.as_tensor(x).to(device, non_blocking=True)
-        if x.dtype == torch.uint8:
-            x = x.float() / 127.5 - 1.0
-        return policy.cast(x)
+        x = x.float() / 127.5 - 1.0 if x.dtype == torch.uint8 else x.float()
+        return bundle.prep_images(x) if bundle.prep_images else x
 
-    def d_step(ts: TrainState, real, wrong, emb, z, eps) -> Dict:
+    def d_step(ts: TrainState, aux, real, wrong, emb, z, eps, gp_eps
+               ) -> Dict:
         with torch.no_grad():
-            fake, _, _ = bundle.gen_apply(ts.g_params, ts.g_state, ts.aux, z,
+            fake, _, _ = bundle.gen_apply(ts.g_params, ts.g_state, aux, z,
                                           emb, eps, True, policy)
-        xs = torch.stack([real, policy.cast(fake), wrong])
+        xs = torch.stack([policy.cast(v) for v in (real, fake, wrong)])
         logits, new_state = bundle.disc_streams(
-            ts.d_params, ts.d_state, ts.aux, xs, emb.expand(3, *emb.shape),
+            ts.d_params, ts.d_state, aux, xs, emb.expand(3, *emb.shape),
             True, policy)
-        ld = LL.gan_cls_d_loss(logits[0], logits[1], logits[2],
-                               co.real_label_smooth)
-        ts.d_opt.update(torch.autograd.grad(ld["d_loss"], ts.d_opt.leaves))
+        if bundle.is_wgan:
+            def critic_on_images(x):
+                return bundle.disc_apply(ts.d_params, ts.d_state, aux, x, emb,
+                                         True, policy)[0]
+            gp = LL.gradient_penalty(critic_on_images, real, fake, gp_eps)
+            ld = LL.wgan_cls_d_loss(logits[0], logits[1], logits[2], gp,
+                                    co.mismatch_alpha, co.gp_lambda,
+                                    co.drift_epsilon)
+        else:
+            ld = LL.gan_cls_d_loss(logits[0], logits[1], logits[2],
+                                   co.real_label_smooth)
+        ts.d_opt.update(_grads(ld["d_loss"], ts.d_opt.leaves))
         ts.d_state = _detached(new_state)
-        return ld
+        return {k: v.detach() for k, v in ld.items()}
 
-    def g_step(ts: TrainState, emb, z, eps, z2, eps2) -> Dict:
+    def g_step(ts: TrainState, aux, emb, z, eps, z2, eps2) -> Dict:
         d_params = _detached(ts.d_params)
         fake, new_state, gen_aux = bundle.gen_apply(
-            ts.g_params, ts.g_state, ts.aux, z, emb, eps, True, policy)
-        fake_logit, _ = bundle.disc_apply(d_params, ts.d_state, ts.aux, fake,
+            ts.g_params, ts.g_state, aux, z, emb, eps, True, policy)
+        fake_logit, _ = bundle.disc_apply(d_params, ts.d_state, aux, fake,
                                           emb, True, policy)
         interp_logit = None
         if tcfg.use_interpolation:
             emb_int = LL.interpolate_embeddings(emb, co.interp_beta)
-            fake_int, _, _ = bundle.gen_apply(ts.g_params, ts.g_state, ts.aux,
+            fake_int, _, _ = bundle.gen_apply(ts.g_params, ts.g_state, aux,
                                               z2, emb_int, eps2, True, policy)
-            interp_logit, _ = bundle.disc_apply(d_params, ts.d_state, ts.aux,
+            interp_logit, _ = bundle.disc_apply(d_params, ts.d_state, aux,
                                                 fake_int, emb_int, True,
                                                 policy)
-        lg = LL.gan_cls_g_loss(fake_logit, interp_logit, co.interp_weight)
+        if bundle.is_wgan:
+            lg = LL.wgan_cls_g_loss(fake_logit)
+            if interp_logit is not None:
+                g_int = -interp_logit.float().mean()
+                lg = {**lg, "g_interp": g_int,
+                      "g_loss": lg["g_loss"] + co.interp_weight * g_int}
+        else:
+            lg = LL.gan_cls_g_loss(fake_logit, interp_logit,
+                                   co.interp_weight)
         if bundle.has_ca:
             kl = LL.ca_kl_loss(gen_aux["mu"], gen_aux["logvar"])
             lg = {**lg, "kl": kl, "g_loss": lg["g_loss"] + co.kl * kl}
-        ts.g_opt.update(torch.autograd.grad(lg["g_loss"], ts.g_opt.leaves))
+        ts.g_opt.update(_grads(lg["g_loss"], ts.g_opt.leaves))
         ts.g_state = _detached(new_state)
         return lg
 
@@ -194,8 +233,9 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda"):
     def ema(ts: TrainState) -> None:
         decay = tcfg.ema_decay
         if tcfg.ema_rampup > 0:
-            # fade-aware ramp from step 0 (the GAN-CLS anchor)
-            t = float(max(ts.step, 0))
+            # fade-aware ramp from the bundle's anchor (C-PGGAN: the end of
+            # this stage's fade; 0 for the others)
+            t = float(max(ts.step - bundle.ema_anchor, 0))
             decay = min(decay, (1.0 + t) / (tcfg.ema_rampup + t))
         ema_leaves = [e for _, e in flatten(ts.aux["ema_g_params"])]
         live = [p for _, p in flatten(ts.g_params)]
@@ -212,14 +252,19 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda"):
                 return None
             return torch.as_tensor(noise[name]).to(device, non_blocking=True)
 
-        zs, eps_d = on_device("d"), on_device("d_eps")
+        aux = ts.aux
+        if bundle.step_aux is not None:
+            # 0-dim CPU tensors: they enter the card's kernels as scalars
+            aux = {**aux, **bundle.step_aux(ts.step)}
+        zs, eps_d, gp_eps = (on_device(k) for k in ("d", "d_eps", "gp_eps"))
         for k in range(tcfg.n_critic):
-            d_metrics = d_step(ts, images(batch["real"][k]),
+            d_metrics = d_step(ts, aux, images(batch["real"][k]),
                                images(batch["wrong"][k]), embs[k], zs[k],
-                               None if eps_d is None else eps_d[k])
+                               None if eps_d is None else eps_d[k],
+                               None if gp_eps is None else gp_eps[k])
         g_noise = [on_device(k) for k in ("g", "g_eps", "g2", "g2_eps")]
         for _ in range(tcfg.g_steps):
-            g_metrics = g_step(ts, embs[-1], *g_noise)
+            g_metrics = g_step(ts, aux, embs[-1], *g_noise)
         if tcfg.ema_decay > 0:
             ema(ts)
         ts.step += 1

@@ -9,16 +9,17 @@ steps; a checkpoint every ``snapshot_interval`` steps and at the end; the
 latest checkpoint restored on start.  ``stackgan_stage2`` takes its frozen
 Stage-I generator from a Stage-I run directory or an ``.npz``
 (`stage1_source`), or draws it from the seed when ``stage1_checkpoint`` is
-empty.
+empty.  `train_progressive` runs the whole C-PGGAN progression, one
+`Trainer` a stage, linked by the checkpoint each stage leaves.
 
-Left out: the sharded resident tier (multi-GPU, ROADMAP.md item 9) and
-``train_progressive`` (C-PGGAN, item 7).
+Left out: the sharded resident tier (multi-GPU, ROADMAP.md item 9).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -30,6 +31,7 @@ from text_to_image_tpu_torch.data import device as device_data
 from text_to_image_tpu_torch.data import native
 from text_to_image_tpu_torch.data.pipeline import InputPipeline
 from text_to_image_tpu_torch.eval.sampler import make_generator_fn, sample_grid
+from text_to_image_tpu_torch.models import pggan as PG
 from text_to_image_tpu_torch.train import checkpoint as ckpt
 from text_to_image_tpu_torch.train.steps import (init_train_state,
                                                  make_resident_step,
@@ -215,3 +217,40 @@ class Trainer:
             self.pipeline.close()
         self.metrics.close()
         self.ckpt.close()
+
+
+def train_progressive(cfg: Config, total_steps: Optional[int] = None,
+                      device="cuda") -> List[Trainer]:
+    """The C-PGGAN progression: one `Trainer` a stage (``pggan.stage``,
+    ``steps_per_stage`` and ``start_step`` replaced), each restoring the
+    checkpoint the stage before it left; the parameter trees are full-depth
+    from init, so every stage takes the same state.  Stage s runs from
+    global step (s − 1)·per_stage to s·per_stage, per_stage =
+    ``total_steps // n_stages`` (at least 1) or ``steps_per_stage``; α
+    ramps over the first ``fade_fraction`` of it.  Stages that the latest
+    checkpoint already covers are skipped.  Returns the stages' trainers
+    (closed)."""
+    n = PG.num_stages(cfg.data.image_size)
+    per_stage = (max(1, total_steps // n) if total_steps is not None
+                 else cfg.pggan.steps_per_stage)
+    mgr = ckpt.CheckpointManager(run_dir(cfg, cfg.checkpoint_dir))
+    done = mgr.latest_step() or 0
+    mgr.close()
+    first = min(done // per_stage + 1, n)
+    if first > 1:
+        print(f"[pggan] checkpoint at step {done} covers stages "
+              f"1..{first - 1}: resuming at stage {first}/{n}")
+    trainers = []
+    for stage in range(first, n + 1):
+        sub = dataclasses.replace(cfg, pggan=dataclasses.replace(
+            cfg.pggan, stage=stage, steps_per_stage=per_stage,
+            start_step=(stage - 1) * per_stage))
+        print(f"[pggan] stage {stage}/{n} ({PG.stage_resolution(stage)} px, "
+              f"steps {(stage - 1) * per_stage}→{stage * per_stage})")
+        trainer = Trainer(sub, device=device)
+        try:
+            trainer.train(num_steps=stage * per_stage)
+        finally:
+            trainer.close()
+        trainers.append(trainer)
+    return trainers

@@ -31,3 +31,10 @@ def generator(key: int) -> torch.Generator:
     """A CPU generator seeded from `key`.  Draw on the CPU, then move the
     result to the device: the same key gives the same numbers everywhere."""
     return torch.Generator().manual_seed(int(key))
+
+
+def uniform_eps(key: int, batch: int) -> torch.Tensor:
+    """Per-example ε ∈ U[0, 1) for the WGAN-GP interpolation, f32
+    [batch, 1, 1, 1] so that it broadcasts over NHWC images."""
+    e = torch.rand(batch, generator=generator(key))
+    return e[:, None, None, None]
