@@ -74,6 +74,16 @@
    then the WGAN-CLS and the stage-5 C-PGGAN ticks timed and profiled, and
    the gradient penalty's share of a critic update and the cost of the dw
    its inner gradient forms unasked;
+4e. drives the Inception-score eval, ``main.py --eval-is`` at full width
+   (phase 10, after every other phase): GAN-CLS over 4c's split with the
+   SimpleCNN finetuned on its train images, then with a 102-class
+   InceptionV3 ``<data_dir>/inception.npz`` drawn from the seed; Stage-II at
+   256 px with that ``.npz``; each with its generator launch counts, the IS
+   finite and in range, and its images/s.  Then the InceptionV3's logits
+   and an IS on the card against the CPU (f32), the IS and the
+   InceptionV3's time with TF32 allowed and off, the generators',
+   SimpleCNN's and InceptionV3's times, and the synthetic-quality protocol
+   (``evaluate``, ``evaluate_iv3``);
 5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
    kernel's bound, prints the path, tile and split of each conv, join,
@@ -2787,6 +2797,350 @@ def phase_pggan_256(device, runs):
     return last, launches
 
 
+# --- phase 10: Inception-score eval ---------------------------------------------
+
+IS_IMAGES = 3000              # main.py's default --is-images
+IS_IMAGES_STAGE2 = 640
+IS_CPU_IMAGES = 128
+IV3_LOGIT_TOL = 1e-4          # card vs CPU, of the largest |logit|, f32
+IS_CPU_TOL = 1e-3             # card vs CPU, relative IS, f32
+# evaluate_iv3's finetune: its 600 steps, or as many as fit in this many
+# seconds (which keeps phase 10 near 120 s)
+IV3_FINETUNE_BUDGET_S = 45.0
+IV3_FC_SCALE = 200.0
+
+
+def card_name():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+class EvalTimer:
+    """Around `main.main` runs: the seconds of the eval classifier's
+    finetune and of the IS loop (``eval.classifier.train_classifier`` and
+    ``eval.inception.compute_inception_score``, which ``main.py`` imports
+    when it runs), each ended by a synchronise."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    @contextlib.contextmanager
+    def recording(self):
+        from text_to_image_tpu_torch.eval import classifier, inception
+        targets = {"finetune": (classifier, "train_classifier"),
+                   "score": (inception, "compute_inception_score")}
+        saved = {k: getattr(m, n) for k, (m, n) in targets.items()}
+
+        def timed(key):
+            def fn(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = saved[key](*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds[key] = time.perf_counter() - t0
+                return out
+            return fn
+
+        for key, (mod, name) in targets.items():
+            setattr(mod, name, timed(key))
+        try:
+            yield self
+        finally:
+            for key, (mod, name) in targets.items():
+                setattr(mod, name, saved[key])
+
+
+@contextlib.contextmanager
+def tf32(allowed: bool):
+    cudnn, cublas = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, cublas.allow_tf32
+    cudnn.allow_tf32 = cublas.allow_tf32 = allowed
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, cublas.allow_tf32 = saved
+
+
+def finetune_step_ms(images, class_ids, classes, **kw):
+    """ms a `train_classifier` step (batch 64 from the host, forward,
+    backward, Adam): the difference of a 25- and a 5-step run over 20."""
+    from text_to_image_tpu_torch.eval.classifier import train_classifier
+    took = []
+    for steps in (5, 25):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_classifier(images, class_ids, classes, steps=steps, **kw)
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - t0)
+    return (took[1] - took[0]) / 20 * 1e3
+
+
+def served_generator(cfg, device):
+    """The generator that ``main.py`` samples without a checkpoint: from
+    ``cfg.seed``, weights cast to the compute dtype (Stage-II with its
+    frozen Stage-I from the seed)."""
+    from text_to_image_tpu_torch.eval import sampler
+    from text_to_image_tpu_torch.models.registry import get_model
+    from text_to_image_tpu_torch.ops import layers as L
+    from text_to_image_tpu_torch.train.steps import stage1_aux
+    bundle = get_model(cfg)
+    policy = L.Policy.from_str(cfg.dtype)
+    params, state = bundle.init(cfg.seed, device)[:2]
+    aux = stage1_aux(cfg, cfg.seed, device) if bundle.needs_stage1 else {}
+    ts = sampler.GeneratorState(
+        L.cast_weights(params, policy), state,
+        {k: L.cast_weights(v, policy) if k.endswith("params") else v
+         for k, v in aux.items()})
+    return sampler.make_generator_fn(cfg, device=device), ts
+
+
+def phase_eval_is(device, runs, card):
+    """``main.py --eval-is`` at full width on the card: (a) GAN-CLS from
+    phase 6c's Oxford-102-sized split, the SimpleCNN finetuned for 300 steps
+    on its 7,034 train images; (b) the same with ``<data_dir>/inception.npz``
+    (a 102-class InceptionV3 from the seed, written by the port in the
+    converter's layout); (c) Stage-II at 256 px over a frozen Stage-I from the
+    seed, with that ``.npz``; each with its launch counts.  Then (d) the
+    InceptionV3 and the IS on the card against the CPU (f32), (e) the IS of
+    (b)'s images and the InceptionV3's time with TF32 allowed and off, the
+    generator, SimpleCNN and InceptionV3 times, and (f) the synthetic-quality
+    protocol."""
+    from text_to_image_tpu_torch import convert
+    from text_to_image_tpu_torch.config import load_config
+    from text_to_image_tpu_torch.data import get_dataset
+    from text_to_image_tpu_torch.eval import inception_v3 as iv3
+    from text_to_image_tpu_torch.eval import synthetic_quality as quality
+    from text_to_image_tpu_torch.eval.classifier import make_classifier_fn
+    from text_to_image_tpu_torch.eval.inception import (
+        compute_inception_score, simple_classifier_apply,
+        simple_classifier_init)
+    from text_to_image_tpu_torch.models.registry import tree_to
+    from text_to_image_tpu_torch.utils import profiling
+
+    report = {"launches": {}, "card": card}
+    data_dir = os.path.join(runs, "flowers")          # phase 6c's split
+    check(os.path.isdir(os.path.join(data_dir, "train")),
+          f"no split under {data_dir}")
+    npz = os.path.join(data_dir, "inception.npz")
+    check(not os.path.exists(npz), f"{npz} exists before (a)")
+
+    def eval_is(tag, model, images, *sets):
+        timer = EvalTimer()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (_, (mean, std)), launches, said = drive(
+            ["--cfg", config_path(model), "--eval-is", "--is-images",
+             str(images), "--device", str(device), "--set",
+             f"data.data_dir={data_dir}", *sets,
+             *run_dirs(os.path.join(runs, f"is_{tag}"))], timer)
+        wall = time.perf_counter() - t0
+        check(math.isfinite(mean) and 1.0 <= mean <= FLOWERS_CLASSES + 1
+              and math.isfinite(std), f"({tag}) IS {mean} ± {std}")
+        per = (GRID_LAUNCHES if model == "gancls"
+               else STACKGAN_FORWARD_LAUNCHES[model])
+        forwards = 3 + -(-images // BATCH)          # the grids, the IS
+        want = {k.__name__: forwards * per.get(k.__name__, 0)
+                for k in all_counters()}
+        check(launches == want, f"({tag}) launches {launches}, want {want}")
+        rec = {"is_mean": mean, "is_std": std, "images": images,
+               "launches": launches, "generator_forwards": forwards,
+               "wall_s": wall, "finetune_s": timer.seconds.get("finetune"),
+               "score_s": timer.seconds["score"],
+               "is_images_per_s": images / timer.seconds["score"],
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+        report[tag] = rec
+        report["launches"][f"eval-is {tag}"] = launches
+        log(f"  ({tag}) IS {mean:.4f} ± {std:.4f} over {images} images; "
+            f"IS loop {rec['score_s']:.2f} s = {rec['is_images_per_s']:.1f} "
+            f"images/s end to end"
+            + (f", finetune {rec['finetune_s']:.2f} s"
+               if rec["finetune_s"] else "")
+            + f", whole call {wall:.2f} s, peak {rec['peak_memory_gib']:.2f} "
+            f"GiB [{card}]; launches {launches} ({forwards} generator "
+            f"forwards)")
+        return said
+
+    flowers = "data.dataset_name=flowers"
+    said = eval_is("a gancls simplecnn", "gancls", IS_IMAGES, flowers)
+    # class_info is 1-based (StackGAN's pickles), so max + 1 = 103 classes,
+    # the first never drawn, as in the root main.py
+    check(f"finetuning eval classifier ({FLOWERS_CLASSES + 1} classes)" in said
+          and "classifier train accuracy" in said, "(a) no SimpleCNN finetune")
+    # the fc scaled up so that the posteriors are far from uniform, as a
+    # finetuned classifier's are (at its init std 0.01 every IS is ~1)
+    iv3_cpu = iv3.init(SEED, FLOWERS_CLASSES)
+    iv3_cpu["fc"]["w"] *= IV3_FC_SCALE
+    convert.save_classifier_npz(npz, iv3_cpu)
+    said = eval_is("b gancls inceptionv3", "gancls", IS_IMAGES, flowers)
+    check(f"using converted classifier checkpoint {npz}" in said,
+          "(b) the converted InceptionV3 was not used")
+    said = eval_is("c stackgan_stage2 inceptionv3", "stackgan_stage2",
+                   IS_IMAGES_STAGE2, "data.dataset_name=synthetic",
+                   "stage1_checkpoint=")
+    check("using converted classifier checkpoint" in said,
+          "(c) the converted InceptionV3 was not used")
+
+    # (d) the card against the CPU, f32 (TF32 is off in this script)
+    iv3_dev = tree_to(iv3_cpu, device)
+    g = torch.Generator().manual_seed(SEED + 7)
+    x = torch.rand(8, 64, 64, 3, generator=g) * 2 - 1
+    with torch.inference_mode():
+        dev = iv3.apply(iv3_dev, x.to(device)).cpu()
+        ref = iv3.apply(iv3_cpu, x)
+    rel = float((dev - ref).abs().max() / ref.abs().max())
+    log(f"  (d) InceptionV3 logits, batch 8, f32, TF32 off, card vs CPU: "
+        f"max|err| {rel:.3e} of max|logit| {float(ref.abs().max()):.4f} "
+        f"(tol {IV3_LOGIT_TOL:g})")
+    check(rel <= IV3_LOGIT_TOL, f"InceptionV3 card vs CPU {rel:.3e}")
+    cfg32 = train_config("gancls", dtype="float32")
+    emb = get_dataset(cfg32, split="test").test_embeddings()
+    scores, probs = {}, {}
+    for dev_name, clf_params in ((device, iv3_dev), ("cpu", iv3_cpu)):
+        gen, ts = served_generator(cfg32, dev_name)
+        clf = iv3.make_classifier(clf_params)
+        probs[str(dev_name)] = []
+
+        def scored(x, clf=clf, got=probs[str(dev_name)]):
+            logits = clf(x)
+            got.append(logits.softmax(-1).cpu())
+            return logits
+        scores[str(dev_name)] = compute_inception_score(
+            lambda z, e, eps: gen(ts.g_params, ts.g_state, ts.aux, z, e, eps),
+            scored, emb, num_images=IS_CPU_IMAGES, batch_size=BATCH,
+            z_dim=cfg32.gan.z_dim, seed=SEED)
+    (dm, ds_), (cm, cs_) = scores[str(device)], scores["cpu"]
+    is_rel = abs(dm - cm) / cm
+    prob_err = float((torch.cat(probs[str(device)])
+                      - torch.cat(probs["cpu"])).abs().max())
+    log(f"  (d) IS of {IS_CPU_IMAGES} images, GAN-CLS f32 from the seed, "
+        f"InceptionV3: card {dm:.6f} ± {ds_:.6f}, CPU {cm:.6f} ± {cs_:.6f}, "
+        f"relative {is_rel:.3e} (tol {IS_CPU_TOL:g}); class posteriors "
+        f"max|err| {prob_err:.3e}")
+    check(is_rel <= IS_CPU_TOL, f"IS card vs CPU {is_rel:.3e}")
+    report["card_vs_cpu"] = {"iv3_logits_rel_err": rel, "is_card": [dm, ds_],
+                             "is_cpu": [cm, cs_], "is_rel_err": is_rel,
+                             "posterior_max_abs_err": prob_err}
+    del gen, ts
+    torch.cuda.empty_cache()
+
+    # (e) TF32, and the times of the eval path's parts
+    flush = L2Flush(device)
+    cfg = load_config(config_path("gancls"), {"data.dataset_name": "flowers",
+                                              "data.data_dir": data_dir})
+    gen, ts = served_generator(cfg, device)
+    emb = get_dataset(cfg, split="test").test_embeddings()
+    iv3_npz = iv3.load_npz(npz, device)
+    tf32_is, iv3_ms = {}, {}
+    imgs = gen(ts.g_params, ts.g_state, ts.aux,
+               torch.randn(BATCH, cfg.gan.z_dim, generator=g), emb[:BATCH])
+    for allowed in (False, True):
+        def clf(images, allowed=allowed):
+            with torch.inference_mode(), tf32(allowed):
+                return iv3.apply(iv3_npz, images)
+        key = "tf32" if allowed else "f32"
+        tf32_is[key] = compute_inception_score(
+            lambda z, e, eps: gen(ts.g_params, ts.g_state, ts.aux, z, e, eps),
+            clf, emb, num_images=IS_IMAGES, batch_size=min(BATCH, IS_IMAGES),
+            z_dim=cfg.gan.z_dim, seed=cfg.seed)
+        iv3_ms[key] = time_ms(lambda: clf(imgs), flush, iters=10)
+    b_mean = report["b gancls inceptionv3"]["is_mean"]
+    log(f"  (e) IS of (b)'s {IS_IMAGES} images: TF32 off {tf32_is['f32'][0]:.6f}"
+        f" ± {tf32_is['f32'][1]:.6f} ((b) via main.py {b_mean:.6f}), TF32 "
+        f"allowed {tf32_is['tf32'][0]:.6f} ± {tf32_is['tf32'][1]:.6f}; "
+        f"InceptionV3 forward, batch 64 from 64 px: {iv3_ms['f32']:.3f} ms "
+        f"TF32 off, {iv3_ms['tf32']:.3f} ms allowed [{card}]")
+    gcfg = load_config(config_path("stackgan_stage2"),
+                       {"data.dataset_name": "synthetic",
+                        "stage1_checkpoint": ""})
+    s2gen, s2ts = served_generator(gcfg, device)
+    s2emb = get_dataset(gcfg, split="test").test_embeddings(BATCH)
+    # inputs on the card: a host tensor's copy would wait for the spin
+    z = torch.randn(BATCH, cfg.gan.z_dim, generator=g).to(device)
+    eps = torch.randn(*s2gen.eps_shape(BATCH), generator=g).to(device)
+    emb_d, s2emb = (torch.as_tensor(e[:BATCH]).to(device) for e in (emb, s2emb))
+    times = {
+        "generator gancls (bf16, train-mode BN)": time_ms(
+            lambda: gen(ts.g_params, ts.g_state, ts.aux, z, emb_d),
+            flush, iters=10, spin=4 * HOST_SPIN),
+        "generator stackgan_stage2 (bf16, frozen Stage-I)": time_ms(
+            lambda: s2gen(s2ts.g_params, s2ts.g_state, s2ts.aux, z, s2emb,
+                          eps), flush, iters=10, spin=4 * HOST_SPIN),
+        "inceptionv3 forward, TF32 off": iv3_ms["f32"],
+        "inceptionv3 forward, TF32 allowed": iv3_ms["tf32"]}
+    del s2gen, s2ts
+    simple = tree_to(simple_classifier_init(SEED, FLOWERS_CLASSES), device)
+    simple_fn = make_classifier_fn(simple, simple_classifier_apply)
+    times["simplecnn forward"] = time_ms(lambda: simple_fn(imgs), flush,
+                                         iters=10, spin=4 * HOST_SPIN)
+    train = get_dataset(cfg, split="train")
+    classes = int(train.class_ids.max()) + 1
+    times["simplecnn finetune step (76 px)"] = finetune_step_ms(
+        train.images, train.class_ids, classes, device=device)
+    times["inceptionv3 finetune step (76 px)"] = iv3_step = finetune_step_ms(
+        train.images, train.class_ids, classes, lr=3e-4,
+        init_fn=lambda k: iv3.init(k, classes), apply_fn=iv3.apply,
+        device=device)
+    for name, ms in times.items():
+        log(f"  (e) {name}: {ms:.3f} ms per batch of {BATCH} [{card}]")
+    report["tf32"] = {"is": tf32_is, "is_b_main": b_mean}
+    report["times_ms"] = times
+
+    # one IS batch of (b) (generator, InceptionV3 with TF32 off, posteriors
+    # to the host) under utils/profiling.trace: its device time by kernel
+    trace_dir = os.path.join(runs, "trace")
+    clf = iv3.make_classifier(iv3_npz)
+    with profiling.trace(trace_dir) as prof:
+        clf(gen(ts.g_params, ts.g_state, ts.aux, z, emb_d)).softmax(-1).cpu()
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:100])
+                      for e in prof.key_averages() if is_kernel(e)),
+                     reverse=True)
+    busy = sum(k[0] for k in kernels)
+    check(busy > 0 and len(os.listdir(trace_dir)) == 1,
+          "profiling.trace saw no device time or wrote no trace")
+    log(f"  (e) one IS batch of (b) under profiling.trace: device busy "
+        f"{busy:.3f} ms in {sum(k[1] for k in kernels)} launches; top: "
+        + "; ".join(f"{ms:.3f} ms ×{n} {name[:60]}"
+                    for ms, n, name in kernels[:5]) + f" [{card}]")
+    report["is_batch_profile"] = {"device_busy_ms": busy,
+                                  "top_kernels_ms_calls_name": kernels[:25]}
+    del gen, ts, imgs, iv3_npz, simple, clf, prof
+    torch.cuda.empty_cache()
+
+    # (f) the synthetic-quality protocol at 64 px, at its defaults
+    fcfg = flagship_config()
+    ds = get_dataset(fcfg)
+    gen, ts = served_generator(fcfg, device)
+    t0 = time.perf_counter()
+    got = quality.evaluate(gen, ts, fcfg, ds, device=device)
+    secs = time.perf_counter() - t0
+    check(set(got) == {"r", "clf_acc", "cond_acc", "is_mean", "is_std"}
+          and -1 <= got["r"] <= 1 and 1 <= got["is_mean"] <= 8
+          and 0 <= got["cond_acc"] <= 1, f"(f) evaluate {got}")
+    steps = min(600, int(IV3_FINETUNE_BUDGET_S * 1e3 / iv3_step))
+    if steps < 600:
+        log(f"  (f) evaluate_iv3: {steps} finetune steps, not 600: at "
+            f"{iv3_step:.1f} ms a step 600 would take "
+            f"{600 * iv3_step / 1e3:.0f} s of this script's budget")
+    t0 = time.perf_counter()
+    got_iv3 = quality.evaluate_iv3(gen, ts, fcfg, ds, clf_steps=steps,
+                                   device=device)
+    secs_iv3 = time.perf_counter() - t0
+    check(set(got_iv3) == {"iv3_clf_acc", "iv3_cond_acc", "iv3_is_mean",
+                           "iv3_is_std"} and 1 <= got_iv3["iv3_is_mean"] <= 8,
+          f"(f) evaluate_iv3 {got_iv3}")
+    log(f"  (f) synthetic protocol, GAN-CLS from the seed at 64 px: "
+        f"evaluate {got} in {secs:.1f} s; evaluate_iv3 ({steps} steps) "
+        f"{got_iv3} in {secs_iv3:.1f} s [{card}]")
+    report["synthetic_quality"] = {"evaluate": got, "evaluate_s": secs,
+                                   "evaluate_iv3": got_iv3,
+                                   "evaluate_iv3_s": secs_iv3,
+                                   "iv3_steps": steps}
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -2966,11 +3320,15 @@ def run(runs: str) -> int:
     wgan["gp_cost"] = phase_gp_cost(device)
     torch.cuda.empty_cache()
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
+    log(f"phase 10: Inception-score eval (main.py --eval-is: GAN-CLS with "
+        f"the SimpleCNN and with an InceptionV3 .npz, Stage-II), the card vs "
+        f"the CPU, TF32, the synthetic-quality protocol [{card}]")
+    t0 = time.perf_counter()
+    eval_is = phase_eval_is(device, runs, card)
+    launches_by_path.update(eval_is.pop("launches"))
+    log(f"  (phase 10: {time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
 
     src = "text_to_image_tpu_torch/"
     meta = {
@@ -3043,7 +3401,8 @@ def run(runs: str) -> int:
               "tick": tick, "tick_profile": tick_profile,
               "launches_by_path": launches_by_path, "stackgan": stackgan,
               "data_checkpoint": data_ckpt, "wgancls": wgan,
-              "pggan": pggan, "upconv3x3_pggan_shapes": pg_upconv_rows,
+              "pggan": pggan, "eval_is": eval_is,
+              "upconv3x3_pggan_shapes": pg_upconv_rows,
               "conv5x5_s2_act_256px_d": conv_256_rows,
               "conv5x5_s2_act_paths": conv_paths,
               "batch_norm_calls": bn_rows, "batch_norm_plans": bn_plans}

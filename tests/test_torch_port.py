@@ -33,35 +33,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the package (walked, ``tools/`` included) and
+    ``chip_smoke.py`` import with ``jax`` made unimportable, and none of
+    them loads a module of the JAX package."""
     code = textwrap.dedent("""
-        import sys
+        import importlib, pkgutil, sys
         sys.modules["jax"] = None          # any `import jax` now fails
-        import text_to_image_tpu_torch.main
-        import text_to_image_tpu_torch.eval.sampler
-        import text_to_image_tpu_torch.convert
-        import text_to_image_tpu_torch.data
-        import text_to_image_tpu_torch.utils.images
-        import text_to_image_tpu_torch.models.registry
-        import text_to_image_tpu_torch.models.stackgan
-        import text_to_image_tpu_torch.models.pggan
-        import text_to_image_tpu_torch.ops.kernels.conv
-        import text_to_image_tpu_torch.ops.kernels.fused
-        import text_to_image_tpu_torch.ops.kernels._build
-        import text_to_image_tpu_torch.models.losses
-        import text_to_image_tpu_torch.train.optim
-        import text_to_image_tpu_torch.train.state
-        import text_to_image_tpu_torch.train.steps
-        import text_to_image_tpu_torch.train.trainer
-        import text_to_image_tpu_torch.train.checkpoint
-        import text_to_image_tpu_torch.data.device
-        import text_to_image_tpu_torch.data.native
-        import text_to_image_tpu_torch.data.natural
-        import text_to_image_tpu_torch.data.pipeline
-        import text_to_image_tpu_torch.data.preprocess
-        import text_to_image_tpu_torch.data.t7
-        import text_to_image_tpu_torch.data.textdataset
-        import text_to_image_tpu_torch.utils.metrics
-        import text_to_image_tpu_torch.utils.tensorboard
+        import text_to_image_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                       pkg.__name__ + ".")]
+        for name in names + ["chip_smoke"]:
+            importlib.import_module(name)
+        assert len(names) > 40, names
+        assert "text_to_image_tpu_torch.eval.inception_v3" in names
         bad = sorted(m for m in sys.modules
                      if m == "text_to_image_tpu"
                      or m.startswith("text_to_image_tpu."))

@@ -20,6 +20,11 @@ gives the frozen generator inside Stage-II (`load_stage1_generator`).
 ``aux['ema_g_params']``, Stage-II's ``aux['stage1_g_params' |
 'stage1_g_state']`` and each ``optax.adam`` state's update count and
 moments, so the port computes the same next tick.
+
+`from_jax_classifier` carries an eval classifier (a JAX InceptionV3 tree,
+as the ``.npz`` of ``scripts/convert_inception.py`` holds it, or a
+SimpleCNN), so a JAX-finetuned classifier scores the same images the same
+way in the port.
 """
 
 from __future__ import annotations
@@ -185,3 +190,50 @@ def load_stage1_generator(path: str, device="cuda"
     from text_to_image_tpu_torch.train import checkpoint
     return from_jax_generator(*checkpoint.load_stage1_generator(path, "cpu"),
                               device)
+
+
+def _check_shapes(tree, want, path: str) -> None:
+    """`tree` has exactly the names of `want` at every level and each leaf
+    its shape."""
+    if isinstance(want, dict):
+        if not isinstance(tree, dict) or set(tree) != set(want):
+            got = sorted(tree) if isinstance(tree, dict) else "a leaf"
+            raise ValueError(f"classifier {path or 'tree'}: entries {got}, "
+                             f"want {sorted(want)}")
+        for k, v in want.items():
+            _check_shapes(tree[k], v, f"{path}/{k}" if path else k)
+    elif tuple(np.shape(tree)) != want:
+        raise ValueError(f"classifier {path}: shape {np.shape(tree)}, "
+                         f"want {want}")
+
+
+def from_jax_classifier(params: Dict, device="cuda") -> Dict:
+    """A JAX eval-classifier param tree (numpy, as ``jax.device_get`` or the
+    ``.npz`` of ``scripts/convert_inception.py`` gives it) → the port's f32
+    tensors on `device`, after checking every name and shape: a full
+    InceptionV3 when it holds ``mixed_5b`` (``eval/inception_v3.py``
+    `param_shapes`), else the SimpleCNN of ``eval/inception.py``
+    (`simple_classifier_shapes`); the class count and the SimpleCNN's width
+    are read from the tree."""
+    from text_to_image_tpu_torch.eval import inception, inception_v3
+    try:
+        classes = np.shape(params["fc"]["b"])[0]
+        want = (inception_v3.param_shapes(classes) if "mixed_5b" in params
+                else inception.simple_classifier_shapes(
+                    classes, np.shape(params["c1"]["w"])[-1]))
+    except (KeyError, IndexError, TypeError) as e:
+        raise ValueError(f"not a classifier tree: no {e}") from None
+    _check_shapes(params, want, "")
+    return _to_torch(params, device)
+
+
+def save_classifier_npz(path: str, params: Dict) -> None:
+    """Write a classifier tree (torch or numpy leaves) as
+    ``scripts/convert_inception.py`` writes one — a pickled object array
+    ``params`` — which `eval.inception.load_classifier` of both packages
+    reads."""
+    def host(tree):
+        return {k: host(v) if isinstance(v, dict) else
+                (v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor)
+                 else np.asarray(v, np.float32)) for k, v in tree.items()}
+    np.savez(path, params=np.array(host(params), dtype=object))

@@ -2,6 +2,7 @@
 
     python -m text_to_image_tpu_torch.main --cfg configs/gancls_flowers.yml \
         [--train [--steps N]] [--weights g.npz] \
+        [--eval-is [--is-images N]] \
         [--set data.data_dir=... ...] [--device cuda]
 
 ``--train`` runs the training loop (``train/trainer.py``) to step N (for
@@ -17,6 +18,12 @@ and the latent- and text-interpolation grids under
 of the latest checkpoint, else one initialised from ``cfg.seed`` (the root
 ``main.py`` refuses that last case: "train first"; the port samples it, so
 that the serving path runs without a training run).  It prints which.
+``--eval-is`` then computes the Inception score of ``--is-images`` images
+(``eval/inception.py``) from the live generator params (the grids take the
+EMA where there is one; the root ``main.py`` does the same): classified by
+the converted InceptionV3 of ``inception_checkpoint``, else of
+``<data_dir>/inception.npz`` when that file exists, else by the SimpleCNN
+finetuned for 300 steps on the train split's images as they are stored.
 ``stackgan_stage2`` takes its frozen Stage-I generator from the Stage-I
 run directory or ``.npz`` that ``stage1_checkpoint`` names
 (`train.trainer.stage1_source`), and draws one from ``cfg.seed`` when that
@@ -47,6 +54,12 @@ def parse_args(argv=None):
                    help="train (else: sample the three grids)")
     p.add_argument("--steps", type=int, default=None,
                    help="train to this step (default: max_epoch epochs)")
+    p.add_argument("--eval-is", action="store_true",
+                   help="also compute the Inception score (finetunes the "
+                        "eval classifier on the dataset without a converted "
+                        "one, reference protocol)")
+    p.add_argument("--is-images", type=int, default=3000,
+                   help="generated images for the IS estimate (ref: ~30k)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions")
     p.add_argument("--set", nargs="*", default=[],
@@ -72,8 +85,10 @@ def parse_overrides(pairs):
     return overrides
 
 
-def evaluate(cfg: Config, weights: str | None = None, device="cuda") -> str:
-    """Write the three grids; returns the output directory."""
+def evaluate(cfg: Config, weights: str | None = None, device="cuda",
+             eval_is: bool = False, is_images: int = 3000):
+    """Write the three grids; returns the output directory, and with
+    `eval_is` the pair (directory, (IS mean, IS std))."""
     import numpy as np
 
     from text_to_image_tpu_torch import convert
@@ -135,7 +150,49 @@ def evaluate(cfg: Config, weights: str | None = None, device="cuda") -> str:
                                          emb[rows:2 * rows], 8, generator=g)
     save_images(imgs, os.path.join(out, "t_interp.png"), grid)
     print(f"wrote grids under {out}")
-    return out
+    if not eval_is:
+        return out
+    return out, eval_inception_score(cfg, gen, ts, dataset, is_images, device)
+
+
+def eval_inception_score(cfg: Config, gen, ts, dataset, is_images: int,
+                         device="cuda"):
+    """The reference IS protocol over the live ``ts.g_params``: returns
+    (mean, std) and prints it."""
+    import numpy as np
+
+    from text_to_image_tpu_torch.data import get_dataset
+    from text_to_image_tpu_torch.eval.classifier import (make_classifier_fn,
+                                                         train_classifier)
+    from text_to_image_tpu_torch.eval.inception import (
+        compute_inception_score, load_classifier)
+
+    inception_npz = cfg.inception_checkpoint or os.path.join(
+        cfg.data.data_dir, "inception.npz")
+    if os.path.exists(inception_npz):
+        print(f"using converted classifier checkpoint {inception_npz}")
+        classifier = load_classifier(inception_npz, device)
+    else:
+        train_ds = get_dataset(cfg, split="train")
+        num_classes = int(train_ds.class_ids.max()) + 1
+        print(f"finetuning eval classifier ({num_classes} classes)…")
+        clf_params, acc = train_classifier(train_ds.images,
+                                           train_ds.class_ids, num_classes,
+                                           steps=300, device=device)
+        print(f"classifier train accuracy {acc:.3f}")
+        classifier = make_classifier_fn(clf_params)
+
+    def gen_batch(z, e, eps):
+        return gen(ts.g_params, ts.g_state, ts.aux, z, e, eps)
+
+    mean, std = compute_inception_score(
+        gen_batch, classifier,
+        np.asarray(dataset.test_embeddings(), np.float32),
+        num_images=is_images, batch_size=min(64, is_images),
+        z_dim=cfg.gan.z_dim, seed=cfg.seed, eps_shape=gen.eps_shape)
+    print(f"Inception score: {mean:.3f} ± {std:.3f} "
+          f"({is_images} images, 10 splits)")
+    return mean, std
 
 
 def train(cfg: Config, steps: int | None = None, device="cuda"):
@@ -156,13 +213,14 @@ def train(cfg: Config, steps: int | None = None, device="cuda"):
 
 
 def main(argv=None):
-    """Returns what `train` returns (``--train``) or the grids'
-    directory."""
+    """Returns what `train` returns (``--train``) or what `evaluate`
+    returns."""
     args = parse_args(argv)
     cfg = load_config(args.cfg, parse_overrides(args.set) or None)
     if args.train:
         return train(cfg, args.steps, device=args.device)
-    return evaluate(cfg, weights=args.weights, device=args.device)
+    return evaluate(cfg, weights=args.weights, device=args.device,
+                    eval_is=args.eval_is, is_images=args.is_images)
 
 
 if __name__ == "__main__":
