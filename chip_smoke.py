@@ -84,6 +84,20 @@
    InceptionV3's time with TF32 allowed and off, the generators',
    SimpleCNN's and InceptionV3's times, and the synthetic-quality protocol
    (``evaluate``, ``evaluate_iv3``);
+4f. checks data parallelism on the card (phase 11, last): ``bn_partials``
+   and ``bn_finish`` at every BN call of the GAN-CLS tick cut into 1, 2 and
+   4 pieces (against their plain versions, bit for bit between two runs,
+   the merged statistics against one ``bn_stats``, the synced backward
+   against autograd), timed on a rank's half; GAN-CLS at full width on 2
+   ranks sharing the card over gloo against one process at batch 64 (f32:
+   the JAX package's DP tolerances over every element, the all-reduced
+   gradients of a tick at learning rate 0; bf16: the ranks bit-identical,
+   the launches a rank and tick), WGAN-CLS with GAN-INT and C-PGGAN stage
+   4 the same way; one rank over nccl against the tick without a group
+   (ms, launches, bytes all-reduced, one tick of each profiled); and
+   ``torchrun`` of ``main.py --train``
+   on 2 ranks over the sharded tier of 4c's split, 3 + 3 ticks
+   bit-identical to 6;
 5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
    kernel's bound, prints the path, tile and split of each conv, join,
@@ -113,6 +127,7 @@ import math
 import os
 import pickle
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1517,8 +1532,8 @@ class RunRecorder:
         real_step, real_samples = T.make_resident_step, T.Trainer.save_samples
         real_restore = ckpt.CheckpointManager.restore
 
-        def make_resident_step(cfg, spe, device):
-            inner = real_step(cfg, spe, device)
+        def make_resident_step(cfg, spe, device, env=None):
+            inner = real_step(cfg, spe, device, env)
 
             def step(ts, data):
                 batch = inner.batch_at(data, ts.step)
@@ -3141,6 +3156,515 @@ def phase_eval_is(device, runs, card):
     return report
 
 
+# --- phase 11: data parallelism on the card ---------------------------------
+
+DP_RANKS = 2
+DP_BN_SPLITS = (1, 2, 4)
+# the GAN-CLS tick's train-mode BN calls (input at batch 64, streams, act):
+# the generator's four and the discriminator's over three streams and one
+DP_BN_CALLS = ([(s, 1, "relu") for s in BN_SHAPES]
+               + [((k * BATCH, *s[1:]), k, "lrelu") for k in (3, 1)
+                  for s in D_BN_SHAPES])
+# D pieces merged against one bn_stats over the whole batch: f32 sums over
+# other partitions of up to 65536 rows a stream
+DP_STATS_TOL = (1e-5, 1e-5)
+# D ranks on a global batch against one process on it: the JAX package's
+# data-parallel tolerances (tests/test_parallel.py): metrics rtol / atol,
+# params within a few Adam steps
+DP_METRIC_TOL = (5e-3, 1e-4)
+DP_PARAM_LRS = 10
+# all-reduced gradients against one process's, both from the same params
+# (f32, TF32 off), as ‖Δ‖ / (‖g_leaf‖ + max ‖g‖ of the net): another
+# reduction order reads up to 3.4e-4 (GAN-CLS) and 2.3e-3 (C-PGGAN's second
+# critic update: the GP's second derivative through the stddev's square
+# root) on an H100; a missing ÷ D reads 0.5 on the largest leaf, a leaf
+# of norm f·max ‖g‖ counted twice f / (1 + f)
+DP_GRAD_RTOL = 1e-2
+DP_AT_REST = {"train.generator_lr": 0.0, "train.discriminator_lr": 0.0}
+DP_TIMEOUT_S = 240
+# per rank and tick of the data-parallel GAN-CLS tick: TICK_LAUNCHES with
+# each BN forward's bn_stats replaced by bn_partials and bn_finish around
+# the all-gather (3 launches forward, 2 backward a BN call)
+DP_TICK_LAUNCHES = {**TICK_LAUNCHES, "bn_stats": 0,
+                    "bn_partials": TICK_LAUNCHES["bn_stats"],
+                    "bn_finish": TICK_LAUNCHES["bn_stats"], "upconv3x3": 0}
+DP_NCCL_TICKS = 8
+
+
+def dp_pieces(x, streams, d):
+    """Rank r's piece of x ([S·R, …]): rows r·R/d … (r + 1)·R/d of every
+    stream, contiguous."""
+    xs = x.reshape(streams, -1, *x.shape[1:])
+    n = xs.shape[1] // d
+    return [xs[:, r * n:(r + 1) * n].reshape(-1, *x.shape[1:]).contiguous()
+            for r in range(d)]
+
+
+def dp_whole(pieces, streams):
+    return torch.cat([p.reshape(streams, -1, *p.shape[1:]) for p in pieces],
+                     1).reshape(-1, *pieces[0].shape[1:])
+
+
+def phase_dp_bn_kernels(device, flush):
+    """(a) bn_partials and bn_finish at every BN call of the GAN-CLS tick,
+    its batch cut into D = 1, 2, 4 pieces in one process (bf16 and f32):
+    each against its plain version, bit-identical over two runs, the merged
+    statistics against one bn_stats over the whole batch (bit for bit at
+    D = 1), and the synced backward (bn_bwd_reduce of each piece, the sums
+    added as the all-reduce adds them, bn_bwd_apply over the global row
+    count) against torch.autograd through the plain versions (f32, TF32
+    off; without the relu / lrelu kink, as phase_bn_backward).  Then both
+    kernels timed at a rank's half of each call (D = 2, bf16) beside their
+    plain versions, their bound and PyTorch's SyncBatchNorm kernels for the
+    same step (`batch_norm_stats`, `batch_norm_gather_stats_with_counts`;
+    one stream only)."""
+    from text_to_image_tpu_torch.ops.kernels import fused
+    gen = torch.Generator().manual_seed(SEED + 40)
+    errs = {"bn_partials": {}, "bn_finish": {}, "synced_backward": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for shape, s, act in DP_BN_CALLS:
+            x, gamma, beta, rm, rv = bn_train_inputs(shape, dtype, device, gen)
+            state = (gamma, beta, rm, rv)
+            whole = fused.bn_stats(x, s, *state)
+            for d in DP_BN_SPLITS:
+                what = f"{dt} {shape} S={s} D={d}"
+                key = (dtype, (*shape, s, d))
+                pieces = dp_pieces(x, s, d)
+                parts = [fused.bn_partials(p, s) for p in pieces]
+                again = [fused.bn_partials(p, s) for p in pieces]
+                torch.cuda.synchronize()
+                check(all(torch.equal(u, v) for u, v in zip(parts, again)),
+                      f"bn_partials {what}: outputs differ between two runs")
+                errs["bn_partials"][key] = compare_all(
+                    [(f"rank {r}", p, fused.bn_partials_plain(q, s))
+                     for r, (p, q) in enumerate(zip(parts, pieces))],
+                    *STATS_TOL, f"bn_partials {what}")
+                stacked = torch.stack(parts)
+                out = fused.bn_finish(stacked, *state)
+                again = fused.bn_finish(stacked, *state)
+                torch.cuda.synchronize()
+                check(all(torch.equal(u, v) for u, v in zip(out, again)),
+                      f"bn_finish {what}: outputs differ between two runs")
+                names = ("mean", "rstd", "a", "b", "new mean", "new var")
+                errs["bn_finish"][key] = compare_all(
+                    zip(names, out, fused.bn_finish_plain(stacked, *state)),
+                    *STATS_TOL, f"bn_finish {what}")
+                if d == 1:
+                    check(all(torch.equal(u, v) for u, v in zip(out, whole)),
+                          f"bn_finish {what}: not bn_stats' bits")
+                else:
+                    compare_all(zip(names, out, whole), *DP_STATS_TOL,
+                                f"merged vs one bn_stats {what}")
+                if dtype == torch.float32:     # without the kink: smooth
+                    errs["synced_backward"][key] = dp_synced_backward(
+                        x, pieces, out, state, s, smooth(act), d, gen, what)
+            del x, whole
+        torch.cuda.empty_cache()
+
+    # timing: a rank's half of each call, bf16
+    rows = []
+    dtype = torch.bfloat16
+    for shape, s, act in DP_BN_CALLS:
+        x, gamma, beta, rm, rv = bn_train_inputs(shape, dtype, device, gen)
+        half = dp_pieces(x, s, DP_RANKS)[0]
+        c = shape[-1]
+        parts = fused.bn_partials(half, s)
+        stacked = torch.stack([parts, fused.bn_partials(
+            dp_pieces(x, s, DP_RANKS)[1], s)])
+        out = fused.bn_finish(stacked, gamma, beta, rm, rv)
+        per_c = nbytes(gamma, beta, rm, rv)
+        r = {"shape": list(half.shape), "streams": s, "act": act,
+             "ranks": DP_RANKS}
+        lib_p = lib_f = None
+        if s == 1:        # SyncBatchNorm's two steps, one stream a call
+            xv = half.permute(0, 3, 1, 2)
+            m, i = torch.batch_norm_stats(xv, 1e-5)
+            means, invs = m.repeat(DP_RANKS, 1), i.repeat(DP_RANKS, 1)
+            counts = torch.full((DP_RANKS,), float(half.numel() // c),
+                                device=device)
+            rm2, rv2 = rm.clone(), rv.clone()
+
+            def lib_p():
+                return torch.batch_norm_stats(xv, 1e-5)
+
+            def lib_f():
+                return torch.batch_norm_gather_stats_with_counts(
+                    xv, means, invs, rm2, rv2, 0.1, 1e-5, counts)
+        for name, fn, plain, lib, nb in (
+                ("bn_partials", lambda: fused.bn_partials(half, s),
+                 lambda: fused.bn_partials_plain(half, s), lib_p,
+                 nbytes(half, parts)),
+                ("bn_finish", lambda: fused.bn_finish(stacked, gamma, beta,
+                                                      rm, rv),
+                 lambda: fused.bn_finish_plain(stacked, gamma, beta, rm, rv),
+                 lib_f, nbytes(stacked, *out) + per_c)):
+            bms, by = bound(nb, 0, torch.float32)
+            ms = time_ms(fn, flush, spin=HOST_SPIN)
+            r[name] = {"ms": ms, "plain_ms": time_ms(plain, flush, 5),
+                       "library_ms": (None if lib is None else
+                                      time_ms(lib, flush, spin=HOST_SPIN)),
+                       "bound_ms": bms, "bound_by": by}
+        rows.append(r)
+        log(f"  rank's half {tuple(half.shape)} S={s}: " + ", ".join(
+            f"{k} {r[k]['ms']:.4f} ms (bound {r[k]['bound_ms']:.5f}, plain "
+            f"{r[k]['plain_ms']:.4f}, torch {r[k]['library_ms']})"
+            for k in ("bn_partials", "bn_finish")))
+        del x, half
+    torch.cuda.empty_cache()
+    return ({k: {f"{str(dt)[6:]} {list(sh)}": v for (dt, sh), v in d.items()}
+             for k, d in errs.items()}, rows)
+
+
+def dp_synced_backward(x, pieces, stats, state, s, act, d, gen, what):
+    """The D ranks' backward of one BN call (each piece's bn_bwd_reduce, the
+    sums added in rank order as the all-reduce adds them, bn_bwd_apply over
+    the global rows of a stream) against torch.autograd through the plain
+    versions on the whole batch, f32."""
+    from text_to_image_tpu_torch.ops.kernels import fused
+    gamma, beta, rm, rv = state
+    mean, rstd, a, b = stats[:4]
+    g = torch.randn(x.shape, generator=gen).to(x.device, x.dtype)
+    ys = [fused._bn_act_forward(p, a, b, act) for p in pieces]
+    gs = dp_pieces(g, s, d)
+    sums = [fused.bn_bwd_reduce(gp, yp, xp, mean, rstd, s, act)
+            for gp, yp, xp in zip(gs, ys, pieces)]
+    sga, sgx, dgamma, dbeta = (sum(t[i] for t in sums) for i in range(4))
+    count = x.numel() // x.shape[-1] // s
+    dx = dp_whole([fused.bn_bwd_apply(gp, yp, xp, mean, rstd, gamma, sga, sgx,
+                                      s, act, count)
+                   for gp, yp, xp in zip(gs, ys, pieces)], s)
+    xr, gr, br = (t.detach().clone().requires_grad_(True)
+                  for t in (x, gamma, beta))
+    _, _, ar, brr, _, _ = fused.bn_stats_plain(xr, s, gr, br, rm, rv)
+    yr = fused.bn_act_plain(xr, ar, brr, act)
+    ref = torch.autograd.grad(yr, (xr, gr, br), g)
+    return compare_all(zip(("dx", "dgamma", "dbeta"), (dx, dgamma, dbeta),
+                           ref), GRAD_REL, GRAD_REL,
+                       f"synced backward {what}", rel_to_max=True)
+
+
+def dp_spec(model, dtype, ticks, backend="gloo", world=DP_RANKS, seed=0,
+            **overrides):
+    """A dp_ticks spec: `model`'s config at full width on synthetic data,
+    `ticks` random global batches of batch 64 (uint8 images), every rank on
+    card 0."""
+    import dataclasses as dc
+    cfg = train_config(model, dtype=dtype, **overrides)
+    gen = torch.Generator().manual_seed(SEED + 50 + seed)
+    k, b, res = cfg.train.n_critic, cfg.train.batch_size, cfg.data.image_size
+    batches = [{"real": torch.randint(0, 256, (k, b, res, res, 3),
+                                      generator=gen, dtype=torch.uint8),
+                "wrong": torch.randint(0, 256, (k, b, res, res, 3),
+                                       generator=gen, dtype=torch.uint8),
+                "emb": torch.randn(k, b, cfg.gan.embed_dim, generator=gen)}
+               for _ in range(ticks)]
+    return cfg, {"cfg": dc.asdict(cfg), "mesh": {"data": -1}, "world": world,
+                 "backend": backend, "device": "cuda", "batches": batches}
+
+
+def dp_grads_at_rest(what, model, launch, device, **overrides):
+    """One f32 tick of `model` at learning rate 0 (the params never move,
+    so every update reads the same params on both sides): the gradients
+    that each rank handed Adam (the all-reduced mean), every update's,
+    against one process's, per leaf ‖Δ‖ ≤ DP_GRAD_RTOL·(‖g_leaf‖ + max
+    ‖g‖ over the net's leaves).  Adam's step does not see a gradient's
+    scale; this does (a wrong ÷ D, a leaf counted twice).  Returns the
+    largest ‖Δ‖ / (‖g_leaf‖ + max ‖g‖) of each update."""
+    from text_to_image_tpu_torch.tools import dp_ticks
+    _, spec = dp_spec(model, "float32", 1, **overrides, **DP_AT_REST)
+    spec["record_grads"] = True
+    outs = launch(f"{model}_lr0", spec)
+    with deterministic_cudnn():
+        one = dp_ticks.run(spec, device)
+    worst = {}
+    for net in ("d", "g"):
+        for r, out in enumerate(outs):
+            check(len(out["grads"][net]) == len(one["grads"][net]) > 0,
+                  f"{what}: {net} updates recorded")
+        for u, ref in enumerate(one["grads"][net]):
+            big = max(float(v.norm()) for v in ref.values())
+            for r, out in enumerate(outs):
+                got = out["grads"][net][u]
+                for k, v in ref.items():
+                    share = (float((got[k] - v).norm())
+                             / (float(v.norm()) + big))
+                    if share >= worst.get((net, u), (0.0,))[0]:
+                        worst[net, u] = (share, f"rank {r} {k}")
+    log(f"  {what}: all-reduced gradients vs one process's, ‖Δ‖ / (‖g_leaf‖ "
+        f"+ max ‖g‖) (tol {DP_GRAD_RTOL:g}): " + "; ".join(
+            f"{net} update {u} {w:.3e} ({where})"
+            for (net, u), (w, where) in worst.items()))
+    for (net, u), (w, where) in worst.items():
+        check(w <= DP_GRAD_RTOL, f"{what}: {net} update {u} gradient "
+                                 f"{where} {w:.3e} apart")
+    dp_same_across_ranks(what, outs)
+    return {f"{net}{u}": w for (net, u), (w, _) in worst.items()}
+
+
+def dp_against_one(what, cfg, spec, outs, device, held=("g", "d")):
+    """The ranks' outcomes against one process running the same ticks on
+    the whole batch on this card, both with cuDNN's deterministic
+    algorithms: metrics at DP_METRIC_TOL every tick; every element of the
+    `held` nets' params within DP_PARAM_LRS·lr (the others' largest
+    difference and the count of their elements past the bound logged);
+    the ranks' states bit-identical.  Every difference is logged before it
+    is checked.  Returns the largest of each."""
+    from text_to_image_tpu_torch.tools import dp_ticks
+    with deterministic_cudnn():          # as the ranks run (dp_ticks.main)
+        one = dp_ticks.run(spec, device)
+    rtol, atol = DP_METRIC_TOL
+    lr = max(cfg.train.generator_lr, cfg.train.discriminator_lr)
+    worst_m, bad = 0.0, []
+    worst_p = {net: [0.0, None, 0, 0] for net in ("g", "d")}  # max, leaf,
+    for r, out in enumerate(outs):                  # past the bound, past ½
+        for i, (got, ref) in enumerate(zip(out["metrics"], one["metrics"])):
+            check(got.keys() == ref.keys(), f"{what}: metric names differ")
+            for k, v in ref.items():
+                diff = abs(got[k] - v)
+                worst_m = max(worst_m, diff)
+                if diff > atol + rtol * abs(v):
+                    bad.append(f"rank {r} tick {i} {k}: {got[k]} vs {v}")
+        for net, w in worst_p.items():
+            for k, v in one["state"][f"{net}_params"].items():
+                err = (out["state"][f"{net}_params"][k] - v).abs()
+                w[2] += int((err > DP_PARAM_LRS * lr).sum())
+                w[3] += int((err > DP_PARAM_LRS * lr / 2).sum())
+                if float(err.max()) >= w[0]:
+                    w[0], w[1] = float(err.max()), k
+    log(f"  {what}: {len(outs)} ranks vs one process, {len(one['metrics'])} "
+        f"ticks: metrics within {worst_m:.3e}; every param within "
+        + ", ".join(f"{net} {d / lr:.2f}·lr ({k}; {n} elements past "
+                    f"{DP_PARAM_LRS}·lr, {h} past half{'' if net in held else '; not held'})"
+                    for net, (d, k, n, h) in worst_p.items()))
+    check(not bad, f"{what}: metrics apart: {bad[:5]}")
+    for net in held:
+        d, k = worst_p[net][:2]
+        check(d <= DP_PARAM_LRS * lr,
+              f"{what}: {net}_params {k} {d / lr:.2f}·lr apart")
+    dp_same_across_ranks(what, outs)
+    log(f"  {what}: ranks bit-identical")
+    return {"metric_max_diff": worst_m,
+            "param_max_diff_lrs": {n: w[0] / lr for n, w in worst_p.items()},
+            "param_max_leaf": {n: w[1] for n, w in worst_p.items()},
+            "params_past_bound": {n: w[2] for n, w in worst_p.items()},
+            "params_past_half_bound": {n: w[3] for n, w in worst_p.items()},
+            "held": list(held),
+            "metrics": [o["metrics"] for o in outs],
+            "one_process_metrics": one["metrics"],
+            "ms": [o["ms"] for o in outs], "one_process_ms": one["ms"]}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def dp_same_across_ranks(what, outs):
+    for r, out in enumerate(outs[1:], 1):
+        for tree in ("g_params", "d_params", "g_state", "d_state"):
+            for k, v in outs[0]["state"][tree].items():
+                check(torch.equal(out["state"][tree][k], v),
+                      f"{what}: rank {r} {tree} {k} differs from rank 0's")
+
+
+def dp_profile_delta(prof):
+    """One tick without and one with the group under profiling.trace:
+    wall and device-busy ms of each, and the ops whose self host time or
+    device time grew most with the group."""
+    alone, group = prof["alone"], prof["group"]
+    zero = (0.0, 0, 0.0)
+    rows = []
+    for name in set(alone["ops"]) | set(group["ops"]):
+        a, g = alone["ops"].get(name, zero), group["ops"].get(name, zero)
+        rows.append((g[0] - a[0], g[2] - a[2], a[1], g[1], name))
+    host = sorted(rows, reverse=True)[:12]
+    dev = sorted(rows, key=lambda r: r[1], reverse=True)[:6]
+    log(f"  traced tick: {alone['ms']:.2f} ms alone (device busy "
+        f"{alone['device_busy_ms']:.3f}), {group['ms']:.2f} ms with the "
+        f"group (busy {group['device_busy_ms']:.3f}); self host ms added "
+        f"by the group: " + "; ".join(f"{h:+.3f} {n[:60]} ({c0}→{c1} calls)"
+                                      for h, _, c0, c1, n in host))
+    log("  device ms added by the group: " + "; ".join(
+        f"{d:+.3f} {n[:60]} ({c0}→{c1})" for _, d, c0, c1, n in dev))
+    return {"alone_ms": alone["ms"], "group_ms": group["ms"],
+            "alone_busy_ms": alone["device_busy_ms"],
+            "group_busy_ms": group["device_busy_ms"],
+            "host_ms_added": host, "device_ms_added": dev}
+
+
+def torchrun(argv, timeout):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 2 -m
+    text_to_image_tpu_torch.main …`` from the repo root; what it printed."""
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(DP_RANKS), "-m",
+         "text_to_image_tpu_torch.main", *argv], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=timeout)
+    check(proc.returncode == 0,
+          f"torchrun exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def phase_data_parallel(device, runs, flush):
+    """Phase 11: data parallelism on the card (every rank on card 0)."""
+    from text_to_image_tpu_torch.tools import dp_ticks
+    report = {"launches": {}}
+    t0 = time.perf_counter()
+    log("phase 11a: bn_partials / bn_finish vs their plain versions, D = 1, "
+        "2, 4 pieces of every GAN-CLS BN call, the synced backward, timed")
+    report["errors"], report["bn_rows"] = phase_dp_bn_kernels(device, flush)
+    log(f"  (11a: {time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    def launch(tag, spec):
+        t1 = time.perf_counter()
+        outs = dp_ticks.launch(spec, os.path.join(runs, "dp", tag),
+                               DP_TIMEOUT_S)
+        log(f"  {tag}: {spec['world']} rank(s) over {spec['backend']} in "
+            f"{time.perf_counter() - t1:.1f} s")
+        return outs
+
+    log(f"phase 11b: GAN-CLS at full width, {DP_RANKS} ranks on this card "
+        f"over gloo (batch 32 a rank) vs one process at batch 64")
+    # every element of D's params with both nets training; G's with D
+    # frozen: while D trains, G's round-off steps (Adam makes a step of
+    # ≈ lr·sign(g) of a round-off gradient) walk a few of its 21.1 M
+    # elements past 10·lr over 6 updates (logged, counted); G's gradients
+    # with D training are held in the tick at lr 0
+    cfg, spec = dp_spec("gancls", "float32", 3)
+    report["gancls_f32"] = dp_against_one(
+        "GAN-CLS f32", cfg, spec, launch("gancls_f32", spec), device,
+        held=("d",))
+    cfg, spec = dp_spec("gancls", "float32", 3,
+                        **{"train.discriminator_lr": 0.0})
+    report["gancls_f32_d_frozen"] = dp_against_one(
+        "GAN-CLS f32, D frozen", cfg, spec,
+        launch("gancls_f32_d_frozen", spec), device)
+    report["gancls_f32_grads"] = dp_grads_at_rest(
+        "GAN-CLS f32, lr 0", "gancls", launch, device)
+    cfg, spec = dp_spec("gancls", "bfloat16", 3, seed=1)
+    outs = launch("gancls_bf16", spec)
+    dp_same_across_ranks("GAN-CLS bf16", outs)
+    for r, out in enumerate(outs):
+        for i, m in enumerate(out["metrics"]):
+            check(all(math.isfinite(v) for v in m.values()),
+                  f"GAN-CLS bf16 rank {r} tick {i}: {m}")
+        for i, n in enumerate(out["launches"]):
+            check(n == DP_TICK_LAUNCHES,
+                  f"GAN-CLS bf16 rank {r} tick {i} launches {n}, expected "
+                  f"{DP_TICK_LAUNCHES}")
+    report["launches"][f"dp GAN-CLS training, rank 0 of {DP_RANKS}"] = {
+        k: sum(n[k] for n in outs[0]["launches"]) for k in DP_TICK_LAUNCHES}
+    report["gancls_bf16"] = {"metrics": [o["metrics"] for o in outs],
+                             "ms": [o["ms"] for o in outs],
+                             "launches_per_tick": outs[0]["launches"][0],
+                             "all_reduce_bytes": outs[0]["all_reduce_bytes"]}
+    log(f"  GAN-CLS bf16: losses finite, ranks bit-identical, launches a "
+        f"rank and tick {outs[0]['launches'][0]}")
+
+    log("phase 11c: WGAN-CLS with GAN-INT and C-PGGAN stage 4, "
+        f"{DP_RANKS} ranks vs one process (f32)")
+    cfg, spec = dp_spec("wgancls", "float32", 1,
+                        **{"train.use_interpolation": True})
+    report["wgancls_gan_int_f32"] = dp_against_one(
+        "WGAN-CLS + GAN-INT f32", cfg, spec, launch("wgancls_f32", spec),
+        device)
+    cfg, spec = dp_spec("pggan", "float32", 1, **{"pggan.stage": 4})
+    report["pggan_stage4_f32"] = dp_against_one(
+        "C-PGGAN stage 4 f32", cfg, spec, launch("pggan_f32", spec), device)
+    report["wgancls_gan_int_f32_grads"] = dp_grads_at_rest(
+        "WGAN-CLS + GAN-INT f32, lr 0", "wgancls", launch, device,
+        **{"train.use_interpolation": True})
+    report["pggan_stage4_f32_grads"] = dp_grads_at_rest(
+        "C-PGGAN stage 4 f32, lr 0", "pggan", launch, device,
+        **{"pggan.stage": 4})
+    torch.cuda.empty_cache()
+
+    log("phase 11d: one rank over nccl (a group of world 1), GAN-CLS bf16, "
+        "vs the tick without a group, in turns in one process")
+    cfg, spec = dp_spec("gancls", "bfloat16", DP_NCCL_TICKS, backend="nccl",
+                        world=1, seed=2)
+    spec["turns"] = 4             # without, with, with, without
+    spec["profile"] = True        # then one tick alone and one with, traced
+    (out,) = launch("gancls_nccl", spec)
+    # the first tick of a run warms up (allocator, cuBLAS): left out
+    steady = {g: [t for r in out["turns"] if r["group"] == g
+                  for t in r["ms"][1:]] for g in (True, False)}
+    report["nccl_world1"] = {
+        "tick_ms_median": statistics.median(steady[True]),
+        "no_group_tick_ms_median": statistics.median(steady[False]),
+        "turns": out["turns"], "launches_per_tick": out["launches"][-1],
+        "all_reduce_bytes_per_tick": out["all_reduce_bytes"][-1]}
+    check(out["launches"][-1] == DP_TICK_LAUNCHES,
+          f"nccl tick launches {out['launches'][-1]}")
+    report["launches"]["dp GAN-CLS tick, nccl world 1"] = {
+        k: sum(n[k] for n in out["launches"]) for k in DP_TICK_LAUNCHES}
+    n = report["nccl_world1"]
+    log(f"  tick {n['tick_ms_median']:.2f} ms with the group (world 1), "
+        f"{n['no_group_tick_ms_median']:.2f} ms without; "
+        f"{n['all_reduce_bytes_per_tick']} bytes all-reduced a tick")
+    report["nccl_world1"]["profile"] = dp_profile_delta(out["profile"])
+    for tag in ("alone", "group"):       # the two Chrome traces, kept
+        shutil.copytree(os.path.join(runs, "dp", "gancls_nccl",
+                                     f"trace_{tag}"),
+                        os.path.join(ROOT, "chiprun_out", "dp_traces", tag),
+                        dirs_exist_ok=True)
+
+    log(f"phase 11e: torchrun --nproc_per_node {DP_RANKS} main.py --train "
+        f"--dist-backend gloo, sharded resident tier, phase 6c's split: 3 + 3 "
+        f"ticks vs 6 straight")
+    from text_to_image_tpu_torch.train import checkpoint as ckpt
+    data_dir = os.path.join(runs, "flowers")          # phase 6c's split
+    check(os.path.isdir(os.path.join(data_dir, "train")),
+          f"no split under {data_dir}")
+
+    def argv(root, steps):
+        return ["--cfg", config_path("gancls"), "--train", "--steps",
+                str(steps), "--dist-backend", "gloo", "--set",
+                "data.dataset_name=flowers", f"data.data_dir={data_dir}",
+                "data.device_resident=sharded", "train.summary_interval=1",
+                "train.snapshot_interval=1000", "train.sample_interval=1000",
+                *run_dirs(root)]
+    t1 = time.perf_counter()
+    a, b = (os.path.join(runs, "dp", "torchrun", d) for d in "ab")
+    said = torchrun(argv(a, 6), DP_TIMEOUT_S)
+    check("data path: sharded" in said and "data parallel over 2 ranks" in
+          said, f"not the sharded tier over 2 ranks:\n{said[-2000:]}")
+    torchrun(argv(b, 3), DP_TIMEOUT_S)
+    said_b = torchrun(argv(b, 6), DP_TIMEOUT_S)
+    check("restored checkpoint at step 3" in said_b,
+          f"the second run did not restore step 3:\n{said_b[-2000:]}")
+    sa, sb = (ckpt.CheckpointManager(os.path.join(
+        d, "checkpoint", "gancls", "flowers")).load(6)[0] for d in (a, b))
+    fa, fb = flat_state(sa), flat_state(sb)
+    check(fa.keys() == fb.keys(), "the two runs' checkpoints differ in keys")
+    diff = [k for k in fa if not (torch.equal(fa[k], fb[k])
+                                  if isinstance(fa[k], torch.Tensor)
+                                  else fa[k] == fb[k])]
+    check(not diff, f"3 + 3 ticks differ from 6 straight: {diff[:5]}")
+    logs = [[json.loads(s) for s in open(os.path.join(
+        d, "log", "gancls", "flowers", "train.jsonl"))] for d in (a, b)]
+    check([r["step"] for r in logs[0]] == list(range(1, 7)),
+          "one metric line a step from rank 0 alone")
+    check([r["d_loss"] for r in logs[0][3:]] ==
+          [r["d_loss"] for r in logs[1][3:]], "resumed losses differ")
+    report["torchrun_resume"] = {"leaves_compared": len(fa),
+                                 "seconds": time.perf_counter() - t1,
+                                 "d_loss": [r["d_loss"] for r in logs[0]]}
+    log(f"  torchrun: 3 + 3 ticks bit-identical to 6 straight over "
+        f"{len(fa)} state entries ({time.perf_counter() - t1:.1f} s)")
+    log(f"  (phase 11: {time.perf_counter() - t0:.1f} s)")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -3173,8 +3697,14 @@ def run(runs: str) -> int:
     log("phase 1: build")
     t0 = time.perf_counter()
     _build.build(_build.sources())
-    log(f"  nvcc built {_build.sources()} in {time.perf_counter() - t0:.1f} s")
-    for name in _build.sources():
+    # a library whose digest an earlier run in this checkout built is
+    # loaded as it is: it has no ptxas report
+    built = [n for n in _build.sources() if _build.ptxas_report(n)]
+    cached = [n for n in _build.sources() if n not in built]
+    log(f"  nvcc built {built} in {time.perf_counter() - t0:.1f} s"
+        + (f"; loaded from an earlier build (no ptxas report): {cached}"
+           if cached else ""))
+    for name in built:
         for line in _build.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas {name}: {line.strip()}")
@@ -3330,6 +3860,12 @@ def run(runs: str) -> int:
     log(f"  (phase 10: {time.perf_counter() - t0:.1f} s)")
     torch.cuda.empty_cache()
 
+    log(f"phase 11: data parallelism on the card ({DP_RANKS} ranks sharing it "
+        f"over gloo, one rank over nccl, torchrun through main.py) [{card}]")
+    data_parallel = phase_data_parallel(device, runs, flush)
+    launches_by_path.update(data_parallel.pop("launches"))
+    torch.cuda.empty_cache()
+
     src = "text_to_image_tpu_torch/"
     meta = {
         "deconv5x5_s2": ("cuda", src + "csrc/deconv5x5_s2.cu",
@@ -3389,6 +3925,31 @@ def run(runs: str) -> int:
                        + (pg_upconv_rows if name == "upconv3x3" else [])),
         })
 
+    # the data-parallel BN's two kernels: one GAN-CLS generator forward of a
+    # rank of 2 (its four BN calls on the rank's half of batch 64)
+    for name in ("bn_partials", "bn_finish"):
+        per = [r[name] for r in data_parallel["bn_rows"]
+               if (r["streams"], r["act"]) == (1, "relu")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": src + "csrc/batch_norm.cu",
+            "replaces": "text_to_image_tpu/ops/pallas/fused.py:259",
+            "launches": sum(p.get(name, 0) for p in launches_by_path.values()),
+            "launches_by_path": {k: p.get(name, 0)
+                                 for k, p in launches_by_path.items()},
+            "max_abs_err": max(v for k, v in
+                               data_parallel["errors"][name].items()
+                               if k.startswith("bfloat16")),
+            "ms": sum(r["ms"] for r in per),
+            "plain_ms": sum(r["plain_ms"] for r in per),
+            "bound_ms": sum(r["bound_ms"] for r in per), "bound_by": "bytes",
+            "library_ms": sum(r["library_ms"] for r in per),
+            "max_grad_err_f32": max(
+                data_parallel["errors"]["synced_backward"].values()),
+            "shapes": [{**r[name], "shape": [r["shape"], r["streams"],
+                                             r["act"], r["ranks"]]}
+                       for r in data_parallel["bn_rows"]]})
+
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": kernels,
               "kernel_errors": {f"{n} {str(dt)[6:]} {list(s)}": v
@@ -3402,6 +3963,7 @@ def run(runs: str) -> int:
               "launches_by_path": launches_by_path, "stackgan": stackgan,
               "data_checkpoint": data_ckpt, "wgancls": wgan,
               "pggan": pggan, "eval_is": eval_is,
+              "data_parallel": data_parallel,
               "upconv3x3_pggan_shapes": pg_upconv_rows,
               "conv5x5_s2_act_256px_d": conv_256_rows,
               "conv5x5_s2_act_paths": conv_paths,

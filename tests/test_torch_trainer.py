@@ -73,12 +73,19 @@ def test_resident_tier_is_jax_rule(mode, stageable, mb, budget):
 
 
 def test_sharded_tier_names_its_roadmap_item():
-    cfg = config_from_dict(dataclasses.asdict(tiny_config()))
-    cfg = cfg.replace(data=dataclasses.replace(cfg.data,
-                                               device_resident="sharded"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        Trainer._resident_tier(types.SimpleNamespace(cfg=cfg,
-                                                     dataset=_Arrays()))
+    """The sharded tier is ported (it raised, naming ROADMAP item 9, until
+    the data-parallel slice): on one device it is chosen on request, as the
+    JAX trainer chooses it."""
+    one = types.SimpleNamespace(slice_size=1, data_size=1)
+    picks = []
+    for cls, cfg in ((JTrainer, tiny_config()),
+                     (Trainer, config_from_dict(dataclasses.asdict(
+                         tiny_config())))):
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                   device_resident="sharded"))
+        picks.append(cls._resident_tier(types.SimpleNamespace(
+            cfg=cfg, dataset=_Arrays(), env=one)))
+    assert picks == ["sharded", "sharded"]
 
 
 def stand_in(cls, cfg, start, log):

@@ -176,3 +176,57 @@ def test_upconv_wrappers_take_plain_version_on_cpu_and_check():
     with pytest.raises(ValueError, match="cuda or cpu"):
         conv.upconv3x3(torch.zeros(1, 2, 2, 64, **meta),
                        torch.zeros(3, 3, 64, 64, **meta), v64, v64)
+
+
+# --- the space-to-depth form (plain torch on both sides, no kernel) --------
+
+S2D_SHAPES = [((2, 4, 4, 16), 8), ((3, 8, 8, 8), 16), ((2, 5, 7, 4), 8)]
+
+
+@pytest.mark.parametrize("shape,co", S2D_SHAPES)
+@pytest.mark.parametrize("act", ["none", "relu", "tanh"])
+def test_upconv_s2d_matches_jax_and_the_plain_upconv(shape, co, act):
+    """`upconv3x3_s2d` against JAX's `upconv3x3_s2d` and against the
+    port's plain `upconv3x3` (the forms of tests/test_pallas_conv.py)."""
+    x, w, s, t = _inputs(shape, co)
+    got = conv.upconv3x3_s2d(*map(torch.from_numpy, (x, w, s, t)), act)
+    assert got.shape == (shape[0], 2 * shape[1], 2 * shape[2], co)
+    ref = np.asarray(jconv.upconv3x3_s2d(x, w, s, t, act))
+    plain = conv.upconv3x3_plain(*map(torch.from_numpy, (x, w, s, t)), act)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_upconv_s2d_weights_match_jax():
+    _, w, _, _ = _inputs((1, 2, 2, 5), 3)
+    np.testing.assert_allclose(
+        conv.s2d_upconv_weights(torch.from_numpy(w)).numpy(),
+        np.asarray(jconv._s2d_upconv_weights(w)), rtol=0, atol=1e-7)
+
+
+def test_upconv_s2d_gradients_match_jax_and_the_plain_upconv():
+    """Every gradient (x, w, scale, shift) through the space-to-depth
+    weights against ``jax.grad`` of JAX's `upconv3x3_s2d` and against
+    autograd through the port's plain `upconv3x3`."""
+    x, w, s, t = _inputs((2, 4, 4, 8), 8)
+    ct = np.random.default_rng(2).normal(size=(2, 8, 8, 8)).astype(np.float32)
+    ref = jax.grad(lambda *a: jnp.sum(jconv.upconv3x3_s2d(*a, "relu") * ct),
+                   argnums=(0, 1, 2, 3))(x, w, s, t)
+    grads = []
+    for fn in (conv.upconv3x3_s2d, conv.upconv3x3_plain):
+        args = [torch.from_numpy(a).requires_grad_(True) for a in (x, w, s, t)]
+        (fn(*args, "relu") * torch.from_numpy(ct)).sum().backward()
+        grads.append([a.grad.numpy() for a in args])
+    for name, got, plain, want in zip("xwst", *grads, ref):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=f"d/d{name} vs JAX")
+        np.testing.assert_allclose(got, plain, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=f"d/d{name} vs plain")
+
+
+def test_upconv_s2d_bias_matches_jax():
+    x, w, _, b = _inputs((2, 6, 6, 8), 8)
+    got = conv.upconv3x3_s2d_bias(*map(torch.from_numpy, (x, w, b)), "lrelu")
+    ref = np.asarray(jconv.upconv3x3_s2d_bias(x, w, b, "lrelu"))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)

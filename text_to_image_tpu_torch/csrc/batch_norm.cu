@@ -63,6 +63,15 @@
 //  * Workspace (owned by the caller, allocated once per device): a ticket
 //    counter per channel slice, then the partials.  The launches of one
 //    stream run in order, so every call reuses it.
+//  * Data parallel (the global batch cut over the D ranks of a batch group,
+//    whose statistics the JAX package takes over the global batch):
+//    bn_partials is bn_stats stopping at each stream's merged (n, mean, M2)
+//    [3, S, C]; the caller all-gathers them to [D, 3, S, C]; bn_finish (one
+//    thread a channel) merges the D partials by Chan's formula in rank
+//    order and writes bn_stats' out, so every rank holds the same bits.
+//    bn_finish reads and writes a few kB: its bound is launch latency.  The
+//    backward all-reduces bn_bwd_reduce's sums and gives bn_bwd_apply the
+//    global row count of a stream (`count`).
 //  * Tried and not kept: statistics and apply as one cooperative launch for
 //    x up to 16 MiB (every CTA waiting for its slice's a and b, the second
 //    read of x from L2); 4-12 % slower than the two launches at every
@@ -139,10 +148,11 @@ struct Args {
   const float* rstd;
   const float* sga;      // bn_bwd_apply: sum(ga) [S, C], sum(ga.xhat) [S, C]
   const float* sgx;
-  float* out;            // bn_stats, bn_bwd_reduce: the results
+  float* out;            // bn_stats, bn_partials, bn_bwd_reduce: the results
   unsigned* tickets;     // [kMaxChunks]
   float* part;           // [chunks][S][bands][kSlot]
   long long R;
+  long long count;       // bn_bwd_apply: the rows a stream's sums are over
   int S, C;
   float mom, omm, eps;   // momentum, 1 - momentum, eps
   Plan p;
@@ -473,9 +483,35 @@ __device__ __forceinline__ void finish_stats(const Args& a, const Geo& t,
   }
 }
 
+// The last CTA of a slice, in bn_partials: each stream's Welford state
+// merged over its bands; out = n [S, C], mean [S, C], M2 [S, C] (n is the
+// stream's row count, repeated over its channels).
+__device__ __forceinline__ void write_partials(const Args& a, const Geo& t,
+                                               Smem& sh) {
+  const int C = a.C;
+  const long long SC = static_cast<long long>(a.S) * C;
+  float n, u[kVec], w[kVec];
+  for (int s = 0; s < a.S; ++s) {
+    gather_stream<true>(a, t, s, sh, n, u, w);
+    if (t.lane == 0 && t.live) {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const int c = t.c0 + j;
+        if (c >= C) continue;
+        const long long i = static_cast<long long>(s) * C + c;
+        a.out[i] = n;
+        a.out[SC + i] = u[j];
+        a.out[2 * SC + i] = w[j];
+      }
+    }
+  }
+}
+
 // Statistics: out = mean [S, C], rstd [S, C], a [S, C], b [S, C], then the
-// new running mean [C] and var [C] (finish_stats).
-template <typename T, bool VEC>
+// new running mean [C] and var [C] (finish_stats); with PARTIAL, each
+// stream's (n, mean, M2) [3, S, C] instead (write_partials), for bn_finish
+// to merge with the other ranks' after an all-gather.
+template <typename T, bool VEC, bool PARTIAL>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm) bn_stats_kernel(Args a) {
   __shared__ Smem sh;
   const Geo t = geo(a);
@@ -508,7 +544,58 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) bn_stats_kernel(Args a) 
     }
   }
   merge_lanes<true>(n, u, w, t, a.p, sh);
-  if (publish<true>(a, t, n, u, w, sh)) finish_stats(a, t, sh);
+  if (publish<true>(a, t, n, u, w, sh)) {
+    if (PARTIAL)
+      write_partials(a, t, sh);
+    else
+      finish_stats(a, t, sh);
+  }
+}
+
+// bn_finish: thread c of the grid merges channel c's D partials [D][3][S][C]
+// (bn_partials' out of every rank, in rank order) by Chan's formula, as
+// merge<true> does, then writes bn_stats' out for them.  The order is fixed,
+// so every rank computes bit-identical statistics; with D = 1 the merge
+// takes the partial as it is (n = 0 before it), and out is bn_stats' bit for
+// bit.
+__global__ void __launch_bounds__(128) bn_finish_kernel(
+    const float* __restrict__ parts, int D, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const float* __restrict__ run_mean,
+    const float* __restrict__ run_var, float* __restrict__ out, int S, int C,
+    float mom, float omm, float eps) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const long long SC = static_cast<long long>(S) * C;
+  const float gam = gamma[c], bet = beta[c];
+  const float rm = run_mean[c], rv = run_var[c];
+  float acc_m = 0.f, acc_v = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const long long i = static_cast<long long>(s) * C + c;
+    float n = 0.f, u = 0.f, w = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float* q = parts + 3 * SC * d;
+      const float nb = q[i];
+      if (nb == 0.f) continue;
+      const float nt = n + nb;
+      const float fb = nb / nt;
+      const float cross = n * fb;
+      const float dl = q[SC + i] - u;
+      u += dl * fb;
+      w += q[2 * SC + i] + dl * dl * cross;
+      n = nt;
+    }
+    const float var = w / n;
+    const float rstd = 1.f / sqrtf(var + eps);
+    const float sa = rstd * gam;
+    out[i] = u;
+    out[SC + i] = rstd;
+    out[2 * SC + i] = sa;
+    out[3 * SC + i] = bet - u * sa;
+    acc_m += mom * rm + omm * u;
+    acc_v += mom * rv + omm * var;
+  }
+  out[4 * SC + c] = acc_m / S;
+  out[4 * SC + C + c] = acc_v / S;
 }
 
 // Apply: y = act(x . a_s + b_s), a_s and b_s in registers across the band.
@@ -658,7 +745,7 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) bn_dx_kernel(Args a) {
       channel_vals(a.rstd, t, C, rs);
       channel_vals(a.sga, t, C, k2);
       channel_vals(a.sgx, t, C, k3);
-      const float inv_r = 1.f / static_cast<float>(a.R);
+      const float inv_r = 1.f / static_cast<float>(a.count);
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
         const int c = t.c0 + j;
@@ -779,9 +866,45 @@ extern "C" int t2i_bn_stats(const void* x, const float* gamma,
   return static_cast<int>(dispatch(bf16 != 0, a.p.vec != 0, kNone,
                                    [&](auto t, auto v, auto) -> cudaError_t {
     using T = typename decltype(t)::type;
-    bn_stats_kernel<T, decltype(v)::value><<<grid, kThreads, 0, st>>>(a);
+    bn_stats_kernel<T, decltype(v)::value, false><<<grid, kThreads, 0, st>>>(a);
     return cudaGetLastError();
   }));
+}
+
+// out: n [S, C], mean [S, C], M2 [S, C]: each stream's Welford state, for
+// bn_finish to merge with other ranks' partials.
+extern "C" int t2i_bn_partials(const void* x, float* out, void* ws,
+                               long long ws_bytes, long long rows, int S,
+                               int C, int bf16, int sms, void* stream) {
+  Args a{};
+  if (!setup(a, x, nullptr, nullptr, nullptr, rows, S, C, sms) ||
+      !set_ws(a, ws, ws_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.x = x;
+  a.out = out;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid = grid_of(a.p, S);
+  return static_cast<int>(dispatch(bf16 != 0, a.p.vec != 0, kNone,
+                                   [&](auto t, auto v, auto) -> cudaError_t {
+    using T = typename decltype(t)::type;
+    bn_stats_kernel<T, decltype(v)::value, true><<<grid, kThreads, 0, st>>>(a);
+    return cudaGetLastError();
+  }));
+}
+
+// out as bn_stats' from parts [D][3][S][C], D partials of bn_partials.
+extern "C" int t2i_bn_finish(const float* parts, int D, const float* gamma,
+                             const float* beta, const float* run_mean,
+                             const float* run_var, float* out, int S, int C,
+                             float momentum, float one_minus_momentum,
+                             float eps, void* stream) {
+  if (D < 1 || S < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>(ceil_div(C, 128));
+  bn_finish_kernel<<<blocks, 128, 0, st>>>(parts, D, gamma, beta, run_mean,
+                                           run_var, out, S, C, momentum,
+                                           one_minus_momentum, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // y = act(x . a_s + b_s) with a, b f32 [S, C].
@@ -836,17 +959,20 @@ extern "C" int t2i_bn_bwd_reduce(const void* g, const void* y, const void* x,
   }));
 }
 
-// dx from g, y, x, gamma, bn_stats' mean and rstd, and bn_bwd_reduce's sums.
+// dx from g, y, x, gamma, bn_stats' mean and rstd, and bn_bwd_reduce's sums,
+// which are over `count` rows a stream: rows / S on one device, the global
+// rows of a stream when the sums were all-reduced over a batch group.
 extern "C" int t2i_bn_bwd_apply(const void* g, const void* y, const void* x,
                                 const float* mean, const float* rstd,
                                 const float* gamma, const float* sga,
                                 const float* sgx, void* dx, long long rows,
-                                int S, int C, int act, int bf16, int sms,
-                                void* stream) {
+                                long long count, int S, int C, int act,
+                                int bf16, int sms, void* stream) {
   Args a{};
-  if ((act != kNone && !y) ||
+  if ((act != kNone && !y) || count < 1 ||
       !setup(a, x, g, act != kNone ? y : nullptr, dx, rows, S, C, sms))
     return static_cast<int>(cudaErrorInvalidValue);
+  a.count = count;
   a.x = x;
   a.g = g;
   a.y = y;

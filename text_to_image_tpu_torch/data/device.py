@@ -26,8 +26,15 @@ Sampling semantics match the JAX tier:
 * ``emb``: ``window`` distinct captions per image, averaged; the draw
   without replacement is an argsort of a row of uniform keys.
 
-The sharded tier of the JAX package (the example dimension spread over the
-data-parallel devices) waits for multi-GPU, ROADMAP.md item 9.
+Data parallel (``parallel/mesh.py``): on the replicated tier every rank
+stages the whole split, draws the global ``[n_critic, B]`` variables from
+(seed, step) and gathers only its own rows, so D ranks see the batch one
+device would.  The sharded tier (`stage_sharded`, for a split that fits
+the ranks' memory together but not one card's) shuffles the examples onto
+D equal shards once, as the JAX tier does (the same numpy permutation, the
+tail wrapped), and each rank draws its B/D rows from its own shard with
+key ``fold_in(key, shard_index)``: uniform within the shard, a stream that
+depends on the number of shards.
 """
 
 from __future__ import annotations
@@ -73,17 +80,56 @@ def class_tables(class_ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray,
             (n - count).astype(np.int32))
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedDeviceData(DeviceData):
+    """One rank's shard of the split (`stage_sharded`): its examples and
+    its class tables, which index within the shard."""
+
+    shard: int = 0             # this rank's shard index
+    shards: int = 1            # D, the batch-axis ranks
+
+
+def _put(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+
+def _staged(images, embeddings, class_ids, device, **extra) -> DeviceData:
+    perm, other_start, other_count = class_tables(class_ids)
+    cls = ShardedDeviceData if extra else DeviceData
+    return cls(images=_put(images, np.uint8, device),
+               embeddings=_put(embeddings, np.float32, device),
+               class_perm=_put(perm, np.int64, device),
+               other_start=_put(other_start, np.int64, device),
+               other_count=_put(other_count, np.int64, device), **extra)
+
+
 def stage(dataset, device="cuda") -> DeviceData:
     """One host→device copy of a TextDataset / SyntheticDataset split."""
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+    return _staged(dataset.images, dataset.embeddings, dataset.class_ids,
+                   device)
 
-    perm, other_start, other_count = class_tables(dataset.class_ids)
-    return DeviceData(images=put(dataset.images, np.uint8),
-                      embeddings=put(dataset.embeddings, np.float32),
-                      class_perm=put(perm, np.int64),
-                      other_start=put(other_start, np.int64),
-                      other_count=put(other_count, np.int64))
+
+def stage_sharded(dataset, shard: int, shards: int, seed: int = 0,
+                  device="cuda") -> ShardedDeviceData:
+    """Shard `shard` of `shards` of the split on `device`, with its own
+    class tables: the JAX tier's ``default_rng(seed).permutation(n)`` of
+    the examples, wrapped round to ⌈n/shards⌉ a shard.  Raises ValueError,
+    as the JAX tier does, when any shard holds one class (no wrong pair
+    could be drawn there)."""
+    cls = np.asarray(dataset.class_ids)
+    n = len(cls)
+    order = np.random.default_rng(seed).permutation(n)
+    idx = order[np.arange(shards * -(-n // shards)) % n].reshape(shards, -1)
+    for s in range(shards):
+        if len(np.unique(cls[idx[s]])) < 2:
+            raise ValueError(
+                f"shard {s}/{shards} is single-class after shuffling — "
+                f"dataset too small/skewed for the sharded tier; use the host "
+                f"pipeline")
+    mine = idx[shard]
+    return _staged(np.asarray(dataset.images)[mine],
+                   np.asarray(dataset.embeddings)[mine], cls[mine], device,
+                   shard=shard, shards=shards)
 
 
 def nbytes(dataset) -> int:
@@ -178,14 +224,41 @@ def assemble(data: DeviceData, d: Dict[str, Optional[torch.Tensor]],
             "emb": avg_captions(data.embeddings, idx, d["cap_keys"], window)}
 
 
+def _keep_rows(d: Dict[str, Optional[torch.Tensor]], rows: slice
+               ) -> Dict[str, Optional[torch.Tensor]]:
+    """The draws of batch rows `rows` (axis 1 of each; axis 2 of the crop
+    offsets, whose axis 0 is rows / columns)."""
+    return {k: None if v is None else
+            v[:, :, rows] if k.endswith("_off") else v[:, rows]
+            for k, v in d.items()}
+
+
 def sample_stacked(data: DeviceData, key: int, n_critic: int,
                    batch_size: int, image_size: int, window: int,
-                   random_crop: bool, random_flip: bool
-                   ) -> Dict[str, torch.Tensor]:
+                   random_crop: bool, random_flip: bool,
+                   rows: Optional[slice] = None) -> Dict[str, torch.Tensor]:
     """A tick's input, [n_critic, B, …] with a fresh batch per critic
-    update, from a generator on the data's device seeded with `key`."""
+    update, from a generator on the data's device seeded with `key`; with
+    `rows`, only those rows of it are gathered (a rank's share of the
+    global batch, drawn whole on every rank)."""
     g = torch.Generator(device=data.images.device)
     g.manual_seed(int(key))
     d = draw(data, g, (n_critic, batch_size), image_size, window,
              random_crop, random_flip)
+    if rows is not None:
+        d = _keep_rows(d, rows)
     return assemble(data, d, image_size, window)
+
+
+def sample_stacked_sharded(data: ShardedDeviceData, key: int, n_critic: int,
+                           batch_size: int, image_size: int, window: int,
+                           random_crop: bool, random_flip: bool
+                           ) -> Dict[str, torch.Tensor]:
+    """This rank's [n_critic, B/D, …] share of a tick's input, drawn from
+    its own shard with key ``fold_in(key, shard)``."""
+    if batch_size % data.shards:
+        raise ValueError(f"batch_size {batch_size} not divisible by the "
+                         f"{data.shards} batch-axis ranks")
+    return sample_stacked(data, prng.fold_in(key, data.shard), n_critic,
+                          batch_size // data.shards, image_size, window,
+                          random_crop, random_flip)

@@ -7,13 +7,17 @@ flight.  The consumer's stream waits for each copy before it uses the
 batch.  With one worker the stream of batches is the dataset's own,
 deterministic in its seed (the JAX pipeline's extra workers, each on a
 spawned RNG, give a nondeterministic order, and are not ported).
+
+Data parallel: every rank assembles the same global batch from the
+dataset's seed and copies only its `rows` to its card (the JAX package's
+``shard_batch`` of the host batch).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -22,8 +26,9 @@ import torch
 class InputPipeline:
     def __init__(self, dataset, batch_size: int, device="cuda",
                  window: int = 4, batches_per_step: int = 1,
-                 prefetch: int = 2):
+                 prefetch: int = 2, rows: Optional[slice] = None):
         self.dataset = dataset
+        self.rows = rows
         self.batch_size = batch_size
         self.window = window
         self.batches_per_step = batches_per_step
@@ -38,7 +43,11 @@ class InputPipeline:
     def _make_step_batch(self) -> Dict[str, np.ndarray]:
         batches = [self.dataset.next_batch(self.batch_size, self.window)
                    for _ in range(self.batches_per_step)]
-        return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+        out = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+        if self.rows is not None:
+            out = {k: np.ascontiguousarray(v[:, self.rows])
+                   for k, v in out.items()}
+        return out
 
     def _to_device(self, batch: Dict[str, np.ndarray]):
         """(tensors on the device, the copy's event or None)."""

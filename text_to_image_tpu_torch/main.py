@@ -1,7 +1,7 @@
 """Entry point of the port (counterpart of the root ``main.py``):
 
     python -m text_to_image_tpu_torch.main --cfg configs/gancls_flowers.yml \
-        [--train [--steps N]] [--weights g.npz] \
+        [--train [--steps N] [--dist-backend nccl|gloo]] [--weights g.npz] \
         [--eval-is [--is-images N]] \
         [--set data.data_dir=... ...] [--device cuda]
 
@@ -31,6 +31,18 @@ is empty (``--set stage1_checkpoint=``).  The datasets are read from
 ``data.data_dir`` (StackGAN-format pickles, ``data/preprocess.py``);
 nothing is downloaded.  Everything runs on the card unless ``--device cpu``
 is given.
+
+Data-parallel training runs under ``torchrun``, one process a rank:
+
+    torchrun --standalone --nproc_per_node N -m text_to_image_tpu_torch.main \
+        --train --cfg configs/gancls_flowers.yml [--dist-backend gloo]
+
+Each rank takes ``cuda:LOCAL_RANK`` and its B/N rows of the global batch
+``train.batch_size`` (``mesh.{data,model,slices}`` lay the ranks out,
+``parallel/mesh.py``).  ``--dist-backend`` is nccl on the card by default
+and gloo with ``--device cpu``; ranks share a card only over gloo, which
+must be named.  A failed init raises.  Without ``torchrun``'s environment
+nothing of this runs.
 """
 
 from __future__ import annotations
@@ -62,6 +74,10 @@ def parse_args(argv=None):
                    help="generated images for the IS estimate (ref: ~30k)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="process-group backend of --train under torchrun "
+                        "(default: nccl on the card, gloo on the CPU; gloo "
+                        "lets ranks share a card)")
     p.add_argument("--set", nargs="*", default=[],
                    metavar="KEY=VALUE", help="config overrides")
     return p.parse_args(argv)
@@ -195,21 +211,34 @@ def eval_inception_score(cfg: Config, gen, ts, dataset, is_images: int,
     return mean, std
 
 
-def train(cfg: Config, steps: int | None = None, device="cuda"):
+def train(cfg: Config, steps: int | None = None, device="cuda",
+          dist_backend: str | None = None):
     """Run the training loop to `steps` (continuing from the latest
     checkpoint); returns the closed trainer, or for the C-PGGAN
-    progression (``pggan.stage`` 0) the list of its stages' trainers."""
+    progression (``pggan.stage`` 0) the list of its stages' trainers.
+    Under ``torchrun`` (or in a process group the caller made) every rank
+    runs it data-parallel on its own device; a group made here is
+    destroyed at the end."""
+    import torch.distributed as dist
+
+    from text_to_image_tpu_torch.parallel.mesh import init_distributed
     from text_to_image_tpu_torch.train.trainer import (Trainer,
                                                        train_progressive)
 
-    if cfg.model == "pggan" and cfg.pggan.stage == 0:
-        return train_progressive(cfg, total_steps=steps, device=device)
-    trainer = Trainer(cfg, device=device)
+    owned = not dist.is_initialized()
+    device = init_distributed(dist_backend, device) or device
     try:
-        trainer.train(num_steps=steps)
+        if cfg.model == "pggan" and cfg.pggan.stage == 0:
+            return train_progressive(cfg, total_steps=steps, device=device)
+        trainer = Trainer(cfg, device=device)
+        try:
+            trainer.train(num_steps=steps)
+        finally:
+            trainer.close()
+        return trainer
     finally:
-        trainer.close()
-    return trainer
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def main(argv=None):
@@ -218,7 +247,8 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = load_config(args.cfg, parse_overrides(args.set) or None)
     if args.train:
-        return train(cfg, args.steps, device=args.device)
+        return train(cfg, args.steps, device=args.device,
+                     dist_backend=args.dist_backend)
     return evaluate(cfg, weights=args.weights, device=args.device,
                     eval_is=args.eval_is, is_images=args.is_images)
 

@@ -22,6 +22,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from text_to_image_tpu_torch.parallel import collectives
+
 
 def sigmoid_ce(logits: torch.Tensor, label: float) -> torch.Tensor:
     """Stable sigmoid cross-entropy against a constant label, averaged:
@@ -60,8 +62,21 @@ def gan_cls_g_loss(fake_logit: torch.Tensor,
 def interpolate_embeddings(emb: torch.Tensor, beta: float = 0.5
                            ) -> torch.Tensor:
     """GAN-INT: β·t₁ + (1−β)·t₂, pairing each embedding with the previous
-    one in the batch (a roll by one)."""
-    return beta * emb + (1.0 - beta) * torch.roll(emb, shifts=1, dims=0)
+    one in the batch (a roll by one).
+
+    In the data-parallel tick (`collectives.active`) emb is this rank's
+    rows and the roll is over the global batch, as the JAX package's:
+    rank d's first row pairs with rank d−1's last (the first rank's with
+    the last rank's).  The embeddings are gathered, rolled, and this rank's
+    rows kept; no gradient flows to them."""
+    sync = collectives.active()
+    if sync is None:
+        return beta * emb + (1.0 - beta) * torch.roll(emb, shifts=1, dims=0)
+    b = emb.shape[0]
+    everyone = collectives.all_gather(emb.detach(), sync).flatten(0, 1)
+    prev = torch.roll(everyone, shifts=1, dims=0)[sync.index * b:
+                                                  (sync.index + 1) * b]
+    return beta * emb + (1.0 - beta) * prev
 
 
 def wgan_cls_d_loss(real_score: torch.Tensor, fake_score: torch.Tensor,

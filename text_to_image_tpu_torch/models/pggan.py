@@ -32,6 +32,7 @@ from text_to_image_tpu_torch.config import GanConfig
 from text_to_image_tpu_torch.ops import initializers as init
 from text_to_image_tpu_torch.ops import layers as L
 from text_to_image_tpu_torch.ops.kernels.conv import upconv3x3_bias
+from text_to_image_tpu_torch.parallel import collectives
 from text_to_image_tpu_torch.utils import prng
 
 GAIN = math.sqrt(2.0)
@@ -108,9 +109,24 @@ def minibatch_stddev(x: torch.Tensor, streams: int = 1, eps: float = 1e-8
                      ) -> torch.Tensor:
     """Append each stream's mean feature stddev (over its own examples) as
     one constant channel.  x holds `streams` contiguous streams: the
-    statistic is never taken across them."""
+    statistic is never taken across them.
+
+    In the data-parallel tick (`collectives.active`) x is this rank's piece
+    of each stream and the variance is the whole stream's, as the JAX
+    package's under data parallelism: the ranks' per-feature means and
+    variances are gathered (differentiably, so the gradient penalty's
+    second derivative crosses the ranks too) and, the pieces being equal,
+    var = mean of the variances + variance of the means."""
     x32 = x.float().reshape(streams, -1, *x.shape[1:])
-    std = torch.sqrt(x32.var(dim=1, correction=0) + eps).mean((1, 2, 3))
+    sync = collectives.active()
+    if sync is None:
+        var = x32.var(dim=1, correction=0)
+    else:
+        parts = collectives.all_gather(
+            torch.stack(torch.var_mean(x32, dim=1, correction=0)), sync)
+        means = parts[:, 1]
+        var = parts[:, 0].mean(0) + means.var(0, correction=0)
+    std = torch.sqrt(var + eps).mean((1, 2, 3))
     feat = std.to(x.dtype)[:, None, None, None, None].expand(
         streams, x32.shape[1], *x.shape[1:3], 1)
     return torch.cat([x, feat.reshape(*x.shape[:3], 1)], dim=-1)

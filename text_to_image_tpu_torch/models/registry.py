@@ -36,7 +36,9 @@ class ModelBundle:
       conditioning-augmentation noise, of shape ``eps_shape(batch)`` — None
       for GAN-CLS and WGAN-CLS, [B, ca_dim] for Stage-I and C-PGGAN,
       [2, B, ca_dim] for Stage-II (row 0 for the frozen Stage-I's CA, row
-      1 for its own).  C-PGGAN reads its fade-in α from ``aux["alpha"]``
+      1 for its own); ``eps_batch_axis`` is the batch's axis in it (1 for
+      Stage-II, else 0), along which a data-parallel rank keeps its rows.
+      C-PGGAN reads its fade-in α from ``aux["alpha"]``
       (1 when absent: sampling).  `gen_aux`
       holds ``mu``, ``logvar`` and ``c`` when the model has CA, else
       nothing;
@@ -63,6 +65,7 @@ class ModelBundle:
     disc_streams: Callable
     gen_apply_inference: Optional[Callable] = None
     eps_shape: Callable = lambda batch: None
+    eps_batch_axis: int = 0
     is_wgan: bool = False
     has_ca: bool = False
     needs_stage1: bool = False
@@ -156,8 +159,8 @@ def get_model(cfg: Config) -> ModelBundle:
         return _bundle(
             name, res, d_gan,
             lambda k: stackgan.stage2_generator_init(k, gan, lr_res),
-            gen_apply, eps_shape=lambda b: (2, b, gan.ca_dim), has_ca=True,
-            needs_stage1=True)
+            gen_apply, eps_shape=lambda b: (2, b, gan.ca_dim),
+            eps_batch_axis=1, has_ca=True, needs_stage1=True)
 
     if name == "pggan":
         return _pggan(cfg)

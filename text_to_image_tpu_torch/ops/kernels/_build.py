@@ -2,15 +2,20 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own,
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
--fPIC``, into ``build/torch_kernels/lib<name>.so`` beside the package.  No
-PyTorch header is included, so a build takes seconds.  Sources are built at
-first use, once per process; `build` starts one ``nvcc`` per source, all
-together.  A missing ``nvcc`` or a failed build raises: there is no fallback.
+-fPIC``, into ``build/torch_kernels/lib<name>.<digest>.so`` beside the
+package, the digest being that of the source, the ``csrc`` headers and the
+flags.  No PyTorch header is included, so a build takes seconds.  Sources
+are built at first use, once per process; `build` starts one ``nvcc`` per
+source, all together; a library already built from the same digest (by an
+earlier process, such as another rank of a data-parallel run) is loaded as
+it is.
+A missing ``nvcc`` or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -39,11 +44,26 @@ def nvcc() -> str:
                        "are compiled at first use")
 
 
+def _built(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` as it stands now goes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}.{h.hexdigest()[:16]}.so"
+
+
 def build(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
     """Compile and load ``csrc/<name>.cu`` for each name not yet loaded in
-    this process (one nvcc each, run in parallel); returns every library."""
+    this process (one nvcc each, run in parallel; a library built from the
+    same sources already is loaded as it is); returns every library."""
     names = list(names)
     with _LOCK:
+        for n in names:
+            if not (CSRC / f"{n}.cu").is_file():
+                raise FileNotFoundError(CSRC / f"{n}.cu")
+            if n not in _LIBS and _built(n).is_file():
+                _LIBS[n] = ctypes.CDLL(str(_built(n)))
         todo = [n for n in names if n not in _LIBS]
         if todo:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -51,8 +71,6 @@ def build(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
             procs = {}
             for n in todo:
                 src = CSRC / f"{n}.cu"
-                if not src.is_file():
-                    raise FileNotFoundError(src)
                 tmp = BUILD_DIR / f"lib{n}.{os.getpid()}.so"
                 procs[n] = (tmp, subprocess.Popen(
                     [compiler, *NVCC_FLAGS, "-o", str(tmp), str(src)],
@@ -65,7 +83,7 @@ def build(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
                     failed.append(f"{n}.cu (rc {proc.returncode}):\n{out}")
                     continue
                 _PTXAS[n] = out
-                final = BUILD_DIR / f"lib{n}.so"
+                final = _built(n)
                 os.replace(tmp, final)
                 _LIBS[n] = ctypes.CDLL(str(final))
             if failed:
@@ -96,7 +114,7 @@ def bind(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
 
 def ptxas_report(name: str) -> str:
     """What ``-Xptxas -v`` printed for this source (registers, spills,
-    shared memory per kernel); empty until it is built."""
+    shared memory per kernel); empty until this process built it."""
     return _PTXAS.get(name, "")
 
 

@@ -703,6 +703,52 @@ def upconv3x3_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return apply_act(y * scale.float() + shift.float(), act).to(x.dtype)
 
 
+# The space-to-depth form (`upconv3x3_s2d`, JAX `conv.py` `upconv3x3_s2d`):
+# conv3x3(up2(x), w) = depth_to_space(conv3x3(x, W')), W'[u, v, :, (py, px,
+# co)] the combined tap whose padded-input shift is (u, v) (5/9 of each
+# parity block is zero).  Plain torch; nothing dispatches to it, as nothing
+# does in the JAX package (`fused._upconv_s2d_wins` returns False: slower in
+# every graph it measured), so it stays the documented formulation, held
+# against `upconv3x3_plain` and the JAX function by the tests.
+
+def s2d_upconv_weights(w: torch.Tensor) -> torch.Tensor:
+    """[3,3,Cin,Co] → [3,3,Cin,4·Co], output channels (py, px, co)-major
+    (`_s2d_upconv_weights`)."""
+    wc = combine_upconv_weights(w)
+    ci, co = w.shape[2], w.shape[3]
+    out = w.new_zeros(3, 3, ci, 4 * co)
+    for py in (0, 1):
+        for px in (0, 1):
+            c0 = (py * 2 + px) * co
+            for a, u in enumerate(UPCONV_TAPS[py]):
+                for c, v in enumerate(UPCONV_TAPS[px]):
+                    out[u, v, :, c0:c0 + co] = wc[py, px, a, c]
+    return out
+
+
+def upconv3x3_s2d(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                  shift: torch.Tensor, act: str = "none") -> torch.Tensor:
+    """``act(conv3x3(upsample2_nearest(x))·scale + shift)`` in the
+    space-to-depth form: one 3×3 convolution of x to 4·Co channels in x's
+    dtype, the f32 epilogue, then depth-to-space.  Differentiable (autograd
+    through the torch ops)."""
+    b, h, wd, _ = x.shape
+    co = w.shape[-1]
+    wp = s2d_upconv_weights(w.to(x.dtype))
+    y4 = _nhwc(F.conv2d(_nchw(x), wp.permute(3, 2, 0, 1), padding=1))
+    y4 = apply_act(y4.float() * scale.float().repeat(4)
+                   + shift.float().repeat(4), act).to(x.dtype)
+    y4 = y4.reshape(b, h, wd, 2, 2, co).permute(0, 1, 3, 2, 4, 5)
+    return y4.reshape(b, 2 * h, 2 * wd, co)
+
+
+def upconv3x3_s2d_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       act: str = "none") -> torch.Tensor:
+    """`upconv3x3_s2d` with scale 1 and shift b (a BN follows outside)."""
+    return upconv3x3_s2d(x, w, torch.ones_like(b, dtype=torch.float32),
+                         b.float(), act)
+
+
 def _upconv_lib() -> ctypes.CDLL:
     return _build.bind("upconv3x3", {
         # x, wc, scale, shift, y, ws; B, H, W, Cin, Co, act, bf16, tile,

@@ -10,8 +10,12 @@ kernels, their bound and design are in ``csrc/batch_norm.cu``: `bn_stats`
 (Welford statistics, a, b and the running state in one launch) and `bn_act`
 (the apply pass) forward, `bn_bwd_reduce` and `bn_bwd_apply` backward, each
 with its plain PyTorch version (``*_plain``) and launch counter, on one grid
-(`bn_plan`, the mirror of the C plan).  ``bn_act(x, a, b, act) = act(x·a +
-b)`` alone is the public op of eval-mode BN and the folded stem.
+(`bn_plan`, the mirror of the C plan).  In the data-parallel tick the
+statistics are the global batch's, as the JAX package's under data
+parallelism: `bn_partials` (each rank's Welford state) and `bn_finish` (the
+ranks' states merged) take `bn_stats`' place around an all-gather.
+``bn_act(x, a, b, act) = act(x·a + b)`` alone is the public op of eval-mode
+BN and the folded stem.
 
 ``conditioning_join(x, t, wx, wt, bias, act) = act(x·wx + t·wt + bias)``:
 the discriminator's ``conv1x1(concat(x, tile(t)))`` without the concat.
@@ -31,12 +35,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from text_to_image_tpu_torch.ops.kernels import _build
+from text_to_image_tpu_torch.parallel import collectives
 
 ACT_CODES = {"none": 0, "relu": 1, "lrelu": 2, "tanh": 3}
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -156,9 +161,15 @@ def _bn_lib() -> ctypes.CDLL:
         # g, y, x, mean, rstd, out, ws; ws_bytes, rows; S, C, act, bf16,
         # sms; stream
         "t2i_bn_bwd_reduce": [ptr] * 7 + [i64, i64] + [integer] * 5 + [ptr],
-        # g, y, x, mean, rstd, gamma, sga, sgx, dx; rows; S, C, act, bf16,
-        # sms; stream
-        "t2i_bn_bwd_apply": [ptr] * 9 + [i64] + [integer] * 5 + [ptr]})
+        # g, y, x, mean, rstd, gamma, sga, sgx, dx; rows, count; S, C, act,
+        # bf16, sms; stream
+        "t2i_bn_bwd_apply": [ptr] * 9 + [i64, i64] + [integer] * 5 + [ptr],
+        # x, out, ws; ws_bytes, rows; S, C, bf16, sms; stream
+        "t2i_bn_partials": [ptr] * 3 + [i64, i64] + [integer] * 4 + [ptr],
+        # parts; D; gamma, beta, run_mean, run_var, out; S, C; momentum,
+        # 1 - momentum, eps; stream
+        "t2i_bn_finish": [ptr, integer] + [ptr] * 5 + [integer] * 2
+                         + [f32] * 3 + [ptr]})
 
 
 @functools.lru_cache(maxsize=None)
@@ -293,6 +304,107 @@ def bn_stats(x: torch.Tensor, streams: int, gamma: torch.Tensor,
 bn_stats.launches = 0
 
 
+# --- bn_partials, bn_finish: the statistics over a batch group -------------
+
+def bn_partials_plain(x: torch.Tensor, streams: int) -> torch.Tensor:
+    """The plain PyTorch version of `bn_partials`: per stream its row count
+    n (repeated over the channels), mean and M2 = n·(biased variance), f32
+    [3, S, C]."""
+    xs = _streamed(x, streams)
+    var, mean = torch.var_mean(xs, dim=1, unbiased=False)
+    n = torch.full_like(mean, xs.shape[1])
+    return torch.stack([n, mean, var * n])
+
+
+def bn_partials(x: torch.Tensor, streams: int) -> torch.Tensor:
+    """Each stream's Welford state (n, mean, M2) f32 [3, S, C] in one
+    launch: `bn_stats` stopping before the statistics, for `bn_finish` to
+    merge with the other ranks' partials.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if not _on_card(x, "bn_partials"):
+        return bn_partials_plain(x, streams)
+    _bn_check(x, streams, "none")
+    c = x.shape[-1]
+    rows = x.numel() // c
+    sms = _sms(x.device.index)
+    ws = _bn_workspace(x.device, bn_plan(rows, streams, c, sms=sms).ws_bytes)
+    out = torch.empty(3, streams, c, dtype=torch.float32, device=x.device)
+    _rc(_bn_lib().t2i_bn_partials(
+        x.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(), rows,
+        streams, c, int(x.dtype == torch.bfloat16), sms,
+        torch.cuda.current_stream(x.device).cuda_stream), "bn_partials")
+    bn_partials.launches += 1
+    return out
+
+
+bn_partials.launches = 0
+
+
+def bn_finish_plain(parts: torch.Tensor, gamma: torch.Tensor,
+                    beta: torch.Tensor, run_mean: torch.Tensor,
+                    run_var: torch.Tensor, momentum: float = 0.9,
+                    eps: float = 1e-5):
+    """The plain PyTorch version of `bn_finish`: the D partials [D, 3, S, C]
+    merged by Chan's formula in rank order, then `bn_stats_plain`'s
+    formulas."""
+    n, mean, m2 = (torch.zeros_like(p) for p in acc(parts[0]))
+    for nb, mb, m2b in acc(parts):      # every partial holds n >= 1 rows
+        nt = n + nb
+        fb = nb / nt
+        cross = n * fb
+        delta = mb - mean
+        mean = mean + delta * fb
+        m2 = m2 + (m2b + delta * delta * cross)
+        n = nt
+    var = m2 / n
+    rstd = torch.rsqrt(var + eps)
+    a = rstd * acc(gamma)
+    b = acc(beta) - mean * a
+    new_mean = (momentum * acc(run_mean) + (1.0 - momentum) * mean).mean(0)
+    new_var = (momentum * acc(run_var) + (1.0 - momentum) * var).mean(0)
+    return mean, rstd, a, b, new_mean, new_var
+
+
+def bn_finish(parts: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              run_mean: torch.Tensor, run_var: torch.Tensor,
+              momentum: float = 0.9, eps: float = 1e-5):
+    """`bn_stats`' outputs, (mean, rstd, a, b) f32 [S, C] and the new
+    running (mean, var) f32 [C], of the batch whose D pieces gave the
+    partials `parts` f32 [D, 3, S, C] (`bn_partials` of each rank, in rank
+    order), in one launch.  The merge order is fixed, so every rank gets the
+    same bits.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if not _on_card(parts, "bn_finish"):
+        return bn_finish_plain(parts, gamma, beta, run_mean, run_var,
+                               momentum, eps)
+    if (parts.dtype != torch.float32 or parts.dim() != 4
+            or parts.shape[1] != 3 or not parts.is_contiguous()):
+        raise ValueError(f"parts must be contiguous float32 [D, 3, S, C], got "
+                         f"{parts.dtype} {tuple(parts.shape)}")
+    d, _, streams, c = parts.shape
+    for name, v in (("gamma", gamma), ("beta", beta), ("run_mean", run_mean),
+                    ("run_var", run_var)):
+        if (v.dtype != torch.float32 or tuple(v.shape) != (c,)
+                or v.device != parts.device or not v.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 [{c}] on "
+                             f"{parts.device}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
+    sc = streams * c
+    out = torch.empty(4 * sc + 2 * c, dtype=torch.float32,
+                      device=parts.device)
+    _rc(_bn_lib().t2i_bn_finish(
+        parts.data_ptr(), d, gamma.data_ptr(), beta.data_ptr(),
+        run_mean.data_ptr(), run_var.data_ptr(), out.data_ptr(), streams, c,
+        momentum, 1.0 - momentum, eps,
+        torch.cuda.current_stream(parts.device).cuda_stream), "bn_finish")
+    bn_finish.launches += 1
+    return (*out[:4 * sc].view(4, streams, c), out[4 * sc:4 * sc + c],
+            out[4 * sc + c:])
+
+
+bn_finish.launches = 0
+
+
 # --- bn_act -----------------------------------------------------------------
 
 def bn_act_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -421,13 +533,13 @@ bn_bwd_reduce.launches = 0
 def bn_bwd_apply_plain(g: torch.Tensor, y, x: torch.Tensor,
                        mean: torch.Tensor, rstd: torch.Tensor,
                        gamma: torch.Tensor, sga: torch.Tensor,
-                       sgx: torch.Tensor, streams: int, act: str
-                       ) -> torch.Tensor:
+                       sgx: torch.Tensor, streams: int, act: str,
+                       count: Optional[int] = None) -> torch.Tensor:
     """The plain PyTorch version of `bn_bwd_apply`: the exact gradient
     through the batch statistics, dx = γ·rstd·(ga − Σga/R − x̂·Σ(ga·x̂)/R)
-    per stream, in x's dtype."""
+    per stream, in x's dtype; R = `count` (default: x's rows a stream)."""
     ga = _grad_act(g, y, act, streams)
-    r = ga.shape[1]
+    r = ga.shape[1] if count is None else count
     dx = (acc(gamma) * rstd)[:, None] * (
         ga - (sga / r)[:, None] - _xhat(x, mean, rstd, streams)
         * (sgx / r)[:, None])
@@ -436,21 +548,26 @@ def bn_bwd_apply_plain(g: torch.Tensor, y, x: torch.Tensor,
 
 def bn_bwd_apply(g: torch.Tensor, y, x: torch.Tensor, mean: torch.Tensor,
                  rstd: torch.Tensor, gamma: torch.Tensor, sga: torch.Tensor,
-                 sgx: torch.Tensor, streams: int, act: str) -> torch.Tensor:
+                 sgx: torch.Tensor, streams: int, act: str,
+                 count: Optional[int] = None) -> torch.Tensor:
     """dx of the train-mode BN in one launch (g, y, x read once, dx
-    written).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    written); the sums are over `count` rows a stream (default: x's; the
+    global rows when they were all-reduced over a batch group).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     if not _on_card(x, "bn_bwd_apply"):
         return bn_bwd_apply_plain(g, y, x, mean, rstd, gamma, sga, sgx,
-                                  streams, act)
+                                  streams, act, count)
     _bwd_check(g, y, x, mean, rstd, streams, act, (("gamma", gamma),),
                (("sga", sga), ("sgx", sgx)))
     c = x.shape[-1]
+    rows = x.numel() // c
     dx = torch.empty_like(x)
     _rc(_bn_lib().t2i_bn_bwd_apply(
         g.data_ptr(), y.data_ptr() if act != "none" else None, x.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(), sga.data_ptr(),
-        sgx.data_ptr(), dx.data_ptr(), x.numel() // c, streams, c,
+        sgx.data_ptr(), dx.data_ptr(), rows,
+        rows // streams if count is None else count, streams, c,
         ACT_CODES[act], int(x.dtype == torch.bfloat16), _sms(x.device.index),
         torch.cuda.current_stream(x.device).cuda_stream), "bn_bwd_apply")
     bn_bwd_apply.launches += 1
@@ -475,10 +592,18 @@ def _bwd_check(g, y, x, mean, rstd, streams, act, per_channel=(),
 # --- the train-mode batch norm ----------------------------------------------
 
 def _bn_train_forward(x, gamma, beta, run_mean, run_var, streams, act,
-                      momentum, eps):
-    """bn_stats then bn_act over its a and b: two launches, nothing else."""
-    mean, rstd, a, b, new_mean, new_var = bn_stats(
-        x, streams, gamma, beta, run_mean, run_var, momentum, eps)
+                      momentum, eps, sync):
+    """bn_stats then bn_act over its a and b: two launches, nothing else.
+    Over a batch group (`sync`): bn_partials, their all-gather, bn_finish,
+    then bn_act."""
+    if sync is None:
+        stats = bn_stats(x, streams, gamma, beta, run_mean, run_var,
+                         momentum, eps)
+    else:
+        parts = collectives.all_gather(bn_partials(x, streams), sync)
+        stats = bn_finish(parts, gamma, beta, run_mean, run_var, momentum,
+                          eps)
+    mean, rstd, a, b, new_mean, new_var = stats
     return _bn_act_forward(x, a, b, act), mean, rstd, new_mean, new_var
 
 
@@ -486,14 +611,21 @@ class _BatchNormAct(torch.autograd.Function):
     """Train-mode BN + activation of S streams: bn_stats + bn_act forward,
     bn_bwd_reduce + bn_bwd_apply backward (the exact gradient through the
     statistics).  The running state is an output without gradient.  Nothing
-    differentiates a batch norm twice (WGAN-CLS's critic uses layer norm)."""
+    differentiates a batch norm twice (WGAN-CLS's critic uses layer norm).
+
+    Over a batch group the backward all-reduces bn_bwd_reduce's per-stream
+    sums and bn_bwd_apply divides by the global rows of a stream, so each
+    rank's dx is the gradient of the sum of every rank's loss (the sum the
+    tick's gradient all-reduce averages); dγ and dβ stay this rank's and
+    are averaged with the other parameter gradients."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, run_mean, run_var, streams, act,
-                momentum, eps):
+                momentum, eps, sync):
         y, mean, rstd, new_mean, new_var = _bn_train_forward(
-            x, gamma, beta, run_mean, run_var, streams, act, momentum, eps)
-        ctx.streams, ctx.act = streams, act
+            x, gamma, beta, run_mean, run_var, streams, act, momentum, eps,
+            sync)
+        ctx.streams, ctx.act, ctx.sync = streams, act, sync
         ctx.save_for_backward(x, gamma, y if act != "none" else None, mean,
                               rstd)
         ctx.mark_non_differentiable(new_mean, new_var)
@@ -504,16 +636,21 @@ class _BatchNormAct(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g, _mean_grad, _var_grad):
         if g is None:
-            return (None,) * 9
+            return (None,) * 10
         x, gamma, y, mean, rstd = ctx.saved_tensors
         g = g.to(x.dtype).contiguous()
         sga, sgx, dgamma, dbeta = bn_bwd_reduce(g, y, x, mean, rstd,
                                                 ctx.streams, ctx.act)
+        count = None
+        if ctx.sync is not None:
+            sga, sgx = collectives.all_reduce_sum(torch.stack([sga, sgx]),
+                                                  ctx.sync)
+            count = x.numel() // x.shape[-1] // ctx.streams * ctx.sync.size
         need = ctx.needs_input_grad
         dx = (bn_bwd_apply(g, y, x, mean, rstd, gamma, sga, sgx, ctx.streams,
-                           ctx.act) if need[0] else None)
+                           ctx.act, count) if need[0] else None)
         return (dx, dgamma if need[1] else None, dbeta if need[2] else None,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -526,12 +663,18 @@ def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     stream's ``momentum·old + (1 − momentum)·batch``.  γ (`gamma`), β and the
     running state are f32 [C].  On the card two launches forward (bn_stats,
     bn_act) and two backward (bn_bwd_reduce, bn_bwd_apply); CPU tensors take
-    the plain versions.  Differentiable in x, γ and β."""
+    the plain versions.  Differentiable in x, γ and β.
+
+    Inside `collectives.batch_sync` (the data-parallel tick) x is this
+    rank's piece of every stream and the statistics are the whole stream's
+    over the batch group: three launches forward (bn_partials, bn_finish
+    around an all-gather, bn_act), two backward around an all-reduce."""
+    sync = collectives.active()
     if needs_grad(x, gamma, beta):
         return _BatchNormAct.apply(x, gamma, beta, run_mean, run_var,
-                                   streams, act, momentum, eps)
+                                   streams, act, momentum, eps, sync)
     y, _, _, new_mean, new_var = _bn_train_forward(
-        x, gamma, beta, run_mean, run_var, streams, act, momentum, eps)
+        x, gamma, beta, run_mean, run_var, streams, act, momentum, eps, sync)
     return y, new_mean, new_var
 
 

@@ -34,6 +34,24 @@ reaches it, and it is in neither optimizer nor the EMA.  The noise of step
 ``fold_in(fold_in(seed, s), 0 | 1)``, drawn on the CPU and moved to the
 device, so a tick gives the same numbers on every device; a caller may pass
 its own instead (``noise=``), as the tests do with the JAX step's draws.
+
+Data parallelism (``env``, a ``parallel/mesh.MeshEnv`` with a batch group of
+D = slice·data ranks): the JAX contract holds, N ranks on a global batch B
+give the one-device result on B up to reduction-order rounding.  Each rank
+gets its B/D rows of the batch, draws the global noise from (seed, step)
+and keeps its rows of it, and runs the tick under
+``collectives.batch_sync``, where the train-mode BN, C-PGGAN's minibatch
+stddev and GAN-INT's pairing see the global batch.  No DDP wrapper: the
+tick calls ``torch.autograd.grad`` itself, the GP with ``create_graph``.
+The factor: rank r backprops its local mean loss L_r, and the global loss
+is L = (1/D)·Σ_r L_r (equal shards).  L_r reaches the other ranks' rows
+only through the collectives, whose backward all-reduces (sums) the
+cotangents, so rank r's gradient is ∂(Σ_r' L_r')/∂θ along its own rows'
+paths; summed over the ranks that is ∂(Σ_r L_r)/∂θ = D·∂L/∂θ.  So after
+every ``_grads`` one flat all-reduce SUM over the batch group, ÷ D, gives
+∂L/∂θ on every rank, and the replicated Adam and EMA stay replicated.  The
+metrics are averaged over the group, so every rank holds the global ones.
+Without a batch group nothing of this runs.
 """
 
 from __future__ import annotations
@@ -47,6 +65,8 @@ from text_to_image_tpu_torch.models import losses as LL
 from text_to_image_tpu_torch.models import stackgan
 from text_to_image_tpu_torch.models.registry import get_model, tree_to
 from text_to_image_tpu_torch.ops import layers as L
+from text_to_image_tpu_torch.parallel import collectives, mesh
+from text_to_image_tpu_torch.parallel.mesh import MeshEnv
 from text_to_image_tpu_torch.train import optim
 from text_to_image_tpu_torch.train.optim import flatten
 from text_to_image_tpu_torch.train.state import TrainState
@@ -64,12 +84,41 @@ def _detached(tree: Dict) -> Dict:
             for k, v in tree.items()}
 
 
-def _grads(loss: torch.Tensor, leaves) -> Tuple[torch.Tensor, ...]:
+def _grads(loss: torch.Tensor, leaves, sync: Optional[collectives.Sync] = None
+           ) -> Tuple[torch.Tensor, ...]:
     """d loss / d leaf for every leaf; zeros where the loss does not reach
-    the leaf (the C-PGGAN layers deeper than the stage)."""
+    the leaf (the C-PGGAN layers deeper than the stage).  Over a batch
+    group, the mean over its ranks (one flat all-reduce)."""
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return tuple(torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads))
+    grads = tuple(torch.zeros_like(p) if g is None else g
+                  for p, g in zip(leaves, grads))
+    if sync is None:
+        return grads
+    flat = collectives.all_reduce_sum(
+        torch.cat([g.reshape(-1) for g in grads]), sync).div_(sync.size)
+    return tuple(f.view_as(g) for f, g in
+                 zip(flat.split([g.numel() for g in grads]), grads))
+
+
+def batch_sync_of(env: Optional[MeshEnv]) -> Optional[collectives.Sync]:
+    """The batch group of `env` as the tick's collectives take it; None
+    without a process group."""
+    if env is None or env.batch_group is None:
+        return None
+    return collectives.Sync(env.batch_group, env.shards, env.shard_index)
+
+
+def shard_noise(cfg: Config, env: Optional[MeshEnv],
+                noise: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's rows of `draw_noise`'s global noise: the batch is axis 1
+    of the stacked entries (one per D update) and axis 0 of the others; the
+    CA ε's is the bundle's ``eps_batch_axis``."""
+    if env is None or env.batch_group is None:
+        return noise
+    eps_axis = get_model(cfg).eps_batch_axis
+    axes = {"d": 1, "g": 0, "g2": 0, "gp_eps": 1, "d_eps": 1 + eps_axis,
+            "g_eps": eps_axis, "g2_eps": eps_axis}
+    return {k: mesh.shard_batch(env, v, axes[k]) for k, v in noise.items()}
 
 
 def _clone(tree: Dict) -> Dict:
@@ -156,14 +205,18 @@ def draw_noise(cfg: Config, step: int, batch: int) -> Dict[str, torch.Tensor]:
     return noise
 
 
-def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda"):
+def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda",
+                    env: Optional[MeshEnv] = None):
     """Returns ``step(ts, batch, noise=None) -> (ts, metrics)``.
 
     `batch` holds real/wrong [K,B,H,W,3] (uint8, or float in [-1, 1]) and
     emb [K,B,E] with K = n_critic, as numpy arrays or tensors; `noise` is
     `draw_noise`'s dict, drawn from (seed, step) when None.  `ts` is updated
-    in place and returned; metrics are 0-dim device tensors."""
+    in place and returned; metrics are 0-dim device tensors.  With a batch
+    group in `env`, `batch` is this rank's B/D rows and `noise` is the
+    global batch's, of which the tick keeps this rank's rows."""
     bundle = get_model(cfg)
+    sync = batch_sync_of(env)
     policy = L.Policy.from_str(cfg.dtype)
     tcfg = cfg.train
     co = tcfg.coeff
@@ -195,7 +248,7 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda"):
         else:
             ld = LL.gan_cls_d_loss(logits[0], logits[1], logits[2],
                                    co.real_label_smooth)
-        ts.d_opt.update(_grads(ld["d_loss"], ts.d_opt.leaves))
+        ts.d_opt.update(_grads(ld["d_loss"], ts.d_opt.leaves, sync))
         ts.d_state = _detached(new_state)
         return {k: v.detach() for k, v in ld.items()}
 
@@ -225,7 +278,7 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda"):
         if bundle.has_ca:
             kl = LL.ca_kl_loss(gen_aux["mu"], gen_aux["logvar"])
             lg = {**lg, "kl": kl, "g_loss": lg["g_loss"] + co.kl * kl}
-        ts.g_opt.update(_grads(lg["g_loss"], ts.g_opt.leaves))
+        ts.g_opt.update(_grads(lg["g_loss"], ts.g_opt.leaves, sync))
         ts.g_state = _detached(new_state)
         return lg
 
@@ -243,9 +296,16 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda"):
 
     def step(ts: TrainState, batch, noise: Optional[Dict] = None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with collectives.batch_sync(sync):
+            return tick(ts, batch, noise)
+
+    def tick(ts: TrainState, batch, noise: Optional[Dict]
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         embs = torch.as_tensor(batch["emb"]).to(device, non_blocking=True)
         if noise is None:
-            noise = draw_noise(cfg, ts.step, embs.shape[1])
+            shards = 1 if sync is None else sync.size
+            noise = draw_noise(cfg, ts.step, embs.shape[1] * shards)
+        noise = shard_noise(cfg, env, noise)
 
         def on_device(name):
             if name not in noise:      # no GAN-INT term / no CA in this model
@@ -268,14 +328,20 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda"):
         if tcfg.ema_decay > 0:
             ema(ts)
         ts.step += 1
-        return ts, {k: v.detach() for k, v in {**d_metrics,
-                                               **g_metrics}.items()}
+        metrics = {k: v.detach() for k, v in {**d_metrics,
+                                              **g_metrics}.items()}
+        if sync is not None:
+            names = sorted(metrics)
+            mean = collectives.all_reduce_sum(
+                torch.stack([metrics[k].float() for k in names]), sync)
+            metrics = dict(zip(names, mean.div_(sync.size)))
+        return ts, metrics
 
     return step
 
 
 def make_resident_step(cfg: Config, steps_per_epoch: int = 1000,
-                       device="cuda"):
+                       device="cuda", env: Optional[MeshEnv] = None):
     """Returns ``step(ts, data) -> (ts, metrics)`` for the device-resident
     tier (counterpart of the JAX ``make_resident_step``): the tick's
     [n_critic, B, …] batch is drawn and gathered on the data's device from
@@ -283,17 +349,23 @@ def make_resident_step(cfg: Config, steps_per_epoch: int = 1000,
     ``data/device.DeviceData``), then goes through `make_train_step`'s tick.
     The batch depends on (seed, step) alone, so a restored run replays it.
     ``step.batch_at(data, step)`` and ``step.tick(ts, batch)`` are the two
-    halves."""
+    halves.  With a batch group in `env` each rank gathers its rows of the
+    global batch, or (``data/device.ShardedDeviceData``) draws them from
+    its shard."""
     from text_to_image_tpu_torch.data import device as DD
 
-    tick = make_train_step(cfg, steps_per_epoch, device)
+    tick = make_train_step(cfg, steps_per_epoch, device, env)
     dcfg, tcfg = cfg.data, cfg.train
+    rows = (None if batch_sync_of(env) is None
+            else env.rows(tcfg.batch_size))
 
     def batch_at(data, step: int) -> Dict[str, torch.Tensor]:
-        return DD.sample_stacked(data, DD.batch_key(cfg.seed, step),
-                                 tcfg.n_critic, tcfg.batch_size,
-                                 dcfg.image_size, dcfg.caption_window,
-                                 dcfg.random_crop, dcfg.random_flip)
+        key = DD.batch_key(cfg.seed, step)
+        args = (tcfg.n_critic, tcfg.batch_size, dcfg.image_size,
+                dcfg.caption_window, dcfg.random_crop, dcfg.random_flip)
+        if isinstance(data, DD.ShardedDeviceData):
+            return DD.sample_stacked_sharded(data, key, *args)
+        return DD.sample_stacked(data, key, *args, rows=rows)
 
     def step(ts: TrainState, data) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         return tick(ts, batch_at(data, ts.step))

@@ -12,7 +12,13 @@ Stage-I generator from a Stage-I run directory or an ``.npz``
 empty.  `train_progressive` runs the whole C-PGGAN progression, one
 `Trainer` a stage, linked by the checkpoint each stage leaves.
 
-Left out: the sharded resident tier (multi-GPU, ROADMAP.md item 9).
+Data parallel (a process group, ``parallel/mesh.py``): the mesh comes from
+``cfg.mesh``; each rank runs the tick on its rows of the global batch
+(``train/steps.py``); the tier rule takes D = slice·data as the JAX
+trainer's does, the sharded resident tier included; rank 0 alone writes
+checkpoints, metrics, TensorBoard and grids, with a barrier after each
+save; every rank restores the same checkpoint and then checks that the
+ranks' parameters agree (a checksum).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from text_to_image_tpu_torch import convert
 from text_to_image_tpu_torch.config import Config
@@ -32,17 +39,32 @@ from text_to_image_tpu_torch.data import native
 from text_to_image_tpu_torch.data.pipeline import InputPipeline
 from text_to_image_tpu_torch.eval.sampler import make_generator_fn, sample_grid
 from text_to_image_tpu_torch.models import pggan as PG
+from text_to_image_tpu_torch.parallel import mesh
+from text_to_image_tpu_torch.parallel.mesh import MeshEnv, create_mesh
 from text_to_image_tpu_torch.train import checkpoint as ckpt
 from text_to_image_tpu_torch.train.steps import (init_train_state,
                                                  make_resident_step,
                                                  make_train_step)
+from text_to_image_tpu_torch.train.optim import flatten
 from text_to_image_tpu_torch.utils import prng
 from text_to_image_tpu_torch.utils.images import (inverse_transform, merge,
                                                   save_images)
 from text_to_image_tpu_torch.utils.metrics import (MetricWriter,
                                                    ThroughputMeter, hbm_stats)
 
-ITEM_9 = "ROADMAP.md, 'Modules to port' item 9 (multi-GPU)"
+
+
+class _Silent:
+    """The metric writer of every rank but 0: it writes nothing."""
+
+    def write(self, step, metrics) -> None:
+        pass
+
+    def write_image(self, step, tag, image) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def run_dir(cfg: Config, root: str) -> str:
@@ -66,9 +88,13 @@ def stage1_source(cfg: Config) -> str:
 
 class Trainer:
     def __init__(self, cfg: Config, dataset=None, device="cuda",
-                 restore: bool = True):
+                 restore: bool = True, env: Optional[MeshEnv] = None):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.env = env or create_mesh(data=cfg.mesh.data,
+                                      model=cfg.mesh.model,
+                                      slices=cfg.mesh.slices)
+        main = self.env.is_main
         self.dataset = dataset if dataset is not None else get_dataset(cfg)
         self.steps_per_epoch = max(
             1, self.dataset.num_examples // cfg.train.batch_size)
@@ -81,33 +107,52 @@ class Trainer:
                                            async_save=cfg.async_checkpoint)
         if restore:
             ts, restored = self.ckpt.restore(ts)
-            if restored is not None:
+            if restored is not None and main:
                 print(f"restored checkpoint at step {restored} from "
                       f"{self.ckpt.directory}")
+        mesh.check_replicated(self.env, [t for _, t in flatten(ts.g_params)]
+                              + [t for _, t in flatten(ts.d_params)],
+                              "the parameters")
         self.ts = ts
 
         self.device_data = None
         self.pipeline = None
+        env, spe = self.env, self.steps_per_epoch
+        dp = env.batch_group is not None
         tier = self._resident_tier()
-        if tier == "replicated":
+        if tier == "sharded":
+            self.device_data = device_data.stage_sharded(
+                self.dataset, env.shard_index, env.shards, cfg.seed, device)
+            self.step_fn = make_resident_step(cfg, spe, device, env)
+            path = (f"sharded (shard {env.shard_index} of {env.shards} on "
+                    f"{self.device}; each rank draws its rows of a tick's "
+                    f"batch from its own shard)")
+        elif tier == "replicated":
             self.device_data = device_data.stage(self.dataset, device)
-            self.step_fn = make_resident_step(cfg, self.steps_per_epoch,
-                                              device)
-            print(f"data path: replicated (the split on {self.device}, "
-                  f"{device_data.nbytes(self.dataset) / 2**20:.1f} MiB; each "
-                  f"tick's batch drawn and gathered there)")
+            self.step_fn = make_resident_step(cfg, spe, device, env)
+            mib = device_data.nbytes(self.dataset) / 2**20
+            path = (f"replicated (the split on {self.device}, {mib:.1f} MiB; "
+                    f"each tick's batch drawn and gathered there)")
         else:
-            self.step_fn = make_train_step(cfg, self.steps_per_epoch, device)
+            self.step_fn = make_train_step(cfg, spe, device, env)
             self.pipeline = InputPipeline(
                 self.dataset, cfg.train.batch_size, device,
                 window=cfg.data.caption_window,
                 batches_per_step=cfg.train.n_critic,
-                prefetch=cfg.data.prefetch)
+                prefetch=cfg.data.prefetch,
+                rows=env.rows(cfg.train.batch_size) if dp else None)
             helpers = ("native C++" if isinstance(self.dataset, TextDataset)
                        and native.available() else "numpy")
-            print(f"data path: host-pipeline ({helpers} batch assembly, one "
-                  f"worker thread)")
-        self.metrics = MetricWriter(run_dir(cfg, cfg.log_dir))
+            path = (f"host-pipeline ({helpers} batch assembly, one worker "
+                    f"thread)")
+        if main:
+            print(f"data path: {path}"
+                  + (f"; data parallel over {env.shards} ranks "
+                     f"(mesh {env.slice_size}x{env.data_size}x"
+                     f"{env.model_size})" if dp else ""))
+        self.metrics = (MetricWriter(run_dir(cfg, cfg.log_dir)) if main
+                        else _Silent())
+        # the global batch: the tick's images on every rank together
         self.meter = ThroughputMeter(
             cfg.train.batch_size * cfg.train.n_critic)
         self.history: list = []
@@ -121,31 +166,40 @@ class Trainer:
         self._sample_key = prng.fold_in(cfg.seed, 2**30)
 
     def _resident_tier(self) -> Optional[str]:
-        """'replicated' (the split staged on the card) or None (host
-        pipeline), by the JAX trainer's rule on one device: ``off`` → None;
-        ``on`` → replicated; ``auto`` → replicated when the dataset exposes
-        images, embeddings and class_ids and fits ``resident_budget_mb``;
-        ``sharded`` raises (ROADMAP item 9)."""
+        """'replicated' (the split staged on every card), 'sharded' (the
+        examples spread over the D = slice·data batch-axis ranks) or None
+        (host pipeline), by the JAX trainer's rule: ``off`` → None; ``on``
+        → replicated; ``sharded`` → sharded (B divisible by D); ``auto`` →
+        replicated when the dataset exposes images, embeddings and
+        class_ids and fits ``resident_budget_mb``, else sharded when it
+        fits D budgets and D divides B."""
         mode = self.cfg.data.device_resident
         if mode == "off":
             return None
         ds = self.dataset
         stageable = all(hasattr(ds, a)
                         for a in ("images", "embeddings", "class_ids"))
+        d = self.env.slice_size * self.env.data_size
         if mode in ("on", "sharded"):
             if not stageable:
                 raise ValueError(
                     f"device_resident={mode} but the dataset does not "
                     "expose in-memory images/embeddings/class_ids arrays")
-            if mode == "sharded":
-                raise NotImplementedError(
-                    f"data.device_resident='sharded': the sharded resident "
-                    f"tier is not ported yet: {ITEM_9}")
-            return "replicated"
+            if mode == "sharded" and self.cfg.train.batch_size % d:
+                raise ValueError(
+                    f"device_resident=sharded needs batch_size divisible "
+                    f"by the {d} batch-axis devices")
+            return "sharded" if mode == "sharded" else "replicated"
         if not stageable:
             return None
         budget = self.cfg.data.resident_budget_mb * 2**20
-        return "replicated" if device_data.nbytes(ds) <= budget else None
+        size = device_data.nbytes(ds)
+        if size <= budget:
+            return "replicated"
+        if (d > 1 and size <= d * budget
+                and self.cfg.train.batch_size % d == 0):
+            return "sharded"
+        return None
 
     def train(self, num_steps: Optional[int] = None, eval_fn=None,
               eval_interval: int = 0) -> None:
@@ -198,9 +252,11 @@ class Trainer:
         self.history.append({"step": step, **host})
         return host
 
-    def save_samples(self, step: int) -> str:
+    def save_samples(self, step: int) -> Optional[str]:
         """The fixed-z grid of this step: a PNG under ``sample_dir`` and an
-        image summary."""
+        image summary (rank 0 alone; its BN takes no collective)."""
+        if not self.env.is_main:
+            return None
         imgs = sample_grid(self._gen, self.ts, self.cfg, self._sample_emb,
                            generator=prng.generator(self._sample_key))
         out = save_images(imgs, os.path.join(
@@ -210,17 +266,26 @@ class Trainer:
         return out
 
     def save_checkpoint(self) -> None:
-        self.ckpt.save(self.ts.step, self.ts)
+        """Rank 0 snapshots the state; every rank waits for it."""
+        if self.env.is_main:
+            self.ckpt.save(self.ts.step, self.ts)
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self.env.batch_group is not None:
+            dist.barrier()
 
     def close(self) -> None:
         if self.pipeline is not None:
             self.pipeline.close()
         self.metrics.close()
         self.ckpt.close()
+        self._barrier()    # rank 0's files written before any rank reads
 
 
 def train_progressive(cfg: Config, total_steps: Optional[int] = None,
-                      device="cuda") -> List[Trainer]:
+                      device="cuda", env: Optional[MeshEnv] = None
+                      ) -> List[Trainer]:
     """The C-PGGAN progression: one `Trainer` a stage (``pggan.stage``,
     ``steps_per_stage`` and ``start_step`` replaced), each restoring the
     checkpoint the stage before it left; the parameter trees are full-depth
@@ -229,7 +294,9 @@ def train_progressive(cfg: Config, total_steps: Optional[int] = None,
     ``total_steps // n_stages`` (at least 1) or ``steps_per_stage``; α
     ramps over the first ``fade_fraction`` of it.  Stages that the latest
     checkpoint already covers are skipped.  Returns the stages' trainers
-    (closed)."""
+    (closed).  Data parallel as `Trainer` (one mesh for every stage)."""
+    env = env or create_mesh(data=cfg.mesh.data, model=cfg.mesh.model,
+                             slices=cfg.mesh.slices)
     n = PG.num_stages(cfg.data.image_size)
     per_stage = (max(1, total_steps // n) if total_steps is not None
                  else cfg.pggan.steps_per_stage)
@@ -237,7 +304,7 @@ def train_progressive(cfg: Config, total_steps: Optional[int] = None,
     done = mgr.latest_step() or 0
     mgr.close()
     first = min(done // per_stage + 1, n)
-    if first > 1:
+    if first > 1 and env.is_main:
         print(f"[pggan] checkpoint at step {done} covers stages "
               f"1..{first - 1}: resuming at stage {first}/{n}")
     trainers = []
@@ -245,9 +312,10 @@ def train_progressive(cfg: Config, total_steps: Optional[int] = None,
         sub = dataclasses.replace(cfg, pggan=dataclasses.replace(
             cfg.pggan, stage=stage, steps_per_stage=per_stage,
             start_step=(stage - 1) * per_stage))
-        print(f"[pggan] stage {stage}/{n} ({PG.stage_resolution(stage)} px, "
-              f"steps {(stage - 1) * per_stage}→{stage * per_stage})")
-        trainer = Trainer(sub, device=device)
+        if env.is_main:
+            print(f"[pggan] stage {stage}/{n} ({PG.stage_resolution(stage)} "
+                  f"px, steps {(stage - 1) * per_stage}→{stage * per_stage})")
+        trainer = Trainer(sub, device=device, env=env)
         try:
             trainer.train(num_steps=stage * per_stage)
         finally:
