@@ -93,11 +93,22 @@
    the JAX package's DP tolerances over every element, the all-reduced
    gradients of a tick at learning rate 0; bf16: the ranks bit-identical,
    the launches a rank and tick), WGAN-CLS with GAN-INT and C-PGGAN stage
-   4 the same way; one rank over nccl against the tick without a group
-   (ms, launches, bytes all-reduced, one tick of each profiled); and
-   ``torchrun`` of ``main.py --train``
+   4 the same way; G's elements that end past the bound named with their
+   gradients at every update, and one process against itself on the rows
+   permuted beside each f32 GAN-CLS comparison; one rank over nccl with
+   the data-parallel path forced against the tick without a group (ms,
+   launches, bytes all-reduced, one tick of each profiled); ``main.py
+   --train`` in a group of one rank against none (equal launches, no
+   collective); and ``torchrun`` of ``main.py --train``
    on 2 ranks over the sharded tier of 4c's split, 3 + 3 ticks
    bit-identical to 6;
+4g. drives the port's root surfaces (phases 12-14): ``entry.entry()`` on
+   the kernels against the same function on their plain versions on the
+   card, with its launches and ms; ``entry.dryrun_multichip(8)``, 8 gloo
+   ranks sharing the card on JAX's two meshes with the ``stem`` and
+   ``embed`` linears column-parallel over ``model``, every rank's
+   launches; ``python -m text_to_image_tpu_torch.bench`` at its defaults
+   (rc 0, every value a number);
 5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
    kernel's bound, prints the path, tile and split of each conv, join,
@@ -1020,8 +1031,8 @@ def phase_stackgan_sampling(device, model, sample_dir, runs):
     want = {k.__name__: 0 for k in counters}
     want.update({k: 3 * v for k, v in STACKGAN_FORWARD_LAUNCHES[model].items()})
     check(launches == want, f"unexpected launch counts {launches}")
-    for name in ("eval_grid", "z_interp", "t_interp"):
-        check(png_size(os.path.join(out, name + ".png"))[0] > 0,
+    for name in ("eval_grid", "z_interp", "t_interp"):   # no checkpoint
+        check(png_size(os.path.join(out, name + "_init.png"))[0] > 0,
               f"{name} not written")
 
     # the same generator through the sampler, on the card and on the CPU
@@ -3363,13 +3374,16 @@ def dp_spec(model, dtype, ticks, backend="gloo", world=DP_RANKS, seed=0,
                  "backend": backend, "device": "cuda", "batches": batches}
 
 
-def dp_grads_at_rest(what, model, launch, device, **overrides):
+def dp_grads_at_rest(what, model, launch, device, elements=(),
+                     **overrides):
     """One f32 tick of `model` at learning rate 0 (the params never move,
     so every update reads the same params on both sides): the gradients
     that each rank handed Adam (the all-reduced mean), every update's,
     against one process's, per leaf ‖Δ‖ ≤ DP_GRAD_RTOL·(‖g_leaf‖ + max
     ‖g‖ over the net's leaves).  Adam's step does not see a gradient's
-    scale; this does (a wrong ÷ D, a leaf counted twice).  Returns the
+    scale; this does (a wrong ÷ D, a leaf counted twice).  The G
+    `elements` ((leaf, index) pairs) are logged at each G update, one
+    process / ranks, in ulps of the leaf's largest |g|.  Returns the
     largest ‖Δ‖ / (‖g_leaf‖ + max ‖g‖) of each update."""
     from text_to_image_tpu_torch.tools import dp_ticks
     _, spec = dp_spec(model, "float32", 1, **overrides, **DP_AT_REST)
@@ -3399,20 +3413,80 @@ def dp_grads_at_rest(what, model, launch, device, **overrides):
         check(w <= DP_GRAD_RTOL, f"{what}: {net} update {u} gradient "
                                  f"{where} {w:.3e} apart")
     dp_same_across_ranks(what, outs)
-    return {f"{net}{u}": w for (net, u), (w, _) in worst.items()}
+    at = {}
+    for leaf, idx in elements:
+        at[f"{leaf}{list(idx)}"] = rows = []
+        for u, ref in enumerate(one["grads"]["g"]):
+            scale = float(ref[leaf].abs().max())
+            ulp = math.ldexp(1.0, math.frexp(scale)[1] - 24)
+            g1 = float(ref[leaf][idx])
+            gr = float(outs[0]["grads"]["g"][u][leaf][idx])
+            rows.append({"one": g1, "ranks": gr, "scale": scale,
+                         "ulps_apart": abs(g1 - gr) / ulp})
+        log(f"  {what}: g {leaf}{list(idx)} at rest: " + "; ".join(
+            f"u{u} {d['one']:+.6e}/{d['ranks']:+.6e} ({d['ulps_apart']:.1f} "
+            f"ulp of {d['scale']:.3e} apart)" for u, d in enumerate(rows)))
+    return {**{f"{net}{u}": w for (net, u), (w, _) in worst.items()},
+            "elements": at}
 
 
-def dp_against_one(what, cfg, spec, outs, device, held=("g", "d")):
+def dp_reorder_control(cfg, spec, device):
+    """The control of phase 11b's G elements: one process on the spec's
+    GAN-CLS batches against one process on the same batches with the rows
+    of every tick permuted (the noise's with them).  The math is the same
+    (each stream's BN statistics and every loss are sums over rows); only
+    the order of the sums differs, as between one process and the ranks.
+    Logs each net's largest difference in lr and its elements past
+    DP_PARAM_LRS·lr and past half of it; returns them."""
+    from text_to_image_tpu_torch.tools import dp_ticks
+    from text_to_image_tpu_torch.train.steps import draw_noise
+    b = cfg.train.batch_size
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(SEED))
+    noise = [draw_noise(cfg, i, b) for i in range(len(spec["batches"]))]
+    plain = {**spec, "noise": noise, "record_grads": False}
+    moved = {**plain, "batches": [{k: v[:, perm] for k, v in x.items()}
+                                  for x in spec["batches"]],
+             "noise": [{k: v[:, perm] if k == "d" else v[perm]
+                        for k, v in n.items()} for n in noise]}
+    with deterministic_cudnn():
+        a, c = dp_ticks.run(plain, device), dp_ticks.run(moved, device)
+    lr = max(cfg.train.generator_lr, cfg.train.discriminator_lr)
+    out = {}
+    for net in ("g", "d"):
+        worst, past, half = 0.0, 0, 0
+        for k, v in a["state"][f"{net}_params"].items():
+            err = (c["state"][f"{net}_params"][k] - v).abs()
+            worst = max(worst, float(err.max()) / lr)
+            past += int((err > DP_PARAM_LRS * lr).sum())
+            half += int((err > DP_PARAM_LRS * lr / 2).sum())
+        out[net] = {"max_lrs": worst, "past_bound": past, "past_half": half}
+    mdiff = max(abs(x[k] - y[k]) for x, y in zip(a["metrics"], c["metrics"])
+                for k in x)
+    log("  control: one process vs one process on the rows permuted (the "
+        f"same math in another order), {len(noise)} f32 ticks: metrics "
+        f"within {mdiff:.3e}; " + ", ".join(
+            f"{net} {o['max_lrs']:.2f}·lr ({o['past_bound']} past "
+            f"{DP_PARAM_LRS}·lr, {o['past_half']} past half)"
+            for net, o in out.items()))
+    return {**out, "metric_max_diff": mdiff}
+
+
+def dp_against_one(what, cfg, spec, outs, device, held=("g", "d"),
+                   name_past=()):
     """The ranks' outcomes against one process running the same ticks on
     the whole batch on this card, both with cuDNN's deterministic
     algorithms: metrics at DP_METRIC_TOL every tick; every element of the
     `held` nets' params within DP_PARAM_LRS·lr (the others' largest
     difference and the count of their elements past the bound logged);
     the ranks' states bit-identical.  Every difference is logged before it
-    is checked.  Returns the largest of each."""
+    is checked.  For each net of `name_past` the elements past the bound
+    are named with their gradients at every update (`dp_elements_past`;
+    the spec records every tick's).  Returns the largest of each."""
     from text_to_image_tpu_torch.tools import dp_ticks
     with deterministic_cudnn():          # as the ranks run (dp_ticks.main)
         one = dp_ticks.run(spec, device)
+    past = {net: dp_elements_past(what, net, cfg, outs, one)
+            for net in name_past}
     rtol, atol = DP_METRIC_TOL
     lr = max(cfg.train.generator_lr, cfg.train.discriminator_lr)
     worst_m, bad = 0.0, []
@@ -3428,8 +3502,9 @@ def dp_against_one(what, cfg, spec, outs, device, held=("g", "d")):
         for net, w in worst_p.items():
             for k, v in one["state"][f"{net}_params"].items():
                 err = (out["state"][f"{net}_params"][k] - v).abs()
-                w[2] += int((err > DP_PARAM_LRS * lr).sum())
-                w[3] += int((err > DP_PARAM_LRS * lr / 2).sum())
+                if r == 0:           # the ranks are held bit-identical
+                    w[2] += int((err > DP_PARAM_LRS * lr).sum())
+                    w[3] += int((err > DP_PARAM_LRS * lr / 2).sum())
                 if float(err.max()) >= w[0]:
                     w[0], w[1] = float(err.max()), k
     log(f"  {what}: {len(outs)} ranks vs one process, {len(one['metrics'])} "
@@ -3449,10 +3524,52 @@ def dp_against_one(what, cfg, spec, outs, device, held=("g", "d")):
             "param_max_leaf": {n: w[1] for n, w in worst_p.items()},
             "params_past_bound": {n: w[2] for n, w in worst_p.items()},
             "params_past_half_bound": {n: w[3] for n, w in worst_p.items()},
-            "held": list(held),
+            "held": list(held), "elements_past_bound": past,
             "metrics": [o["metrics"] for o in outs],
             "one_process_metrics": one["metrics"],
             "ms": [o["ms"] for o in outs], "one_process_ms": one["ms"]}
+
+
+def dp_elements_past(what, net, cfg, outs, one):
+    """The elements of `net`'s params that end past DP_PARAM_LRS·lr from
+    one process's (the ranks are bit-identical: rank 0's), each with the
+    all-reduced gradient that every update handed Adam on the ranks and
+    in one process, and that gradient in ulps of its leaf's scale (the
+    largest |g| of the leaf at that update: round-off of sums at that
+    scale is a few such ulps).  Logged and returned."""
+    lr = max(cfg.train.generator_lr, cfg.train.discriminator_lr)
+    rows = []
+    for k, v in one["state"][f"{net}_params"].items():
+        err = (outs[0]["state"][f"{net}_params"][k] - v).abs()
+        for idx in (err > DP_PARAM_LRS * lr).nonzero().tolist():
+            idx = tuple(idx)
+            per_update = []
+            for u, ref in enumerate(one["grads"][net]):
+                scale = float(ref[k].abs().max())
+                ulp = math.ldexp(1.0, math.frexp(scale)[1] - 24) if scale \
+                    else 0.0
+                g1 = float(ref[k][idx])
+                gr = float(outs[0]["grads"][net][u][k][idx])
+                per_update.append({"one": g1, "ranks": gr, "scale": scale,
+                                   "ulps_one": abs(g1) / ulp if ulp else 0.0,
+                                   "ulps_ranks": abs(gr) / ulp if ulp
+                                   else 0.0})
+            rows.append({"leaf": k, "index": list(idx),
+                         "diff_lrs": float(err[idx]) / lr,
+                         "one_process": float(v[idx]),
+                         "ranks": float(outs[0]["state"][f"{net}_params"][k][
+                             idx]), "updates": per_update})
+    log(f"  {what}: {len(rows)} element(s) of {net} past "
+        f"{DP_PARAM_LRS}·lr, with the gradient of each of its "
+        f"{len(one['grads'][net])} updates (one process / ranks, in ulps of "
+        f"the leaf's largest |g|):")
+    for r in rows:
+        log(f"    {net} {r['leaf']}{r['index']}: {r['diff_lrs']:.2f}·lr apart "
+            f"({r['one_process']:+.6e} vs {r['ranks']:+.6e}); " + "; ".join(
+                f"u{u} {d['one']:+.3e}/{d['ranks']:+.3e} "
+                f"({d['ulps_one']:.1f}/{d['ulps_ranks']:.1f} ulp of "
+                f"{d['scale']:.3e})" for u, d in enumerate(r["updates"])))
+    return rows
 
 
 @contextlib.contextmanager
@@ -3498,6 +3615,44 @@ def dp_profile_delta(prof):
             "host_ms_added": host, "device_ms_added": dev}
 
 
+def dp_world1_main(device, runs, launch):
+    """``main.py --train`` (GAN-CLS, full width, bf16, 3 ticks) in a group
+    of one rank over nccl, as ``torchrun --nproc_per_node 1`` makes it,
+    against the same run with no group: the launches of every kernel
+    equal (TICK_LAUNCHES a tick: bn_stats, no bn_partials), no byte
+    all-reduced."""
+    from text_to_image_tpu_torch import main as port_main
+    from text_to_image_tpu_torch.parallel import collectives
+    from text_to_image_tpu_torch.tools import dp_ticks
+    ticks = 3
+
+    def argv(root):
+        return ["--cfg", config_path("gancls"), "--train", "--steps",
+                str(ticks), "--set", "data.dataset_name=synthetic",
+                "train.summary_interval=1", "train.snapshot_interval=1000",
+                "train.sample_interval=1000", *run_dirs(root)]
+    (grouped,) = launch("gancls_main_world1", {
+        "argv": argv(os.path.join(runs, "dp", "world1_group")),
+        "backend": "nccl", "device": "cuda", "world": 1})
+    for c in dp_ticks.counters():
+        c.launches = 0
+    collectives.all_reduce_sum.bytes = 0
+    port_main.main(argv(os.path.join(runs, "dp", "world1_alone")) +
+                   ["--device", str(device)])
+    torch.cuda.synchronize()
+    alone = {c.__name__: c.launches for c in dp_ticks.counters()}
+    want = {k: ticks * TICK_LAUNCHES.get(k, 0) for k in alone}
+    log(f"  main.py --train, {ticks} ticks: launches in a group of one rank "
+        f"{grouped['launches']}, without a group {alone}; bytes all-reduced "
+        f"{grouped['all_reduce_bytes']} / {collectives.all_reduce_sum.bytes}")
+    check(grouped["launches"] == alone == want,
+          f"world-1 launches {grouped['launches']} vs {alone} (want {want})")
+    check(grouped["all_reduce_bytes"] == 0 ==
+          collectives.all_reduce_sum.bytes, "a collective at world 1")
+    return {"group_launches": grouped["launches"], "alone_launches": alone,
+            "group_d_loss": [h["d_loss"] for h in grouped["history"]]}
+
+
 def torchrun(argv, timeout):
     """``python -m torch.distributed.run --standalone --nproc_per_node 2 -m
     text_to_image_tpu_torch.main …`` from the repo root; what it printed."""
@@ -3535,21 +3690,33 @@ def phase_data_parallel(device, runs, flush):
     log(f"phase 11b: GAN-CLS at full width, {DP_RANKS} ranks on this card "
         f"over gloo (batch 32 a rank) vs one process at batch 64")
     # every element of D's params with both nets training; G's with D
-    # frozen: while D trains, G's round-off steps (Adam makes a step of
-    # ≈ lr·sign(g) of a round-off gradient) walk a few of its 21.1 M
-    # elements past 10·lr over 6 updates (logged, counted); G's gradients
-    # with D training are held in the tick at lr 0
+    # frozen.  While D trains, G's gradients vanish (D saturates on the
+    # fakes) and Adam steps each weight ≈ lr whatever the gradient's size,
+    # so another order of sums walks G's elements up to about 10·lr apart,
+    # in one process against itself too (ROADMAP.md §3, fault (b)).  G with
+    # D training is logged, its elements past the bound named with their
+    # gradients; its gradients are held in the tick at lr 0
+    # the control beside each: one process against itself on the rows
+    # permuted, the same math in another order of sums
     cfg, spec = dp_spec("gancls", "float32", 3)
+    spec["record_grads"] = "all"       # every update's, for the G elements
+    outs = launch("gancls_f32", spec)
     report["gancls_f32"] = dp_against_one(
-        "GAN-CLS f32", cfg, spec, launch("gancls_f32", spec), device,
-        held=("d",))
+        "GAN-CLS f32", cfg, spec, outs, device, held=("d",),
+        name_past=("g",))
+    del outs
+    report["gancls_f32_reorder"] = dp_reorder_control(cfg, spec, device)
     cfg, spec = dp_spec("gancls", "float32", 3,
                         **{"train.discriminator_lr": 0.0})
     report["gancls_f32_d_frozen"] = dp_against_one(
         "GAN-CLS f32, D frozen", cfg, spec,
         launch("gancls_f32_d_frozen", spec), device)
+    report["gancls_f32_d_frozen_reorder"] = dp_reorder_control(cfg, spec,
+                                                               device)
+    past = report["gancls_f32"]["elements_past_bound"]["g"]
     report["gancls_f32_grads"] = dp_grads_at_rest(
-        "GAN-CLS f32, lr 0", "gancls", launch, device)
+        "GAN-CLS f32, lr 0", "gancls", launch, device,
+        elements=[(e["leaf"], tuple(e["index"])) for e in past])
     cfg, spec = dp_spec("gancls", "bfloat16", 3, seed=1)
     outs = launch("gancls_bf16", spec)
     dp_same_across_ranks("GAN-CLS bf16", outs)
@@ -3592,6 +3759,9 @@ def phase_data_parallel(device, runs, flush):
         "vs the tick without a group, in turns in one process")
     cfg, spec = dp_spec("gancls", "bfloat16", DP_NCCL_TICKS, backend="nccl",
                         world=1, seed=2)
+    # a group of one rank runs the one-process tick; this keeps the old
+    # world-1 batch group, so that the data-parallel machinery is timed
+    spec["world1_batch_group"] = True
     spec["turns"] = 4             # without, with, with, without
     spec["profile"] = True        # then one tick alone and one with, traced
     (out,) = launch("gancls_nccl", spec)
@@ -3617,6 +3787,8 @@ def phase_data_parallel(device, runs, flush):
                                      f"trace_{tag}"),
                         os.path.join(ROOT, "chiprun_out", "dp_traces", tag),
                         dirs_exist_ok=True)
+
+    report["world1_main"] = dp_world1_main(device, runs, launch)
 
     log(f"phase 11e: torchrun --nproc_per_node {DP_RANKS} main.py --train "
         f"--dist-backend gloo, sharded resident tier, phase 6c's split: 3 + 3 "
@@ -3663,6 +3835,152 @@ def phase_data_parallel(device, runs, flush):
         f"{len(fa)} state entries ({time.perf_counter() - t1:.1f} s)")
     log(f"  (phase 11: {time.perf_counter() - t0:.1f} s)")
     return report
+
+
+# --- phases 12-14: the entry, the dry run, the bench -------------------------
+
+# entry(): the GAN-CLS train-mode generator (4 deconv; 4 BN calls) and D
+# over the three streams in one pass (4 conv, 1 join; 4 BN calls)
+ENTRY_LAUNCHES = {"deconv5x5_s2": 4, "conv5x5_s2_act": 4,
+                  "conditioning_join": 1, "bn_stats": 8, "bn_act": 8}
+# entry() on the kernels vs the same function on their plain versions
+# (bf16, batch 16): each layer rounds to bf16 after f32 sums in another
+# order, and the train-mode BN over 16 rows carries a flip through the net;
+# relative to the largest |value| of each output
+ENTRY_TOL = 5e-2
+# the dry run's kernels on each rank (the f32 WGAN-CLS + GAN-INT tick and
+# the resident tick at tiny widths): G's BN over the batch group
+# (bn_partials, bn_finish), the critic's convs and join
+DRYRUN_KERNELS = ("deconv5x5_s2", "conv5x5_s2_act", "conditioning_join",
+                  "bn_partials", "bn_finish", "bn_act", "bn_bwd_reduce",
+                  "bn_bwd_apply")
+DRYRUN_DEVICES = 8
+BENCH_TIMEOUT_S = 400
+BENCH_NUMBERS = ("value", "vs_baseline", "resident_value",
+                 "sharded_resident_value", "pipeline_value", "sampling_value",
+                 "baseline_img_per_sec")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel of the GAN-CLS forward swapped for its plain version
+    whatever the tensors' device (no gradient: the train-mode BN's
+    forward is bn_stats then bn_act)."""
+    from text_to_image_tpu_torch.models import gancls
+    from text_to_image_tpu_torch.ops import layers
+    from text_to_image_tpu_torch.ops.kernels import conv, fused
+    swaps = [(layers, "deconv5x5_s2", conv.deconv5x5_s2_plain),
+             (gancls, "deconv5x5_s2", conv.deconv5x5_s2_plain),
+             (layers, "conv5x5_s2_act", conv.conv5x5_s2_act_plain),
+             (gancls, "conditioning_join", fused.conditioning_join_plain),
+             (fused, "bn_stats", fused.bn_stats_plain),
+             (fused, "_bn_act_forward", fused.bn_act_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_entry(device):
+    """Phase 12: `entry.entry()` on the card: one call with every counter
+    at 0 before and read after (ENTRY_LAUNCHES), shapes and finiteness
+    (`check_entry`), against the same function on the plain versions on
+    the same inputs, and its ms (median of 5 synchronised calls)."""
+    from text_to_image_tpu_torch import entry
+    fn, args = entry.entry(str(device))
+    counters = all_counters()
+    for c in counters:
+        c.launches = 0
+    fake, logits = entry.check_entry(fn, args)
+    launches = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: ENTRY_LAUNCHES.get(c.__name__, 0) for c in counters}
+    log(f"  entry() launches {launches}")
+    check(launches == want, f"entry() launches {launches}, expected {want}")
+    with plain_kernels():
+        ref_fake, ref_logits = fn(*args)
+    torch.cuda.synchronize()
+    check(all(c.launches == launches[c.__name__] for c in counters),
+          "a kernel launched inside plain_kernels()")
+    errs = {}
+    for name, got, ref in (("fake", fake, ref_fake),
+                           ("logits", logits, ref_logits)):
+        errs[name] = float((got.float() - ref.float()).abs().max()
+                           / ref.float().abs().max())
+    log(f"  entry() vs its plain versions (bf16, B 16): fake "
+        f"{errs['fake']:.3e}, logits {errs['logits']:.3e} of the largest "
+        f"|value| (tol {ENTRY_TOL:g})")
+    check(max(errs.values()) <= ENTRY_TOL, f"entry() vs plain: {errs}")
+    samples = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(samples)
+    log(f"  entry(): {ms:.3f} ms a call (median of 5, host clock between "
+        f"synchronises; {samples})")
+    return {"launches": launches, "errors": errs, "ms": ms,
+            "ms_samples": samples}
+
+
+def phase_dryrun():
+    """Phase 13: `entry.dryrun_multichip(8)`: 8 gloo ranks sharing the
+    card, the (data 4, model 2) and (slice 2, data 2, model 2) meshes; each
+    rank asserts step 1 and finite metrics; every rank launched each
+    kernel of DRYRUN_KERNELS and no bn_stats (G's BN is over its batch
+    group)."""
+    from text_to_image_tpu_torch import entry
+    t0 = time.perf_counter()
+    outs = entry.dryrun_multichip(DRYRUN_DEVICES, "cuda")
+    seconds = time.perf_counter() - t0
+    meshes = []
+    for i, mesh in enumerate(outs[0]["dryrun"]):
+        log(f"  {mesh['line']}")
+        per_rank = [o["dryrun"][i]["launches"] for o in outs]
+        for r, n in enumerate(per_rank):
+            check(all(n[k] > 0 for k in DRYRUN_KERNELS) and
+                  n["bn_stats"] == 0 == n["upconv3x3"],
+                  f"dry run mesh {i} rank {r} launches {n}")
+        log(f"  launches a rank (host-fed + resident tick): {per_rank[0]}")
+        meshes.append({"line": mesh["line"], "launches": per_rank,
+                       "metrics": [o["dryrun"][i]["metrics"] for o in outs],
+                       "resident_metrics": [o["dryrun"][i]["resident_metrics"]
+                                            for o in outs]})
+    log(f"  (dry run: {seconds:.1f} s)")
+    return {"meshes": meshes, "seconds": seconds}
+
+
+def phase_bench(card, rates):
+    """Phase 14: ``python -m text_to_image_tpu_torch.bench`` at its
+    defaults: rc 0, its one JSON line with every value a number; logged
+    with the card and phase 4's sampling rates beside ``sampling_value``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "text_to_image_tpu_torch.bench"], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench exited {proc.returncode}:\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) == 1, f"bench printed {lines}")
+    line = json.loads(lines[0])
+    for k in BENCH_NUMBERS:
+        check(isinstance(line.get(k), (int, float)) and
+              math.isfinite(line[k]) and line[k] > 0,
+              f"bench {k} = {line.get(k)!r}")
+    log(f"  bench [{card}] ({seconds:.1f} s): {json.dumps(line)}")
+    log(f"  phase 4's sampling at batch 64: train mode "
+        f"{rates['train_mode']:.1f}, folded {rates['folded']:.1f} images/s; "
+        f"bench sampling_value {line['sampling_value']}")
+    return {"line": line, "seconds": seconds, "card": card,
+            "phase4_sampling": {k: rates[k] for k in ("train_mode",
+                                                      "folded")}}
 
 
 def main() -> int:
@@ -3866,6 +4184,22 @@ def run(runs: str) -> int:
     launches_by_path.update(data_parallel.pop("launches"))
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    log(f"phase 12: entry() (GAN-CLS 64 px bf16, batch 16: the generator and "
+        f"D over three streams) on the kernels vs their plain versions "
+        f"[{card}]")
+    entry_report = phase_entry(device)
+    launches_by_path["entry()"] = entry_report["launches"]
+    torch.cuda.empty_cache()
+    log(f"phase 13: dryrun_multichip({DRYRUN_DEVICES}): {DRYRUN_DEVICES} gloo "
+        f"ranks sharing the card, WGAN-CLS + GAN-INT f32 at tiny widths, stem "
+        f"and embed column-sharded over model")
+    dryrun = phase_dryrun()
+    log("phase 14: python -m text_to_image_tpu_torch.bench (its defaults: "
+        "GAN-CLS 64 px, batch 64, bf16)")
+    bench = phase_bench(card, rates)
+    log(f"  (phases 12-14: {time.perf_counter() - t0:.1f} s)")
+
     src = "text_to_image_tpu_torch/"
     meta = {
         "deconv5x5_s2": ("cuda", src + "csrc/deconv5x5_s2.cu",
@@ -3963,7 +4297,8 @@ def run(runs: str) -> int:
               "launches_by_path": launches_by_path, "stackgan": stackgan,
               "data_checkpoint": data_ckpt, "wgancls": wgan,
               "pggan": pggan, "eval_is": eval_is,
-              "data_parallel": data_parallel,
+              "data_parallel": data_parallel, "entry": entry_report,
+              "dryrun_multichip": dryrun, "bench": bench,
               "upconv3x3_pggan_shapes": pg_upconv_rows,
               "conv5x5_s2_act_256px_d": conv_256_rows,
               "conv5x5_s2_act_paths": conv_paths,

@@ -447,7 +447,7 @@ def test_cli_eval_is(tmp_path, capsys, npz):
     out, (mean, std) = main.main(["--cfg", _tiny_yaml(tmp_path), "--device",
                                   "cpu", "--eval-is", "--is-images", "64"])
     said = capsys.readouterr().out
-    assert os.path.exists(os.path.join(out, "eval_grid.png"))
+    assert os.path.exists(os.path.join(out, "eval_grid_init.png"))
     if npz:
         assert "using converted classifier checkpoint" in said
         assert "finetuning" not in said

@@ -377,7 +377,7 @@ def test_progression_carries_checkpoints_and_skips_covered_stages(
     # sampling takes the last stage's generator from the checkpoint (α = 1)
     main.main(argv)
     assert "sampling from the step-4 checkpoint" in capsys.readouterr().out
-    assert (grids / "eval_grid.png").exists()
+    assert (grids / "eval_grid_4.png").exists()
 
 
 def test_progression_grids_are_sampled_at_alpha_one(monkeypatch, tmp_path):

@@ -46,6 +46,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             importlib.import_module(name)
         assert len(names) > 40, names
         assert "text_to_image_tpu_torch.eval.inception_v3" in names
+        assert "text_to_image_tpu_torch.entry" in names
+        assert "text_to_image_tpu_torch.bench" in names
+        assert "text_to_image_tpu_torch.parallel.tensor" in names
         bad = sorted(m for m in sys.modules
                      if m == "text_to_image_tpu"
                      or m.startswith("text_to_image_tpu."))
@@ -84,8 +87,9 @@ def test_cli_writes_three_grids(tmp_path, weights, capsys):
         argv += ["--weights", str(tmp_path / "g.npz")]
     main.main(argv)
     out = tmp_path / "samples" / "gancls" / "synthetic"
+    tag = "weights" if weights else "init"
     for name in ("eval_grid", "z_interp", "t_interp"):
-        assert (out / f"{name}.png").exists(), name
+        assert (out / f"{name}_{tag}.png").exists(), name
     said = capsys.readouterr().out
     assert ("sampling from " + str(tmp_path / "g.npz") if weights else
             "initialised from seed 0") in said
@@ -116,7 +120,23 @@ def test_cli_train_is_not_ported(tmp_path, capsys):
         "train_00000004.png"]
     main.main(argv[:-3] + ["--device", "cpu"])
     assert "sampling from the step-5 checkpoint" in capsys.readouterr().out
-    assert (tmp_path / "samples" / run / "eval_grid.png").exists()
+    assert (tmp_path / "samples" / run / "eval_grid_5.png").exists()
+
+
+def test_cli_keeps_the_grids_of_each_sampled_checkpoint(tmp_path, capsys):
+    """Sampling a run at step 1 and again at step 2 leaves both sets of
+    grids, named by step as the root ``main.py`` names them."""
+    argv = ["--cfg", _tiny_yaml(tmp_path), "--device", "cpu"]
+    out = tmp_path / "samples" / "gancls" / "synthetic"
+    for step in (1, 2):
+        main.main(argv + ["--train", "--steps", str(step), "--set",
+                          "train.batch_size=8"])
+        main.main(argv)
+        assert (f"sampling from the step-{step} checkpoint"
+                in capsys.readouterr().out)
+    assert sorted(os.listdir(out)) == sorted(
+        f"{name}_{step}.png" for name in ("eval_grid", "z_interp", "t_interp")
+        for step in (1, 2))
 
 
 def test_cli_overrides_are_typed():
@@ -183,7 +203,7 @@ def test_stackgan_cli_writes_grids_and_trains(tmp_path, capsys, stage, res):
     main.main(argv + sets)
     out = tmp_path / "samples" / f"stackgan_stage{stage}" / "synthetic"
     for name in ("eval_grid", "z_interp", "t_interp"):
-        assert (out / f"{name}.png").exists(), name
+        assert (out / f"{name}_init.png").exists(), name
     capsys.readouterr()
     main.main(argv + ["--train", "--steps", "2"] + sets)
     lines = [ln for ln in capsys.readouterr().out.splitlines()

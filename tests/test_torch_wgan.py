@@ -543,4 +543,4 @@ def test_wgancls_cli_trains_and_samples(tmp_path, capsys):
     assert "sampling from the step-2 checkpoint" in capsys.readouterr().out
     out = tmp_path / "sample_dir" / "wgancls" / "synthetic"
     for name in ("eval_grid", "z_interp", "t_interp"):
-        assert (out / f"{name}.png").exists(), name
+        assert (out / f"{name}_2.png").exists(), name

@@ -17,7 +17,11 @@ and the latent- and text-interpolation grids under
 (an ``.npz`` of `convert.save_npz`, for example from the JAX package), else
 of the latest checkpoint, else one initialised from ``cfg.seed`` (the root
 ``main.py`` refuses that last case: "train first"; the port samples it, so
-that the serving path runs without a training run).  It prints which.
+that the serving path runs without a training run).  It prints which.  The
+grids are named as the root names them, by the restored checkpoint's step
+(``eval_grid_<step>.png``, ``z_interp_<step>.png``, ``t_interp_<step>.png``),
+so that sampling several checkpoints of one run keeps each one's; from
+``--weights`` they end in ``_weights`` and from the seed in ``_init``.
 ``--eval-is`` then computes the Inception score of ``--is-images`` images
 (``eval/inception.py``) from the live generator params (the grids take the
 EMA where there is one; the root ``main.py`` does the same): classified by
@@ -101,6 +105,12 @@ def parse_overrides(pairs):
     return overrides
 
 
+def grid_tag(weights: str | None, step: int | None) -> str:
+    """What the grids' names end in: the checkpoint's step, ``weights`` for
+    a ``--weights`` generator, ``init`` for one drawn from the seed."""
+    return "weights" if weights else "init" if step is None else str(step)
+
+
 def evaluate(cfg: Config, weights: str | None = None, device="cuda",
              eval_is: bool = False, is_images: int = 3000):
     """Write the three grids; returns the output directory, and with
@@ -156,15 +166,16 @@ def evaluate(cfg: Config, weights: str | None = None, device="cuda",
     emb = np.asarray(dataset.test_embeddings(64), np.float32)
     g = prng.generator(prng.fold_in(cfg.seed, 1))
 
+    tag = grid_tag(weights, step)
     save_images(sample_grid(gen, ts, cfg, emb, generator=g),
-                os.path.join(out, "eval_grid.png"))
+                os.path.join(out, f"eval_grid_{tag}.png"))
     rows = max(1, min(8, len(emb) // 2))   # robust to tiny test splits
     imgs, grid = latent_interpolation_grid(gen, ts, cfg, emb[:rows], 8,
                                            generator=g)
-    save_images(imgs, os.path.join(out, "z_interp.png"), grid)
+    save_images(imgs, os.path.join(out, f"z_interp_{tag}.png"), grid)
     imgs, grid = text_interpolation_grid(gen, ts, cfg, emb[:rows],
                                          emb[rows:2 * rows], 8, generator=g)
-    save_images(imgs, os.path.join(out, "t_interp.png"), grid)
+    save_images(imgs, os.path.join(out, f"t_interp_{tag}.png"), grid)
     print(f"wrote grids under {out}")
     if not eval_is:
         return out

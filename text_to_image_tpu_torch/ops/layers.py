@@ -36,6 +36,7 @@ from text_to_image_tpu_torch.ops.kernels.conv import (  # noqa: F401
     upsample_nearest)  # re-exported: the JAX package's `L.upsample_nearest`
 from text_to_image_tpu_torch.ops.kernels.fused import (
     apply_act, batch_norm_train, bn_act)
+from text_to_image_tpu_torch.parallel import tensor
 
 Params = Dict[str, torch.Tensor]
 
@@ -77,6 +78,12 @@ def linear_init(key: int, in_dim: int, out_dim: int,
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b``; column-parallel over the model group where `p`'s
+    ``w`` is a column block and a `tensor.model_sync` is active (the
+    multi-device dry run), else one matmul."""
+    sync = tensor.active()
+    if tensor.is_column_slice(p, sync):
+        return tensor.column_parallel_linear(p, x, sync)
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)

@@ -8,12 +8,18 @@ falls on node boundaries, as the JAX package groups devices by
 ``slice_index``.  The global batch is sharded over (slice, data): the ranks
 that share a model coordinate form the ``batch_group``, and this rank holds
 rows ``shard_index·B/D … (shard_index + 1)·B/D`` of it (D = slice·data).
-The JAX trainer replicates every parameter, so ranks of one (slice, data)
-coordinate with different model coordinates compute the same thing; the
-port does the same.
+The ranks that share this rank's (slice, data) coordinate form the
+``model_group``: they hold the same rows.  The JAX trainer replicates every
+parameter, so those ranks compute the same thing; the port does the same.
+Only the multi-device dry run (``entry.py``) column-shards the 2-D ``w``
+of the ``stem`` and ``embed`` linears over the model group
+(``parallel/tensor.py``), as JAX's dry run places them.
 
-Without a process group (world size 1, no ``torchrun`` environment) the
-mesh is 1×1×1, ``batch_group`` is None, and no collective is ever called.
+A group exists only where it has ranks to reduce over: ``batch_group`` is
+None when D = 1 and ``model_group`` is None when model = 1, as a mesh of
+one device has nothing to reduce in JAX.  So a process group of one rank
+(``torchrun --nproc_per_node 1``) runs the one-process tick.  Without a
+process group the mesh is 1×1×1 and no collective is ever called.
 """
 
 from __future__ import annotations
@@ -32,14 +38,18 @@ INIT_TIMEOUT = datetime.timedelta(minutes=10)
 
 @dataclasses.dataclass(frozen=True)
 class MeshEnv:
-    """This rank's place in the (slice, data, model) mesh, and the group of
-    ranks its batch is sharded over (None without a process group)."""
+    """This rank's place in the (slice, data, model) mesh, the group of
+    ranks its batch is sharded over (None unless D > 1) and the group of
+    ranks that hold its rows (None unless model > 1); `live` when a
+    process group made it."""
 
     slice_size: int = 1
     data_size: int = 1
     model_size: int = 1
     rank: int = 0
     batch_group: Optional[dist.ProcessGroup] = None
+    model_group: Optional[dist.ProcessGroup] = None
+    live: bool = False
 
     @property
     def world(self) -> int:
@@ -67,6 +77,11 @@ class MeshEnv:
         m = self.coords[2]
         return [i * self.model_size + m for i in range(self.shards)]
 
+    def model_ranks(self) -> List[int]:
+        """The ranks of this rank's model group, in model order."""
+        first = self.shard_index * self.model_size
+        return list(range(first, first + self.model_size))
+
     @property
     def is_main(self) -> bool:
         """Rank 0 writes checkpoints, metrics and grids."""
@@ -88,7 +103,9 @@ def create_mesh(data: int = -1, model: int = 1, slices: int = 1,
     size and this process's rank by default; 1 and 0 without one); data=-1
     takes the ranks that remain.  Raises where the JAX package's raises.
     With a process group every rank must call it, in the same order: it
-    makes one group per model coordinate when model > 1."""
+    makes one batch group per model coordinate when D > 1 and model > 1,
+    and one model group per (slice, data) coordinate when model > 1 and
+    D > 1 (the whole world serves where the group spans it)."""
     live = dist.is_available() and dist.is_initialized()
     if world is None:
         world = dist.get_world_size() if live else 1
@@ -109,13 +126,27 @@ def create_mesh(data: int = -1, model: int = 1, slices: int = 1,
     env = MeshEnv(slices, data, model, rank)
     if not live:
         return env
-    if model == 1:
-        group = dist.group.WORLD
-    else:
-        groups = [dist.new_group(dataclasses.replace(env, rank=m)
-                                 .batch_ranks()) for m in range(model)]
-        group = groups[env.coords[2]]
-    return dataclasses.replace(env, batch_group=group)
+    return dataclasses.replace(
+        env, live=True,
+        batch_group=_group_of(env, env.shards, model, env.coords[2],
+                              lambda m: dataclasses.replace(
+                                  env, rank=m).batch_ranks()),
+        model_group=_group_of(env, model, env.shards, env.shard_index,
+                              lambda s: dataclasses.replace(
+                                  env, rank=s * model).model_ranks()))
+
+
+def _group_of(env: MeshEnv, size: int, count: int, mine: int, ranks_of
+              ) -> Optional[dist.ProcessGroup]:
+    """This rank's group among `count` disjoint groups of `size` ranks
+    (``ranks_of(i)`` the ranks of group i): None when `size` is 1, the
+    world when one group spans it, else one ``new_group`` each (every rank
+    makes them all, in order)."""
+    if size == 1:
+        return None
+    if count == 1:
+        return dist.group.WORLD
+    return [dist.new_group(ranks_of(i)) for i in range(count)][mine]
 
 
 def init_distributed(backend: Optional[str] = None, device: str = "cuda"
@@ -182,16 +213,27 @@ def _checksum(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def check_replicated(env: MeshEnv, tensors: Sequence[torch.Tensor],
-                     what: str) -> None:
+                     what: str, sharded: Sequence[torch.Tensor] = ()
+                     ) -> None:
     """Raise unless every rank of the process group holds the same
-    `tensors` (their `_checksum` agrees with rank 0's); nothing without a
-    group."""
-    if env.batch_group is None:
+    `tensors` (their `_checksum` agrees with rank 0's) and every rank of
+    this rank's batch group the same `sharded` ones (column slices over the
+    model group: against the batch group's first rank); nothing in a
+    group of one rank or without one."""
+    if not env.live or env.world == 1:
         return
-    mine = _checksum(tensors)
-    ref = mine.to(tensors[0].device)     # nccl broadcasts device tensors
-    dist.broadcast(ref, src=0)
-    if float(ref) != float(mine):
-        raise RuntimeError(f"rank {env.rank}: {what} differ from rank 0's "
-                           f"(checksum {float(mine)!r} vs {float(ref)!r})")
+    checks = [(tensors, dist.group.WORLD, 0, "rank 0's")]
+    if sharded and env.batch_group is not None:
+        first = env.batch_ranks()[0]
+        checks.append((sharded, env.batch_group, first, f"rank {first}'s"))
+    for group_tensors, group, src, whose in checks:
+        if not group_tensors:
+            continue
+        mine = _checksum(group_tensors)
+        ref = mine.to(group_tensors[0].device)  # nccl broadcasts on the card
+        dist.broadcast(ref, src=src, group=group)
+        if float(ref) != float(mine):
+            raise RuntimeError(
+                f"rank {env.rank}: {what} differ from {whose} (checksum "
+                f"{float(mine)!r} vs {float(ref)!r})")
 

@@ -16,16 +16,28 @@ drawn from (seed, step)).  Each rank runs the ticks on its rows of them
 its metrics, state, launches and times to
 ``<dirname(SPEC)>/rank<RANK>.pt``.  A spec with ``argv`` instead runs ``main.main(argv)`` on every rank in the group
 (``--train`` as ``torchrun`` would run it) and saves each rank's metric
-history.  With ``turns``, each rank runs the ticks that many times,
+history, kernel launches and bytes all-reduced.  With ``turns``, each rank runs the ticks that many times,
 alternating without and with the group (without, with, with, without, …
 from a fresh state each time), and saves each run's tick times under
 ``turns``: the cost of the data-parallel machinery, measured in one
 process.  With ``record_grads``, each rank keeps the gradients that every
 update of the first tick hands Adam (the all-reduced mean over the batch
-group), under ``grads``.  With ``profile``, each rank runs the ticks twice
-more, without and with the group, and profiles the last tick of each under
-`utils.profiling.trace` (traces under ``<dirname(SPEC)>/trace_alone`` and
-``trace_group``; a summary of their ops under ``profile``).
+group), under ``grads`` (``"all"``: every tick's).  With ``profile``, each
+rank runs the ticks twice more, without and with the group, and profiles
+the last tick of each under `utils.profiling.trace` (traces under
+``<dirname(SPEC)>/trace_alone`` and ``trace_group``; a summary of their
+ops under ``profile``).  With ``world1_batch_group`` a group of one rank
+keeps the whole world as its batch group, so that its tick takes the
+data-parallel path (a mesh of one rank has none: the machinery's cost
+is timed so).  With ``shard_columns`` the ``stem`` and ``embed`` ``w`` are
+cut to each rank's column block over the model group after the start
+state is made (`steps.shard_state`); the saved state holds them
+all-gathered and ``slices`` this rank's blocks.  A spec with ``dryrun``
+(a list of ``{"mesh": …, "set": {config key: value}, "record_grads":
+bool}``) runs `entry._dryrun_on_mesh` on each mesh instead and saves its
+outcomes under ``dryrun``; with ``linear_check`` also the column-parallel
+linear against the replicated one on the first mesh, under ``linear``
+(`column_linear_errors`).
 
 `launch` starts the ranks, waits for them with a deadline, and kills them
 and raises when one fails or the deadline passes, so that a hung collective
@@ -35,6 +47,7 @@ never hangs its caller.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import os
 import subprocess
@@ -47,12 +60,15 @@ import torch
 import torch.distributed as dist
 
 from text_to_image_tpu_torch.config import config_from_dict
-from text_to_image_tpu_torch.parallel import collectives
-from text_to_image_tpu_torch.parallel.mesh import (MeshEnv, create_mesh,
-                                                   shard_batch)
+from text_to_image_tpu_torch.ops import layers as L
+from text_to_image_tpu_torch.parallel import collectives, tensor
+from text_to_image_tpu_torch.parallel.mesh import (MeshEnv, check_replicated,
+                                                   create_mesh, shard_batch)
 from text_to_image_tpu_torch.train import checkpoint as ckpt
+from text_to_image_tpu_torch.train.optim import flatten
 from text_to_image_tpu_torch.train.steps import (init_train_state,
-                                                 make_train_step)
+                                                 make_train_step,
+                                                 model_sync_of, shard_state)
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -112,10 +128,13 @@ def run(spec: Dict, device: torch.device, env: Optional[MeshEnv] = None,
         ts, restored = ckpt.CheckpointManager(spec["state"]).restore(ts)
         if restored is None:
             raise FileNotFoundError(f"no checkpoint under {spec['state']}")
+    if spec.get("shard_columns"):
+        ts = shard_state(ts, env)
     step = make_train_step(cfg, spe, device, env)
     noises = spec.get("noise") or [None] * len(spec["batches"])
     out = {"metrics": [], "launches": [], "all_reduce_bytes": [], "ms": []}
-    if spec.get("record_grads"):
+    record = spec.get("record_grads")
+    if record:
         out["grads"] = {"d": [], "g": []}
         for net, into in out["grads"].items():
             _recording(getattr(ts, f"{net}_opt"), into)
@@ -133,7 +152,7 @@ def run(spec: Dict, device: torch.device, env: Optional[MeshEnv] = None,
             ts, metrics = step(ts, local, noise)
             _sync(device)
             ms = (time.perf_counter() - t0) * 1e3
-        if i == 0 and "grads" in out:
+        if (i == last if record == "all" else i == 0) and record:
             del ts.d_opt.update, ts.g_opt.update
         if prof is not None:
             out["profile"] = _profile_summary(prof, ms)
@@ -141,8 +160,69 @@ def run(spec: Dict, device: torch.device, env: Optional[MeshEnv] = None,
         out["metrics"].append({k: float(v) for k, v in metrics.items()})
         out["launches"].append({c.__name__: c.launches for c in counters()})
         out["all_reduce_bytes"].append(collectives.all_reduce_sum.bytes)
-    out["state"] = ckpt.state_dict(ts)
+    out.update(whole_state(ts, env if spec.get("shard_columns") else None))
     return out
+
+
+def whole_state(ts, env: Optional[MeshEnv]) -> Dict:
+    """``state``: `checkpoint.state_dict` of `ts`, its params
+    all-gathered over `env`'s model group where `steps.shard_state` cut
+    them (pass `env` only then), with this rank's blocks by net and leaf
+    name under ``slices``; raises unless every rank holds the same
+    replicated params and its batch group the same blocks."""
+    sync = model_sync_of(env)
+    if sync is None:
+        return {"state": ckpt.state_dict(ts)}
+    leaves = {net: flatten(getattr(ts, f"{net}_params")) for net in "gd"}
+    cut = {net: {k: v for k, v in named if tensor.is_sharded_leaf(
+        k.split("/"), v, tensor.SHARDED_LAYERS)} for net, named in
+        leaves.items()}
+    check_replicated(env, [v for net, named in leaves.items()
+                           for k, v in named if k not in cut[net]],
+                     "the replicated params",
+                     sharded=[v for c in cut.values() for v in c.values()])
+    whole = dataclasses.replace(ts, **{
+        f"{net}_params": tensor.gather_columns(getattr(ts, f"{net}_params"),
+                                               sync) for net in "gd"})
+    return {"state": ckpt.state_dict(whole), "slices": {
+        net: {k: v.detach().to("cpu", copy=True) for k, v in c.items()}
+        for net, c in cut.items()}}
+
+
+def column_linear_errors(env: MeshEnv, device: torch.device, rows: int = 6,
+                         d_in: int = 12, seed: int = 0) -> Dict[str, float]:
+    """`layers.linear` column-parallel over the model group against the
+    same linear replicated, f32 on inputs drawn from `seed`: the largest
+    |difference| over the largest |value| of the replicated one, for the
+    output, the first derivatives of Σ (c·y)² (x, this rank's block of w,
+    b; taken with ``create_graph=True``) and the second (the gradients of
+    Σ ∂x² with respect to x, the block and b)."""
+    sync = model_sync_of(env)
+    d_out = 4 * sync.size
+    gen = torch.Generator().manual_seed(seed)
+    x, w, b, c = (torch.randn(*shape, generator=gen).to(device)
+                  for shape in ((rows, d_in), (d_in, d_out), (d_out,),
+                                (rows, d_out)))
+    cols = slice(sync.index * 4, sync.index * 4 + 4)
+    derivs = []
+    for sharded in (False, True):
+        xs = x.clone().requires_grad_(True)
+        p = {"w": w.clone().requires_grad_(True),
+             "b": b.clone().requires_grad_(True)}
+        if sharded:
+            p = tensor.shard_columns({"stem": p}, sync)["stem"]
+        with tensor.model_sync(sync if sharded else None):
+            y = L.linear(p, xs)
+            first = torch.autograd.grad((c * y).pow(2).sum(),
+                                        (xs, p["w"], p["b"]),
+                                        create_graph=True)
+            second = torch.autograd.grad(first[0].pow(2).sum(),
+                                         (xs, p["w"], p["b"]))
+        derivs.append([y, *first, *second])
+    names = ("y", "dx", "dw", "db", "d2x", "d2w", "d2b")
+    return {n: float((got - (ref[:, cols] if n in ("dw", "d2w") else ref)
+                      ).abs().max() / ref.abs().max())
+            for n, ref, got in zip(names, *derivs)}
 
 
 def device_of(spec: Dict, rank: int) -> torch.device:
@@ -171,9 +251,21 @@ def main(argv: List[str]) -> int:
         if "argv" in spec:
             from text_to_image_tpu_torch import main as port_main
             trainer = port_main.main(spec["argv"])
-            out = {"history": trainer.history, "step": trainer.ts.step}
+            out = {"history": trainer.history, "step": trainer.ts.step,
+                   "launches": {c.__name__: c.launches for c in counters()},
+                   "all_reduce_bytes": collectives.all_reduce_sum.bytes}
+        elif "dryrun" in spec:
+            from text_to_image_tpu_torch import entry
+            out = {"dryrun": [entry._dryrun_on_mesh(
+                create_mesh(**d["mesh"]), device, d.get("set"),
+                d.get("record_grads", False)) for d in spec["dryrun"]]}
+            if spec.get("linear_check"):
+                out["linear"] = column_linear_errors(
+                    create_mesh(**spec["dryrun"][0]["mesh"]), device)
         else:
             env = create_mesh(**spec["mesh"])
+            if spec.get("world1_batch_group") and env.world == 1:
+                env = dataclasses.replace(env, batch_group=dist.group.WORLD)
             out = run(spec, device, env)
             out["turns"] = [
                 {"group": bool(i % 4 in (1, 2)),

@@ -56,6 +56,7 @@ Without a batch group nothing of this runs.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -65,9 +66,10 @@ from text_to_image_tpu_torch.models import losses as LL
 from text_to_image_tpu_torch.models import stackgan
 from text_to_image_tpu_torch.models.registry import get_model, tree_to
 from text_to_image_tpu_torch.ops import layers as L
-from text_to_image_tpu_torch.parallel import collectives, mesh
+from text_to_image_tpu_torch.parallel import collectives, mesh, tensor
 from text_to_image_tpu_torch.parallel.mesh import MeshEnv
 from text_to_image_tpu_torch.train import optim
+from text_to_image_tpu_torch.train.checkpoint import unflatten
 from text_to_image_tpu_torch.train.optim import flatten
 from text_to_image_tpu_torch.train.state import TrainState
 from text_to_image_tpu_torch.utils import prng
@@ -106,6 +108,40 @@ def batch_sync_of(env: Optional[MeshEnv]) -> Optional[collectives.Sync]:
     if env is None or env.batch_group is None:
         return None
     return collectives.Sync(env.batch_group, env.shards, env.shard_index)
+
+
+def model_sync_of(env: Optional[MeshEnv]) -> Optional[collectives.Sync]:
+    """The model group of `env` as ``parallel/tensor.py`` takes it; None
+    unless model > 1 in a process group."""
+    if env is None or env.model_group is None:
+        return None
+    return collectives.Sync(env.model_group, env.model_size, env.coords[2])
+
+
+def shard_state(ts: TrainState, env: Optional[MeshEnv]) -> TrainState:
+    """`ts` with the ``w`` of every ``stem`` and ``embed`` linear cut to
+    this rank's column block over the model group
+    (`tensor.shard_columns`, the JAX dry run's placement), each Adam's
+    moments and the generator EMA cut alike (both are elementwise), the
+    update counts kept; `ts` itself without a model group."""
+    sync = model_sync_of(env)
+    if sync is None:
+        return ts
+    out = {}
+    for net in ("g", "d"):
+        params = tensor.shard_columns(getattr(ts, f"{net}_params"), sync)
+        old = getattr(ts, f"{net}_opt")
+        opt = optim.Adam(params, old.schedule,
+                         *old.opt.param_groups[0]["betas"])
+        if old.count:
+            opt.load(old.count, *(dict(flatten(tensor.shard_columns(
+                unflatten(m, old.leaves[0].device), sync)))
+                for m in old.moments()))
+        out.update({f"{net}_params": params, f"{net}_opt": opt})
+    aux = dict(ts.aux)
+    if "ema_g_params" in aux:
+        aux["ema_g_params"] = tensor.shard_columns(aux["ema_g_params"], sync)
+    return dataclasses.replace(ts, aux=aux, **out)
 
 
 def shard_noise(cfg: Config, env: Optional[MeshEnv],
@@ -216,7 +252,7 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda",
     group in `env`, `batch` is this rank's B/D rows and `noise` is the
     global batch's, of which the tick keeps this rank's rows."""
     bundle = get_model(cfg)
-    sync = batch_sync_of(env)
+    sync, msync = batch_sync_of(env), model_sync_of(env)
     policy = L.Policy.from_str(cfg.dtype)
     tcfg = cfg.train
     co = tcfg.coeff
@@ -296,7 +332,7 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda",
 
     def step(ts: TrainState, batch, noise: Optional[Dict] = None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        with collectives.batch_sync(sync):
+        with collectives.batch_sync(sync), tensor.model_sync(msync):
             return tick(ts, batch, noise)
 
     def tick(ts: TrainState, batch, noise: Optional[Dict]

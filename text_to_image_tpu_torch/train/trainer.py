@@ -18,7 +18,8 @@ Data parallel (a process group, ``parallel/mesh.py``): the mesh comes from
 trainer's does, the sharded resident tier included; rank 0 alone writes
 checkpoints, metrics, TensorBoard and grids, with a barrier after each
 save; every rank restores the same checkpoint and then checks that the
-ranks' parameters agree (a checksum).
+ranks' parameters agree (a checksum).  A group of one rank has no batch
+group, so it runs the one-process tick.
 """
 
 from __future__ import annotations
@@ -272,7 +273,7 @@ class Trainer:
         self._barrier()
 
     def _barrier(self) -> None:
-        if self.env.batch_group is not None:
+        if self.env.live and self.env.world > 1:
             dist.barrier()
 
     def close(self) -> None:
