@@ -84,12 +84,13 @@
    InceptionV3's time with TF32 allowed and off, the generators',
    SimpleCNN's and InceptionV3's times, and the synthetic-quality protocol
    (``evaluate``, ``evaluate_iv3``);
-4f. checks data parallelism on the card (phase 11, last): ``bn_partials``
+4f. checks data parallelism on the card (phase 11): ``bn_partials``
    and ``bn_finish`` at every BN call of the GAN-CLS tick cut into 1, 2 and
    4 pieces (against their plain versions, bit for bit between two runs,
    the merged statistics against one ``bn_stats``, the synced backward
-   against autograd), timed on a rank's half; GAN-CLS at full width on 2
-   ranks sharing the card over gloo against one process at batch 64 (f32:
+   against autograd), timed on a rank's half; in one launch of 2 ranks
+   sharing the card over gloo (the eight specs below in turn, one start-up
+   for all): GAN-CLS at full width against one process at batch 64 (f32:
    the JAX package's DP tolerances over every element, the all-reduced
    gradients of a tick at learning rate 0; bf16: the ranks bit-identical,
    the launches a rank and tick), WGAN-CLS with GAN-INT and C-PGGAN stage
@@ -109,6 +110,24 @@
    ``embed`` linears column-parallel over ``model``, every rank's
    launches; ``python -m text_to_image_tpu_torch.bench`` at its defaults
    (rc 0, every value a number);
+4h. drives every ported script (phase 15, last) through its ``main`` at a
+   few steps, with the launch counts of the kernels each path runs (the
+   GAN-CLS kernels for ``convergence_check`` and ``profile_step``; upconv,
+   conv, join and BN for ``chained_stackgan`` and ``stage2_dynamics``;
+   upconv for ``pggan_progression`` and ``serve_profile``): each reported
+   number finite, the PASS / FAIL lines printed (not held at this length;
+   the full-length runs of ``PERF.md`` hold them), the files each writes
+   (the class grid, checkpoints, ``best.json`` beside the best checkpoint,
+   the 256 px grid, the trace); the StackGAN chain with ``--traj`` and then
+   ``--resume`` after an interruption before Stage-II's first snapshot
+   (the replayed evals leave ``best.json`` and its checkpoint alone);
+   ``convert_inception`` on a nested ``module.``-prefixed checkpoint read
+   back bit for bit; ``e2e_demo`` and ``parity_runbook`` whole (their raw JPGs through Pillow;
+   their ``main.py`` runs are processes of their own;
+   the runbook at its defaults as ``python -m`` in the background of the
+   untimed scripts);
+   ``tools/bench_kernels`` at its defaults and with ``--upconv --grad``,
+   every row a number.  Each phase's seconds are logged and reported;
 5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
    kernel's bound, prints the path, tile and split of each conv, join,
@@ -146,12 +165,18 @@ import time
 
 import torch
 
+# the package beside this script: the timing method shared with the kernel
+# microbench, and the tick timing shared with tools/tick_ab.py
+from text_to_image_tpu_torch.tools.bench_kernels import (
+    L2Flush, bound, nbytes, time_ms)
+from text_to_image_tpu_torch.tools.ticks import (
+    config_path, is_kernel, kernel_family, train_config)
+from text_to_image_tpu_torch.tools.ticks import (
+    tick_profile as phase_tick_profile, tick_timing as phase_tick_timing)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 BATCH = 64
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs plain version: bf16 outputs may differ by a rounding flip
 # (1 ulp = 2^-7 relative) after f32 sums taken in another order; f32 by the
 # sum order only
@@ -376,49 +401,6 @@ def compare(got, ref, atol, rtol, what):
     check(not bool(bad.any()), f"{what}: {int(bad.sum())} elements out of "
                                f"tolerance, max|err| {max_err:.3e}")
     return max_err
-
-
-class L2Flush:
-    """Evicts the 50 MB L2 by writing a larger buffer."""
-
-    def __init__(self, device):
-        self.buf = torch.empty(96 * 2**20, dtype=torch.uint8, device=device)
-
-    def __call__(self):
-        self.buf.fill_(1)
-
-
-def time_ms(fn, flush, iters=20, warmup=3, spin=200_000):
-    """Median device time of fn() over `iters` launches, each measured
-    with CUDA events after an L2 flush.  A spin of `spin` cycles (~0.1 ms
-    by default) on the device after the flush keeps the host's launch
-    overhead out of the window; a call whose host side takes longer (a
-    Python wrapper, autograd) needs a longer one (HOST_SPIN)."""
-    for _ in range(warmup):
-        fn()
-    pairs = []
-    for _ in range(iters):
-        flush()
-        torch.cuda._sleep(spin)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    times = sorted(s.elapsed_time(e) for s, e in pairs)
-    return times[len(times) // 2]
-
-
-def bound(nbytes, flops, dtype):
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
 
 
 # --------------------------------------------------------------------------
@@ -918,10 +900,6 @@ def phase_bn_backward(device):
     return errs
 
 
-def config_path(model="gancls"):
-    return os.path.join(ROOT, "configs", f"{model}_flowers.yml")
-
-
 def upconv_inputs(shape, co, dtype, device, gen):
     x = torch.relu(torch.randn(shape, generator=gen)).to(dtype)
     w = (torch.randn(3, 3, shape[-1], co, generator=gen) * 0.02).to(dtype)
@@ -1238,16 +1216,6 @@ def phase_stackgan_rates(device, model):
     log(f"  sampling {model}: {rate:.1f} images/s, {BATCH / rate * 1e3:.3f} ms "
         f"per batch of {BATCH} (median of 5 windows of 10 batches)")
     return rate
-
-
-def train_config(model="gancls", **overrides):
-    """configs/<model>_flowers.yml on synthetic data, as ``main.py --set
-    data.dataset_name=synthetic stage1_checkpoint= …`` loads it."""
-    from text_to_image_tpu_torch.config import load_config
-    return load_config(config_path(model),
-                       {"data.dataset_name": "synthetic",
-                        "stage1_checkpoint": "",
-                        "train.summary_interval": 1, **overrides})
 
 
 def all_counters():
@@ -2255,106 +2223,6 @@ def phase_train_timing(device, flush):
     return rows, bwd
 
 
-def phase_tick_timing(device, model="gancls", ticks=10):
-    """Training ticks at the config's full widths, batch 64, bf16, on a
-    batch kept on the card: ms per tick and images/s counted as bench.py
-    counts them (batch per tick), median of 3 windows of `ticks` ticks;
-    peak memory."""
-    from text_to_image_tpu_torch.data import get_dataset
-    from text_to_image_tpu_torch.train.steps import (init_train_state,
-                                                     make_train_step)
-    cfg = train_config(model)
-    ds = get_dataset(cfg)
-    spe = max(1, ds.num_examples // BATCH)
-    ts = init_train_state(cfg.seed, cfg, spe, device)
-    step = make_train_step(cfg, spe, device)
-    slices = [ds.next_batch(BATCH) for _ in range(cfg.train.n_critic)]
-    batch = {k: torch.stack([torch.as_tensor(b[k]) for b in slices]).to(device)
-             for k in slices[0]}
-    for _ in range(2):
-        ts, m = step(ts, batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    rates = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            ts, m = step(ts, batch)
-        float(m["g_loss"])
-        rates.append(ticks * BATCH / (time.perf_counter() - t0))
-    rate = sorted(rates)[1]
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  {model} training tick: {BATCH / rate * 1e3:.3f} ms, {rate:.1f} "
-        f"images/s (median of 3 windows of {ticks} ticks: "
-        f"{', '.join(f'{r:.1f}' for r in rates)}); peak memory {peak:.2f} GiB")
-    return {"tick_ms": BATCH / rate * 1e3, "images_per_s": rate,
-            "windows_images_per_s": rates, "peak_memory_gib": peak}, \
-        (ts, step, batch)
-
-
-def is_kernel(event) -> bool:
-    """A device kernel of a profile, not a range annotated around kernels
-    (``Optimizer.step#Adam.step`` has device time too, which would count
-    the Adam kernels twice)."""
-    return (event.device_type == torch.autograd.DeviceType.CUDA
-            and not event.key.startswith("Optimizer."))
-
-
-def kernel_family(name: str) -> str:
-    low = name.lower()
-    for keys, fam in (
-            (("deconv5x5_s2", "namespace)::deconv"), "deconv5x5_s2 (CUDA)"),
-            (("namespace)::upconv", "combine_kernel"), "upconv3x3 (CUDA)"),
-            (("namespace)::conv", "down0_mma_kernel"),
-             "conv5x5_s2_act (CUDA)"),
-            (("namespace)::join", "join_text_kernel"),
-             "conditioning_join (CUDA)"),
-            (("bn_stats_kernel", "bn_apply_kernel", "bn_reduce_kernel",
-              "bn_dx_kernel"), "batch norm (CUDA)"),
-            (("gemm", "gemv"), "matmul (cuBLAS)"),
-            (("conv", "cudnn", "dgrad", "wgrad", "xmma"),
-             "conv backward (cuDNN)"),
-            (("multi_tensor_apply", "foreach"), "Adam and EMA (foreach)"),
-            (("reduce",), "reductions (BN statistics, grad sums)"),
-            (("copy", "cat"), "casts, copies, concatenation"),
-            (("fill",), "fills (zeros)")):
-        if any(k in low for k in keys):
-            return fam
-    return "other torch elementwise"
-
-
-def phase_tick_profile(ts, step, batch, tick_ms):
-    """Device time per training tick by kernel family (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-    n = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            ts, m = step(ts, batch)
-        torch.cuda.synchronize()
-    fams: dict = {}
-    launches = 0
-    for e in prof.key_averages():
-        if not is_kernel(e):
-            continue
-        fam = kernel_family(e.key)
-        fams[fam] = fams.get(fam, 0.0) + e.self_device_time_total / 1e3 / n
-        launches += e.count
-    busy = sum(fams.values())
-    check(busy > 0, "the profiler saw no device time")
-    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
-        log(f"  {fam}: {ms:.4f} ms per tick ({ms / busy:.1%} of device time)")
-    top = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key[:160])
-                  for e in prof.key_averages() if is_kernel(e)),
-                 reverse=True)[:25]
-    log(f"  device busy {busy:.4f} ms of {tick_ms:.4f} ms per tick (idle share "
-        f"{1 - busy / tick_ms:.1%}); {launches / n:.0f} kernel launches per "
-        f"tick")
-    return {"ms_per_tick_by_family": fams, "device_busy_ms": busy,
-            "tick_ms": tick_ms, "idle_share": 1 - busy / tick_ms,
-            "kernels_per_tick": launches / n,
-            "top_kernels_ms_calls_name": top}
-
-
 def phase_profile(gen, ts, z, emb, device, rate):
     """Device time per train-mode forward by kernel family (torch.profiler,
     CUPTI), and the device's busy share of the unprofiled forward time."""
@@ -2831,8 +2699,9 @@ IS_CPU_IMAGES = 128
 IV3_LOGIT_TOL = 1e-4          # card vs CPU, of the largest |logit|, f32
 IS_CPU_TOL = 1e-3             # card vs CPU, relative IS, f32
 # evaluate_iv3's finetune: its 600 steps, or as many as fit in this many
-# seconds (which keeps phase 10 near 120 s)
-IV3_FINETUNE_BUDGET_S = 45.0
+# seconds (which keeps phase 10 near 60 s; the script's phase 15 needs the
+# time)
+IV3_FINETUNE_BUDGET_S = 15.0
 IV3_FC_SCALE = 200.0
 
 
@@ -3374,11 +3243,18 @@ def dp_spec(model, dtype, ticks, backend="gloo", world=DP_RANKS, seed=0,
                  "backend": backend, "device": "cuda", "batches": batches}
 
 
-def dp_grads_at_rest(what, model, launch, device, elements=(),
-                     **overrides):
-    """One f32 tick of `model` at learning rate 0 (the params never move,
-    so every update reads the same params on both sides): the gradients
-    that each rank handed Adam (the all-reduced mean), every update's,
+def dp_rest_spec(model, **overrides):
+    """The spec of `dp_grads_at_rest`: one f32 tick of `model` at learning
+    rate 0, every update's gradients recorded."""
+    _, spec = dp_spec(model, "float32", 1, **overrides, **DP_AT_REST)
+    spec["record_grads"] = True
+    return spec
+
+
+def dp_grads_at_rest(what, spec, outs, device, elements=()):
+    """One f32 tick at learning rate 0 (`dp_rest_spec`; the params never
+    move, so every update reads the same params on both sides): the
+    gradients that each rank handed Adam (the all-reduced mean), every update's,
     against one process's, per leaf ‖Δ‖ ≤ DP_GRAD_RTOL·(‖g_leaf‖ + max
     ‖g‖ over the net's leaves).  Adam's step does not see a gradient's
     scale; this does (a wrong ÷ D, a leaf counted twice).  The G
@@ -3386,9 +3262,6 @@ def dp_grads_at_rest(what, model, launch, device, elements=(),
     process / ranks, in ulps of the leaf's largest |g|.  Returns the
     largest ‖Δ‖ / (‖g_leaf‖ + max ‖g‖) of each update."""
     from text_to_image_tpu_torch.tools import dp_ticks
-    _, spec = dp_spec(model, "float32", 1, **overrides, **DP_AT_REST)
-    spec["record_grads"] = True
-    outs = launch(f"{model}_lr0", spec)
     with deterministic_cudnn():
         one = dp_ticks.run(spec, device)
     worst = {}
@@ -3687,6 +3560,29 @@ def phase_data_parallel(device, runs, flush):
             f"{time.perf_counter() - t1:.1f} s")
         return outs
 
+    # the eight specs of 11b and 11c over gloo: one launch, each rank
+    # running them in turn in one process group
+    gancls_f32, spec_f32 = dp_spec("gancls", "float32", 3)
+    spec_f32["record_grads"] = "all"   # every update's, for the G elements
+    frozen, spec_frozen = dp_spec("gancls", "float32", 3,
+                                  **{"train.discriminator_lr": 0.0})
+    wgan, spec_wgan = dp_spec("wgancls", "float32", 1,
+                              **{"train.use_interpolation": True})
+    pggan, spec_pggan = dp_spec("pggan", "float32", 1, **{"pggan.stage": 4})
+    specs = {"gancls_f32": spec_f32, "gancls_f32_d_frozen": spec_frozen,
+             "gancls_lr0": dp_rest_spec("gancls"),
+             "gancls_bf16": dp_spec("gancls", "bfloat16", 3, seed=1)[1],
+             "wgancls_f32": spec_wgan, "pggan_f32": spec_pggan,
+             "wgancls_lr0": dp_rest_spec(
+                 "wgancls", **{"train.use_interpolation": True}),
+             "pggan_lr0": dp_rest_spec("pggan", **{"pggan.stage": 4})}
+    t1 = time.perf_counter()
+    runs_by_spec = dp_ticks.launch_many(
+        specs, os.path.join(runs, "dp", "gloo_specs"),
+        DP_TIMEOUT_S * len(specs))
+    log(f"  {len(specs)} specs ({', '.join(specs)}): {DP_RANKS} ranks over "
+        f"gloo in one launch, {time.perf_counter() - t1:.1f} s")
+
     log(f"phase 11b: GAN-CLS at full width, {DP_RANKS} ranks on this card "
         f"over gloo (batch 32 a rank) vs one process at batch 64")
     # every element of D's params with both nets training; G's with D
@@ -3698,27 +3594,22 @@ def phase_data_parallel(device, runs, flush):
     # gradients; its gradients are held in the tick at lr 0
     # the control beside each: one process against itself on the rows
     # permuted, the same math in another order of sums
-    cfg, spec = dp_spec("gancls", "float32", 3)
-    spec["record_grads"] = "all"       # every update's, for the G elements
-    outs = launch("gancls_f32", spec)
     report["gancls_f32"] = dp_against_one(
-        "GAN-CLS f32", cfg, spec, outs, device, held=("d",),
-        name_past=("g",))
-    del outs
-    report["gancls_f32_reorder"] = dp_reorder_control(cfg, spec, device)
-    cfg, spec = dp_spec("gancls", "float32", 3,
-                        **{"train.discriminator_lr": 0.0})
+        "GAN-CLS f32", gancls_f32, spec_f32, runs_by_spec.pop("gancls_f32"),
+        device, held=("d",), name_past=("g",))
+    report["gancls_f32_reorder"] = dp_reorder_control(gancls_f32, spec_f32,
+                                                      device)
     report["gancls_f32_d_frozen"] = dp_against_one(
-        "GAN-CLS f32, D frozen", cfg, spec,
-        launch("gancls_f32_d_frozen", spec), device)
-    report["gancls_f32_d_frozen_reorder"] = dp_reorder_control(cfg, spec,
-                                                               device)
+        "GAN-CLS f32, D frozen", frozen, spec_frozen,
+        runs_by_spec.pop("gancls_f32_d_frozen"), device)
+    report["gancls_f32_d_frozen_reorder"] = dp_reorder_control(
+        frozen, spec_frozen, device)
     past = report["gancls_f32"]["elements_past_bound"]["g"]
     report["gancls_f32_grads"] = dp_grads_at_rest(
-        "GAN-CLS f32, lr 0", "gancls", launch, device,
+        "GAN-CLS f32, lr 0", specs["gancls_lr0"],
+        runs_by_spec.pop("gancls_lr0"), device,
         elements=[(e["leaf"], tuple(e["index"])) for e in past])
-    cfg, spec = dp_spec("gancls", "bfloat16", 3, seed=1)
-    outs = launch("gancls_bf16", spec)
+    outs = runs_by_spec.pop("gancls_bf16")
     dp_same_across_ranks("GAN-CLS bf16", outs)
     for r, out in enumerate(outs):
         for i, m in enumerate(out["metrics"]):
@@ -3736,23 +3627,23 @@ def phase_data_parallel(device, runs, flush):
                              "all_reduce_bytes": outs[0]["all_reduce_bytes"]}
     log(f"  GAN-CLS bf16: losses finite, ranks bit-identical, launches a "
         f"rank and tick {outs[0]['launches'][0]}")
+    del outs
 
     log("phase 11c: WGAN-CLS with GAN-INT and C-PGGAN stage 4, "
         f"{DP_RANKS} ranks vs one process (f32)")
-    cfg, spec = dp_spec("wgancls", "float32", 1,
-                        **{"train.use_interpolation": True})
     report["wgancls_gan_int_f32"] = dp_against_one(
-        "WGAN-CLS + GAN-INT f32", cfg, spec, launch("wgancls_f32", spec),
-        device)
-    cfg, spec = dp_spec("pggan", "float32", 1, **{"pggan.stage": 4})
+        "WGAN-CLS + GAN-INT f32", wgan, spec_wgan,
+        runs_by_spec.pop("wgancls_f32"), device)
     report["pggan_stage4_f32"] = dp_against_one(
-        "C-PGGAN stage 4 f32", cfg, spec, launch("pggan_f32", spec), device)
+        "C-PGGAN stage 4 f32", pggan, spec_pggan,
+        runs_by_spec.pop("pggan_f32"), device)
     report["wgancls_gan_int_f32_grads"] = dp_grads_at_rest(
-        "WGAN-CLS + GAN-INT f32, lr 0", "wgancls", launch, device,
-        **{"train.use_interpolation": True})
+        "WGAN-CLS + GAN-INT f32, lr 0", specs["wgancls_lr0"],
+        runs_by_spec.pop("wgancls_lr0"), device)
     report["pggan_stage4_f32_grads"] = dp_grads_at_rest(
-        "C-PGGAN stage 4 f32, lr 0", "pggan", launch, device,
-        **{"pggan.stage": 4})
+        "C-PGGAN stage 4 f32, lr 0", specs["pggan_lr0"],
+        runs_by_spec.pop("pggan_lr0"), device)
+    del runs_by_spec
     torch.cuda.empty_cache()
 
     log("phase 11d: one rank over nccl (a group of world 1), GAN-CLS bf16, "
@@ -3833,7 +3724,6 @@ def phase_data_parallel(device, runs, flush):
                                  "d_loss": [r["d_loss"] for r in logs[0]]}
     log(f"  torchrun: 3 + 3 ticks bit-identical to 6 straight over "
         f"{len(fa)} state entries ({time.perf_counter() - t1:.1f} s)")
-    log(f"  (phase 11: {time.perf_counter() - t0:.1f} s)")
     return report
 
 
@@ -3983,6 +3873,291 @@ def phase_bench(card, rates):
                                                       "folded")}}
 
 
+# --- phase 15: the scripts and the kernel microbench -------------------------
+
+# training steps of the scripts' runs: enough to pass through every code
+# path of each (the trajectory evals, the resume, each C-PGGAN stage), far
+# too few for their quality gates, which the full-length runs hold
+CONVERGENCE_STEPS = 20
+CHAINED_STEPS = (4, 4, 6)            # Stage-I, Stage-II, Stage-II resumed
+CHAINED_TRAJ = 2
+DYNAMICS_STEPS = 2
+PGGAN_STEPS_PER_STAGE = 1
+PROFILE_STEPS = 3
+SERVE_ITERS = 10
+DEMO_STEPS = 20
+DEMO_IS_IMAGES = 320
+RUNBOOK_TIMEOUT_S = 300
+# the kernels of the GAN-CLS tick; of the StackGAN and C-PGGAN paths
+GANCLS_KERNELS = ("deconv5x5_s2", "conv5x5_s2_act", "conditioning_join",
+                  "bn_stats", "bn_act", "bn_bwd_reduce", "bn_bwd_apply")
+UPCONV_KERNELS = ("upconv3x3",)
+STACKGAN_KERNELS = ("upconv3x3", "conv5x5_s2_act", "conditioning_join",
+                    "bn_stats", "bn_act", "bn_bwd_reduce", "bn_bwd_apply")
+
+
+class PhaseClock:
+    """The seconds of each phase of `run`: `start` logs a phase's line and
+    ends the one before it."""
+
+    def __init__(self):
+        self.seconds, self._name, self._t0 = {}, None, None
+
+    def start(self, line):
+        self.stop()
+        log(line)
+        self._name, self._t0 = line.split(":", 1)[0], time.perf_counter()
+
+    def stop(self):
+        if self._name is not None:
+            secs = time.perf_counter() - self._t0
+            self.seconds[self._name] = self.seconds.get(self._name, 0.0) + secs
+            log(f"  ({self._name}: {secs:.1f} s)")
+            self._name = None
+        return self.seconds
+
+
+def finite_numbers(tree) -> bool:
+    """Every number of a JSON-like tree is finite (bools aside)."""
+    if isinstance(tree, dict):
+        return all(finite_numbers(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(finite_numbers(v) for v in tree)
+    if isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        return math.isfinite(tree)
+    return True
+
+
+def drive_script(name, fn, *args, want=(), **kw):
+    """A script's ``main`` with every launch count 0 just before and read
+    just after, what it printed teed: (rc, printed, launches).  Each
+    kernel of `want` must have launched."""
+    counters = all_counters()
+    for k in counters:
+        k.launches = 0
+    out = Tee()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = fn(*args, **kw)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    log(f"  {name}: rc {rc}, {time.perf_counter() - t0:.1f} s, launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    for k in want:
+        check(launches[k] > 0, f"{name}: {k} never launched: {launches}")
+    return rc, out.getvalue(), launches
+
+
+def result_line(printed, tag, what):
+    """The JSON of the last ``<tag> {...}`` line; every number finite."""
+    lines = [ln for ln in printed.splitlines() if ln.startswith(tag + " ")]
+    check(bool(lines), f"{what}: no {tag!r} line")
+    res = json.loads(lines[-1][len(tag) + 1:])
+    check(finite_numbers(res), f"{what}: a number is not finite: {res}")
+    return res
+
+
+def verdict(printed, rc, tag, what):
+    """The script's PASS / FAIL line, consistent with its exit code."""
+    said = [ln for ln in printed.splitlines()
+            if ln in (f"{tag} PASS", f"{tag} FAIL")]
+    check(len(said) == 1, f"{what}: verdict lines {said}")
+    check((said[0] == f"{tag} PASS") == (rc == 0),
+          f"{what}: {said[0]} with exit code {rc}")
+    log(f"  {what}: {said[0]} (not held at this length)")
+    return said[0]
+
+
+def phase_scripts(device, runs):
+    """Phase 15: every ported script through its ``main`` on the card, at
+    a few steps, and the kernel microbench."""
+    from text_to_image_tpu_torch.eval import inception_v3 as iv3
+    from text_to_image_tpu_torch.eval.inception import load_classifier
+    from text_to_image_tpu_torch.scripts import (chained_stackgan,
+                                                 convergence_check,
+                                                 convert_inception, e2e_demo,
+                                                 parity_runbook,
+                                                 pggan_progression,
+                                                 profile_step, serve_profile,
+                                                 stage2_dynamics)
+    from text_to_image_tpu_torch.tools import bench_kernels
+    from text_to_image_tpu_torch.train.checkpoint import CheckpointManager
+    dev = str(device)
+    root = os.path.join(runs, "scripts")
+    report, launches = {}, {}
+
+    # 15i: the runbook at its defaults, a process of its own (its main.py
+    # runs are processes too) in the background of 15a-15h, none of which
+    # is timed; collected before the timed 15e, 15f and 15j
+    par_work = os.path.join(root, "parity")
+    os.makedirs(root, exist_ok=True)
+    par_log = open(os.path.join(root, "parity_runbook.log"), "w+")
+    runbook = subprocess.Popen(
+        [sys.executable, "-m", "text_to_image_tpu_torch.scripts.parity_runbook",
+         "synthetic", par_work, "--device", dev], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT}, stdout=par_log,
+        stderr=subprocess.STDOUT, text=True)
+    t0 = time.perf_counter()
+    try:
+        # 15a: GAN-CLS convergence on the resident tier
+        grid = os.path.join(root, "convergence_grid.png")
+        rc, said, launches["convergence_check"] = drive_script(
+            "convergence_check", convergence_check.main, CONVERGENCE_STEPS,
+            "gancls", "synthetic", grid, device=dev, want=GANCLS_KERNELS)
+        report["convergence_check"] = {
+            "result": result_line(said, "CONVERGENCE RESULT", "convergence_check"),
+            "verdict": verdict(said, rc, "CONVERGENCE", "convergence_check")}
+        check(png_size(grid) == (8 * 64, 8 * 64), f"class grid {png_size(grid)}")
+
+        # 15b: the StackGAN chain with the trajectory, then resumed after an
+        # interruption before Stage-II's first snapshot: its training restarts
+        # at step 0 and replays the evals at or before the best one
+        chain = os.path.join(root, "chained")
+        s1, s2, s2_more = CHAINED_STEPS
+        rc, said, launches["chained_stackgan --traj"] = drive_script(
+            "chained_stackgan --traj", chained_stackgan.main, s1, s2, root=chain,
+            traj_interval=CHAINED_TRAJ, device=dev, want=STACKGAN_KERNELS)
+        first = result_line(said, "CHAINED RESULT", "chained_stackgan --traj")
+        verdict(said, rc, "CHAINED", "chained_stackgan --traj")
+        ck = os.path.join(chain, "ck")
+        best_dir = os.path.join(ck, "stackgan_stage2", "synthetic_best")
+        check(CheckpointManager(os.path.join(ck, "stackgan_stage1", "synthetic")
+                                ).latest_step() == s1, "no Stage-I checkpoint")
+        s2_dir = os.path.join(ck, "stackgan_stage2", "synthetic")
+        check(CheckpointManager(s2_dir).latest_step() == s2,
+              "no Stage-II checkpoint")
+        check([p["step"] for p in first["stage2_traj"]] ==
+              list(range(CHAINED_TRAJ, s2 + 1, CHAINED_TRAJ)),
+              f"trajectory {first['stage2_traj']}")
+        shutil.rmtree(s2_dir)
+        rc, said, launches["chained_stackgan --resume"] = drive_script(
+            "chained_stackgan --resume", chained_stackgan.main, s1, s2_more,
+            root=chain, traj_interval=CHAINED_TRAJ, resume=True, device=dev,
+            want=STACKGAN_KERNELS)
+        again = result_line(said, "CHAINED RESULT", "chained_stackgan --resume")
+        verdict(said, rc, "CHAINED", "chained_stackgan --resume")
+        check("resume: seeded best" in said, "the resumed run seeded no best")
+        check("resumed_seed" not in again["stage2"], f"{again['stage2']}")
+        check([p["step"] for p in again["stage2_traj"]] ==
+              [first["stage2_best"]["step"]]
+              + list(range(CHAINED_TRAJ, s2_more + 1, CHAINED_TRAJ)),
+              f"resumed trajectory {again['stage2_traj']}")
+        with open(os.path.join(best_dir, "best.json")) as f:
+            best = json.load(f)
+        check(best == again["stage2_best"] and
+              CheckpointManager(best_dir).all_steps() == [best["step"]],
+              f"best.json {best} beside checkpoints "
+              f"{CheckpointManager(best_dir).all_steps()}")
+        check(png_size(os.path.join(chain, "samples", "stackgan_stage2",
+                                    "synthetic", f"train_{s2_more:08d}.png")
+                       )[0] > 0, "no Stage-II grid")
+        report["chained_stackgan"] = {"traj": first, "resume": again,
+                                      "best_json": best}
+
+        # 15c: one Stage-II variant over the chain's Stage-I
+        rc, said, launches["stage2_dynamics"] = drive_script(
+            "stage2_dynamics", stage2_dynamics.main, s1, DYNAMICS_STEPS,
+            ["smooth+g2"], dataset="synthetic", keep_stage1=True, root=chain,
+            device=dev, want=STACKGAN_KERNELS)
+        check(rc == 0 and "reusing checkpoint" in said, f"stage2_dynamics rc {rc}")
+        report["stage2_dynamics"] = result_line(said, "S2AB RESULT",
+                                                "stage2_dynamics")
+
+        # 15d: the seven C-PGGAN stages to 256 px
+        pg = os.path.join(root, "pggan")
+        rc, said, launches["pggan_progression"] = drive_script(
+            "pggan_progression", pggan_progression.main, PGGAN_STEPS_PER_STAGE,
+            256, root=pg, device=dev, want=UPCONV_KERNELS)
+        report["pggan_progression"] = {
+            "result": result_line(said, "PGGAN256 RESULT", "pggan_progression"),
+            "verdict": verdict(said, rc, "PGGAN256", "pggan_progression")}
+        check(png_size(os.path.join(pg, "samples",
+                                    "pggan_256px_synthetic_grid.png"))[0] > 0,
+              "no 256 px grid")
+
+        # 15g: a torchvision-layout checkpoint (nested, DataParallel keys)
+        # converted and read back
+        params = iv3.init(0, FLOWERS_CLASSES)
+        pth, npz = (os.path.join(root, n) for n in ("iv3.pth", "iv3.npz"))
+        torch.save({"model": {f"module.{k}": v for k, v in
+                              iv3.export_torchvision_state_dict(params).items()}},
+                   pth)
+        rc, said, _ = drive_script("convert_inception", convert_inception.main,
+                                   ["--pth", pth, "--out", npz])
+        want, got = flat(params), flat(iv3.load_npz(npz, "cpu"))
+        check(rc == 0 and want.keys() == got.keys() and
+              all(torch.equal(v, got[k]) for k, v in want.items()),
+              "convert_inception round trip")
+        logits = load_classifier(npz, dev)(torch.rand(4, 64, 64, 3) * 2 - 1)
+        check(tuple(logits.shape) == (4, FLOWERS_CLASSES) and
+              bool(torch.isfinite(logits).all()), "converted classifier logits")
+        report["convert_inception"] = {"leaves": len(flat(params))}
+
+        # 15h: the demo whole (its raw JPGs through Pillow), its main.py
+        # runs processes of their own
+        rc, said, _ = drive_script("e2e_demo", e2e_demo.main,
+                                   os.path.join(root, "e2e"), steps=DEMO_STEPS,
+                                   is_images=DEMO_IS_IMAGES, device=dev)
+        res = result_line(said, "E2E RESULT", "e2e_demo")
+        check(rc == 0 and 1.0 <= res["is_mean"] and len(res["grids"]) == 3
+              and all(png_size(g)[0] > 0 for g in res["grids"]),
+              f"e2e_demo: rc {rc}, {res}")
+        report["e2e_demo"] = res
+
+        rc = runbook.wait(timeout=RUNBOOK_TIMEOUT_S)
+    finally:
+        if runbook.poll() is None:
+            runbook.kill()
+            runbook.wait()
+        par_log.seek(0)
+        said = par_log.read()
+        par_log.close()
+    log(f"  parity_runbook (python -m, in the background): rc {rc}, "
+        f"{time.perf_counter() - t0:.1f} s from its start")
+    res = result_line(said, "PARITY RESULT", "parity_runbook")
+    check(rc == 0 and 1.0 <= res["is_mean"] and len(res["grids"]) == 3
+          and all(png_size(g)[0] > 0 for g in res["grids"])
+          and os.path.exists(os.path.join(par_work, "data", "inception.npz")),
+          f"parity_runbook: rc {rc}, {res}\n{said[-3000:]}")
+    report["parity_runbook"] = res
+
+    # 15e, 15f: the step trace; the per-stage serving forward
+    trace = os.path.join(root, "trace")
+    rc, said, launches["profile_step"] = drive_script(
+        "profile_step", profile_step.main,
+        ["--steps", str(PROFILE_STEPS), "--out", trace, "--device", dev],
+        want=GANCLS_KERNELS)
+    traces = [f for f in os.listdir(trace) if f.endswith(".json")]
+    check(rc == 0 and len(traces) == 1, f"profile_step rc {rc}, {traces}")
+    report["profile_step"] = {"trace_bytes": os.path.getsize(
+        os.path.join(trace, traces[0]))}
+    rc, said, launches["serve_profile"] = drive_script(
+        "serve_profile", serve_profile.main, 32, device=dev,
+        iters=SERVE_ITERS, want=UPCONV_KERNELS)
+    report["serve_profile"] = result_line(said, "SERVE RESULT",
+                                          "serve_profile")
+    check(rc == 0 and len(report["serve_profile"]["cum_ms"]) == 7,
+          f"serve_profile {report['serve_profile']}")
+
+    # 15j: the kernel microbench
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    for argv, fname in (([], "bench_kernels.json"),
+                        (["--upconv", "--grad"], "bench_kernels_grad.json")):
+        rc, said, _ = drive_script(f"bench_kernels {' '.join(argv)}".strip(),
+                                   bench_kernels.main, argv)
+        with open(os.path.join(out_dir, fname)) as f:
+            bench = json.load(f)
+        check(rc == 0 and bench["rows"] and finite_numbers(bench["rows"]),
+              f"bench_kernels {argv}: rc {rc}")
+        if not argv:
+            check({r["kernel"] for r in bench["rows"]} ==
+                  set(bench_kernels.KERNELS),
+                  f"bench_kernels kernels {[r['kernel'] for r in bench['rows']]}")
+        report[fname[:-5]] = bench
+    report["launches"] = {f"script {k}": v for k, v in launches.items()}
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -4008,11 +4183,12 @@ def run(runs: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     device = torch.device("cuda", 0)
+    phases = PhaseClock()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
 
-    log("phase 1: build")
+    phases.start("phase 1: build")
     t0 = time.perf_counter()
     _build.build(_build.sources())
     # a library whose digest an earlier run in this checkout built is
@@ -4027,75 +4203,73 @@ def run(runs: str) -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    log("phase 2: kernels vs plain versions at the main-path shapes")
-    t0 = time.perf_counter()
+    phases.start("phase 2: kernels vs plain versions at the main-path shapes")
     errs = phase_kernels(device)
     train_errs, conv_paths = phase_train_kernels(device)
     errs.update(train_errs)
     errs.update(phase_upconv_kernels(device))
     bn_errs, bn_plans = phase_bn_kernels(device)
     errs.update(bn_errs)
-    log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    log("phase 3: backward passes vs torch.autograd through the plain "
-        "versions (f32, TF32 off)")
+    phases.start("phase 3: backward passes vs torch.autograd through the plain "
+                 "versions (f32, TF32 off)")
     grad_errs = phase_backward(device)
     grad_errs.update(phase_upconv_backward(device))
 
-    log("phase 4: sampling path at flagship widths, batch 64, bf16")
+    phases.start("phase 4: sampling path at flagship widths, batch 64, bf16")
     cfg, bundle, ts, gen, z, emb, launches, g_err = phase_main_path(device)
     launches_by_path = {"sampling": launches}
 
-    log(f"phase 5: training path (main.py --train loop) at flagship widths, "
-        f"batch 64, bf16, {TRAIN_TICKS} ticks")
+    phases.start(f"phase 5: training path (main.py --train loop) at flagship widths, "
+                 f"batch 64, bf16, {TRAIN_TICKS} ticks")
     history, launches_by_path["training"], moved = phase_train_path(device, runs)
 
-    log("phase 6: one tick on the card vs the CPU (flagship widths, batch 8, "
-        "f32, TF32 off)")
+    phases.start("phase 6: one tick on the card vs the CPU (flagship widths, batch 8, "
+                 "f32, TF32 off)")
     tick_vs_cpu = phase_card_vs_cpu(device)
 
     stackgan = {}
     sample_dir = os.path.join(ROOT, "chiprun_out", "samples")
     for model in ("stackgan_stage1", "stackgan_stage2"):
-        log(f"phase 4b: {model} sampling path (main.py) at full width, batch "
-            f"64, bf16")
+        phases.start(f"phase 4b: {model} sampling path (main.py) at full width, batch "
+                     f"64, bf16")
         launches_by_path[f"{model} sampling"], sg_err = \
             phase_stackgan_sampling(device, model, sample_dir, runs)
         g_err.update(sg_err)
-        log(f"phase 5b: {model} training path (main.py --train) at full "
-            f"width, batch 64, bf16, {TRAIN_TICKS} ticks")
+        phases.start(f"phase 5b: {model} training path (main.py --train) at full "
+                     f"width, batch 64, bf16, {TRAIN_TICKS} ticks")
         s_history, launches_by_path[f"{model} training"], s_moved = \
             phase_train_path(device, runs, model)
         stackgan[model] = {"training_history": s_history,
                            "training_leaves_changed": s_moved}
         torch.cuda.empty_cache()
-    log("phase 6b: one Stage-II tick on the card vs the CPU (full width, "
-        "256 px, batch 4, f32, TF32 off)")
+    phases.start("phase 6b: one Stage-II tick on the card vs the CPU (full width, "
+                 "256 px, batch 4, f32, TF32 off)")
     stackgan["stackgan_stage2"]["tick_vs_cpu"] = phase_card_vs_cpu(
         device, "stackgan_stage2", batch_size=4, g_after_d_tol=1e-2,
         kink_share={"d": 2e-4, "g": 3e-3})
     torch.cuda.empty_cache()
 
-    log("phase 6c: the data, checkpoint and resume path: GAN-CLS from an "
-        "Oxford-102-sized StackGAN-format split (main.py --train, full width, "
-        "resident tier), stopped and resumed; Stage-II from a Stage-I run "
-        "directory; the tick through each data tier and the checkpoint's "
-        "save and restore, timed")
+    phases.start("phase 6c: the data, checkpoint and resume path: GAN-CLS from an "
+                 "Oxford-102-sized StackGAN-format split (main.py --train, full width, "
+                 "resident tier), stopped and resumed; Stage-II from a Stage-I run "
+                 "directory; the tick through each data tier and the checkpoint's "
+                 "save and restore, timed")
     data_ckpt = phase_data_checkpoint(device, runs)
     launches_by_path.update(data_ckpt["launches"])
     torch.cuda.empty_cache()
 
-    log("phase 9a: WGAN-CLS training path (main.py --train) at the full "
-        f"width of configs/wgancls_flowers.yml, batch 64, bf16, "
-        f"{TRAIN_TICKS} ticks")
+    phases.start("phase 9a: WGAN-CLS training path (main.py --train) at the full "
+                 f"width of configs/wgancls_flowers.yml, batch 64, bf16, "
+                 f"{TRAIN_TICKS} ticks")
     wgan = {}
     wgan["training_history"], launches_by_path["wgancls training"] = \
         phase_wgan_train(device, runs)
-    log("phase 9a: one critic update's gradients (GP included), kernel "
-        "critic vs plain critic on the card, full width, batch 64")
+    phases.start("phase 9a: one critic update's gradients (GP included), kernel "
+                 "critic vs plain critic on the card, full width, batch 64")
     wgan["critic_grads"] = phase_wgan_critic_grads(device)
-    log("phase 9a: one WGAN-CLS tick on the card vs the CPU (full width, "
-        "n_critic 1, batch 8, f32, TF32 off)")
+    phases.start("phase 9a: one WGAN-CLS tick on the card vs the CPU (full width, "
+                 "n_critic 1, batch 8, f32, TF32 off)")
     # one critic update: further updates compound the ±lr Adam steps of
     # round-off gradients (β1 = 0); the kink allowance as Stage-II's
     wgan["tick_vs_cpu"] = phase_card_vs_cpu(
@@ -4104,24 +4278,24 @@ def run(runs: str) -> int:
     torch.cuda.empty_cache()
 
     flush = L2Flush(device)
-    log("phase 9b: upconv3x3_bias with lrelu vs its plain version at the "
-        "C-PGGAN shapes (bf16 and f32), timed")
+    phases.start("phase 9b: upconv3x3_bias with lrelu vs its plain version at the "
+                 "C-PGGAN shapes (bf16 and f32), timed")
     pg_errs, pg_upconv_rows = phase_pggan_upconv(device, flush)
     errs["upconv3x3"].update(pg_errs)
-    log(f"phase 9c: the C-PGGAN progression (main.py --train, "
-        f"configs/pggan_flowers.yml at full width, 5 stages × "
-        f"{PGGAN_TICKS_PER_STAGE} ticks)")
+    phases.start(f"phase 9c: the C-PGGAN progression (main.py --train, "
+                 f"configs/pggan_flowers.yml at full width, 5 stages × "
+                 f"{PGGAN_TICKS_PER_STAGE} ticks)")
     pggan = {}
     pggan["progression"], launches_by_path["pggan progression"] = \
         phase_pggan_progression(device, runs)
     torch.cuda.empty_cache()
-    log("phase 9d: one stage-7 tick of configs/pggan_flowers_256.yml "
-        "(256 px, batch 32)")
+    phases.start("phase 9d: one stage-7 tick of configs/pggan_flowers_256.yml "
+                 "(256 px, batch 32)")
     pggan["stage7_256px"], launches_by_path["pggan 256 px stage-7 tick"] = \
         phase_pggan_256(device, runs)
     torch.cuda.empty_cache()
 
-    log("phase 7: timing")
+    phases.start("phase 7: timing")
     rows, rates = phase_timing(device, cfg, bundle, ts, gen, z, emb)
     train_rows, bwd_rows = phase_train_timing(device, flush)
     rows.update(train_rows)
@@ -4139,14 +4313,14 @@ def run(runs: str) -> int:
         rows[f"{name} (every call)"] = every
     tick, (tts, tstep, tbatch) = phase_tick_timing(device)
 
-    log("phase 8: where a train-mode forward's and a tick's device time goes")
+    phases.start("phase 8: where a train-mode forward's and a tick's device time goes")
     profile = phase_profile(gen, ts, z, emb, device, rates["train_mode"])
     tick_profile = phase_tick_profile(tts, tstep, tbatch, tick["tick_ms"])
     del tts, tstep, tbatch
     torch.cuda.empty_cache()
 
-    log("phase 7b / 8b: StackGAN sampling rates, ticks and the Stage-II "
-        "tick's device time")
+    phases.start("phase 7b / 8b: StackGAN sampling rates, ticks and the Stage-II "
+                 "tick's device time")
     for model, ticks in (("stackgan_stage1", 10), ("stackgan_stage2", 5)):
         rates[model] = phase_stackgan_rates(device, model)
         stackgan[model]["tick"], tick_state = phase_tick_timing(
@@ -4157,8 +4331,8 @@ def run(runs: str) -> int:
         del tick_state
         torch.cuda.empty_cache()
 
-    log("phase 9e: WGAN-CLS and C-PGGAN stage-5 ticks, their device time, "
-        "and the gradient penalty's cost")
+    phases.start("phase 9e: WGAN-CLS and C-PGGAN stage-5 ticks, their device time, "
+                 "and the gradient penalty's cost")
     for model, store in (("wgancls", wgan), ("pggan", pggan)):
         store["tick"], tick_state = phase_tick_timing(device, model)
         store["tick_profile"] = phase_tick_profile(*tick_state,
@@ -4169,36 +4343,41 @@ def run(runs: str) -> int:
     torch.cuda.empty_cache()
 
     card = card_name()
-    log(f"phase 10: Inception-score eval (main.py --eval-is: GAN-CLS with "
-        f"the SimpleCNN and with an InceptionV3 .npz, Stage-II), the card vs "
-        f"the CPU, TF32, the synthetic-quality protocol [{card}]")
-    t0 = time.perf_counter()
+    phases.start(f"phase 10: Inception-score eval (main.py --eval-is: GAN-CLS with "
+                 f"the SimpleCNN and with an InceptionV3 .npz, Stage-II), the card vs "
+                 f"the CPU, TF32, the synthetic-quality protocol [{card}]")
     eval_is = phase_eval_is(device, runs, card)
     launches_by_path.update(eval_is.pop("launches"))
-    log(f"  (phase 10: {time.perf_counter() - t0:.1f} s)")
     torch.cuda.empty_cache()
 
-    log(f"phase 11: data parallelism on the card ({DP_RANKS} ranks sharing it "
-        f"over gloo, one rank over nccl, torchrun through main.py) [{card}]")
+    phases.start(f"phase 11: data parallelism on the card ({DP_RANKS} ranks sharing it "
+                 f"over gloo, one rank over nccl, torchrun through main.py) [{card}]")
     data_parallel = phase_data_parallel(device, runs, flush)
     launches_by_path.update(data_parallel.pop("launches"))
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    log(f"phase 12: entry() (GAN-CLS 64 px bf16, batch 16: the generator and "
-        f"D over three streams) on the kernels vs their plain versions "
-        f"[{card}]")
+    phases.start(f"phase 12: entry() (GAN-CLS 64 px bf16, batch 16: the generator and "
+                 f"D over three streams) on the kernels vs their plain versions "
+                 f"[{card}]")
     entry_report = phase_entry(device)
     launches_by_path["entry()"] = entry_report["launches"]
     torch.cuda.empty_cache()
-    log(f"phase 13: dryrun_multichip({DRYRUN_DEVICES}): {DRYRUN_DEVICES} gloo "
-        f"ranks sharing the card, WGAN-CLS + GAN-INT f32 at tiny widths, stem "
-        f"and embed column-sharded over model")
+    phases.start(f"phase 13: dryrun_multichip({DRYRUN_DEVICES}): {DRYRUN_DEVICES} gloo "
+                 f"ranks sharing the card, WGAN-CLS + GAN-INT f32 at tiny widths, stem "
+                 f"and embed column-sharded over model")
     dryrun = phase_dryrun()
-    log("phase 14: python -m text_to_image_tpu_torch.bench (its defaults: "
-        "GAN-CLS 64 px, batch 64, bf16)")
+    phases.start("phase 14: python -m text_to_image_tpu_torch.bench (its defaults: "
+                 "GAN-CLS 64 px, batch 64, bf16)")
     bench = phase_bench(card, rates)
-    log(f"  (phases 12-14: {time.perf_counter() - t0:.1f} s)")
+
+    phases.start(f"phase 15: the scripts (convergence_check, chained_stackgan "
+                          f"with --traj and --resume, stage2_dynamics, "
+                          f"pggan_progression, profile_step, serve_profile, "
+                          f"convert_inception, e2e_demo, parity_runbook) and "
+                          f"bench_kernels (its defaults and --upconv --grad) [{card}]")
+    scripts = phase_scripts(device, runs)
+    launches_by_path.update(scripts.pop("launches"))
+    phase_seconds = phases.stop()
 
     src = "text_to_image_tpu_torch/"
     meta = {
@@ -4299,6 +4478,7 @@ def run(runs: str) -> int:
               "pggan": pggan, "eval_is": eval_is,
               "data_parallel": data_parallel, "entry": entry_report,
               "dryrun_multichip": dryrun, "bench": bench,
+              "scripts": scripts, "phase_seconds": phase_seconds,
               "upconv3x3_pggan_shapes": pg_upconv_rows,
               "conv5x5_s2_act_256px_d": conv_256_rows,
               "conv5x5_s2_act_paths": conv_paths,

@@ -65,6 +65,14 @@ def eval_g_params(ts: GeneratorState) -> Dict:
     return ts.aux.get("ema_g_params", ts.g_params)
 
 
+def live_generator(ts: GeneratorState) -> GeneratorState:
+    """The generator of `ts` without its EMA average: what sampling draws
+    from the live params (the EMA A/B of the training scripts)."""
+    return GeneratorState(ts.g_params, ts.g_state,
+                          {k: v for k, v in ts.aux.items()
+                           if k != "ema_g_params"})
+
+
 def _run(gen, ts: GeneratorState, z, emb, eps, generator) -> np.ndarray:
     """One batch; ε is drawn from `generator` when the model needs it and
     the caller gave none."""

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from text_to_image_tpu_torch.ops.kernels import _build, conv, fused
+from text_to_image_tpu_torch.tools import bench_kernels
 
 TOL = 1e-2   # bf16: atol + rtol·|ref|
 
@@ -49,20 +50,7 @@ def conv_shapes(b, res):
 
 
 def time_ms(fn, flush, iters=10):
-    for _ in range(2):
-        fn()
-    pairs = []
-    for _ in range(iters):
-        flush.fill_(1)
-        torch.cuda._sleep(200_000)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return sorted(a.elapsed_time(b) for a, b in pairs)[len(pairs) // 2]
+    return bench_kernels.time_ms(fn, flush, iters=iters, warmup=2)
 
 
 def inputs(shape, co, gen, dev):
@@ -272,7 +260,7 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill", "Compiling",
                                        "warning", "error")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+    flush = bench_kernels.L2Flush(dev)
     bad, rows = 0, []
     if "conv" in args.ops:
         b, r = sweep_conv(gen, dev, flush)

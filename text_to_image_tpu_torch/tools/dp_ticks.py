@@ -233,6 +233,39 @@ def device_of(spec: Dict, rank: int) -> torch.device:
     return dev
 
 
+def _run_spec(spec: Dict, spec_path: str, device: torch.device) -> Dict:
+    """One spec's work on this rank, in the group `main` made."""
+    if "argv" in spec:
+        from text_to_image_tpu_torch import main as port_main
+        trainer = port_main.main(spec["argv"])
+        return {"history": trainer.history, "step": trainer.ts.step,
+                "launches": {c.__name__: c.launches for c in counters()},
+                "all_reduce_bytes": collectives.all_reduce_sum.bytes}
+    if "dryrun" in spec:
+        from text_to_image_tpu_torch import entry
+        out = {"dryrun": [entry._dryrun_on_mesh(
+            create_mesh(**d["mesh"]), device, d.get("set"),
+            d.get("record_grads", False)) for d in spec["dryrun"]]}
+        if spec.get("linear_check"):
+            out["linear"] = column_linear_errors(
+                create_mesh(**spec["dryrun"][0]["mesh"]), device)
+        return out
+    env = create_mesh(**spec["mesh"])
+    if spec.get("world1_batch_group") and env.world == 1:
+        env = dataclasses.replace(env, batch_group=dist.group.WORLD)
+    out = run(spec, device, env)
+    out["turns"] = [
+        {"group": bool(i % 4 in (1, 2)),
+         "ms": run(spec, device, env if i % 4 in (1, 2) else None)["ms"]}
+        for i in range(spec.get("turns", 0))]
+    if spec.get("profile"):
+        out["profile"] = {
+            tag: run(spec, device, e, os.path.join(
+                os.path.dirname(spec_path), f"trace_{tag}"))["profile"]
+            for tag, e in (("alone", None), ("group", env))}
+    return out
+
+
 def main(argv: List[str]) -> int:
     spec_path, rank = argv[0], int(argv[1])
     spec = torch.load(spec_path, weights_only=True)
@@ -248,35 +281,9 @@ def main(argv: List[str]) -> int:
         world_size=spec["world"],
         timeout=datetime.timedelta(seconds=spec.get("timeout_s", 60)))
     try:
-        if "argv" in spec:
-            from text_to_image_tpu_torch import main as port_main
-            trainer = port_main.main(spec["argv"])
-            out = {"history": trainer.history, "step": trainer.ts.step,
-                   "launches": {c.__name__: c.launches for c in counters()},
-                   "all_reduce_bytes": collectives.all_reduce_sum.bytes}
-        elif "dryrun" in spec:
-            from text_to_image_tpu_torch import entry
-            out = {"dryrun": [entry._dryrun_on_mesh(
-                create_mesh(**d["mesh"]), device, d.get("set"),
-                d.get("record_grads", False)) for d in spec["dryrun"]]}
-            if spec.get("linear_check"):
-                out["linear"] = column_linear_errors(
-                    create_mesh(**spec["dryrun"][0]["mesh"]), device)
-        else:
-            env = create_mesh(**spec["mesh"])
-            if spec.get("world1_batch_group") and env.world == 1:
-                env = dataclasses.replace(env, batch_group=dist.group.WORLD)
-            out = run(spec, device, env)
-            out["turns"] = [
-                {"group": bool(i % 4 in (1, 2)),
-                 "ms": run(spec, device, env if i % 4 in (1, 2) else None
-                           )["ms"]}
-                for i in range(spec.get("turns", 0))]
-            if spec.get("profile"):
-                out["profile"] = {
-                    tag: run(spec, device, e, os.path.join(
-                        os.path.dirname(spec_path), f"trace_{tag}"))["profile"]
-                    for tag, e in (("alone", None), ("group", env))}
+        out = ({"runs": [_run_spec(sub, spec_path, device)
+                         for sub in spec["specs"]]} if "specs" in spec
+               else _run_spec(spec, spec_path, device))
     finally:
         dist.destroy_process_group()
     torch.save(out, os.path.join(os.path.dirname(spec_path),
@@ -323,6 +330,23 @@ def launch(spec: Dict, workdir, timeout_s: float = 60.0) -> List[Dict]:
                 p.wait()
     return [torch.load(workdir / f"rank{r}.pt", weights_only=True)
             for r in range(spec["world"])]
+
+
+def launch_many(specs: Dict[str, Dict], workdir, timeout_s: float = 60.0
+                ) -> Dict[str, List[Dict]]:
+    """Several specs of one world, backend and device in one `launch`:
+    each rank runs them in turn in one process group (one start-up for
+    all).  Returns each spec's outputs in rank order, by name."""
+    first = next(iter(specs.values()))
+    group = {k: first[k] for k in ("world", "backend", "device")}
+    for name, spec in specs.items():
+        if any(spec[k] != v for k, v in group.items()):
+            raise ValueError(f"spec {name}: {[spec[k] for k in group]}, "
+                             f"not {list(group.values())}")
+    outs = launch({**group, "specs": list(specs.values())}, workdir,
+                  timeout_s)
+    return {name: [o["runs"][i] for o in outs]
+            for i, name in enumerate(specs)}
 
 
 if __name__ == "__main__":

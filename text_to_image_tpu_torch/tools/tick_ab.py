@@ -9,9 +9,10 @@ before/after comparison inside one run.
 Each argument is the root of a checkout (for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory); each runs in a
 process of its own, which builds that checkout's kernels and times it with
-that checkout's own ``chip_smoke.phase_tick_timing`` and
-``phase_tick_profile`` (the functions ``chip_smoke.py`` reports the ticks
-with).  Writes ``chiprun_out/tick_ab.json`` and prints one line per run.
+that checkout's own ``tools/ticks.py`` (`tick_timing` and `tick_profile`,
+the functions ``chip_smoke.py`` reports the ticks with; a checkout without
+that module predates it and cannot take part).  Writes
+``chiprun_out/tick_ab.json`` and prints one line per run.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ _CHILD = r"""
 import json, sys, torch
 root = sys.argv[1]
 sys.path.insert(0, root)
-import chip_smoke as cs
 from text_to_image_tpu_torch.ops.kernels import _build
+from text_to_image_tpu_torch.tools import ticks
 if not torch.cuda.is_available():
     raise SystemExit("tick_ab needs a GPU")
 torch.backends.cudnn.allow_tf32 = False
@@ -35,9 +36,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 _build.build(_build.sources())
 device = torch.device("cuda", 0)
 out = {}
-for model, ticks in (("gancls", 10), ("stackgan_stage2", 5)):
-    tick, state = cs.phase_tick_timing(device, model, ticks)
-    tick["profile"] = cs.phase_tick_profile(*state, tick["tick_ms"])
+for model, n in (("gancls", 10), ("stackgan_stage2", 5)):
+    tick, state = ticks.tick_timing(device, model, n)
+    tick["profile"] = ticks.tick_profile(*state, tick["tick_ms"])
     out[model] = tick
     del state
     torch.cuda.empty_cache()
