@@ -24,7 +24,10 @@
    version; for ``conditioning_join`` both paths; for the batch norm the
    scalar path), and each backward (autograd.Function; the train-mode batch
    norm's through its statistics) against torch.autograd through the plain
-   version, in f32 with TF32 off;
+   version, in f32 with TF32 off; the up-block's two backward kernels,
+   ``upconv3x3_dx`` and ``upconv3x3_dw``, against their plain versions at
+   the StackGAN, C-PGGAN and odd shapes (bf16 and f32, bit for bit between
+   two launches, each path read back from C);
 3. drives the sampling path at the flagship widths (gf 128, z 100,
    embed 1024, batch 64, bf16) through ``eval/sampler.py`` — the sample grid
    and both interpolation grids — plus the BN-folded serving generator, with
@@ -168,7 +171,7 @@ import torch
 # the package beside this script: the timing method shared with the kernel
 # microbench, and the tick timing shared with tools/tick_ab.py
 from text_to_image_tpu_torch.tools.bench_kernels import (
-    L2Flush, bound, nbytes, time_ms)
+    PGGAN_UPCONV_SHAPES, L2Flush, bound, bwd_path_tag, nbytes, time_ms)
 from text_to_image_tpu_torch.tools.ticks import (
     config_path, is_kernel, kernel_family, train_config)
 from text_to_image_tpu_torch.tools.ticks import (
@@ -322,6 +325,8 @@ TRAIN_TICKS = 3
 TICK_LAUNCHES = {"deconv5x5_s2": 12, "bn_stats": 24, "bn_act": 24,
                  "bn_bwd_reduce": 20, "bn_bwd_apply": 20,
                  "conv5x5_s2_act": 12, "conditioning_join": 3}
+# the up-block's forward and its two backward kernels, on a path without one
+NO_UPCONV = {"upconv3x3": 0, "upconv3x3_dx": 0, "upconv3x3_dw": 0}
 
 
 # (B, H, W, Cin) → Co: the upconv3x3_bias calls of the 64 px Stage-I
@@ -362,13 +367,17 @@ WGMMA_UPCONV_ODD_SHAPES = [((1, 5, 7, 64), 64, "relu"),
 # Stage-II (4 upconv; 11 BN calls: enc1-2, join, two per residual block,
 # up0-3); the 256 px D has six down-blocks (6 conv, 1 join; 6 BN calls:
 # down1-5, join), over three streams and over one.  BN forward
-# 16 + 6 + 16 + 6 = 44, backward 6 + 11 + 6 = 23.
+# 16 + 6 + 16 + 6 = 44, backward 6 + 11 + 6 = 23.  In both stages the G
+# step differentiates the 4 up-blocks it trains: 4 upconv3x3_dx (the first
+# block's input comes from the trained stem) and 4 upconv3x3_dw a tick.
 STACKGAN_TICK_LAUNCHES = {
-    "stackgan_stage1": {"upconv3x3": 8, "bn_stats": 18, "bn_act": 18,
+    "stackgan_stage1": {"upconv3x3": 8, "upconv3x3_dx": 4,
+                        "upconv3x3_dw": 4, "bn_stats": 18, "bn_act": 18,
                         "bn_bwd_reduce": 13, "bn_bwd_apply": 13,
                         "conv5x5_s2_act": 8, "conditioning_join": 2,
                         "deconv5x5_s2": 0},
-    "stackgan_stage2": {"upconv3x3": 16, "bn_stats": 44, "bn_act": 44,
+    "stackgan_stage2": {"upconv3x3": 16, "upconv3x3_dx": 4,
+                        "upconv3x3_dw": 4, "bn_stats": 44, "bn_act": 44,
                         "bn_bwd_reduce": 23, "bn_bwd_apply": 23,
                         "conv5x5_s2_act": 12, "conditioning_join": 2,
                         "deconv5x5_s2": 0}}
@@ -980,6 +989,69 @@ def phase_upconv_backward(device):
     return errs
 
 
+# upconv3x3_dx and upconv3x3_dw against their plain versions on the same
+# inputs: within tol·max|ref| + tol·|ref| (bf16: a rounding flip of the
+# output after f32 sums in another order, the tensor cores' own among them;
+# f32, TF32 off: sums of up to 16·B·H·W products in another order)
+BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: GRAD_REL}
+# the Function whose backward runs each of them (its f32 check vs autograd)
+BWD_OF = {"upconv3x3_dx": "upconv3x3", "upconv3x3_dw": "upconv3x3"}
+
+
+def phase_upconv_bwd_kernels(device):
+    """The up-block's two backward kernels, upconv3x3_dx and upconv3x3_dw,
+    against their plain versions on the same inputs, bf16 and f32, at the
+    eight StackGAN shapes, the six C-PGGAN shapes, the odd shapes (ragged
+    channels, every activation's shapes) and the wgmma path's odd shapes
+    (B = 1, M not a multiple of a tile, non-square maps): each output bit
+    for bit between two launches, the path read back from the C entry
+    point and held against the Python mirror, logged with its plan."""
+    from text_to_image_tpu_torch.ops.kernels import conv
+    gen = torch.Generator().manual_seed(SEED + 17)
+    errs = {"upconv3x3_dx": {}, "upconv3x3_dw": {}}
+    paths = []
+    shapes = list(dict.fromkeys(
+        UPCONV_SHAPES["stage1"] + UPCONV_SHAPES["stage2"]
+        + PGGAN_UPCONV_SHAPES
+        + [(s, c) for s, c, _ in ODD_UPCONV_SHAPES + WGMMA_UPCONV_ODD_SHAPES]))
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        tol = BWD_TOL[dtype]
+        for shape, co in shapes:
+            b, h, wd, cin = shape
+            x, w, _, _ = upconv_inputs(shape, co, dtype, device, gen)
+            g = torch.randn(b, 2 * h, 2 * wd, co, generator=gen).to(
+                dtype).to(device)
+            for name, fn, plain, on_card, mirror in (
+                    ("upconv3x3_dx", lambda: conv.upconv3x3_dx(g, w, dtype),
+                     lambda: conv.upconv3x3_dx_plain(g, w, dtype),
+                     lambda out: conv.dx_path_on_card(g, out),
+                     conv.dx_path(cin, co, dtype)),
+                    ("upconv3x3_dw", lambda: conv.upconv3x3_dw(x, g, dtype),
+                     lambda: conv.upconv3x3_dw_plain(x, g, dtype),
+                     lambda out: conv.dw_path_on_card(x, g),
+                     conv.dw_path(h, wd, cin, co, dtype))):
+                got, again = fn(), fn()
+                torch.cuda.synchronize()
+                path = on_card(got)
+                what = f"{name} {dt} {shape}->{co}"
+                check(path == mirror, f"{what}: path {path}, the mirror "
+                                      f"says {mirror}")
+                check(torch.equal(got, again),
+                      f"{what}: two launches differ")
+                ref = plain()
+                tag = bwd_path_tag(name, path, shape, co)
+                errs[name][(dtype, (shape, co))] = compare(
+                    got, ref, tol * float(ref.float().abs().max()), tol,
+                    f"{what} [{tag}] (bit-identical twice)")
+                paths.append({"kernel": name, "dtype": dt,
+                              "shape": [list(shape), co], "path": tag})
+                del got, again, ref
+            del x, w, g
+            torch.cuda.empty_cache()
+    return errs, paths
+
+
 def phase_stackgan_sampling(device, model, sample_dir, runs):
     """``python -m text_to_image_tpu_torch.main --cfg
     configs/<model>_flowers.yml --set data.dataset_name=synthetic
@@ -1222,7 +1294,8 @@ def all_counters():
     from text_to_image_tpu_torch.ops.kernels import conv, fused
     return (conv.deconv5x5_s2, fused.bn_stats, fused.bn_act,
             fused.bn_bwd_reduce, fused.bn_bwd_apply, conv.conv5x5_s2_act,
-            fused.conditioning_join, conv.upconv3x3)
+            fused.conditioning_join, conv.upconv3x3, conv.upconv3x3_dx,
+            conv.upconv3x3_dw)
 
 
 def flat(tree):
@@ -1263,7 +1336,7 @@ def phase_train_path(device, runs, model="gancls"):
     log(f"  {model} training-path launches over {TRAIN_TICKS} ticks: "
         f"{launches} ({wall:.1f} s)")
     per_tick = (STACKGAN_TICK_LAUNCHES[model] if model in STACKGAN_TICK_LAUNCHES
-                else {**TICK_LAUNCHES, "upconv3x3": 0})
+                else {**TICK_LAUNCHES, **NO_UPCONV})
     check(launches == {k: v * TRAIN_TICKS for k, v in per_tick.items()},
           f"unexpected launch counts {launches}")
 
@@ -1681,7 +1754,7 @@ def phase_data_checkpoint(device, runs):
           f"grid launches {straight.grid_launches}")
     per_tick = {k: (v - sum(g[k] for g in straight.grid_launches)) / DATA_TICKS
                 for k, v in launches.items()}
-    check(per_tick == {**TICK_LAUNCHES, "upconv3x3": 0},
+    check(per_tick == {**TICK_LAUNCHES, **NO_UPCONV},
           f"launches per tick {per_tick}")
     report["launches"]["flowers training (6 ticks, 2 grids)"] = launches
     log(f"  straight run: {DATA_TICKS} ticks, snapshots 2, 4, 6, grids 3, 6, "
@@ -2258,12 +2331,6 @@ def phase_profile(gen, ts, z, emb, device, rate):
 
 # --- WGAN-CLS and C-PGGAN ------------------------------------------------
 
-# (B, H, W, Cin) → Co: the upconv3x3_bias calls of the C-PGGAN generator's
-# up-blocks (lrelu fused, PixelNorm after): stages 2-5 at 64 px (B 64), and
-# the two calls only the 256 px progression adds (stages 6-7, B 32)
-PGGAN_UPCONV_SHAPES = [((BATCH, 4, 4, 512), 512), ((BATCH, 8, 8, 512), 512),
-                       ((BATCH, 16, 16, 512), 256), ((BATCH, 32, 32, 256), 128),
-                       ((32, 64, 64, 128), 64), ((32, 128, 128, 64), 32)]
 PGGAN_TICKS_PER_STAGE = 2
 # the kernel critic's parameter gradients of one critic update (GP included)
 # against the plain critic's on the card, held as the backward checks hold
@@ -2289,16 +2356,20 @@ def wgan_tick_launches(n_critic, g_steps):
             "bn_act": 4 * (n_critic + g_steps),
             "bn_bwd_reduce": 4 * g_steps, "bn_bwd_apply": 4 * g_steps,
             "conv5x5_s2_act": 8 * n_critic + 4 * g_steps,
-            "conditioning_join": 2 * n_critic + g_steps, "upconv3x3": 0}
+            "conditioning_join": 2 * n_critic + g_steps, **NO_UPCONV}
 
 
 def pggan_launches(stage, ticks, grids, cfg):
     """upconv3x3 launches of C-PGGAN ticks and grids at `stage`: every
     generator forward (one per critic update, one per G update, one per
-    grid) runs stage − 1 up-blocks; nothing else launches a kernel."""
+    grid) runs stage − 1 up-blocks, and each G update differentiates them
+    (one upconv3x3_dx and one upconv3x3_dw each: the first block's input
+    comes from the trained stem); nothing else launches a kernel."""
     forwards = ticks * (cfg.train.n_critic + cfg.train.g_steps) + grids
+    backwards = ticks * cfg.train.g_steps * (stage - 1)
     return {**{k.__name__: 0 for k in all_counters()},
-            "upconv3x3": forwards * (stage - 1)}
+            "upconv3x3": forwards * (stage - 1),
+            "upconv3x3_dx": backwards, "upconv3x3_dw": backwards}
 
 
 def check_metrics(last, names, what):
@@ -3067,7 +3138,7 @@ DP_TIMEOUT_S = 240
 # the all-gather (3 launches forward, 2 backward a BN call)
 DP_TICK_LAUNCHES = {**TICK_LAUNCHES, "bn_stats": 0,
                     "bn_partials": TICK_LAUNCHES["bn_stats"],
-                    "bn_finish": TICK_LAUNCHES["bn_stats"], "upconv3x3": 0}
+                    "bn_finish": TICK_LAUNCHES["bn_stats"], **NO_UPCONV}
 DP_NCCL_TICKS = 8
 
 
@@ -3892,8 +3963,10 @@ RUNBOOK_TIMEOUT_S = 300
 GANCLS_KERNELS = ("deconv5x5_s2", "conv5x5_s2_act", "conditioning_join",
                   "bn_stats", "bn_act", "bn_bwd_reduce", "bn_bwd_apply")
 UPCONV_KERNELS = ("upconv3x3",)
-STACKGAN_KERNELS = ("upconv3x3", "conv5x5_s2_act", "conditioning_join",
-                    "bn_stats", "bn_act", "bn_bwd_reduce", "bn_bwd_apply")
+STACKGAN_KERNELS = ("upconv3x3", "upconv3x3_dx", "upconv3x3_dw",
+                    "conv5x5_s2_act", "conditioning_join", "bn_stats",
+                    "bn_act", "bn_bwd_reduce", "bn_bwd_apply")
+PGGAN_KERNELS = ("upconv3x3", "upconv3x3_dx", "upconv3x3_dw")
 
 
 class PhaseClock:
@@ -4067,7 +4140,7 @@ def phase_scripts(device, runs):
         pg = os.path.join(root, "pggan")
         rc, said, launches["pggan_progression"] = drive_script(
             "pggan_progression", pggan_progression.main, PGGAN_STEPS_PER_STAGE,
-            256, root=pg, device=dev, want=UPCONV_KERNELS)
+            256, root=pg, device=dev, want=PGGAN_KERNELS)
         report["pggan_progression"] = {
             "result": result_line(said, "PGGAN256 RESULT", "pggan_progression"),
             "verdict": verdict(said, rc, "PGGAN256", "pggan_progression")}
@@ -4149,10 +4222,10 @@ def phase_scripts(device, runs):
             bench = json.load(f)
         check(rc == 0 and bench["rows"] and finite_numbers(bench["rows"]),
               f"bench_kernels {argv}: rc {rc}")
-        if not argv:
-            check({r["kernel"] for r in bench["rows"]} ==
-                  set(bench_kernels.KERNELS),
-                  f"bench_kernels kernels {[r['kernel'] for r in bench['rows']]}")
+        check({r["kernel"] for r in bench["rows"]} ==
+              set(bench_kernels.GRAD_KERNELS if argv else
+                  bench_kernels.KERNELS),
+              f"bench_kernels kernels {[r['kernel'] for r in bench['rows']]}")
         report[fname[:-5]] = bench
     report["launches"] = {f"script {k}": v for k, v in launches.items()}
     return report
@@ -4215,6 +4288,11 @@ def run(runs: str) -> int:
                  "versions (f32, TF32 off)")
     grad_errs = phase_backward(device)
     grad_errs.update(phase_upconv_backward(device))
+    phases.start("phase 3b: the up-block's backward kernels (upconv3x3_dx, "
+                 "upconv3x3_dw) vs their plain versions at the StackGAN, "
+                 "C-PGGAN and odd shapes (bf16 and f32), bit-identical twice")
+    bwd_errs, bwd_paths = phase_upconv_bwd_kernels(device)
+    errs.update(bwd_errs)
 
     phases.start("phase 4: sampling path at flagship widths, batch 64, bf16")
     cfg, bundle, ts, gen, z, emb, launches, g_err = phase_main_path(device)
@@ -4378,6 +4456,14 @@ def run(runs: str) -> int:
     scripts = phase_scripts(device, runs)
     launches_by_path.update(scripts.pop("launches"))
     phase_seconds = phases.stop()
+    # upconv3x3_dx and upconv3x3_dw: the microbench's rows (phase 15, this
+    # run) at the eight StackGAN shapes
+    up_blocks = {f"{list(s)}->{co}" for s, co in
+                 UPCONV_SHAPES["stage1"] + UPCONV_SHAPES["stage2"]}
+    for name in ("upconv3x3_dx", "upconv3x3_dw"):
+        rows[name] = [r for r in scripts["bench_kernels_grad"]["rows"]
+                      if r["kernel"] == name and r["shape"] in up_blocks]
+        check(len(rows[name]) == len(up_blocks), f"{name}: {rows[name]}")
 
     src = "text_to_image_tpu_torch/"
     meta = {
@@ -4399,6 +4485,12 @@ def run(runs: str) -> int:
                               "text_to_image_tpu/ops/pallas/fused.py:327"),
         "upconv3x3": ("cuda", src + "csrc/upconv3x3.cu",
                       "text_to_image_tpu/ops/pallas/conv.py:546"),
+        # the parity adjoints of the Pallas op's custom VJP (_upconv_bwd
+        # :647, _upconv_bias_bwd :690), which the JAX package leaves to XLA
+        "upconv3x3_dx": ("cuda", src + "csrc/upconv3x3_bwd.cu",
+                         "text_to_image_tpu/ops/pallas/conv.py:606"),
+        "upconv3x3_dw": ("cuda", src + "csrc/upconv3x3_bwd.cu",
+                         "text_to_image_tpu/ops/pallas/conv.py:624"),
     }
 
     def per_unit(per, key):
@@ -4407,7 +4499,9 @@ def run(runs: str) -> int:
         bn_bwd_reduce and bn_bwd_apply the backward of those four calls).  conv5x5_s2_act and conditioning_join: one
         GAN-CLS tick's forward calls (the D step at 3·64 plus two G steps' D
         at 64).  upconv3x3: one Stage-II generator forward, its frozen
-        Stage-I included (the sum over the eight calls at batch 64)."""
+        Stage-I included (the sum over the eight calls at batch 64).
+        upconv3x3_dx and upconv3x3_dw: the backward of a Stage-I and of a
+        Stage-II G step (the same eight calls)."""
         return sum(r[key] * (1 if r.get("batch", D_BATCH) == D_BATCH else 2)
                    for r in per)
 
@@ -4429,10 +4523,12 @@ def run(runs: str) -> int:
             "bound_by": ("operations" if ops_share * 2 > sum(
                 r["bound_ms"] for r in per) else "bytes"),
             "library_ms": per_unit(per, "library_ms"),
+            # the backwards through autograd of the Function that runs
+            # the kernel (the up-block's for dx and dw)
             "max_grad_err_f32": max(v for k, v in grad_errs.items()
                                     if k.startswith(
                                         "batch_norm_train" if name in BN_STEPS
-                                        else name)),
+                                        else BWD_OF.get(name, name))),
             "shapes": (rows.get(f"{name} (every call)", per)
                        + bwd_rows.get(name, [])
                        + (pg_upconv_rows if name == "upconv3x3" else [])),
@@ -4480,6 +4576,7 @@ def run(runs: str) -> int:
               "dryrun_multichip": dryrun, "bench": bench,
               "scripts": scripts, "phase_seconds": phase_seconds,
               "upconv3x3_pggan_shapes": pg_upconv_rows,
+              "upconv3x3_bwd_paths": bwd_paths,
               "conv5x5_s2_act_256px_d": conv_256_rows,
               "conv5x5_s2_act_paths": conv_paths,
               "batch_norm_calls": bn_rows, "batch_norm_plans": bn_plans}

@@ -67,6 +67,14 @@ def test_shapes_cover_bench_pallas_and_the_main_paths():
     stackgan = {(*s, co) for s, co in bk.STACKGAN_UPCONV}
     assert len(stackgan) == 8 and stackgan <= upconv and stackgan <= grad
     assert len(bk.UPCONV_GRAD_SHAPES) == len(grad)      # no repeats
+    # the dx and dw rows: every gradient shape and the C-PGGAN up-blocks
+    # (chip_smoke.py holds the kernels at the same six)
+    import chip_smoke
+    bwd = {(*s, co) for s, co in bk.UPCONV_BWD_SHAPES}
+    pggan = {(*s, co) for s, co in bk.PGGAN_UPCONV_SHAPES}
+    assert grad <= bwd and pggan <= bwd and len(pggan) == 6
+    assert len(bk.UPCONV_BWD_SHAPES) == len(bwd)
+    assert chip_smoke.PGGAN_UPCONV_SHAPES == bk.PGGAN_UPCONV_SHAPES
 
 
 def _inputs(shape, co, k, gen):
@@ -98,6 +106,13 @@ def test_bytes_and_operations_match_the_tensors(shape, co):
     # backward: g read, dx, dw, db written; x and w read again
     assert bk.upconv_grad_work(shape, co) == (
         fwd[0] + bk.nbytes(y, x3, x3, w3, w3) + 4 * co, 3 * fwd[1])
+    # each backward kernel alone: dx reads g and w and writes dx; dw reads
+    # x and g and writes dw; each as many multiply-adds as the forward
+    g = torch.randn(y.shape, generator=gen).to(torch.bfloat16)
+    dx = conv.upconv3x3_dx(g, w3, torch.bfloat16)
+    dw = conv.upconv3x3_dw(x3, g, torch.bfloat16)
+    assert bk.upconv_dx_work(shape, co) == (bk.nbytes(g, w3, dx), fwd[1])
+    assert bk.upconv_dw_work(shape, co) == (bk.nbytes(x3, g, dw), fwd[1])
     e = 12
     tt = torch.randn(b, e, generator=gen).to(torch.bfloat16)
     wx = torch.randn(cin, co, generator=gen).to(torch.bfloat16)
@@ -106,6 +121,21 @@ def test_bytes_and_operations_match_the_tensors(shape, co):
     assert bk.join_work(shape, e, co) == (
         bk.nbytes(x, tt, wx, wt, t, y),
         2 * b * h * w * cin * co + 2 * b * e * co)
+
+
+def test_backward_work_at_a_hand_computed_shape():
+    """dx and dw of the 32²×256→128 up-block at batch 64, by hand: 2 bytes
+    an element; 2·16 multiply-adds per (pixel, Cin, Co) of x's map."""
+    shape, co = (64, 32, 32, 256), 128
+    g_bytes = 2 * 64 * 64 * 64 * 128            # [64, 64, 64, 128]
+    x_bytes = 2 * 64 * 32 * 32 * 256            # [64, 32, 32, 256]
+    w_bytes = 2 * 9 * 256 * 128
+    ops = 2 * 16 * 64 * 32 * 32 * 256 * 128     # 68.7 GFLOP
+    assert ops == 68_719_476_736
+    assert bk.upconv_dx_work(shape, co) == (g_bytes + w_bytes + x_bytes, ops)
+    assert bk.upconv_dw_work(shape, co) == (x_bytes + g_bytes + w_bytes, ops)
+    ms, by = bk.bound(*bk.upconv_dw_work(shape, co), torch.bfloat16)
+    assert by == "operations" and ms == pytest.approx(ops / 989e12 * 1e3)
 
 
 def test_bound_is_the_larger_of_bytes_and_operations():
@@ -133,6 +163,9 @@ def test_table_has_a_row_a_measurement():
     assert text[0].startswith("| kernel | shape | path / plan | ms |")
     assert "| 0.50 |" in text[2]                  # kernel / library
     assert "| nan |" in text[3]                   # no library time
+    assert text[2].endswith("| — |")              # no plain version timed
+    rows[0]["plain_ms"] = 2.5
+    assert bk.table(rows).splitlines()[2].endswith("| 2.5000 |")
     cells = [c.strip() for c in text[2].split("|")[1:-1]]
     assert len(cells) == text[0].count("|") - 1
 
@@ -164,7 +197,11 @@ def cpu_bench(monkeypatch):
     monkeypatch.setattr(conv, "deconv_path_on_card", lambda *a: "plain")
     monkeypatch.setattr(conv, "upconv_path_on_card", lambda *a: "plain")
     monkeypatch.setattr(bk, "DECONV_SHAPES", [((2, 4, 4, 16), 8, "relu")])
+    monkeypatch.setattr(conv, "dx_path_on_card", lambda *a: "plain")
+    monkeypatch.setattr(conv, "dw_path_on_card", lambda *a: "plain")
     monkeypatch.setattr(bk, "UPCONV_GRAD_SHAPES", [((2, 4, 4, 8), 8)])
+    monkeypatch.setattr(bk, "UPCONV_BWD_SHAPES", [((2, 4, 4, 8), 8),
+                                                  ((1, 3, 5, 64), 64)])
     return timed
 
 
@@ -199,6 +236,33 @@ def test_upconv_grad_rows_hold_the_gradients_first(cpu_bench, monkeypatch):
     assert cpu_bench == []
 
 
+def test_backward_kernel_rows_hold_then_time_three_calls(cpu_bench,
+                                                        monkeypatch):
+    """A dx and a dw row a shape, each with the kernel's, the library
+    call's and the plain version's ms, the work of its own kernel and
+    its path; a wrong dw fails before anything is timed."""
+    gen = torch.Generator().manual_seed(0)
+    rows = bk.bench_upconv_bwd("cpu", None, gen)
+    assert [r["kernel"] for r in rows] == ["upconv3x3_dx", "upconv3x3_dw"] * 2
+    assert len(cpu_bench) == 3 * len(rows)
+    for r in rows:
+        assert r["plain_ms"] == 1.0 and r["ratio"] == 1.0
+        assert r["max_abs_err"] == 0.0 and r["path"].startswith("plain")
+    shape, co = bk.UPCONV_BWD_SHAPES[1]
+    assert rows[2]["bound_ms"] == bk.bound(*bk.upconv_dx_work(shape, co),
+                                           torch.bfloat16)[0]
+    assert rows[3]["bound_ms"] == bk.bound(*bk.upconv_dw_work(shape, co),
+                                           torch.bfloat16)[0]
+    assert "library" in rows[1] and "conv2d_weight" in rows[1]["library"]
+    plain = conv.upconv3x3_dw_plain
+    monkeypatch.setattr(conv, "upconv3x3_dw",
+                        lambda *a: plain(*a) * 1.1 + 0.05)
+    cpu_bench.clear()
+    with pytest.raises(RuntimeError, match="upconv3x3_dw"):
+        bk.bench_upconv_bwd("cpu", None, gen)
+    assert cpu_bench == []
+
+
 def test_main_needs_a_gpu_and_pairs_upconv_with_grad(capsys):
     assert bk.main([]) == 2
     assert "needs an NVIDIA GPU" in capsys.readouterr().err
@@ -210,8 +274,8 @@ def test_main_needs_a_gpu_and_pairs_upconv_with_grad(capsys):
 def test_every_kernel_of_the_main_paths_has_a_table():
     """Each kernel wrapper that the main paths launch (``chip_smoke.py``
     counts them; ``upconv3x3_bias`` counts on ``upconv3x3``) is a kernel of
-    the default table."""
+    the default table, or one of ``--upconv --grad``'s backward kernels."""
     import chip_smoke
     names = {c.__name__ for c in chip_smoke.all_counters()}
     assert {k.replace("upconv3x3_bias", "upconv3x3")
-            for k in bk.KERNELS} == names
+            for k in bk.KERNELS + bk.GRAD_KERNELS[1:]} == names

@@ -37,6 +37,16 @@ def test_tick_config_is_the_shipped_yaml_on_synthetic_data(model):
 @pytest.mark.parametrize("name,family", [
     ("void (anonymous namespace)::deconv_wgmma<...>", "deconv5x5_s2 (CUDA)"),
     ("void (anonymous namespace)::upconv_grouped<...>", "upconv3x3 (CUDA)"),
+    ("void igemm90::wgmma_kernel<(anonymous namespace)::UpconvDx, 128, 64>",
+     "upconv3x3 backward (CUDA)"),
+    ("void (anonymous namespace)::dx_transpose_kernel<unsigned short>",
+     "upconv3x3 backward (CUDA)"),
+    ("void (anonymous namespace)::dw_wgmma_kernel<64, 64>",
+     "upconv3x3 backward (CUDA)"),
+    ("void (anonymous namespace)::dw_reduce_kernel<unsigned short>",
+     "upconv3x3 backward (CUDA)"),
+    ("void (anonymous namespace)::bn_reduce_kernel<true>",
+     "batch norm (CUDA)"),
     ("down0_mma_kernel", "conv5x5_s2_act (CUDA)"),
     ("join_text_kernel", "conditioning_join (CUDA)"),
     ("bn_dx_kernel<true>", "batch norm (CUDA)"),

@@ -1,6 +1,6 @@
 // Implicit GEMM on Hopper's warpgroup matrix unit (wgmma, sm_90a): the
 // aligned bf16 path of conv5x5_s2.cu, conditioning_join.cu,
-// deconv5x5_s2.cu and upconv3x3.cu.  It replaces the tiles those kernels
+// deconv5x5_s2.cu, upconv3x3.cu and the dx of upconv3x3_bwd.cu.  It replaces the tiles those kernels
 // ran on mma.sync (igemm.cuh; the Pallas bodies in
 // text_to_image_tpu/ops/pallas/conv.py _conv_kernel*, _deconv_kernel*,
 // _upconv_kernel / _upconv_halo_kernel and fused.py _join_core, each a
@@ -229,7 +229,7 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// A bf16 tensor map with the 128-byte swizzle: `rank` dims, innermost
+// A bf16 tensor map with the 128-byte swizzle: `rank` (at most 5) dims, innermost
 // first, byte strides of the outer ones, one box per request; elements
 // outside the tensor arrive as zeros.  cuTensorMapEncodeTiled is reached
 // through the runtime, so the library links against no driver stub.
@@ -253,7 +253,7 @@ inline cudaError_t encode_tiled(CUtensorMap* map, int rank, const void* base,
       return cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};   // up to rank 5
   const CUresult rc = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
       dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -307,12 +307,14 @@ __device__ __forceinline__ int3 image_box(int row0, int H, int W, int dy,
   return make_int3(dx, (row0 - b * hw) / W + dy, b);
 }
 
-// D[64 x BN] += A[64 x 16] (K-major) * B[16 x BN] (N-major: trans-b = 1)
-template <int BN>
+// D[64 x BN] += A[64 x 16] * B[16 x BN] (N-major: trans-b = 1); A is
+// K-major (TA = 0) or M-major (TA = 1: the weight gradient of
+// upconv3x3_bwd.cu, whose A is pixels x channels)
+template <int BN, int TA = 0>
 struct Wgmma;
 
-template <>
-struct Wgmma<64> {
+template <int TA>
+struct Wgmma<64, TA> {
   __device__ static __forceinline__ void mma(float* d, uint64_t a,
                                              uint64_t b) {
     asm volatile(
@@ -322,7 +324,7 @@ struct Wgmma<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 1;\n}\n"
+        "%32, %33, p, 1, 1, %35, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -330,12 +332,12 @@ struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(TA));
   }
 };
 
-template <>
-struct Wgmma<128> {
+template <int TA>
+struct Wgmma<128, TA> {
   __device__ static __forceinline__ void mma(float* d, uint64_t a,
                                              uint64_t b) {
     asm volatile(
@@ -349,7 +351,7 @@ struct Wgmma<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        "%64, %65, p, 1, 1, %67, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -363,12 +365,12 @@ struct Wgmma<128> {
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(TA));
   }
 };
 
-template <>
-struct Wgmma<256> {
+template <int TA>
+struct Wgmma<256, TA> {
   __device__ static __forceinline__ void mma(float* d, uint64_t a,
                                              uint64_t b) {
     asm volatile(
@@ -390,7 +392,7 @@ struct Wgmma<256> {
         "%104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, p, 1, 1, 0, 1;\n}\n"
+        "%128, %129, p, 1, 1, %131, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -418,7 +420,7 @@ struct Wgmma<256> {
           "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(TA));
   }
 };
 

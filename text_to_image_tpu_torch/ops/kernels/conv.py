@@ -36,7 +36,12 @@ TPU measurements and are not carried over).  Three code paths
 multiples of 64 (all eight StackGAN calls; `upconv_plan` picks the tile,
 the split of K, or the resident kernel for K of at most 8 slices),
 ``pipelined`` / ``tile`` otherwise.  The combined weights come from one
-kernel launch (`combined_weights`).
+kernel launch (`combined_weights`).  Its backward is two hand-written
+kernels of ``csrc/upconv3x3_bwd.cu`` over the same combined taps
+(`upconv3x3_dx`: one GEMM over 16 taps of the cotangent, `dx_path`;
+`upconv3x3_dw`: 16 long-K products split over pixels, reduced and folded
+into the 3×3 taps in a fixed order, `dw_path` / `dw_plan`), in place of
+the JAX package's `_parity_dx` / `_parity_dw`.
 
 On CUDA each wrapper launches its hand-written kernel (each source note
 gives the bound on the H100 and the design).  On the CPU it runs the plain
@@ -45,7 +50,9 @@ kernel is held against.  Both are differentiable (`torch.autograd.Function`):
 the backwards are the JAX package's (`_deconv_bwd`, `_conv_bwd`,
 `_upconv_bwd`, `_upconv_bias_bwd`) — the activation derivative from the
 saved output, then the conv's two adjoints, which the JAX package leaves to
-XLA and the port to cuDNN / the CPU conv.
+XLA and the port to cuDNN / the CPU conv, but for the up-block, whose two
+adjoints are the kernels above (tanh, on no training path, differentiates
+the composed version again).
 """
 
 from __future__ import annotations
@@ -60,7 +67,7 @@ import torch.nn.functional as F
 from torch.nn.grad import conv2d_input, conv2d_weight
 
 from text_to_image_tpu_torch.ops.kernels import _build
-from text_to_image_tpu_torch.ops.kernels.fused import (ACT_CODES,
+from text_to_image_tpu_torch.ops.kernels.fused import (ACT_CODES, acc,
                                                        act_grad_from_output,
                                                        apply_act, needs_grad)
 
@@ -845,45 +852,329 @@ def _upconv_composed(x, w, scale, shift, act):
     return apply_act(y, act).to(x.dtype)
 
 
-def _parity_dx(g, w, out_dtype):
-    """Adjoint in x of conv3×3(up2(x)) for the cotangent g [B,2H,2W,Co]
-    (`_parity_dx`): four 2×2 convs over g's parity planes, Co → Cin, summed
-    in f32; no upsampled intermediate."""
-    wc = combined_weights(w.to(g.dtype))               # [py,px,a,b,ci,co]
+# ---- the up-block's backward: upconv3x3_dx and upconv3x3_dw
+
+# the 16 combined taps, t = ((py·2+px)·2+a)·2+c (the order of the combined
+# weights)
+UPCONV_BWD_TAPS = tuple((py, px, a, c) for py in (0, 1) for px in (0, 1)
+                        for a in (0, 1) for c in (0, 1))
+# dx: tap t of dx pixel (i, j) reads g at (2i, 2j) + DX_G_OFFSETS[t], the
+# pixel (i+1−py−a, j+1−px−c) of g's parity plane (py, px), zero outside it
+# (csrc/upconv3x3_bwd.cu UpconvDx::tap_off)
+DX_G_OFFSETS = tuple((2 - py - 2 * a, 2 - px - 2 * c)
+                     for py, px, a, c in UPCONV_BWD_TAPS)
+# dw: product t is x shifted by DW_X_SHIFTS[t] = (py+a−1, px+c−1), zero
+# outside the map, against g's plane (py, px) (csrc/upconv3x3_bwd.cu
+# `pixel`); then dW[kh,kw] = Σ_t RECOMBINE[t][kh][kw]·dCw[t]
+DW_X_SHIFTS = tuple((py + a - 1, px + c - 1)
+                    for py, px, a, c in UPCONV_BWD_TAPS)
+RECOMBINE = tuple(tuple(tuple(UNCOMBINE[py][a][kh] * UNCOMBINE[px][c][kw]
+                              for kw in range(3)) for kh in range(3))
+                  for py, px, a, c in UPCONV_BWD_TAPS)
+
+
+def upconv3x3_dx_plain(g: torch.Tensor, w: torch.Tensor,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """The adjoint in x of conv3×3(up2(x), w) for the cotangent g
+    [B,2H,2W,Co] (`_parity_dx`), in the kernel's terms: 16 f32 matmuls,
+    tap t reading g's parity plane (py, px) shifted by (1−py−a, 1−px−c)
+    (zeros outside) against Cw[py,px,a,c]ᵀ, the combined weights of w in
+    g's dtype; the sum rounded once to out_dtype."""
     b, h2, w2, co = g.shape
-    gp = g.reshape(b, h2 // 2, 2, w2 // 2, 2, co)
-    dx = None
-    for py in (0, 1):
-        for px in (0, 1):
-            gpp = _nchw(gp[:, :, py, :, px, :])
-            # tap kh reads plane offset kh − py: kernel K[kh] = Cw[a=1−kh]ᵀ
-            k = wc[py, px].flip(0, 1).permute(2, 3, 0, 1)   # [ci,co,kh,kw]
-            part = F.conv2d(F.pad(gpp, (px, 1 - px, py, 1 - py)), k).float()
-            dx = part if dx is None else dx + part
-    return _nhwc(dx).to(out_dtype)
+    h, wd = h2 // 2, w2 // 2
+    wc = combine_upconv_weights(w.to(g.dtype)).float()
+    # [B, H+2, 2, W+2, 2, Co]: each parity plane padded by one pixel
+    planes = F.pad(g.float().reshape(b, h, 2, wd, 2, co),
+                   (0, 0, 0, 0, 1, 1, 0, 0, 1, 1))
+    dx = torch.zeros(b, h, wd, w.shape[2], device=g.device)
+    for py, px, a, c in UPCONV_BWD_TAPS:
+        sh, sw = 2 - py - a, 2 - px - c
+        dx = dx + planes[:, sh:sh + h, py, sw:sw + wd, px, :] @ \
+            wc[py, px, a, c].T
+    return dx.to(out_dtype)
 
 
-def _parity_dw(x, g, w_dtype):
-    """Adjoint in w of conv3×3(up2(x)) for the cotangent g (`_parity_dw`):
-    per parity the weight gradient of a 2×2 VALID conv of the 1-padded x
-    against g's parity plane, then the constant recombination of the 16
-    combined taps into the 3×3 kernel, in f32."""
+def upconv3x3_dw_plain(x: torch.Tensor, g: torch.Tensor,
+                       w_dtype: torch.dtype) -> torch.Tensor:
+    """The adjoint in w of conv3×3(up2(x), w) for the cotangent g
+    (`_parity_dw`), in the kernel's terms: the 16 f32 products dCw[t] =
+    x shifted by DW_X_SHIFTS[t] (zeros outside) against g's parity plane
+    (py, px), with g in x's dtype, each added into the 3×3 taps RECOMBINE
+    gives it, in the order t = 0..15; rounded once to w_dtype."""
     b, h, wd, ci = x.shape
     co = g.shape[-1]
-    gp = g.to(x.dtype).reshape(b, h, 2, wd, 2, co)
-    xp = F.pad(_nchw(x), (1, 1, 1, 1))
-    planes = []
-    for py in (0, 1):
-        for px in (0, 1):
-            gpp = _nchw(gp[:, :, py, :, px, :]).contiguous(
-                memory_format=torch.channels_last)
-            xs = xp[:, :, py:py + h + 1, px:px + wd + 1].contiguous(
-                memory_format=torch.channels_last)
-            planes.append(conv2d_weight(xs, (co, ci, 2, 2), gpp))
-    # [py,px,co,ci,a,b] → Σ_{p,q,a,b} T[p,a,k]·T[q,b,l]·dCw = dW[k,l,ci,co]
-    dwc = torch.stack(planes).reshape(2, 2, co, ci, 2, 2).float()
-    t = torch.tensor(UNCOMBINE, dtype=torch.float32, device=x.device)
-    return torch.einsum("pqoiab,pak,qbl->klio", dwc, t, t).to(w_dtype)
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    gp = g.to(x.dtype).float().reshape(b, h, 2, wd, 2, co)
+    dw = torch.zeros(3, 3, ci, co, device=x.device)
+    for t, (py, px, _, _) in enumerate(UPCONV_BWD_TAPS):
+        dy, dx = DW_X_SHIFTS[t]
+        xs = xp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + wd, :].reshape(-1, ci)
+        dcw = xs.T @ gp[:, :, py, :, px, :].reshape(-1, co)
+        for kh in range(3):
+            for kw in range(3):
+                if RECOMBINE[t][kh][kw]:
+                    dw[kh, kw] += dcw
+    return dw.to(w_dtype)
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    return _build.bind("upconv3x3_bwd", {
+        # g, wc, wct, dx, ws; B, H, W, Cin, Co, bf16, tile, split; stream
+        "t2i_upconv3x3_dx": [_PTR] * 5 + [_INT] * 8 + [_PTR],
+        # g, wct, dx; Cin, Co, bf16
+        "t2i_upconv3x3_dx_path": [_PTR] * 3 + [_INT] * 3,
+        # x, g, dw, ws; B, H, W, Cin, Co, bf16, w_bf16, tile_m, tile_n,
+        # parts; stream
+        "t2i_upconv3x3_dw": [_PTR] * 4 + [_INT] * 10 + [_PTR],
+        # x, g; H, W, Cin, Co, bf16
+        "t2i_upconv3x3_dw_path": [_PTR] * 2 + [_INT] * 5})
+
+
+# the code paths in the order of the C entry points' codes
+# (csrc/upconv3x3_bwd.cu `DxPath`, `DwPath`)
+DX_PATHS = ("tile", "pipelined", "wgmma")
+DW_PATHS = ("tile", "wgmma", "mma")
+
+
+def dx_path(cin: int, co: int, dtype: torch.dtype,
+            aligned: bool = True) -> str:
+    """The Python mirror of `dx_path` in csrc/upconv3x3_bwd.cu (the GEMM's
+    K channels are Co and its N is Cin: the forward's rule, which is
+    symmetric in the two).  `aligned`: g, the transposed weights and dx
+    start on 16-byte boundaries."""
+    return upconv_path(cin, co, dtype, aligned)
+
+
+def dx_plan(m: int, cin: int, co: int):
+    """(tile_m, tile_n, split) of dx's wgmma GEMM: `conv_plan` of m = B·H·W
+    rows, n = Cin and K = 16 taps of Co channels."""
+    return conv_plan(m, cin, 16 * co, taps=16)
+
+
+def dw_path(h: int, w: int, cin: int, co: int, dtype: torch.dtype,
+            aligned: bool = True) -> str:
+    """The Python mirror of `dw_path` in csrc/upconv3x3_bwd.cu for x
+    [B,h,w,Cin].  `aligned`: x and g start on 16-byte boundaries."""
+    if dtype != torch.bfloat16 or not aligned:
+        return "tile"
+    if cin % 64 == 0 and co % 64 == 0 and dw_box(h, w):
+        return "wgmma"
+    return "mma" if cin % 8 == 0 and co % 8 == 0 else "tile"
+
+
+def dw_box(h: int, w: int):
+    """(width, rows, images) of the box that brings one K slice of 64
+    pixels by TMA on dw's wgmma path, or None where no box is one slice
+    (csrc/upconv3x3_bwd.cu `dw_boxes`; such maps take the mma path): a
+    64-pixel part of one image row, 64/W whole rows of one image, or
+    64/(H·W) whole images."""
+    hw = h * w
+    if not (w % 64 == 0 or (64 % w == 0 and (hw % 64 == 0 or 64 % hw == 0))):
+        return None
+    if w >= 64:
+        return 64, 1, 1
+    return w, min(64 // w, h), (64 // hw if hw < 64 else 1)
+
+
+class DwPlan(NamedTuple):
+    """A launch of upconv3x3_dw: the [Cin × Co] tile of a block (the mma
+    and tile paths' is 64 × 64) and the parts K is cut into."""
+    tile_m: int
+    tile_n: int
+    parts: int
+
+
+DW_SLICE = {"wgmma": 64, "mma": 32, "tile": 16}   # pixels a K slice
+DW_TARGET_BLOCKS = 4 * SM_COUNT        # enough to fill every SM twice over
+DW_MIN_SLICES = 8                      # the least K a part is given
+
+
+def dw_ws_elems(cin: int, co: int, parts: int) -> int:
+    """f32 elements of dw's workspace: the 16 products of every part."""
+    return parts * 16 * cin * co
+
+
+def dw_plan(b: int, h: int, w: int, cin: int, co: int, dtype: torch.dtype,
+            aligned: bool = True) -> DwPlan:
+    """The tile and the parts of upconv3x3_dw for x [b,h,w,Cin], over its
+    k = b·h·w pixels: the widest tile of 64 or 128 that divides Cin and Co
+    (wgmma path), and as many parts as give DW_TARGET_BLOCKS blocks, at
+    most one a DW_MIN_SLICES slices of K and the workspace under
+    CONV_WS_CAP.  One part's workspace is 16·Cin·Co f32, so Cin·Co is
+    held to 1 M on the card (every shipped config's up-blocks are at most
+    1024·512)."""
+    path = dw_path(h, w, cin, co, dtype, aligned)
+    k = b * h * w
+    if path == "wgmma":
+        tm, tn = (128 if cin % 128 == 0 else 64), (128 if co % 128 == 0
+                                                   else 64)
+    else:
+        tm = tn = 64
+    if dw_ws_elems(cin, co, 1) * 4 > CONV_WS_CAP:
+        raise ValueError(f"dw workspace of 16x{cin}x{co} f32 over "
+                         f"{CONV_WS_CAP} bytes")
+    blocks = -(-cin // tm) * -(-co // tn) * 16
+    slices = -(-k // DW_SLICE[path])
+    parts = min(-(-DW_TARGET_BLOCKS // blocks), slices // DW_MIN_SLICES,
+                CONV_WS_CAP // (dw_ws_elems(cin, co, 1) * 4))
+    return DwPlan(tm, tn, max(1, parts))
+
+
+def _bwd_common(what, ts, dtype_out):
+    """Dtype, device, contiguity and extent checks of the two backward
+    wrappers (`ts`: (name, tensor) pairs of the inputs)."""
+    dtype = ts[0][1].dtype
+    for name, t in ts:
+        if t.dtype not in _DTYPES or t.dtype != dtype:
+            raise TypeError(f"{what}: {name} must share a dtype in {_DTYPES}"
+                            f", got {t.dtype}")
+        if t.device != ts[0][1].device:
+            raise ValueError(f"{what}: {name} is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.numel() >= 2**31:
+            raise ValueError(f"{what}: {name} too large for the kernel's "
+                             f"int32 extents")
+    if dtype_out not in _DTYPES:
+        raise TypeError(f"{what}: output dtype {dtype_out} not in {_DTYPES}")
+
+
+def _g_check(g, b, h, wd, co, what):
+    if g.dim() != 4 or tuple(g.shape) != (b, 2 * h, 2 * wd, co):
+        raise ValueError(f"{what}: g must be [{b},{2 * h},{2 * wd},{co}], "
+                         f"got {tuple(g.shape)}")
+
+
+def _dx_check(g, w, out_dtype):
+    if w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
+        raise ValueError(f"upconv3x3_dx: w must be [3,3,Cin,Co], got "
+                         f"{tuple(w.shape)}")
+    if g.dim() != 4 or g.shape[1] % 2 or g.shape[2] % 2:
+        raise ValueError(f"upconv3x3_dx: g must be [B,2H,2W,Co], got "
+                         f"{tuple(g.shape)}")
+    b, h2, w2, _ = g.shape
+    _g_check(g, b, h2 // 2, w2 // 2, w.shape[3], "upconv3x3_dx")
+    _bwd_common("upconv3x3_dx", [("g", g)], out_dtype)
+    if w.dtype not in _DTYPES or w.device != g.device:
+        raise TypeError(f"upconv3x3_dx: w must be {_DTYPES} on {g.device}")
+    if out_dtype != g.dtype:
+        raise TypeError(f"upconv3x3_dx: dx is written in g's dtype "
+                        f"{g.dtype}, not {out_dtype}")
+    if g.numel() // 4 // w.shape[3] * w.shape[2] >= 2**31:
+        raise ValueError("upconv3x3_dx: dx too large for the kernel's int32 "
+                         "extents")
+
+
+def upconv3x3_dx(g: torch.Tensor, w: torch.Tensor,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """dx [B,H,W,Cin] of conv3×3(up2(x), w) for the cotangent g
+    [B,2H,2W,Co] (the activation's derivative already in it), in g's dtype
+    (out_dtype must be it): the combined weights of w in g's dtype, then
+    one hand-written GEMM over the 16 taps.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    _dx_check(g, w, out_dtype)
+    if g.device.type == "cpu":
+        return upconv3x3_dx_plain(g, w, out_dtype)
+    if g.device.type != "cuda":
+        raise ValueError(f"upconv3x3_dx runs on cuda or cpu, not {g.device}")
+    b, h2, w2, co = g.shape
+    h, wd, cin = h2 // 2, w2 // 2, w.shape[2]
+    wc = combined_weights(w.to(g.dtype))
+    wct = torch.empty_like(wc)
+    dx = torch.empty(b, h, wd, cin, dtype=g.dtype, device=g.device)
+    tile, split, ws = 0, 1, None
+    if dx_path(cin, co, g.dtype, _aligned16(g, wct, dx)) == "wgmma":
+        rows = b * h * wd
+        tm, tn, split = dx_plan(rows, cin, co)
+        tile = CONV_TILES.index((tm, tn))
+        if split > 1:
+            ws = torch.empty(split * rows * cin, dtype=torch.float32,
+                             device=g.device)
+    rc = _bwd_lib().t2i_upconv3x3_dx(
+        g.data_ptr(), wc.data_ptr(), wct.data_ptr(), dx.data_ptr(),
+        ws.data_ptr() if ws is not None else None, b, h, wd, cin, co,
+        int(g.dtype == torch.bfloat16), tile, split, _stream(g))
+    if rc != 0:
+        raise RuntimeError(f"upconv3x3_dx kernel launch failed: CUDA error "
+                           f"{rc}")
+    upconv3x3_dx.launches += 1
+    return dx
+
+
+upconv3x3_dx.launches = 0
+
+
+def dx_path_on_card(g, dx) -> str:
+    """The path t2i_upconv3x3_dx takes for these tensors (the transposed
+    weights come from the caching allocator: 16-byte aligned)."""
+    return DX_PATHS[_bwd_lib().t2i_upconv3x3_dx_path(
+        g.data_ptr(), dx.data_ptr(), dx.data_ptr(), dx.shape[-1],
+        g.shape[-1], int(g.dtype == torch.bfloat16))]
+
+
+def _dw_check(x, g, w_dtype):
+    if x.dim() != 4:
+        raise ValueError(f"upconv3x3_dw: x must be NHWC, got "
+                         f"{tuple(x.shape)}")
+    b, h, wd, _ = x.shape
+    _g_check(g, b, h, wd, g.shape[-1] if g.dim() == 4 else -1,
+             "upconv3x3_dw")
+    _bwd_common("upconv3x3_dw", [("x", x), ("g", g)], w_dtype)
+
+
+def upconv3x3_dw(x: torch.Tensor, g: torch.Tensor,
+                 w_dtype: torch.dtype) -> torch.Tensor:
+    """dw [3,3,Cin,Co] in w_dtype of conv3×3(up2(x), w) for the cotangent
+    g [B,2H,2W,Co] in x's dtype: the 16 combined-tap products summed in f32
+    over every pixel, then recombined into the 3×3 taps, by one hand-written
+    kernel and its fixed-order reduction.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    _dw_check(x, g, w_dtype)
+    if x.device.type == "cpu":
+        return upconv3x3_dw_plain(x, g, w_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"upconv3x3_dw runs on cuda or cpu, not {x.device}")
+    b, h, wd, cin = x.shape
+    co = g.shape[-1]
+    plan = dw_plan(b, h, wd, cin, co, x.dtype, _aligned16(x, g))
+    ws = torch.empty(dw_ws_elems(cin, co, plan.parts), dtype=torch.float32,
+                     device=x.device)
+    dw = torch.empty(3, 3, cin, co, dtype=w_dtype, device=x.device)
+    rc = _bwd_lib().t2i_upconv3x3_dw(
+        x.data_ptr(), g.data_ptr(), dw.data_ptr(), ws.data_ptr(), b, h, wd,
+        cin, co, int(x.dtype == torch.bfloat16),
+        int(w_dtype == torch.bfloat16), plan.tile_m, plan.tile_n, plan.parts,
+        _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"upconv3x3_dw kernel launch failed: CUDA error "
+                           f"{rc}")
+    upconv3x3_dw.launches += 1
+    return dw
+
+
+upconv3x3_dw.launches = 0
+
+
+def dw_path_on_card(x, g) -> str:
+    """The path t2i_upconv3x3_dw takes for these tensors."""
+    return DW_PATHS[_bwd_lib().t2i_upconv3x3_dw_path(
+        x.data_ptr(), g.data_ptr(), x.shape[1], x.shape[2], x.shape[-1],
+        g.shape[-1], int(x.dtype == torch.bfloat16))]
+
+
+def act_backward(act: str, g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """g·act′(p) from y = act(p) in g's dtype, rounded once, as the f32
+    product with `act_grad_from_output` cast to g's dtype rounds it: g
+    itself for none, g where y > 0 for relu, g·0.2 where y < 0 for lrelu
+    (no f32 copy of g for these three); tanh through that f32 product."""
+    if act == "none":
+        return g
+    if act == "relu":
+        return torch.where(y > 0, g, torch.zeros((), dtype=g.dtype,
+                                                 device=g.device))
+    if act == "lrelu":
+        return torch.where(y >= 0, g, g * 0.2)
+    return (acc(g) * act_grad_from_output(act, y)).to(g.dtype)
 
 
 class _Upconv(torch.autograd.Function):
@@ -914,8 +1205,8 @@ class _Upconv(torch.autograd.Function):
                          torch.zeros_like(pre))            # the conv output
         d_conv = (g32 * scale).to(x.dtype)
         need = ctx.needs_input_grad
-        dx = _parity_dx(d_conv, w, x.dtype) if need[0] else None
-        dw = _parity_dw(x, d_conv, w.dtype) if need[1] else None
+        dx = upconv3x3_dx(d_conv, w, x.dtype) if need[0] else None
+        dw = upconv3x3_dw(x, d_conv, w.dtype) if need[1] else None
         ds = (g32 * d0).sum((0, 1, 2)) if need[2] else None
         dt = g32.sum((0, 1, 2)) if need[3] else None
         return dx, dw, ds, dt, None
@@ -931,14 +1222,16 @@ class _UpconvBias(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # _upconv_bias_bwd: no scale, so no conv output to recover
+        # _upconv_bias_bwd: no scale, so no conv output to recover; the
+        # conv's cotangent in g's dtype with no f32 copy (db is summed in
+        # f32 from it: for lrelu from the rounded products, each within
+        # 2^-9 of the f32 one), then the two kernels
         x, w, y = ctx.saved_tensors
-        g32 = g.float() * act_grad_from_output(ctx.act, y)
-        d_conv = g32.to(x.dtype)
+        d_conv = act_backward(ctx.act, g.to(x.dtype), y).contiguous()
         need = ctx.needs_input_grad
-        dx = _parity_dx(d_conv, w, x.dtype) if need[0] else None
-        dw = _parity_dw(x, d_conv, w.dtype) if need[1] else None
-        db = g32.sum((0, 1, 2)) if need[2] else None
+        dx = upconv3x3_dx(d_conv, w, x.dtype) if need[0] else None
+        dw = upconv3x3_dw(x, d_conv, w.dtype) if need[1] else None
+        db = d_conv.sum((0, 1, 2), dtype=torch.float32) if need[2] else None
         return dx, dw, db, None
 
 

@@ -23,11 +23,16 @@ TFLOP/s in f32, the larger), the kernel/library ratio and the path, tile
 and split (or batch-norm plan) read back from the C entry point.
 
 ``--upconv --grad`` times ``upconv3x3_bias``'s forward and backward (its
-``autograd.Function``: the kernel forward, the parity backward) against
-autograd through ``F.interpolate`` + ``F.conv2d``, at ``bench_pallas.py``'s
-five gradient shapes and the eight up-blocks of a Stage-II forward, after
-holding its gradients against autograd through the plain version in f32
-(TF32 off) on two images of each shape.
+``autograd.Function``: the kernel forward, the ``upconv3x3_dx`` and
+``upconv3x3_dw`` kernels backward) against autograd through
+``F.interpolate`` + ``F.conv2d``, at ``bench_pallas.py``'s five gradient
+shapes and the eight up-blocks of a Stage-II forward, after holding its
+gradients against autograd through the plain version in f32 (TF32 off) on
+two images of each shape; then each of the two backward kernels alone at
+those shapes and the six C-PGGAN up-blocks, beside its plain version and
+one library call: for dx the backward of autograd through
+``F.interpolate`` + ``F.conv2d`` with x alone requiring a gradient, for dw
+``torch.nn.grad.conv2d_weight`` over the materialised upsampled x.
 
 Times are CUDA-event medians over launches each after an L2 flush
 (`time_ms`; ``chip_smoke.py`` times its kernels with the same function).
@@ -91,6 +96,16 @@ UPCONV_GRAD_SHAPES = list(dict.fromkeys(
     [((B, 16, 16, 256), 128), ((B, 32, 32, 256), 128),
      ((B, 64, 64, 128), 64), ((B, 128, 128, 64), 32),
      ((B, 64, 64, 512), 256)] + STACKGAN_UPCONV))
+# (B, H, W, Cin) → Co: the upconv3x3_bias calls of the C-PGGAN generator's
+# up-blocks (lrelu fused, PixelNorm after): stages 2-5 at 64 px (B 64), and
+# the two calls only the 256 px progression adds (stages 6-7, B 32)
+PGGAN_UPCONV_SHAPES = [((B, 4, 4, 512), 512), ((B, 8, 8, 512), 512),
+                       ((B, 16, 16, 512), 256), ((B, 32, 32, 256), 128),
+                       ((32, 64, 64, 128), 64), ((32, 128, 128, 64), 32)]
+# the dx and dw rows: the gradient shapes, then the C-PGGAN ones not among
+# them
+UPCONV_BWD_SHAPES = list(dict.fromkeys(UPCONV_GRAD_SHAPES
+                                       + PGGAN_UPCONV_SHAPES))
 # (B, H, W, Cx), E, Co: the discriminator's text join over the D step's
 # three streams and the G step's one
 JOIN_SHAPES = [((3 * B, 4, 4, 512), 128, 512), ((B, 4, 4, 512), 128, 512)]
@@ -102,9 +117,10 @@ BN_CALLS = ([((B, 4, 4, 1024), 1, "relu"), ((B, 8, 8, 512), 1, "relu"),
                for r, c in ((16, 128), (8, 256), (4, 512))]
             + [((B, 128, 128, 64), 1, "relu"), ((B, 256, 256, 64), 1, "relu")])
 BN_STEPS = ("bn_stats", "bn_act", "bn_bwd_reduce", "bn_bwd_apply")
-# the kernel of each row of the default table
+# the kernel of each row of the default table, and of ``--upconv --grad``
 KERNELS = ("deconv5x5_s2", "conv5x5_s2_act", "upconv3x3_bias",
            "conditioning_join", *BN_STEPS)
+GRAD_KERNELS = ("upconv3x3_bias fwd+bwd", "upconv3x3_dx", "upconv3x3_dw")
 
 
 class L2Flush:
@@ -201,6 +217,22 @@ def upconv_grad_work(shape, co, esize=2):
                           + 2 * 9 * cin * co) + 4 * co, 3 * fo)
 
 
+def upconv_dx_work(shape, co, esize=2):
+    """(bytes, operations) of one upconv3x3_dx: g and w read once, dx
+    written once; 4 combined taps for each of the 4 parities."""
+    b, h, w, cin = shape
+    return (esize * (b * 4 * h * w * co + 9 * cin * co + b * h * w * cin),
+            2 * 16 * b * h * w * cin * co)
+
+
+def upconv_dw_work(shape, co, esize=2):
+    """(bytes, operations) of one upconv3x3_dw: x and g read once, dw
+    written once; the 16 combined-tap products over every pixel."""
+    b, h, w, cin = shape
+    return (esize * (b * h * w * cin + b * 4 * h * w * co + 9 * cin * co),
+            2 * 16 * b * h * w * cin * co)
+
+
 def join_work(shape, e, co, esize=2):
     """(bytes, operations) of one conditioning_join: x, t, wx, wt, b and y
     once."""
@@ -214,16 +246,17 @@ def ratio(ms, library_ms):
 
 
 def table(rows: List[Dict]) -> str:
-    """The rows as a markdown table."""
+    """The rows as a markdown table (plain ms "—" where a row has none)."""
     out = ["| kernel | shape | path / plan | ms | library | library ms | "
-           "kernel/library | bound ms | bound by | max abs err |",
-           "|---|---|---|---|---|---|---|---|---|---|"]
+           "kernel/library | bound ms | bound by | max abs err | plain ms |",
+           "|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
+        plain = f"{r['plain_ms']:.4f}" if "plain_ms" in r else "—"
         out.append(
             f"| {r['kernel']} | {r['shape']} | {r['path']} | {r['ms']:.4f} | "
             f"{r['library']} | {r['library_ms']:.4f} | {r['ratio']:.2f} | "
             f"{r['bound_ms']:.4f} | {r['bound_by']} | "
-            f"{r['max_abs_err']:.3e} |")
+            f"{r['max_abs_err']:.3e} | {plain} |")
     return "\n".join(out)
 
 
@@ -398,12 +431,83 @@ def bench_upconv_grad(device, flush, gen) -> List[Dict]:
                                        (x_cl, w_cl, b_lib), g_cl)
         rows.append(_row(
             "upconv3x3_bias fwd+bwd", f"{list(shape)}->{co} none",
-            "forward kernel, parity backward",
+            "forward kernel, dx and dw kernels",
             time_ms(ours, flush, iters=10, spin=HOST_SPIN),
             "autograd F.interpolate + conv2d",
             time_ms(lib, flush, iters=10, spin=HOST_SPIN),
             upconv_grad_work(shape, co), torch.bfloat16, err))
         del x, w, g, xs, x_cl, w_cl, g_cl
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bwd_path_tag(kernel, path, shape, co) -> str:
+    """The path of an upconv3x3_dx / upconv3x3_dw call with its plan: dx's
+    tile and split of the 16 taps, dw's tile and parts of K."""
+    from text_to_image_tpu_torch.ops.kernels import conv
+    b, h, wd, cin = shape
+    if kernel == "upconv3x3_dx":
+        if path != "wgmma":
+            return path
+        tm, tn, split = conv.dx_plan(b * h * wd, cin, co)
+        return f"wgmma {tm}x{tn} split {split}"
+    plan = conv.dw_plan(b, h, wd, cin, co, torch.bfloat16
+                        if path in ("wgmma", "mma") else torch.float32)
+    if path != "wgmma":
+        return f"{path} parts {plan.parts}"
+    return f"wgmma {plan.tile_m}x{plan.tile_n} parts {plan.parts}"
+
+
+def bench_upconv_bwd(device, flush, gen) -> List[Dict]:
+    """upconv3x3_dx and upconv3x3_dw alone (bf16), each held against its
+    plain version (within 1e-2 of the largest |ref| plus 1e-2 relative: a
+    rounding flip after f32 sums in another order) and timed beside it and
+    one library call."""
+    from text_to_image_tpu_torch.ops.kernels import conv
+    bf = torch.bfloat16
+    rows = []
+    for shape, co in UPCONV_BWD_SHAPES:
+        bsz, h, wd, cin = shape
+        x, w, _ = upconv_inputs(shape, co, bf, device, gen)
+        g = randn(gen, (bsz, 2 * h, 2 * wd, co)).to(bf)
+        dx = conv.upconv3x3_dx(g, w, bf)
+        dw = conv.upconv3x3_dw(x, g, bf)
+        err_dx = hold(dx, conv.upconv3x3_dx_plain(g, w, bf), *TOL,
+                      f"upconv3x3_dx {shape}->{co}", rel_to_max=True)
+        err_dw = hold(dw, conv.upconv3x3_dw_plain(x, g, bf), *TOL,
+                      f"upconv3x3_dw {shape}->{co}", rel_to_max=True)
+        dx_path = bwd_path_tag("upconv3x3_dx", conv.dx_path_on_card(g, dx),
+                               shape, co)
+        dw_path = bwd_path_tag("upconv3x3_dw", conv.dw_path_on_card(x, g),
+                               shape, co)
+        # the library: autograd's backward through F.interpolate +
+        # F.conv2d (x alone requiring a gradient), and the weight gradient
+        # of the conv over the upsampled x, built beforehand
+        x_cl = _nchw(x).detach().requires_grad_(True)
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        out = upconv_library(x_cl, w_cl, None, "none")
+        g_cl = _nchw(g)
+        up = F.interpolate(_nchw(x), scale_factor=2, mode="nearest")
+        for name, fn, plain, lib_name, lib, work, path, err in (
+                ("upconv3x3_dx", lambda: conv.upconv3x3_dx(g, w, bf),
+                 lambda: conv.upconv3x3_dx_plain(g, w, bf),
+                 "autograd F.interpolate + conv2d, dx",
+                 lambda: torch.autograd.grad(out, x_cl, g_cl,
+                                             retain_graph=True),
+                 upconv_dx_work(shape, co), dx_path, err_dx),
+                ("upconv3x3_dw", lambda: conv.upconv3x3_dw(x, g, bf),
+                 lambda: conv.upconv3x3_dw_plain(x, g, bf),
+                 "conv2d_weight over the upsampled x",
+                 lambda: torch.nn.grad.conv2d_weight(up, w_cl.shape, g_cl,
+                                                     padding=1),
+                 upconv_dw_work(shape, co), dw_path, err_dw)):
+            r = _row(name, f"{list(shape)}->{co}", path,
+                     time_ms(fn, flush, spin=HOST_SPIN), lib_name,
+                     time_ms(lib, flush, spin=HOST_SPIN), work, bf, err)
+            r["plain_ms"] = time_ms(plain, flush, iters=5, spin=HOST_SPIN)
+            rows.append(r)
+        del x, w, g, dx, dw, x_cl, out, g_cl, up
         torch.cuda.empty_cache()
     return rows
 
@@ -546,7 +650,8 @@ def run(grad: bool, device=None) -> Dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         if grad:
-            rows = bench_upconv_grad(device, flush, gen)
+            rows = (bench_upconv_grad(device, flush, gen)
+                    + bench_upconv_bwd(device, flush, gen))
         else:
             rows = []
             for fn in (bench_deconv, bench_conv, bench_upconv, bench_join,
@@ -556,7 +661,8 @@ def run(grad: bool, device=None) -> Dict:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
     for r in rows:
-        for k in ("ms", "library_ms", "ratio", "bound_ms", "max_abs_err"):
+        for k in ("ms", "library_ms", "ratio", "bound_ms", "max_abs_err",
+                  *(("plain_ms",) if "plain_ms" in r else ())):
             if not (isinstance(r[k], float) and math.isfinite(r[k])):
                 raise RuntimeError(f"{r['kernel']} {r['shape']}: {k} "
                                    f"{r[k]!r}")

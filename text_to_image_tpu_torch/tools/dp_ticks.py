@@ -77,7 +77,8 @@ def counters() -> list:
     """Every kernel wrapper's launch counter, the data-parallel BN's too."""
     from text_to_image_tpu_torch.ops.kernels import conv, fused
     return [conv.deconv5x5_s2, conv.conv5x5_s2_act, conv.upconv3x3,
-            fused.bn_stats, fused.bn_partials, fused.bn_finish, fused.bn_act,
+            conv.upconv3x3_dx, conv.upconv3x3_dw, fused.bn_stats,
+            fused.bn_partials, fused.bn_finish, fused.bn_act,
             fused.bn_bwd_reduce, fused.bn_bwd_apply, fused.conditioning_join]
 
 

@@ -89,6 +89,8 @@ def kernel_family(name: str) -> str:
     low = name.lower()
     for keys, fam in (
             (("deconv5x5_s2", "namespace)::deconv"), "deconv5x5_s2 (CUDA)"),
+            (("namespace)::upconvdx", "namespace)::dx_", "namespace)::dw_"),
+             "upconv3x3 backward (CUDA)"),
             (("namespace)::upconv", "combine_kernel"), "upconv3x3 (CUDA)"),
             (("namespace)::conv", "down0_mma_kernel"),
              "conv5x5_s2_act (CUDA)"),
