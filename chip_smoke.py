@@ -27,7 +27,13 @@
    version, in f32 with TF32 off; the up-block's two backward kernels,
    ``upconv3x3_dx`` and ``upconv3x3_dw``, against their plain versions at
    the StackGAN, C-PGGAN and odd shapes (bf16 and f32, bit for bit between
-   two launches, each path read back from C);
+   two launches, each path read back from C); the 5×5 ops' weight-gradient
+   kernel ``conv5x5_s2_dw`` against its plain version at every main-path
+   call (the 64 px and 256 px D's convs, the GAN-CLS generator's deconvs)
+   and the odd shapes (phase 3c: bf16 and f32, bit for bit twice, every
+   path reached), and both weight-gradient kernels at Cin·Co over 1 M,
+   where their workspace is walked in chunks (an up-block of that size
+   forward and backward through its Function);
 3. drives the sampling path at the flagship widths (gf 128, z 100,
    embed 1024, batch 64, bf16) through ``eval/sampler.py`` — the sample grid
    and both interpolation grids — plus the BN-folded serving generator, with
@@ -129,8 +135,9 @@
    their ``main.py`` runs are processes of their own;
    the runbook at its defaults as ``python -m`` in the background of the
    untimed scripts);
-   ``tools/bench_kernels`` at its defaults and with ``--upconv --grad``,
-   every row a number.  Each phase's seconds are logged and reported;
+   ``tools/bench_kernels`` at its defaults and with ``--upconv --conv
+   --deconv --grad``, every row a number.  Each phase's seconds are logged
+   and reported;
 5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
    kernel's bound, prints the path, tile and split of each conv, join,
@@ -139,7 +146,9 @@
    backward passes, sampling in images/s and the
    training ticks (GAN-CLS, Stage-I, Stage-II) in ms and images/s with
    their peak memory, and profiles where a forward's and a tick's device
-   time goes (torch.profiler; GAN-CLS and Stage-II).
+   time goes (torch.profiler; GAN-CLS and Stage-II); the profiled GAN-CLS
+   and WGAN-CLS ticks launch no library convolution over a 5×5 filter, and
+   ``conv5x5_s2_dw`` as often as counted.
 
 Every f32 comparison on the card runs with TF32 off
 (``torch.backends.cudnn.allow_tf32`` and
@@ -171,7 +180,8 @@ import torch
 # the package beside this script: the timing method shared with the kernel
 # microbench, and the tick timing shared with tools/tick_ab.py
 from text_to_image_tpu_torch.tools.bench_kernels import (
-    PGGAN_UPCONV_SHAPES, L2Flush, bound, bwd_path_tag, nbytes, time_ms)
+    PGGAN_UPCONV_SHAPES, L2Flush, bound, bwd_path_tag, conv_dw_tag, nbytes,
+    time_ms)
 from text_to_image_tpu_torch.tools.ticks import (
     config_path, is_kernel, kernel_family, train_config)
 from text_to_image_tpu_torch.tools.ticks import (
@@ -321,10 +331,17 @@ TRAIN_TICKS = 3
 # streams in one pass (4 conv, 1 join; 4 BN calls: down1-3, join;
 # differentiated); then each of the 2 G steps: G (4 deconv, 4 BN) and D on
 # one stream (4 conv, 1 join, 4 BN), both differentiated.  BN calls forward
-# 4 + 4 + 2·(4 + 4) = 24, backward 4 + 2·(4 + 4) = 20.
-TICK_LAUNCHES = {"deconv5x5_s2": 12, "bn_stats": 24, "bn_act": 24,
+# 4 + 4 + 2·(4 + 4) = 24, backward 4 + 2·(4 + 4) = 20.  The 5×5 backwards
+# run on the kernels too: a conv's dx is one deconv5x5_s2 launch, a
+# deconv's dx one conv5x5_s2_act launch, each one's dw one conv5x5_s2_dw.
+# The D step differentiates D's 4 convs in w and down1-3 in x (the images
+# need no gradient): 4 dw, 3 deconv; each G step D's 4 convs in x only (D
+# is not trained there: 4 deconv) and G's 4 deconvs in x and w (4 conv,
+# 4 dw).  deconv 12 + 3 + 2·4 = 23, conv 12 + 2·4 = 20, dw 4 + 2·4 = 12.
+TICK_LAUNCHES = {"deconv5x5_s2": 23, "bn_stats": 24, "bn_act": 24,
                  "bn_bwd_reduce": 20, "bn_bwd_apply": 20,
-                 "conv5x5_s2_act": 12, "conditioning_join": 3}
+                 "conv5x5_s2_act": 20, "conditioning_join": 3,
+                 "conv5x5_s2_dw": 12}
 # the up-block's forward and its two backward kernels, on a path without one
 NO_UPCONV = {"upconv3x3": 0, "upconv3x3_dx": 0, "upconv3x3_dw": 0}
 
@@ -370,17 +387,20 @@ WGMMA_UPCONV_ODD_SHAPES = [((1, 5, 7, 64), 64, "relu"),
 # 16 + 6 + 16 + 6 = 44, backward 6 + 11 + 6 = 23.  In both stages the G
 # step differentiates the 4 up-blocks it trains: 4 upconv3x3_dx (the first
 # block's input comes from the trained stem) and 4 upconv3x3_dw a tick.
+# The D's convs as in TICK_LAUNCHES: the D step's dw of each and dx of all
+# but the first, the G step's dx of each (deconv5x5_s2 launches; no deconv
+# forward): Stage-I 3 + 4, Stage-II 5 + 6.
 STACKGAN_TICK_LAUNCHES = {
     "stackgan_stage1": {"upconv3x3": 8, "upconv3x3_dx": 4,
                         "upconv3x3_dw": 4, "bn_stats": 18, "bn_act": 18,
                         "bn_bwd_reduce": 13, "bn_bwd_apply": 13,
                         "conv5x5_s2_act": 8, "conditioning_join": 2,
-                        "deconv5x5_s2": 0},
+                        "deconv5x5_s2": 7, "conv5x5_s2_dw": 4},
     "stackgan_stage2": {"upconv3x3": 16, "upconv3x3_dx": 4,
                         "upconv3x3_dw": 4, "bn_stats": 44, "bn_act": 44,
                         "bn_bwd_reduce": 23, "bn_bwd_apply": 23,
                         "conv5x5_s2_act": 12, "conditioning_join": 2,
-                        "deconv5x5_s2": 0}}
+                        "deconv5x5_s2": 11, "conv5x5_s2_dw": 6}}
 # per sampling forward (train-mode BN, no gradient): Stage-I 4 upconv + 5 BN
 # calls; Stage-II 8 upconv (4 of them in the frozen Stage-I) + 16 BN calls
 STACKGAN_FORWARD_LAUNCHES = {
@@ -995,7 +1015,8 @@ def phase_upconv_backward(device):
 # f32, TF32 off: sums of up to 16·B·H·W products in another order)
 BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: GRAD_REL}
 # the Function whose backward runs each of them (its f32 check vs autograd)
-BWD_OF = {"upconv3x3_dx": "upconv3x3", "upconv3x3_dw": "upconv3x3"}
+BWD_OF = {"upconv3x3_dx": "upconv3x3", "upconv3x3_dw": "upconv3x3",
+          "conv5x5_s2_dw": "conv5x5_s2_act"}
 
 
 def phase_upconv_bwd_kernels(device):
@@ -1049,6 +1070,192 @@ def phase_upconv_bwd_kernels(device):
                 del got, again, ref
             del x, w, g
             torch.cuda.empty_cache()
+    return errs, paths
+
+
+# conv5x5_s2_dw's main-path calls as (x shape, Co): the 64 px and the
+# 256 px D's convs at both batches (the D step's 3·64, the G step's 64;
+# WGAN-CLS's critic has the 64 px D's shapes), the GAN-CLS generator's
+# deconvs (their cotangent [B,2H,2W,Co] as x, their input's Cin as Co)
+CONV_DW_MAIN = list(dict.fromkeys(
+    [(s, c) for b in (D_BATCH, BATCH) for s, c, _ in conv_shapes(b)]
+    + [(s, c) for b in (D_BATCH, BATCH) for s, c, _ in conv_shapes_256(b)]
+    + [((b, 2 * h, 2 * w, co), cin)
+       for (b, h, w, cin), co, _ in DECONV_SHAPES]))
+# off the main path: every odd conv and deconv shape of phase 2 (odd maps
+# and ragged channels: mma and tile; even maps with a box: wgmma)
+CONV_DW_ODD = list(dict.fromkeys(
+    [(s, c) for s, c, _ in ODD_CONV_SHAPES + WGMMA_ODD_SHAPES
+     + NEAR_MISS_CONV_SHAPES + DOWN0_ODD_SHAPES]
+    + [((b, 2 * h, 2 * w, co), cin) for (b, h, w, cin), co, _ in
+       ODD_DECONV_SHAPES + WGMMA_DECONV_ODD_SHAPES]))
+# Cin·Co over 1 M, where one part's workspace of every product is over
+# CONV_WS_CAP and the plans walk Cin in chunks: GAN-CLS G's first deconv at
+# gf 256 (its dw: d [64,8,8,1024] against x's 2048 channels) and Stage-I's
+# first up-block at gf 256 (4²×2048→1024)
+CONV_DW_CHUNKED = [((BATCH, 8, 8, 1024), 2048)]
+UPCONV_DW_CHUNKED = [((BATCH, 4, 4, 2048), 1024)]
+
+
+# the 5×5 ops' input gradients, each the opposite forward kernel at the
+# shapes the backward gives it: the conv's dx (deconv5x5_s2 of its
+# cotangent) at every D call, the 64 px and the 256 px D's at both batches
+# (WGAN-CLS's critic has the 64 px D's shapes), and the odd conv shapes;
+# the deconv's dx (conv5x5_s2_act of its cotangent) at the GAN-CLS
+# generator's calls and the odd deconv shapes
+CONV_DX_SHAPES = list(dict.fromkeys(
+    [(s, c) for b in (D_BATCH, BATCH)
+     for s, c, _ in conv_shapes(b) + conv_shapes_256(b)]
+    + [(s, c) for s, c, _ in ODD_CONV_SHAPES + WGMMA_ODD_SHAPES]))
+DECONV_DX_SHAPES = [(s, c) for s, c, _ in DECONV_SHAPES + ODD_DECONV_SHAPES
+                    + WGMMA_DECONV_ODD_SHAPES]
+
+
+def conv_dx_vs_plain(conv, shape, co, dtype, device, gen):
+    """The conv's dx for x `shape` and Co (`conv.conv_dx`: deconv5x5_s2 of
+    the cotangent with w flipped and transposed, rows 1..h on an odd map)
+    against the plain deconv of the same inputs, cropped alike; the path
+    read back from C and held against the mirror and the expected one, a
+    second launch bit for bit.  Returns max |err|."""
+    b, h, wd, cin = shape
+    ho, wo = (h + 1) // 2, (wd + 1) // 2
+    gc = torch.randn(b, ho, wo, co, generator=gen).to(dtype).to(device)
+    w = (torch.randn(5, 5, cin, co, generator=gen) * 0.02).to(dtype).to(device)
+    wdx = conv.deconv_dx_weight(w)
+    one = torch.ones(cin, device=device)
+    zero = torch.zeros(cin, device=device)
+    got = conv.conv_dx(gc, w, h, wd)
+    full = conv.deconv5x5_s2(gc, wdx, one, zero)
+    torch.cuda.synchronize()
+    what = f"conv dx (deconv5x5_s2) {str(dtype)[6:]} {shape}->{co}"
+    path = conv.deconv_path_on_card(gc, wdx, full)
+    mirror = conv.deconv_path(co, cin, dtype)
+    want = expected_deconv_path(co, cin, dtype)
+    check(path == mirror == want, f"{what}: path {path}, mirror {mirror}, "
+                                  f"expected {want}")
+    ot, ol = conv.same_pads(h)[1] - 1, conv.same_pads(wd)[1] - 1
+    check(torch.equal(got, full[:, ot:ot + h, ol:ol + wd]),
+          f"{what}: two launches differ")
+    ref = conv.deconv5x5_s2_plain(gc, wdx, one, zero)[:, ot:ot + h,
+                                                      ol:ol + wd]
+    plan = (conv.deconv_plan(b * ho * wo, cin, co) if path == "wgmma"
+            else None)
+    return compare(got, ref, *TOL[dtype],
+                   f"{what} [{grouped_tag(conv, path, plan, ho, wo)}] "
+                   f"(bit-identical twice)")
+
+
+def phase_conv_bwd_kernels(device):
+    """conv5x5_s2_dw against its plain version on the same inputs, bf16
+    and f32, at every main-path call (CONV_DW_MAIN) and the odd shapes
+    (CONV_DW_ODD), each output bit for bit between two launches, the path
+    read back from C and held against the Python mirror; every path
+    reached.  Then the chunked workspaces (bf16): conv5x5_s2_dw and
+    upconv3x3_dw at Cin·Co over 1 M against their plain versions, bit for
+    bit twice, and that up-block's forward and backward through its
+    autograd.Function (no raise, finite, dw as the kernel gives it).  Last
+    the input gradients, bf16 and f32: the conv's dx (deconv5x5_s2) at
+    CONV_DX_SHAPES and the deconv's dx (conv5x5_s2_act, bias 0) at
+    DECONV_DX_SHAPES against the plain versions, each path read back from
+    C; the conv's dx and every split-K output bit for bit twice."""
+    from text_to_image_tpu_torch.ops.kernels import conv
+    gen = torch.Generator().manual_seed(SEED + 19)
+    errs = {"conv5x5_s2_dw": {}, "upconv3x3_dw": {},
+            "deconv5x5_s2 (conv dx)": {}, "conv5x5_s2_act (deconv dx)": {}}
+    paths = []
+    seen = set()
+
+    def held(name, fn, plain, path, mirror, tag, dtype, key):
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        what = f"{name} {str(dtype)[6:]} {key}"
+        check(path == mirror, f"{what}: path {path}, the mirror says "
+                              f"{mirror}")
+        check(torch.equal(got, again), f"{what}: two launches differ")
+        check(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
+        ref = plain()
+        tol = BWD_TOL[dtype]
+        errs[name][(dtype, key)] = compare(
+            got, ref, tol * float(ref.float().abs().max()), tol,
+            f"{what} [{tag}] (bit-identical twice)")
+        paths.append({"kernel": name, "dtype": str(dtype)[6:],
+                      "shape": [list(key[0]), key[1]], "path": tag})
+        return got
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, co in CONV_DW_MAIN + CONV_DW_ODD + (
+                CONV_DW_CHUNKED if dtype == torch.bfloat16 else []):
+            b, h, wd, cin = shape
+            x = torch.randn(shape, generator=gen).to(dtype).to(device)
+            g = torch.randn(b, (h + 1) // 2, (wd + 1) // 2, co,
+                            generator=gen).to(dtype).to(device)
+            path = conv.conv_dw_path_on_card(x, g)
+            seen.add((dtype, path))
+            held("conv5x5_s2_dw", lambda: conv.conv5x5_s2_dw(x, g, dtype),
+                 lambda: conv.conv5x5_s2_dw_plain(x, g, dtype), path,
+                 conv.conv_dw_path(h, wd, cin, co, dtype),
+                 conv_dw_tag(conv, x, g), dtype, (shape, co))
+            del x, g
+            torch.cuda.empty_cache()
+    check(seen >= {(torch.bfloat16, p) for p in conv.DW_PATHS}
+          | {(torch.float32, "tile")}, f"conv5x5_s2_dw paths reached {seen}")
+    # its own backward (a gradient of dw: the conv's dx and the conv)
+    # against autograd through the plain version, f32
+    for shape, co in (((2, 8, 6, 16), 8), ((2, 9, 7, 12), 20)):
+        b, h, wd, _ = shape
+        x = torch.randn(shape, generator=gen).to(device)
+        g = torch.randn(b, (h + 1) // 2, (wd + 1) // 2, co,
+                        generator=gen).to(device)
+        grad_compare(conv.conv5x5_s2_dw, conv.conv5x5_s2_dw_plain,
+                     [x, g, torch.float32], (0, 1), gen,
+                     f"conv5x5_s2_dw bwd {shape}->{co}")
+    bf = torch.bfloat16
+    for shape, co in CONV_DW_CHUNKED:
+        plan = conv.conv_dw_plan(*shape, co, bf)
+        check(plan.chunk < shape[-1], f"conv5x5_s2_dw {shape}->{co}: one "
+                                      f"chunk {plan}")
+    for shape, co in UPCONV_DW_CHUNKED:
+        b, h, wd, cin = shape
+        plan = conv.dw_plan(b, h, wd, cin, co, bf)
+        check(plan.chunk < cin, f"upconv3x3_dw {shape}->{co}: one chunk "
+                                f"{plan}")
+        x, w, _, t = upconv_inputs(shape, co, bf, device, gen)
+        g = torch.randn(b, 2 * h, 2 * wd, co, generator=gen).to(bf).to(device)
+        path = conv.dw_path_on_card(x, g)
+        dw = held("upconv3x3_dw", lambda: conv.upconv3x3_dw(x, g, bf),
+                  lambda: conv.upconv3x3_dw_plain(x, g, bf), path,
+                  conv.dw_path(h, wd, cin, co, bf),
+                  f"{bwd_path_tag('upconv3x3_dw', path, shape, co)} chunk "
+                  f"{plan.chunk}", bf, (shape, co))
+        xs = [v.detach().requires_grad_(True) for v in (x, w, t)]
+        y = conv.upconv3x3_bias(*xs, "none")
+        grads = torch.autograd.grad(y, xs, g)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(v.float()).all()) for v in grads),
+              f"upconv3x3_bias {shape}->{co}: backward not finite")
+        check(torch.equal(grads[1], dw), f"upconv3x3_bias {shape}->{co}: "
+                                         f"its dw is not the kernel's")
+        log(f"  upconv3x3_bias {shape}->{co} forward + backward through "
+            f"its Function (Cin·Co {cin * co}): finite, dw the kernel's")
+        del x, w, t, g, xs, y, grads, dw
+        torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, co in CONV_DX_SHAPES:
+            errs["deconv5x5_s2 (conv dx)"][(dtype, (shape, co))] = \
+                conv_dx_vs_plain(conv, shape, co, dtype, device, gen)
+            torch.cuda.empty_cache()
+        for (b, h, wd, cin), co in DECONV_DX_SHAPES:
+            d = torch.randn(b, 2 * h, 2 * wd, co, generator=gen).to(
+                dtype).to(device)
+            w = (torch.randn(5, 5, cin, co, generator=gen) * 0.02).to(
+                dtype).to(device)
+            errs["conv5x5_s2_act (deconv dx)"][(dtype, ((b, h, wd, cin), co))] \
+                = conv_vs_plain(
+                    conv, d, conv.deconv_dx_weight(w),
+                    torch.zeros(cin, device=device), "none", dtype,
+                    f"deconv dx (conv5x5_s2_act) {str(dtype)[6:]} "
+                    f"{(b, h, wd, cin)}->{co}")[0]
+            del d, w
     return errs, paths
 
 
@@ -1295,7 +1502,7 @@ def all_counters():
     return (conv.deconv5x5_s2, fused.bn_stats, fused.bn_act,
             fused.bn_bwd_reduce, fused.bn_bwd_apply, conv.conv5x5_s2_act,
             fused.conditioning_join, conv.upconv3x3, conv.upconv3x3_dx,
-            conv.upconv3x3_dw)
+            conv.upconv3x3_dw, conv.conv5x5_s2_dw)
 
 
 def flat(tree):
@@ -1927,6 +2134,19 @@ def flagship_config():
                   data=DataConfig(dataset_name="synthetic", image_size=64))
 
 
+def no_library_conv5x5(what, prof, dw_per_tick):
+    """A profiled tick (`tools/ticks.tick_profile`) launched no library
+    convolution over a 5×5 filter, and conv5x5_s2_dw as often as counted."""
+    log(f"  {what} tick: {prof['library_conv5x5_per_tick']:g} library "
+        f"convolutions over a 5×5 filter, {prof['conv5x5_s2_dw_per_tick']:g} "
+        f"conv5x5_s2_dw launches (counted: {dw_per_tick})")
+    check(prof["library_conv5x5_per_tick"] == 0,
+          f"{what} tick: a library 5×5 convolution ran")
+    check(prof["conv5x5_s2_dw_per_tick"] == dw_per_tick,
+          f"{what} tick: {prof['conv5x5_s2_dw_per_tick']} conv5x5_s2_dw "
+          f"launches, {dw_per_tick} counted")
+
+
 def phase_main_path(device):
     """The sampling path at flagship widths, with the launch counts."""
     from text_to_image_tpu_torch.data import get_dataset
@@ -2347,16 +2567,23 @@ def wgan_tick_launches(n_critic, g_steps):
     """Launches per WGAN-CLS tick.  Each critic update: G without gradient
     (4 deconv; 4 BN calls: stem, up0-2), the layer-norm critic over the
     three streams (4 conv, 1 join) and once more at x̂ inside the gradient
-    penalty (4 conv, 1 join; its two backwards are plain torch); each G
-    update: G (4 deconv, 4 BN calls, differentiated) and the critic on one
-    stream (4 conv, 1 join).  The layer norm launches none of the
-    kernels."""
-    return {"deconv5x5_s2": 4 * (n_critic + g_steps),
+    penalty (4 conv, 1 join); each G update: G (4 deconv, 4 BN calls,
+    differentiated) and the critic on one stream (4 conv, 1 join).  The
+    layer norm launches none of the kernels.  The 5×5 backwards (a conv's
+    dx a deconv launch, a deconv's dx a conv launch, each dw one
+    conv5x5_s2_dw): a critic update differentiates the three streams' convs
+    (3 dx, 4 dw), the penalty's inner gradient at x̂ (4 dx, and the 4 dw it
+    forms unasked) and then that gradient (the 4 dx deconvs' backward: 4
+    conv, 4 dw; the forward at x̂ again: 4 dx, 4 dw); a G update D's 4
+    convs in x (4 dx) and G's 4 deconvs (4 conv, 4 dw)."""
+    return {"deconv5x5_s2": 4 * (n_critic + g_steps) + 11 * n_critic
+            + 4 * g_steps,
             "bn_stats": 4 * (n_critic + g_steps),
             "bn_act": 4 * (n_critic + g_steps),
             "bn_bwd_reduce": 4 * g_steps, "bn_bwd_apply": 4 * g_steps,
-            "conv5x5_s2_act": 8 * n_critic + 4 * g_steps,
-            "conditioning_join": 2 * n_critic + g_steps, **NO_UPCONV}
+            "conv5x5_s2_act": 12 * n_critic + 8 * g_steps,
+            "conditioning_join": 2 * n_critic + g_steps,
+            "conv5x5_s2_dw": 16 * n_critic + 4 * g_steps, **NO_UPCONV}
 
 
 def pggan_launches(stage, ticks, grids, cfg):
@@ -3814,7 +4041,7 @@ ENTRY_TOL = 5e-2
 # (bn_partials, bn_finish), the critic's convs and join
 DRYRUN_KERNELS = ("deconv5x5_s2", "conv5x5_s2_act", "conditioning_join",
                   "bn_partials", "bn_finish", "bn_act", "bn_bwd_reduce",
-                  "bn_bwd_apply")
+                  "bn_bwd_apply", "conv5x5_s2_dw")
 DRYRUN_DEVICES = 8
 BENCH_TIMEOUT_S = 400
 BENCH_NUMBERS = ("value", "vs_baseline", "resident_value",
@@ -3961,11 +4188,14 @@ DEMO_IS_IMAGES = 320
 RUNBOOK_TIMEOUT_S = 300
 # the kernels of the GAN-CLS tick; of the StackGAN and C-PGGAN paths
 GANCLS_KERNELS = ("deconv5x5_s2", "conv5x5_s2_act", "conditioning_join",
-                  "bn_stats", "bn_act", "bn_bwd_reduce", "bn_bwd_apply")
+                  "bn_stats", "bn_act", "bn_bwd_reduce", "bn_bwd_apply",
+                  "conv5x5_s2_dw")
 UPCONV_KERNELS = ("upconv3x3",)
+# (the D's conv backward: its dx on deconv5x5_s2, its dw on conv5x5_s2_dw)
 STACKGAN_KERNELS = ("upconv3x3", "upconv3x3_dx", "upconv3x3_dw",
                     "conv5x5_s2_act", "conditioning_join", "bn_stats",
-                    "bn_act", "bn_bwd_reduce", "bn_bwd_apply")
+                    "bn_act", "bn_bwd_reduce", "bn_bwd_apply",
+                    "deconv5x5_s2", "conv5x5_s2_dw")
 PGGAN_KERNELS = ("upconv3x3", "upconv3x3_dx", "upconv3x3_dw")
 
 
@@ -4215,7 +4445,8 @@ def phase_scripts(device, runs):
     # 15j: the kernel microbench
     out_dir = os.path.join(ROOT, "chiprun_out")
     for argv, fname in (([], "bench_kernels.json"),
-                        (["--upconv", "--grad"], "bench_kernels_grad.json")):
+                        (["--upconv", "--conv", "--deconv", "--grad"],
+                         "bench_kernels_grad.json")):
         rc, said, _ = drive_script(f"bench_kernels {' '.join(argv)}".strip(),
                                    bench_kernels.main, argv)
         with open(os.path.join(out_dir, fname)) as f:
@@ -4223,8 +4454,8 @@ def phase_scripts(device, runs):
         check(rc == 0 and bench["rows"] and finite_numbers(bench["rows"]),
               f"bench_kernels {argv}: rc {rc}")
         check({r["kernel"] for r in bench["rows"]} ==
-              set(bench_kernels.GRAD_KERNELS if argv else
-                  bench_kernels.KERNELS),
+              ({k for t in bench_kernels.GRAD_TABLES.values() for k in t}
+               if argv else set(bench_kernels.KERNELS)),
               f"bench_kernels kernels {[r['kernel'] for r in bench['rows']]}")
         report[fname[:-5]] = bench
     report["launches"] = {f"script {k}": v for k, v in launches.items()}
@@ -4293,6 +4524,16 @@ def run(runs: str) -> int:
                  "C-PGGAN and odd shapes (bf16 and f32), bit-identical twice")
     bwd_errs, bwd_paths = phase_upconv_bwd_kernels(device)
     errs.update(bwd_errs)
+    phases.start("phase 3c: the 5x5 ops' weight-gradient kernel "
+                 "(conv5x5_s2_dw) vs its plain version at the main-path and "
+                 "odd shapes (bf16 and f32), bit-identical twice; the chunked "
+                 "workspaces at Cin·Co over 1 M; the input gradients (the "
+                 "opposite forward kernels) at the shapes the backward gives "
+                 "them")
+    cdw_errs, cdw_paths = phase_conv_bwd_kernels(device)
+    errs["upconv3x3_dw"].update(cdw_errs.pop("upconv3x3_dw"))
+    errs.update(cdw_errs)
+    bwd_paths += cdw_paths
 
     phases.start("phase 4: sampling path at flagship widths, batch 64, bf16")
     cfg, bundle, ts, gen, z, emb, launches, g_err = phase_main_path(device)
@@ -4394,6 +4635,8 @@ def run(runs: str) -> int:
     phases.start("phase 8: where a train-mode forward's and a tick's device time goes")
     profile = phase_profile(gen, ts, z, emb, device, rates["train_mode"])
     tick_profile = phase_tick_profile(tts, tstep, tbatch, tick["tick_ms"])
+    no_library_conv5x5("GAN-CLS", tick_profile,
+                       TICK_LAUNCHES["conv5x5_s2_dw"])
     del tts, tstep, tbatch
     torch.cuda.empty_cache()
 
@@ -4417,6 +4660,9 @@ def run(runs: str) -> int:
                                                    store["tick"]["tick_ms"])
         del tick_state
         torch.cuda.empty_cache()
+    wcfg = train_config("wgancls").train
+    no_library_conv5x5("WGAN-CLS", wgan["tick_profile"], wgan_tick_launches(
+        wcfg.n_critic, wcfg.g_steps)["conv5x5_s2_dw"])
     wgan["gp_cost"] = phase_gp_cost(device)
     torch.cuda.empty_cache()
 
@@ -4452,7 +4698,8 @@ def run(runs: str) -> int:
                           f"with --traj and --resume, stage2_dynamics, "
                           f"pggan_progression, profile_step, serve_profile, "
                           f"convert_inception, e2e_demo, parity_runbook) and "
-                          f"bench_kernels (its defaults and --upconv --grad) [{card}]")
+                          f"bench_kernels (its defaults and --upconv --conv "
+                          f"--deconv --grad) [{card}]")
     scripts = phase_scripts(device, runs)
     launches_by_path.update(scripts.pop("launches"))
     phase_seconds = phases.stop()
@@ -4464,6 +4711,14 @@ def run(runs: str) -> int:
         rows[name] = [r for r in scripts["bench_kernels_grad"]["rows"]
                       if r["kernel"] == name and r["shape"] in up_blocks]
         check(len(rows[name]) == len(up_blocks), f"{name}: {rows[name]}")
+    # conv5x5_s2_dw: the microbench's rows of one GAN-CLS tick's calls, the
+    # D step's four convs at 3·64 and the generator's four deconvs at 64
+    rows["conv5x5_s2_dw"] = [
+        r for r in scripts["bench_kernels_grad"]["rows"]
+        if r["kernel"] == "conv5x5_s2_dw"
+        and (r["op"], r["batch"]) in (("conv", D_BATCH), ("deconv", BATCH))]
+    check(len(rows["conv5x5_s2_dw"]) == 8, f"conv5x5_s2_dw rows "
+                                          f"{rows['conv5x5_s2_dw']}")
 
     src = "text_to_image_tpu_torch/"
     meta = {
@@ -4491,6 +4746,11 @@ def run(runs: str) -> int:
                          "text_to_image_tpu/ops/pallas/conv.py:606"),
         "upconv3x3_dw": ("cuda", src + "csrc/upconv3x3_bwd.cu",
                          "text_to_image_tpu/ops/pallas/conv.py:624"),
+        # the weight half of the Pallas conv's custom VJP (_conv_bwd :891;
+        # with its operands swapped, the deconv's _deconv_bwd :233), which
+        # the JAX package leaves to XLA
+        "conv5x5_s2_dw": ("cuda", src + "csrc/conv5x5_s2_bwd.cu",
+                          "text_to_image_tpu/ops/pallas/conv.py:891"),
     }
 
     def per_unit(per, key):
@@ -4501,7 +4761,9 @@ def run(runs: str) -> int:
         at 64).  upconv3x3: one Stage-II generator forward, its frozen
         Stage-I included (the sum over the eight calls at batch 64).
         upconv3x3_dx and upconv3x3_dw: the backward of a Stage-I and of a
-        Stage-II G step (the same eight calls)."""
+        Stage-II G step (the same eight calls).  conv5x5_s2_dw: one GAN-CLS
+        tick's calls (the D step's four at 3·64, two G steps' four deconvs
+        at 64)."""
         return sum(r[key] * (1 if r.get("batch", D_BATCH) == D_BATCH else 2)
                    for r in per)
 

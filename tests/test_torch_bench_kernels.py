@@ -274,8 +274,65 @@ def test_main_needs_a_gpu_and_pairs_upconv_with_grad(capsys):
 def test_every_kernel_of_the_main_paths_has_a_table():
     """Each kernel wrapper that the main paths launch (``chip_smoke.py``
     counts them; ``upconv3x3_bias`` counts on ``upconv3x3``) is a kernel of
-    the default table, or one of ``--upconv --grad``'s backward kernels."""
+    the default table, or one of the backward kernels of the ``--grad``
+    tables."""
     import chip_smoke
     names = {c.__name__ for c in chip_smoke.all_counters()}
     assert {k.replace("upconv3x3_bias", "upconv3x3")
-            for k in bk.KERNELS + bk.GRAD_KERNELS[1:]} == names
+            for k in bk.KERNELS + bk.BACKWARD_KERNELS} == names
+    assert set(bk.BACKWARD_KERNELS) <= {
+        k for table in bk.GRAD_TABLES.values() for k in table}
+    assert bk.GRAD_KERNELS == bk.GRAD_TABLES["upconv"]
+
+
+@pytest.mark.parametrize("op", ["conv", "deconv"])
+def test_conv5_grad_rows_hold_then_time(cpu_bench, monkeypatch, op):
+    """``--conv --grad`` / ``--deconv --grad``: a forward + backward row
+    (gradients held in f32 first), a dx row (the other op's kernel) and a
+    dw row a shape, each with its own work, the op and the batch; the dx
+    and dw rows with the plain version's ms; a wrong dw fails before
+    anything is timed (the Function's gradients are held first)."""
+    monkeypatch.setattr(bk, "CONV_SHAPES", [((2, 8, 6, 8), 16, "lrelu")])
+    monkeypatch.setattr(conv, "conv_path_on_card", lambda *a: "plain")
+    monkeypatch.setattr(conv, "conv_dw_path_on_card", lambda *a: "plain")
+    gen = torch.Generator().manual_seed(0)
+    rows = bk.bench_conv5_grad(op, "cpu", None, gen)
+    assert [r["kernel"] for r in rows] == list(bk.GRAD_TABLES[op])
+    assert len(cpu_bench) == 2 + 3 + 3
+    shape, co, _ = (bk.CONV_SHAPES if op == "conv" else bk.DECONV_SHAPES)[0]
+    b, h, w, cin = shape
+    for r in rows:
+        assert r["op"] == op and r["batch"] == b and r["ratio"] == 1.0
+    assert "plain_ms" not in rows[0]
+    assert rows[1]["plain_ms"] == rows[2]["plain_ms"] == 1.0
+    assert rows[0]["max_abs_err"] < 1e-4
+    assert rows[1]["max_abs_err"] == rows[2]["max_abs_err"] == 0.0
+    if op == "conv":
+        dw_work = bk.conv_dw_work(shape, co)
+        assert rows[1]["bound_ms"] == bk.bound(*bk.conv_dx_work(shape, co),
+                                               torch.bfloat16)[0]
+    else:
+        dw_work = bk.conv_dw_work((b, 2 * h, 2 * w, co), cin)
+        assert rows[1]["bound_ms"] == bk.bound(
+            *bk.conv_work((b, 2 * h, 2 * w, co), cin), torch.bfloat16)[0]
+    assert rows[2]["bound_ms"] == bk.bound(*dw_work, torch.bfloat16)[0]
+    assert "conv2d_weight" in rows[2]["library"]
+    assert rows[2]["path"] == "plain parts 1"
+    plain = conv.conv5x5_s2_dw_plain
+    monkeypatch.setattr(conv, "conv5x5_s2_dw",
+                        lambda *a: plain(*a) * 1.1 + 0.05)
+    cpu_bench.clear()
+    with pytest.raises(RuntimeError, match="grad dw"):
+        bk.bench_conv5_grad(op, "cpu", None, gen)
+    assert cpu_bench == []
+
+
+def test_conv5_work_at_a_hand_computed_shape():
+    """x [2,8,8,4] → 4×4×6: 32 output pixels; 2·25·32·4·6 = 38400
+    operations for dx and for dw; bytes of x (512), g (192) and w (600)
+    elements of 2 bytes."""
+    assert bk.conv_dw_work((2, 8, 8, 4), 6) == (2 * (512 + 192 + 600), 38400)
+    assert bk.conv_dx_work((2, 8, 8, 4), 6) == (2 * (192 + 600 + 512), 38400)
+    fb, fo = bk.conv_work((2, 8, 8, 4), 6)
+    assert bk.conv5_grad_work((2, 8, 8, 4), 6) == (
+        fb + 2 * (192 + 2 * 512 + 2 * 600) + 24, 3 * fo)

@@ -45,6 +45,14 @@ def test_tick_config_is_the_shipped_yaml_on_synthetic_data(model):
      "upconv3x3 backward (CUDA)"),
     ("void (anonymous namespace)::dw_reduce_kernel<unsigned short>",
      "upconv3x3 backward (CUDA)"),
+    ("void (anonymous namespace)::dw_wgmma_kernel<(anonymous namespace)::"
+     "CDw, 128, 128>", "conv5x5_s2_dw (CUDA)"),
+    ("void (anonymous namespace)::dw_reduce_kernel<(anonymous namespace)::"
+     "CDw, unsigned short>", "conv5x5_s2_dw (CUDA)"),
+    ("void (anonymous namespace)::dw_mma_kernel<(anonymous namespace)::CDw, "
+     "true>", "conv5x5_s2_dw (CUDA)"),
+    ("void (anonymous namespace)::dw_tile_kernel<(anonymous namespace)::Dw, "
+     "float>", "upconv3x3 backward (CUDA)"),
     ("void (anonymous namespace)::bn_reduce_kernel<true>",
      "batch norm (CUDA)"),
     ("down0_mma_kernel", "conv5x5_s2_act (CUDA)"),
@@ -57,6 +65,30 @@ def test_tick_config_is_the_shipped_yaml_on_synthetic_data(model):
     ("vectorized_elementwise_kernel<mul>", "other torch elementwise")])
 def test_kernel_families(name, family):
     assert ticks.kernel_family(name) == family
+
+
+def test_library_conv5x5_counts_the_5x5_library_convolutions():
+    """A profile recorded with shapes: F.conv2d over a 5×5 filter and its
+    backward count once each (aten::convolution, convolution_backward), a
+    3×3 one not at all, the port's 5×5 conv and its backward (plain
+    versions on the CPU) not at all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from text_to_image_tpu_torch.ops.kernels import conv
+    x = torch.randn(2, 3, 8, 8, requires_grad=True)
+    w5 = torch.randn(4, 3, 5, 5, requires_grad=True)
+    w3 = torch.randn(4, 3, 3, 3)
+    xh = torch.randn(2, 8, 8, 3, requires_grad=True)
+    wh = torch.randn(5, 5, 3, 4, requires_grad=True)
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        torch.nn.functional.conv2d(x, w5, stride=2).sum().backward()
+        torch.nn.functional.conv2d(x.detach(), w3)
+    assert ticks.library_conv5x5(prof) == 2
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        conv.conv5x5_s2_act(xh, wh, torch.zeros(4), "lrelu").sum().backward()
+    assert ticks.library_conv5x5(prof) == 0
 
 
 def _spec(seed, dtype):

@@ -376,8 +376,20 @@ def test_path_rules_mirror_the_kernels(hw, cin, co, dtype, aligned, dx, dw):
 
 
 def test_dw_plan_refuses_a_workspace_over_the_cap():
+    """Stage-I's first up-block at gf 256 (4²×2048→1024): one part of its
+    16 products over every Cin is 128 MiB, over CONV_WS_CAP, so the plan
+    walks Cin in chunks whose workspace stays within the cap (the parent
+    raised here); a chunk of one tile that does not fit still raises."""
+    plan = conv.dw_plan(64, 4, 4, 2048, 1024, torch.bfloat16)
+    assert conv.dw_ws_elems(2048, 1024, 1) * 4 > conv.CONV_WS_CAP
+    assert plan.chunk < 2048 and plan.chunk % plan.tile_m == 0
+    assert plan.parts * conv.dw_ws_elems(plan.chunk, 1024, 1) * 4 \
+        <= conv.CONV_WS_CAP
+    # the widest chunk that fits: one more tile of rows would not
+    assert conv.dw_ws_elems(plan.chunk + plan.tile_m, 1024, 1) * 4 \
+        > conv.CONV_WS_CAP
     with pytest.raises(ValueError, match="workspace"):
-        conv.dw_plan(4, 4, 4, 2048, 1024, torch.bfloat16)
+        conv.dw_plan(4, 4, 4, 64, 2**16, torch.bfloat16)
 
 
 # --- the backward's prologue ------------------------------------------------
@@ -403,14 +415,13 @@ def test_act_backward_rounds_once_like_the_f32_product(act):
 def test_bias_backward_reaches_no_library_convolution(act, monkeypatch):
     """`_UpconvBias.backward` goes through the two wrappers alone: with
     every cuDNN entry the old composition used made to raise, its
-    gradients still match jax.vjp; db is summed in f32 from the cotangent
-    in x's dtype (for lrelu in bf16 each product rounded once: within
-    2^-9 of the f32 sum's terms)."""
+    gradients still match jax.vjp; db is the f32 sum of the unrounded
+    products g·act′(y) in bf16 too (within the f32 sum's order)."""
     def refuse(*a, **k):
         raise AssertionError("a library convolution was called")
     monkeypatch.setattr(conv.F, "conv2d", refuse)
-    monkeypatch.setattr(conv, "conv2d_weight", refuse)
-    monkeypatch.setattr(conv, "conv2d_input", refuse)
+    monkeypatch.setattr(torch.nn.grad, "conv2d_weight", refuse)
+    monkeypatch.setattr(torch.nn.grad, "conv2d_input", refuse)
     x, w, g = _inputs((2, 5, 6, 8), 16, seed=9)
     b = (np.random.default_rng(2).normal(size=16) * 0.1).astype(np.float32)
     ones = np.ones(16, np.float32)
@@ -434,5 +445,49 @@ def test_bias_backward_reaches_no_library_convolution(act, monkeypatch):
     bound = 2**-9 * terms.abs().sum((0, 1, 2)) + 1e-5
     assert db.dtype == torch.float32
     assert bool(((db - want).abs() <= bound).all())
-    if act != "lrelu":
-        torch.testing.assert_close(db, want, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(db, want, rtol=1e-6, atol=1e-5)
+
+
+# f32 sums of the same products in another order: 1e-5 of the sum of their
+# magnitudes (bf16 rounding of the products, 2^-9 each, exceeds it)
+DB_TOL = 1e-5
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "lrelu", "tanh"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_bias_grad_is_the_f32_sum_of_the_products(act, dt):
+    """`bias_grad` against the f32 sum of g·act′(y), within DB_TOL of the
+    sum of the terms' magnitudes (none and relu: the same terms; lrelu:
+    0.2 applied to the negative side's sum)."""
+    rng = np.random.default_rng(8)
+    y = torch.from_numpy(rng.normal(size=(2, 6, 6, 8)).astype(np.float32))
+    y = conv.apply_act(y, act) if act != "none" else y
+    g = torch.from_numpy(rng.normal(size=(2, 6, 6, 8)).astype(np.float32))
+    gd, yd = g.to(dt), y.to(dt)
+    terms = gd.float() * conv.act_grad_from_output(act, yd)
+    got = conv.bias_grad(act, gd, yd)
+    assert got.dtype == torch.float32
+    err = (got - terms.sum((0, 1, 2))).abs()
+    assert bool((err <= DB_TOL * terms.abs().sum((0, 1, 2))).all()), act
+
+
+@pytest.mark.parametrize("shape,co", [((2, 5, 6, 8), 16), ((2, 8, 8, 64), 32)])
+def test_bias_backward_db_matches_jax_in_bf16_with_lrelu(shape, co):
+    """bf16 with lrelu: db is JAX `_upconv_bias_bwd`'s f32 sum of g32 =
+    g·act′(y), not a sum of the products rounded to bf16 (which misses it
+    by up to 2^-9 of each term)."""
+    x, w, g = _inputs(shape, co, seed=4)
+    b = (np.random.default_rng(6).normal(size=co) * 0.1).astype(np.float32)
+    xb, wb, gb = (jnp.asarray(v, jnp.bfloat16) for v in (x, w, g))
+    y, vjp = jax.vjp(lambda b_: jconv.upconv3x3_bias(xb, wb, b_, "lrelu"),
+                     jnp.asarray(b))
+    ref, = vjp(gb)
+    g32 = np.asarray(gb, np.float32) * np.where(
+        np.asarray(y, np.float32) >= 0, 1.0, 0.2)
+    scale = np.abs(g32).sum((0, 1, 2))
+    tb = [torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16(),
+          torch.from_numpy(b).requires_grad_(True)]
+    yt = conv.upconv3x3_bias(*tb, "lrelu")
+    db, = torch.autograd.grad(yt, tb[2], torch.from_numpy(g).bfloat16())
+    err = np.abs(db.numpy() - np.asarray(ref, np.float32))
+    assert bool((err <= DB_TOL * scale).all()), float((err / scale).max())

@@ -43,16 +43,29 @@ kernels of ``csrc/upconv3x3_bwd.cu`` over the same combined taps
 into the 3×3 taps in a fixed order, `dw_path` / `dw_plan`), in place of
 the JAX package's `_parity_dx` / `_parity_dw`.
 
+``conv5x5_s2_dw``: the weight gradient of the stride-2 5×5 conv, 25
+long-K products over every output pixel split into parts and reduced in a
+fixed order (``csrc/conv5x5_s2_bwd.cu``, `conv_dw_path` / `conv_dw_plan`):
+the weight half of the JAX package's `_conv_bwd` and, with its operands
+swapped, of `_deconv_bwd`.  The input halves are the other op's forward
+kernel: the conv's dx is ``deconv5x5_s2`` of the cotangent with w flipped
+and transposed, the deconv's dx ``conv5x5_s2_act`` of its cotangent with the
+same weight.  Both kernels that take dw (``upconv3x3_dw``,
+``conv5x5_s2_dw``) walk Cin in chunks so that their workspace stays under
+CONV_WS_CAP at any Cin·Co (`wgrad_chunk`).
+
 On CUDA each wrapper launches its hand-written kernel (each source note
 gives the bound on the H100 and the design).  On the CPU it runs the plain
 version, which is built from the same taps as the kernel and is what the
-kernel is held against.  Both are differentiable (`torch.autograd.Function`):
+kernel is held against.  All are differentiable (`torch.autograd.Function`):
 the backwards are the JAX package's (`_deconv_bwd`, `_conv_bwd`,
 `_upconv_bwd`, `_upconv_bias_bwd`) — the activation derivative from the
 saved output, then the conv's two adjoints, which the JAX package leaves to
-XLA and the port to cuDNN / the CPU conv, but for the up-block, whose two
-adjoints are the kernels above (tanh, on no training path, differentiates
-the composed version again).
+XLA and the port computes on the kernels above, no library convolution
+among them (tanh's up-block backward, on no training path, differentiates
+the composed version again).  The conv's dx goes through the differentiable
+deconv and the deconv's through the conv, so a gradient of a gradient (the
+WGAN-CLS gradient penalty) runs on the same kernels.
 """
 
 from __future__ import annotations
@@ -64,7 +77,6 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.nn.grad import conv2d_input, conv2d_weight
 
 from text_to_image_tpu_torch.ops.kernels import _build
 from text_to_image_tpu_torch.ops.kernels.fused import (ACT_CODES, acc,
@@ -236,11 +248,30 @@ def deconv_path_on_card(x, w, y) -> str:
         int(x.dtype == torch.bfloat16))]
 
 
-def _deconv_as_conv_weight(w):
+def deconv_dx_weight(w: torch.Tensor) -> torch.Tensor:
     """The transposed conv is the adjoint of a stride-2 SAME conv over its
-    output, whose OIHW weight is w flipped with in/out swapped:
-    Wc[ci, co, kh, kw] = w[4−kh, 4−kw, ci, co]."""
-    return w.flip(0, 1).permute(2, 3, 0, 1)
+    output: its dx is conv5x5_s2 of the cotangent with the HWIO weight
+    Wc[kh, kw, co, ci] = w[4−kh, 4−kw, ci, co] (w flipped, in and out
+    swapped).  The conv's dx is in turn the transposed conv with the same
+    map of its own w."""
+    return w.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def conv_dx(gc: torch.Tensor, w: torch.Tensor, h: int, wd: int) -> torch.Tensor:
+    """dx [B,h,wd,Cin] of conv5x5_s2 SAME over an h×wd map for the
+    cotangent gc [B,⌈h/2⌉,⌈wd/2⌉,Co] (in w's dtype): the transposed conv of
+    gc with `deconv_dx_weight(w)`, scale 1 and shift 0, through the
+    differentiable `deconv5x5_s2`.  It writes 2·⌈h/2⌉ rows with the (1, 2)
+    pads of an even map; an odd map pads (2, 2), one more before, so its dx
+    is rows 1..h."""
+    ci = w.shape[2]
+    dx = deconv5x5_s2(gc, deconv_dx_weight(w),
+                      torch.ones(ci, device=gc.device),
+                      torch.zeros(ci, device=gc.device))
+    ot, ol = same_pads(h)[1] - 1, same_pads(wd)[1] - 1
+    if (ot, ol) == (0, 0):
+        return dx
+    return dx[:, ot:ot + h, ol:ol + wd].contiguous()
 
 
 class _Deconv(torch.autograd.Function):
@@ -254,18 +285,20 @@ class _Deconv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         # _deconv_bwd: the epilogue's derivative from the saved output, then
-        # the two adjoints of the (linear) transposed conv
+        # the two adjoints of the (linear) transposed conv: dx the conv
+        # kernel over d, dw the weight-gradient kernel with d as its map and
+        # x as its cotangent, flipped back
         x, w, scale, y = ctx.saved_tensors
         need = ctx.needs_input_grad
         g32 = g.float() * act_grad_from_output(ctx.act, y)
-        d = _nchw((g32 * scale).to(x.dtype))
-        d_pad = F.pad(d, (1, 2, 1, 2))          # SAME pads of the 2H map
-        wc = _deconv_as_conv_weight(w)
-        dx = _nhwc(F.conv2d(d_pad, wc, stride=2)) if need[0] else None
-        dw = None
+        d = (g32 * scale).to(x.dtype).contiguous()
+        dx = dw = None
+        if need[0]:
+            dx = conv5x5_s2_act(d, deconv_dx_weight(w),
+                                torch.zeros(x.shape[-1], device=x.device),
+                                "none")
         if need[1]:
-            dwc = conv2d_weight(d_pad, wc.shape, _nchw(x), stride=2)
-            dw = dwc.permute(2, 3, 0, 1).flip(0, 1)
+            dw = deconv_dx_weight(conv5x5_s2_dw(d, x, w.dtype))
         ds = None
         if need[2]:
             ones = torch.ones_like(scale)
@@ -618,23 +651,14 @@ class _Conv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         # _conv_bwd: the VJP of act(conv(x, w) + b), the activation's
-        # derivative taken from the saved output
+        # derivative taken from the saved output; dx through the transposed
+        # conv's kernel, dw through the weight-gradient kernel
         x, w, y = ctx.saved_tensors
         need = ctx.needs_input_grad
-        _, h, wd, _ = x.shape
-        _, pt, pb = same_pads(h)
-        _, pl, pr = same_pads(wd)
         ga = g.float() * act_grad_from_output(ctx.act, y)
-        gc = _nchw(ga.to(x.dtype))
-        w_oihw = w.permute(3, 2, 0, 1)
-        dx = dw = None
-        if need[0]:
-            shape = (x.shape[0], x.shape[-1], h + pt + pb, wd + pl + pr)
-            dxp = conv2d_input(shape, w_oihw, gc, stride=2)
-            dx = _nhwc(dxp[:, :, pt:pt + h, pl:pl + wd])
-        if need[1]:
-            xp = F.pad(_nchw(x), (pl, pr, pt, pb))
-            dw = conv2d_weight(xp, w_oihw.shape, gc, stride=2).permute(2, 3, 1, 0)
+        gc = ga.to(x.dtype).contiguous()
+        dx = conv_dx(gc, w, x.shape[1], x.shape[2]) if need[0] else None
+        dw = conv5x5_s2_dw(x, gc, w.dtype) if need[1] else None
         db = ga.sum((0, 1, 2)) if need[2] else None
         return dx, dw, db, None
 
@@ -924,8 +948,8 @@ def _bwd_lib() -> ctypes.CDLL:
         # g, wct, dx; Cin, Co, bf16
         "t2i_upconv3x3_dx_path": [_PTR] * 3 + [_INT] * 3,
         # x, g, dw, ws; B, H, W, Cin, Co, bf16, w_bf16, tile_m, tile_n,
-        # parts; stream
-        "t2i_upconv3x3_dw": [_PTR] * 4 + [_INT] * 10 + [_PTR],
+        # parts, chunk; stream
+        "t2i_upconv3x3_dw": [_PTR] * 4 + [_INT] * 11 + [_PTR],
         # x, g; H, W, Cin, Co, bf16
         "t2i_upconv3x3_dw_path": [_PTR] * 2 + [_INT] * 5})
 
@@ -965,7 +989,7 @@ def dw_path(h: int, w: int, cin: int, co: int, dtype: torch.dtype,
 def dw_box(h: int, w: int):
     """(width, rows, images) of the box that brings one K slice of 64
     pixels by TMA on dw's wgmma path, or None where no box is one slice
-    (csrc/upconv3x3_bwd.cu `dw_boxes`; such maps take the mma path): a
+    (csrc/wgrad.cuh `boxes`; such maps take the mma path): a
     64-pixel part of one image row, 64/W whole rows of one image, or
     64/(H·W) whole images."""
     hw = h * w
@@ -977,11 +1001,13 @@ def dw_box(h: int, w: int):
 
 
 class DwPlan(NamedTuple):
-    """A launch of upconv3x3_dw: the [Cin × Co] tile of a block (the mma
-    and tile paths' is 64 × 64) and the parts K is cut into."""
+    """A launch of a weight-gradient kernel (upconv3x3_dw, conv5x5_s2_dw):
+    the [rows × Co] tile of a block (the mma and tile paths' is 64 × 64),
+    the parts K is cut into and the input channels of a chunk."""
     tile_m: int
     tile_n: int
     parts: int
+    chunk: int
 
 
 DW_SLICE = {"wgmma": 64, "mma": 32, "tile": 16}   # pixels a K slice
@@ -989,35 +1015,60 @@ DW_TARGET_BLOCKS = 4 * SM_COUNT        # enough to fill every SM twice over
 DW_MIN_SLICES = 8                      # the least K a part is given
 
 
-def dw_ws_elems(cin: int, co: int, parts: int) -> int:
-    """f32 elements of dw's workspace: the 16 products of every part."""
-    return parts * 16 * cin * co
+def dw_ws_elems(cin: int, co: int, parts: int, products: int = 16) -> int:
+    """f32 elements of a weight-gradient workspace: the products of every
+    part over cin input channels (one chunk)."""
+    return parts * products * cin * co
+
+
+def wgrad_chunk(cin: int, co: int, products: int, unit: int) -> int:
+    """The input channels one launch of a weight-gradient kernel covers
+    (csrc/wgrad.cuh): all of Cin where one part's workspace of `products`
+    [Cin × Co] f32 planes fits CONV_WS_CAP, else the most channels, a
+    multiple of `unit` (the tile's rows), that fit.  Each chunk holds every
+    product of its channels (the up-block folds its 16 products into 9 taps
+    within one), so the workspace stays under the cap at any Cin·Co; a
+    chunk of one unit that does not fit raises."""
+    if dw_ws_elems(cin, co, 1, products) * 4 <= CONV_WS_CAP:
+        return cin
+    chunk = CONV_WS_CAP // (dw_ws_elems(1, co, 1, products) * 4) // unit * unit
+    if chunk < unit:
+        raise ValueError(f"dw workspace of {products}x{unit}x{co} f32 over "
+                         f"{CONV_WS_CAP} bytes")
+    return chunk
+
+
+def _wgrad_plan(k: int, cin: int, co: int, products: int, path: str,
+                tm: int, tn: int, blocks_of) -> "DwPlan":
+    """The chunk of `wgrad_chunk` (unit: the tile's rows, 64 off wgmma) and
+    as many parts of the k pixels as give DW_TARGET_BLOCKS blocks
+    (`blocks_of(chunk)` a part), at most one a DW_MIN_SLICES slices and the
+    chunk's workspace under CONV_WS_CAP."""
+    chunk = wgrad_chunk(cin, co, products, tm)
+    plane = dw_ws_elems(chunk, co, 1, products) * 4
+    slices = -(-k // DW_SLICE[path])
+    parts = min(-(-DW_TARGET_BLOCKS // blocks_of(chunk)),
+                slices // DW_MIN_SLICES, CONV_WS_CAP // plane)
+    return DwPlan(tm, tn, max(1, parts), chunk)
+
+
+def _dw_tile(path: str, cin: int, co: int):
+    """The wgmma path's widest tile of 64 or 128 that divides Cin and Co;
+    64 × 64 on the others."""
+    if path != "wgmma":
+        return 64, 64
+    return (128 if cin % 128 == 0 else 64), (128 if co % 128 == 0 else 64)
 
 
 def dw_plan(b: int, h: int, w: int, cin: int, co: int, dtype: torch.dtype,
             aligned: bool = True) -> DwPlan:
-    """The tile and the parts of upconv3x3_dw for x [b,h,w,Cin], over its
-    k = b·h·w pixels: the widest tile of 64 or 128 that divides Cin and Co
-    (wgmma path), and as many parts as give DW_TARGET_BLOCKS blocks, at
-    most one a DW_MIN_SLICES slices of K and the workspace under
-    CONV_WS_CAP.  One part's workspace is 16·Cin·Co f32, so Cin·Co is
-    held to 1 M on the card (every shipped config's up-blocks are at most
-    1024·512)."""
+    """The tile, the parts and the chunk of upconv3x3_dw for x [b,h,w,Cin],
+    over its k = b·h·w pixels (`_wgrad_plan` of its 16 products, a block one
+    product's tile)."""
     path = dw_path(h, w, cin, co, dtype, aligned)
-    k = b * h * w
-    if path == "wgmma":
-        tm, tn = (128 if cin % 128 == 0 else 64), (128 if co % 128 == 0
-                                                   else 64)
-    else:
-        tm = tn = 64
-    if dw_ws_elems(cin, co, 1) * 4 > CONV_WS_CAP:
-        raise ValueError(f"dw workspace of 16x{cin}x{co} f32 over "
-                         f"{CONV_WS_CAP} bytes")
-    blocks = -(-cin // tm) * -(-co // tn) * 16
-    slices = -(-k // DW_SLICE[path])
-    parts = min(-(-DW_TARGET_BLOCKS // blocks), slices // DW_MIN_SLICES,
-                CONV_WS_CAP // (dw_ws_elems(cin, co, 1) * 4))
-    return DwPlan(tm, tn, max(1, parts))
+    tm, tn = _dw_tile(path, cin, co)
+    return _wgrad_plan(b * h * w, cin, co, 16, path, tm, tn,
+                       lambda c: -(-c // tm) * -(-co // tn) * 16)
 
 
 def _bwd_common(what, ts, dtype_out):
@@ -1137,14 +1188,14 @@ def upconv3x3_dw(x: torch.Tensor, g: torch.Tensor,
     b, h, wd, cin = x.shape
     co = g.shape[-1]
     plan = dw_plan(b, h, wd, cin, co, x.dtype, _aligned16(x, g))
-    ws = torch.empty(dw_ws_elems(cin, co, plan.parts), dtype=torch.float32,
-                     device=x.device)
+    ws = torch.empty(dw_ws_elems(plan.chunk, co, plan.parts),
+                     dtype=torch.float32, device=x.device)
     dw = torch.empty(3, 3, cin, co, dtype=w_dtype, device=x.device)
     rc = _bwd_lib().t2i_upconv3x3_dw(
         x.data_ptr(), g.data_ptr(), dw.data_ptr(), ws.data_ptr(), b, h, wd,
         cin, co, int(x.dtype == torch.bfloat16),
         int(w_dtype == torch.bfloat16), plan.tile_m, plan.tile_n, plan.parts,
-        _stream(x))
+        plan.chunk, _stream(x))
     if rc != 0:
         raise RuntimeError(f"upconv3x3_dw kernel launch failed: CUDA error "
                            f"{rc}")
@@ -1175,6 +1226,24 @@ def act_backward(act: str, g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if act == "lrelu":
         return torch.where(y >= 0, g, g * 0.2)
     return (acc(g) * act_grad_from_output(act, y)).to(g.dtype)
+
+
+def bias_grad(act: str, g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Σ g·act′(y) over all but the channel axis in f32, as the JAX package
+    sums its f32 products g32 (`_upconv_bias_bwd`), with no f32 copy of g
+    for none, relu and lrelu: relu's terms are g or 0, lrelu's the f32 sum
+    of g where y ≥ 0 plus 0.2 times that of g where y < 0; tanh through the
+    f32 product."""
+    dims = (0, 1, 2)
+    if act == "none":
+        return g.sum(dims, dtype=torch.float32)
+    if act == "relu":
+        return torch.where(y > 0, g, 0).sum(dims, dtype=torch.float32)
+    if act == "lrelu":
+        pos = torch.where(y >= 0, g, 0).sum(dims, dtype=torch.float32)
+        return pos + 0.2 * torch.where(y < 0, g, 0).sum(dims,
+                                                        dtype=torch.float32)
+    return (acc(g) * act_grad_from_output(act, y)).sum(dims)
 
 
 class _Upconv(torch.autograd.Function):
@@ -1223,15 +1292,14 @@ class _UpconvBias(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         # _upconv_bias_bwd: no scale, so no conv output to recover; the
-        # conv's cotangent in g's dtype with no f32 copy (db is summed in
-        # f32 from it: for lrelu from the rounded products, each within
-        # 2^-9 of the f32 one), then the two kernels
+        # conv's cotangent in g's dtype with no f32 copy, then the two
+        # kernels; db the f32 sum of the unrounded g·act′(y)
         x, w, y = ctx.saved_tensors
         d_conv = act_backward(ctx.act, g.to(x.dtype), y).contiguous()
         need = ctx.needs_input_grad
         dx = upconv3x3_dx(d_conv, w, x.dtype) if need[0] else None
         dw = upconv3x3_dw(x, d_conv, w.dtype) if need[1] else None
-        db = d_conv.sum((0, 1, 2), dtype=torch.float32) if need[2] else None
+        db = bias_grad(ctx.act, g, y) if need[2] else None
         return dx, dw, db, None
 
 
@@ -1261,3 +1329,146 @@ def upconv3x3_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if needs_grad(x, w, b):
         return _UpconvBias.apply(x, w, b, act)
     return _upconv_forward(x, w, torch.ones_like(b), b, act)
+
+
+# ================= conv 5x5 s2: the weight gradient (both ops) ================
+
+def conv5x5_s2_dw_plain(x: torch.Tensor, g: torch.Tensor,
+                        w_dtype: torch.dtype) -> torch.Tensor:
+    """The adjoint in w of conv5x5_s2 SAME for the cotangent g
+    [B,⌈H/2⌉,⌈W/2⌉,Co] (in x's dtype): dw[kh,kw] = the f32 product of the
+    SAME-padded x's tap view (every second pixel from (kh, kw)) against g
+    over every pixel, 25 matmuls; rounded once to w_dtype."""
+    b, h, wd, ci = x.shape
+    co = g.shape[-1]
+    ho, pt, pb = same_pads(h)
+    wo, pl, pr = same_pads(wd)
+    xp = F.pad(x.float(), (0, 0, pl, pr, pt, pb))
+    g2 = g.to(x.dtype).float().reshape(-1, co)
+    dw = torch.empty(5, 5, ci, co, device=x.device)
+    for kh in range(5):
+        for kw in range(5):
+            tap = xp[:, kh:kh + 2 * ho - 1:2, kw:kw + 2 * wo - 1:2, :]
+            dw[kh, kw] = tap.reshape(-1, ci).T @ g2
+    return dw.to(w_dtype)
+
+
+def _cdw_lib() -> ctypes.CDLL:
+    return _build.bind("conv5x5_s2_bwd", {
+        # x, g, dw, ws; B, H, W, Cin, Co, bf16, w_bf16, tile_m, tile_n,
+        # parts, chunk; stream
+        "t2i_conv5x5_s2_dw": [_PTR] * 4 + [_INT] * 11 + [_PTR],
+        # x, g; H, W, Cin, Co, bf16
+        "t2i_conv5x5_s2_dw_path": [_PTR] * 2 + [_INT] * 5})
+
+
+def conv_dw_path(h: int, w: int, cin: int, co: int, dtype: torch.dtype,
+                 aligned: bool = True) -> str:
+    """The Python mirror of `cdw_path` in csrc/conv5x5_s2_bwd.cu for x
+    [B,h,w,Cin] (codes in DW_PATHS' order).  `aligned`: x and g start on
+    16-byte boundaries.  wgmma needs an even map whose half has a TMA box
+    (x's parity planes are coordinates of its tensor map); mma takes the
+    RGB layers (Cin <= 4) too, gathering x an element a row."""
+    if dtype != torch.bfloat16 or not aligned:
+        return "tile"
+    if (cin % 64 == 0 and co % 64 == 0 and h % 2 == 0 and w % 2 == 0
+            and dw_box(h // 2, w // 2)):
+        return "wgmma"
+    return ("mma" if (cin % 8 == 0 or cin <= 4) and co % 8 == 0
+            else "tile")
+
+
+def conv_dw_plan(b: int, h: int, w: int, cin: int, co: int,
+                 dtype: torch.dtype, aligned: bool = True) -> DwPlan:
+    """The tile, the parts and the chunk of conv5x5_s2_dw for x [b,h,w,Cin]
+    (`_wgrad_plan` of its 25 products over k = b·⌈h/2⌉·⌈w/2⌉ pixels; a
+    block is a tile of the 25·chunk rows of the product matrix)."""
+    path = conv_dw_path(h, w, cin, co, dtype, aligned)
+    tm, tn = _dw_tile(path, cin, co)
+    k = b * same_pads(h)[0] * same_pads(w)[0]
+    return _wgrad_plan(k, cin, co, 25, path, tm, tn,
+                       lambda c: -(-25 * c // tm) * -(-co // tn))
+
+
+def _cdw_shapes(x, g):
+    if x.dim() != 4:
+        raise ValueError(f"conv5x5_s2_dw: x must be NHWC, got "
+                         f"{tuple(x.shape)}")
+    b, h, wd, _ = x.shape
+    want = (b, same_pads(h)[0], same_pads(wd)[0])
+    if g.dim() != 4 or tuple(g.shape[:3]) != want:
+        raise ValueError(f"conv5x5_s2_dw: g must be [{want[0]},{want[1]},"
+                         f"{want[2]},Co], got {tuple(g.shape)}")
+
+
+def _conv_dw_forward(x, g, w_dtype):
+    b, h, wd, cin = x.shape
+    co = g.shape[-1]
+    plan = conv_dw_plan(b, h, wd, cin, co, x.dtype, _aligned16(x, g))
+    ws = torch.empty(dw_ws_elems(plan.chunk, co, plan.parts, 25),
+                     dtype=torch.float32, device=x.device)
+    dw = torch.empty(5, 5, cin, co, dtype=w_dtype, device=x.device)
+    rc = _cdw_lib().t2i_conv5x5_s2_dw(
+        x.data_ptr(), g.data_ptr(), dw.data_ptr(), ws.data_ptr(), b, h, wd,
+        cin, co, int(x.dtype == torch.bfloat16),
+        int(w_dtype == torch.bfloat16), plan.tile_m, plan.tile_n, plan.parts,
+        plan.chunk, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"conv5x5_s2_dw kernel launch failed: CUDA error "
+                           f"{rc}")
+    conv5x5_s2_dw.launches += 1
+    return dw
+
+
+class _ConvDw(torch.autograd.Function):
+    """dw is bilinear in (x, g): its adjoints are the conv's dx of g with
+    the cotangent as the weight, and the conv of x with it."""
+
+    @staticmethod
+    def forward(ctx, x, g, w_dtype):
+        ctx.save_for_backward(x, g)
+        return _conv_dw_forward(x, g, w_dtype)
+
+    @staticmethod
+    def backward(ctx, gdw):
+        x, g = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        wd = gdw.to(x.dtype).contiguous()
+        dx = conv_dx(g, wd, x.shape[1], x.shape[2]) if need[0] else None
+        dg = None
+        if need[1]:
+            dg = conv5x5_s2_act(x, wd,
+                                torch.zeros(g.shape[-1], device=x.device),
+                                "none")
+        return dx, dg, None
+
+
+def conv5x5_s2_dw(x: torch.Tensor, g: torch.Tensor,
+                  w_dtype: torch.dtype) -> torch.Tensor:
+    """dw [5,5,Cin,Co] in w_dtype of conv5x5_s2 SAME over x [B,H,W,Cin]
+    for the cotangent g [B,⌈H/2⌉,⌈W/2⌉,Co] in x's dtype: 25 long-K products
+    summed in f32 over every pixel by one hand-written kernel and its
+    fixed-order reduction (the same bits every launch).  The transposed
+    conv's dw is this with its cotangent as x and its input as g, flipped
+    and transposed (`deconv_dx_weight`).  CPU tensors take the plain
+    version (in any float dtype, as the forwards' plain versions); CUDA
+    tensors launch the kernel or raise.  Differentiable in x and g."""
+    _cdw_shapes(x, g)
+    if x.device.type == "cpu":
+        return conv5x5_s2_dw_plain(x, g, w_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv5x5_s2_dw runs on cuda or cpu, not {x.device}")
+    _bwd_common("conv5x5_s2_dw", [("x", x), ("g", g)], w_dtype)
+    if needs_grad(x, g):
+        return _ConvDw.apply(x, g, w_dtype)
+    return _conv_dw_forward(x, g, w_dtype)
+
+
+conv5x5_s2_dw.launches = 0
+
+
+def conv_dw_path_on_card(x, g) -> str:
+    """The path t2i_conv5x5_s2_dw takes for these tensors."""
+    return DW_PATHS[_cdw_lib().t2i_conv5x5_s2_dw_path(
+        x.data_ptr(), g.data_ptr(), x.shape[1], x.shape[2], x.shape[-1],
+        g.shape[-1], int(x.dtype == torch.bfloat16))]

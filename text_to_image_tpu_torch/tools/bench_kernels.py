@@ -4,6 +4,7 @@ shape against one PyTorch library call that computes the same function.
 
     python -m text_to_image_tpu_torch.tools.bench_kernels
     python -m text_to_image_tpu_torch.tools.bench_kernels --upconv --grad
+    python -m text_to_image_tpu_torch.tools.bench_kernels --conv --deconv --grad
 
 At its defaults, bf16 at batch 64 (the discriminator's calls at its 3·64
 rows too): ``deconv5x5_s2`` at the GAN-CLS generator's four calls beside
@@ -34,11 +35,21 @@ one library call: for dx the backward of autograd through
 ``F.interpolate`` + ``F.conv2d`` with x alone requiring a gradient, for dw
 ``torch.nn.grad.conv2d_weight`` over the materialised upsampled x.
 
+``--conv --grad`` and ``--deconv --grad`` do the same for the two 5×5
+stride-2 ops at their main-path shapes: forward + backward (the
+``autograd.Function``: the forward kernel, dx on the other op's forward
+kernel, dw on ``conv5x5_s2_dw``) against autograd through cuDNN's
+``conv2d`` / ``conv_transpose2d``, after the f32 gradients are held on two
+images; then dx (``deconv5x5_s2`` for the conv, ``conv5x5_s2_act`` for the
+deconv) and dw alone beside their plain versions and cuDNN's
+``conv2d_input`` (the deconv's: ``conv2d``) and ``conv2d_weight`` over the
+SAME-padded input.  The flags combine: one call, one build.
+
 Times are CUDA-event medians over launches each after an L2 flush
 (`time_ms`; ``chip_smoke.py`` times its kernels with the same function).
 Prints a markdown table and the card's name and power limit, and writes
 ``chiprun_out/bench_kernels.json`` (``bench_kernels_grad.json`` for
-``--upconv --grad``) under the working directory.  Needs a GPU.
+``--grad``) under the working directory.  Needs a GPU.
 
 Not ported: ``bench_pallas.py``'s ``--train``, ``--eval`` and
 ``--train-graph`` A/B the JAX package's dispatch table between its Pallas
@@ -117,10 +128,20 @@ BN_CALLS = ([((B, 4, 4, 1024), 1, "relu"), ((B, 8, 8, 512), 1, "relu"),
                for r, c in ((16, 128), (8, 256), (4, 512))]
             + [((B, 128, 128, 64), 1, "relu"), ((B, 256, 256, 64), 1, "relu")])
 BN_STEPS = ("bn_stats", "bn_act", "bn_bwd_reduce", "bn_bwd_apply")
-# the kernel of each row of the default table, and of ``--upconv --grad``
+# the kernel of each row of the default table, and of each op's ``--grad``
+# table: the forward + backward row, then the backward's kernels alone (the
+# 5×5 ops' dx is the other op's forward kernel)
 KERNELS = ("deconv5x5_s2", "conv5x5_s2_act", "upconv3x3_bias",
            "conditioning_join", *BN_STEPS)
-GRAD_KERNELS = ("upconv3x3_bias fwd+bwd", "upconv3x3_dx", "upconv3x3_dw")
+GRAD_TABLES = {
+    "upconv": ("upconv3x3_bias fwd+bwd", "upconv3x3_dx", "upconv3x3_dw"),
+    "conv": ("conv5x5_s2_act fwd+bwd", "deconv5x5_s2 (conv dx)",
+             "conv5x5_s2_dw"),
+    "deconv": ("deconv5x5_s2 fwd+bwd", "conv5x5_s2_act (deconv dx)",
+               "conv5x5_s2_dw")}
+GRAD_KERNELS = GRAD_TABLES["upconv"]
+# the kernels that only the backwards launch
+BACKWARD_KERNELS = ("upconv3x3_dx", "upconv3x3_dw", "conv5x5_s2_dw")
 
 
 class L2Flush:
@@ -231,6 +252,35 @@ def upconv_dw_work(shape, co, esize=2):
     b, h, w, cin = shape
     return (esize * (b * h * w * cin + b * 4 * h * w * co + 9 * cin * co),
             2 * 16 * b * h * w * cin * co)
+
+
+def conv_dw_work(shape, co, esize=2):
+    """(bytes, operations) of one conv5x5_s2_dw for x `shape` and Co: x
+    and g read once, dw written once; the forward's multiply-adds."""
+    b, h, w, cin = shape
+    m = b * half(h) * half(w)
+    return (esize * (b * h * w * cin + m * co + 25 * cin * co),
+            2 * 25 * m * cin * co)
+
+
+def conv_dx_work(shape, co, esize=2):
+    """(bytes, operations) of the conv's dx (the transposed conv of g): g
+    and w read once, dx written once; the forward's multiply-adds."""
+    b, h, w, cin = shape
+    m = b * half(h) * half(w)
+    return (esize * (m * co + 25 * cin * co + b * h * w * cin),
+            2 * 25 * m * cin * co)
+
+
+def conv5_grad_work(shape, co, esize=2):
+    """(bytes, operations) of a 5×5 stride-2 conv's forward and backward
+    (`shape` its input): the forward's, then g, x and w read and dx, dw, db
+    written; dx and dw each as many multiply-adds as the forward."""
+    fb, fo = conv_work(shape, co, esize)
+    b, h, w, cin = shape
+    m = b * half(h) * half(w)
+    return (fb + esize * (m * co + 2 * b * h * w * cin + 2 * 25 * cin * co)
+            + 4 * co, 3 * fo)
 
 
 def join_work(shape, e, co, esize=2):
@@ -512,6 +562,173 @@ def bench_upconv_bwd(device, flush, gen) -> List[Dict]:
     return rows
 
 
+def conv_dw_tag(conv, x, g) -> str:
+    """The path of a conv5x5_s2_dw call, read back from the C entry point,
+    with its plan's tile, parts and chunk."""
+    b, h, wd, cin = x.shape
+    path = conv.conv_dw_path_on_card(x, g)
+    plan = conv.conv_dw_plan(b, h, wd, cin, g.shape[-1], x.dtype)
+    tile = f" {plan.tile_m}x{plan.tile_n}" if path == "wgmma" else ""
+    chunk = f" chunk {plan.chunk}" if plan.chunk < cin else ""
+    return f"{path}{tile} parts {plan.parts}{chunk}"
+
+
+def _timed_row(flush, op, shape, co, kind, ours, lib_name, lib, plain, work,
+               path, err):
+    """A row of `bench_conv5_grad`: ours, the library call and (where
+    given) the plain version timed; the op and the batch kept."""
+    r = _row(kind, f"{list(shape)}->{co}", path,
+             time_ms(ours, flush, spin=HOST_SPIN), lib_name,
+             time_ms(lib, flush, spin=HOST_SPIN), work, torch.bfloat16, err)
+    if plain is not None:
+        r["plain_ms"] = time_ms(plain, flush, iters=5, spin=HOST_SPIN)
+    r["op"], r["batch"] = op, shape[0]
+    return r
+
+
+def bench_conv5_grad(op, device, flush, gen) -> List[Dict]:
+    """``--conv --grad`` / ``--deconv --grad``: the op's forward + backward
+    (its autograd.Function: the forward kernel, dx on the other op's
+    kernel, dw on conv5x5_s2_dw) against autograd through cuDNN's
+    conv2d / conv_transpose2d, after its gradients are held against
+    autograd through the plain version in f32 (TF32 off) on two images;
+    then dx and dw alone beside their plain versions and cuDNN's
+    conv2d_input / conv2d (the deconv's dx) and conv2d_weight over the
+    SAME-padded input, built beforehand.  bf16 at the op's main-path
+    shapes (DECONV_SHAPES, CONV_SHAPES)."""
+    from text_to_image_tpu_torch.ops.kernels import conv
+    bf = torch.bfloat16
+    rows = []
+    shapes = DECONV_SHAPES if op == "deconv" else CONV_SHAPES
+    for shape, co, act in shapes:
+        b, h, wd, cin = shape
+        small = (2, *shape[1:])
+        if op == "conv":
+            x, w = randn(gen, small).to(device), (
+                randn(gen, 5, 5, cin, co) * 0.05).to(device)
+            extra = [(0.1 * randn(gen, co)).to(device)]
+            fn, plain_fn = conv.conv5x5_s2_act, conv.conv5x5_s2_act_plain
+            out_shape = (b, half(h), half(wd), co)
+        else:
+            x, w = torch.relu(randn(gen, small)).to(device), (
+                randn(gen, 5, 5, cin, co) * 0.02).to(device)
+            extra = [torch.ones(co, device=device),
+                     (0.1 * randn(gen, co)).to(device)]
+            fn, plain_fn = conv.deconv5x5_s2, conv.deconv5x5_s2_plain
+            out_shape = (b, 2 * h, 2 * wd, co)
+        args = [x, w, *extra]
+        need = [0, 1, len(args) - 1]            # x, w and the bias / shift
+        g = randn(gen, (2, *out_shape[1:])).to(device)
+
+        def grads(f, args=args, g=g, need=need):
+            xs = [v.detach().requires_grad_(i in need)
+                  for i, v in enumerate(args)]
+            y = f(*xs, act)
+            return torch.autograd.grad(y, [xs[i] for i in need], g)
+        err = max(hold(u, v, GRAD_REL, GRAD_REL,
+                       f"{op} grad {name} {shape}->{co} (f32)",
+                       rel_to_max=True)
+                  for name, u, v in zip(("dx", "dw", "db"), grads(fn),
+                                        grads(plain_fn)))
+        # bf16 at the full batch
+        x = (randn(gen, shape) if op == "conv"
+             else torch.relu(randn(gen, shape))).to(bf)
+        w = (randn(gen, 5, 5, cin, co) * 0.05).to(bf)
+        g = randn(gen, out_shape).to(bf)
+        xs = [x, w, *extra]
+        leaves = [v.detach().requires_grad_(i in need)
+                  for i, v in enumerate(xs)]
+        x_cl = _nchw(x).detach().requires_grad_(True)
+        g_cl = _nchw(g)
+        if op == "conv":
+            w_lib = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last).requires_grad_(True)
+            b_lib = extra[0].to(bf).requires_grad_(True)
+
+            def lib_fwd():
+                out = F.conv2d(F.pad(x_cl, (1, 2, 1, 2)), w_lib, b_lib,
+                               stride=2)
+                return F.leaky_relu(out, 0.2) if act == "lrelu" else out
+            lib_name = "autograd cuDNN conv2d"
+        else:
+            w_lib = w.permute(2, 3, 0, 1).flip(2, 3).contiguous(
+                ).requires_grad_(True)
+            b_lib = extra[1].to(bf).requires_grad_(True)
+
+            def lib_fwd():
+                out = F.conv_transpose2d(x_cl, w_lib, b_lib, stride=2,
+                                         padding=2, output_padding=1)
+                return torch.tanh(out) if act == "tanh" else torch.relu(out)
+            lib_name = "autograd cuDNN conv_transpose2d"
+        rows.append(_timed_row(
+            flush, op, shape, co, GRAD_TABLES[op][0],
+            lambda: torch.autograd.grad(fn(*leaves, act),
+                                        [leaves[i] for i in need], g),
+            lib_name,
+            lambda: torch.autograd.grad(lib_fwd(), (x_cl, w_lib, b_lib),
+                                        g_cl),
+            None, conv5_grad_work(shape, co) if op == "conv"
+            else conv5_grad_work(out_shape[:3] + (co,), cin),
+            "forward kernel, dx and dw kernels", err))
+        # dx alone: the other op's forward kernel
+        if op == "conv":
+            gc, wc = g, conv.deconv_dx_weight(w)
+            one = torch.ones(cin, device=device)
+            zero = torch.zeros(cin, device=device)
+            dx = conv.conv_dx(gc, w, h, wd)
+            dx_ref = conv.deconv5x5_s2_plain(gc, wc, one, zero)
+            dx_path = conv.deconv_path_on_card(gc, wc, dx)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            padded = (b, cin, h + 3, wd + 3)
+            dx_lib = ("cuDNN conv2d_input", lambda: torch.nn.grad.conv2d_input(
+                padded, w_oihw, g_cl, stride=2))
+            dx_fn = (lambda: conv.conv_dx(gc, w, h, wd),
+                     lambda: conv.deconv5x5_s2_plain(gc, wc, one, zero))
+            dx_work = conv_dx_work(shape, co)
+            dw_x, dw_g, dw_shape, dw_co = x, g, shape, co
+        else:
+            d, wc = g, conv.deconv_dx_weight(w)
+            zero = torch.zeros(cin, device=device)
+            dx = conv.conv5x5_s2_act(d, wc, zero, "none")
+            dx_ref = conv.conv5x5_s2_act_plain(d, wc, zero, "none")
+            dx_path = conv.conv_path_on_card(d, wc, dx)
+            d_pad = F.pad(_nchw(d), (1, 2, 1, 2)).contiguous(
+                memory_format=torch.channels_last)
+            wc_oihw = wc.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            dx_lib = ("cuDNN conv2d", lambda: F.conv2d(d_pad, wc_oihw,
+                                                       stride=2))
+            dx_fn = (lambda: conv.conv5x5_s2_act(d, wc, zero, "none"),
+                     lambda: conv.conv5x5_s2_act_plain(d, wc, zero, "none"))
+            dx_work = conv_work(out_shape[:3] + (co,), cin)
+            dw_x, dw_g, dw_shape, dw_co = d, x, out_shape[:3] + (co,), cin
+        err_dx = hold(dx, dx_ref, *TOL, f"{op} dx {shape}->{co}",
+                      rel_to_max=True)
+        rows.append(_timed_row(flush, op, shape, co, GRAD_TABLES[op][1],
+                               dx_fn[0], dx_lib[0], dx_lib[1], dx_fn[1],
+                               dx_work, dx_path, err_dx))
+        # dw alone
+        dw = conv.conv5x5_s2_dw(dw_x, dw_g, bf)
+        err_dw = hold(dw, conv.conv5x5_s2_dw_plain(dw_x, dw_g, bf), *TOL,
+                      f"{op} dw {shape}->{co}", rel_to_max=True)
+        xp = F.pad(_nchw(dw_x), (1, 2, 1, 2)).contiguous(
+            memory_format=torch.channels_last)
+        dw_oihw = (dw_co, dw_shape[-1], 5, 5)
+        rows.append(_timed_row(
+            flush, op, shape, co, "conv5x5_s2_dw",
+            lambda: conv.conv5x5_s2_dw(dw_x, dw_g, bf),
+            "cuDNN conv2d_weight (input padded beforehand)",
+            lambda: torch.nn.grad.conv2d_weight(xp, dw_oihw, _nchw(dw_g),
+                                                stride=2),
+            lambda: conv.conv5x5_s2_dw_plain(dw_x, dw_g, bf),
+            conv_dw_work(dw_shape, dw_co), conv_dw_tag(conv, dw_x, dw_g),
+            err_dw))
+        del x, w, g, xs, leaves, x_cl, g_cl, dx, dx_ref, dw, xp
+        torch.cuda.empty_cache()
+    return rows
+
+
 def bench_join(device, flush, gen) -> List[Dict]:
     from text_to_image_tpu_torch.ops.kernels import fused
     rows = []
@@ -636,9 +853,10 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def run(grad: bool, device=None) -> Dict:
-    """Every row of the default bench (or of ``--upconv --grad``) on
-    `device` (card 0); returns {"card", "rows"}."""
+def run(grad, device=None) -> Dict:
+    """Every row of the default bench (or, `grad` naming ops of
+    GRAD_TABLES, of their ``--grad`` tables) on `device` (card 0); returns
+    {"card", "rows"}."""
     from text_to_image_tpu_torch.ops.kernels import _build
     device = device or torch.device("cuda", 0)
     _build.build(_build.sources())
@@ -650,8 +868,13 @@ def run(grad: bool, device=None) -> Dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         if grad:
-            rows = (bench_upconv_grad(device, flush, gen)
-                    + bench_upconv_bwd(device, flush, gen))
+            rows = []
+            if "upconv" in grad:
+                rows += (bench_upconv_grad(device, flush, gen)
+                         + bench_upconv_bwd(device, flush, gen))
+            for op in ("conv", "deconv"):
+                if op in grad:
+                    rows += bench_conv5_grad(op, device, flush, gen)
         else:
             rows = []
             for fn in (bench_deconv, bench_conv, bench_upconv, bench_join,
@@ -671,18 +894,21 @@ def run(grad: bool, device=None) -> Dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--upconv", action="store_true",
-                   help="with --grad: the upconv forward + backward table")
+    for op in GRAD_TABLES:
+        p.add_argument(f"--{op}", action="store_true",
+                       help=f"with --grad: the {op} forward + backward table")
     p.add_argument("--grad", action="store_true",
-                   help="with --upconv: time forward + backward")
+                   help="with --upconv, --conv or --deconv: time forward + "
+                        "backward and the backward's kernels")
     args = p.parse_args(argv)
-    if args.grad != args.upconv:
-        p.error("--upconv and --grad go together (the default table has "
-                "every kernel's forward)")
+    ops = [op for op in GRAD_TABLES if getattr(args, op)]
+    if args.grad != bool(ops):
+        p.error("--grad goes with --upconv, --conv or --deconv (the default "
+                "table has every kernel's forward)")
     if not torch.cuda.is_available():
         print("bench_kernels needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    out = run(args.grad)
+    out = run(ops)
     print(table(out["rows"]))
     print(out["card"])
     path = os.path.join(os.getcwd(), "chiprun_out",

@@ -79,7 +79,8 @@ def counters() -> list:
     return [conv.deconv5x5_s2, conv.conv5x5_s2_act, conv.upconv3x3,
             conv.upconv3x3_dx, conv.upconv3x3_dw, fused.bn_stats,
             fused.bn_partials, fused.bn_finish, fused.bn_act,
-            fused.bn_bwd_reduce, fused.bn_bwd_apply, fused.conditioning_join]
+            fused.bn_bwd_reduce, fused.bn_bwd_apply, fused.conditioning_join,
+            conv.conv5x5_s2_dw]
 
 
 def _sync(device: torch.device) -> None:

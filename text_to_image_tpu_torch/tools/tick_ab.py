@@ -1,6 +1,7 @@
 """Training ticks of several checkouts of this repository, in turns on one
-card: the GAN-CLS 64 px and the StackGAN Stage-II 256 px tick at the shipped
-configs' full widths (batch 64, bf16) — ms per tick, images/s, peak memory,
+card: the GAN-CLS 64 px, the WGAN-CLS 64 px and the StackGAN Stage-II 256 px
+tick at the shipped configs' full widths (batch 64, bf16) — ms per tick,
+images/s, peak memory,
 and device time by kernel family with the launches per tick — for a
 before/after comparison inside one run.
 
@@ -36,7 +37,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 _build.build(_build.sources())
 device = torch.device("cuda", 0)
 out = {}
-for model, n in (("gancls", 10), ("stackgan_stage2", 5)):
+for model, n in (("gancls", 10), ("wgancls", 5), ("stackgan_stage2", 5)):
     tick, state = ticks.tick_timing(device, model, n)
     tick["profile"] = ticks.tick_profile(*state, tick["tick_ms"])
     out[model] = tick

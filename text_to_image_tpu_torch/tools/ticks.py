@@ -7,7 +7,9 @@ and profiled: the numbers ``chip_smoke.py`` reports for the ticks and that
   the card, and the peak memory;
 * `tick_profile` — the device time a tick by kernel family
   (torch.profiler), the device's busy and idle share and the launches a
-  tick.
+  tick; the library convolutions over a 5×5 filter a tick (from the
+  recorded shapes of ``aten::convolution`` / ``convolution_backward``) and
+  the conv5x5_s2_dw launches a tick.
 
 Needs a GPU (CUDA events, the profiler's device activity).
 """
@@ -89,6 +91,10 @@ def kernel_family(name: str) -> str:
     low = name.lower()
     for keys, fam in (
             (("deconv5x5_s2", "namespace)::deconv"), "deconv5x5_s2 (CUDA)"),
+            # csrc/wgrad.cuh's dw_* kernels serve both ops and carry the
+            # op's policy in their names: CDw the conv's (so before
+            # "::dw_"), Dw the up-block's
+            (("namespace)::cdw",), "conv5x5_s2_dw (CUDA)"),
             (("namespace)::upconvdx", "namespace)::dx_", "namespace)::dw_"),
              "upconv3x3 backward (CUDA)"),
             (("namespace)::upconv", "combine_kernel"), "upconv3x3 (CUDA)"),
@@ -110,11 +116,29 @@ def kernel_family(name: str) -> str:
     return "other torch elementwise"
 
 
+# the dispatcher ops every library convolution passes through, and where
+# their weight is among the recorded input shapes
+CONV_OPS = {"aten::convolution": 1, "aten::convolution_backward": 2}
+
+
+def library_conv5x5(prof) -> int:
+    """Calls of a library convolution over a 5×5 filter in a profile
+    recorded with shapes: `CONV_OPS` whose weight ends in 5, 5."""
+    calls = 0
+    for e in prof.key_averages(group_by_input_shape=True):
+        i = CONV_OPS.get(e.key)
+        if (i is not None and len(e.input_shapes) > i
+                and list(e.input_shapes[i][-2:]) == [5, 5]):
+            calls += e.count
+    return calls
+
+
 def tick_profile(ts, step, batch, tick_ms):
     """Device time per training tick by kernel family (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
     n = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         for _ in range(n):
             ts, m = step(ts, batch)
         torch.cuda.synchronize()
@@ -138,7 +162,17 @@ def tick_profile(ts, step, batch, tick_ms):
     print(f"  device busy {busy:.4f} ms of {tick_ms:.4f} ms per tick (idle "
           f"share {1 - busy / tick_ms:.1%}); {launches / n:.0f} kernel "
           f"launches per tick", flush=True)
+    # conv5x5_s2_dw: one reduction launch a call (a chunk: one on every
+    # main path)
+    dw = sum(e.count for e in prof.key_averages()
+             if is_kernel(e) and "dw_reduce_kernel" in e.key
+             and kernel_family(e.key) == "conv5x5_s2_dw (CUDA)") / n
+    lib5 = library_conv5x5(prof) / n
+    print(f"  {lib5:g} library convolutions over a 5×5 filter and {dw:g} "
+          f"conv5x5_s2_dw launches per tick", flush=True)
     return {"ms_per_tick_by_family": fams, "device_busy_ms": busy,
             "tick_ms": tick_ms, "idle_share": 1 - busy / tick_ms,
             "kernels_per_tick": launches / n,
-            "top_kernels_ms_calls_name": top}
+            "top_kernels_ms_calls_name": top,
+            "library_conv5x5_per_tick": lib5,
+            "conv5x5_s2_dw_per_tick": dw}
