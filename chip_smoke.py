@@ -27,13 +27,17 @@
    version, in f32 with TF32 off; the up-block's two backward kernels,
    ``upconv3x3_dx`` and ``upconv3x3_dw``, against their plain versions at
    the StackGAN, C-PGGAN and odd shapes (bf16 and f32, bit for bit between
-   two launches, each path read back from C); the 5×5 ops' weight-gradient
-   kernel ``conv5x5_s2_dw`` against its plain version at every main-path
-   call (the 64 px and 256 px D's convs, the GAN-CLS generator's deconvs)
-   and the odd shapes (phase 3c: bf16 and f32, bit for bit twice, every
-   path reached), and both weight-gradient kernels at Cin·Co over 1 M,
-   where their workspace is walked in chunks (an up-block of that size
-   forward and backward through its Function);
+   two launches, each path and what each dw launch did read back from C:
+   dw from the kernel itself, parts summed across a cluster, the
+   workspace, the on-chip fold and its 32-column tile); the 5×5 ops'
+   weight-gradient kernel ``conv5x5_s2_dw`` against its plain version at
+   every main-path call (the 64 px and 256 px D's convs, the GAN-CLS
+   generator's deconvs in their own weight layout) and the odd shapes
+   (phase 3c: bf16 and f32, bit for bit twice, every path and mode
+   reached, the RGB layers' staged rows among them), and both
+   weight-gradient kernels at Cin·Co over 1 M (bf16 on chip with no
+   workspace; the up-block's f32 tile walking Cin in chunks; an up-block
+   of that size forward and backward through its Function);
 3. drives the sampling path at the flagship widths (gf 128, z 100,
    embed 1024, batch 64, bf16) through ``eval/sampler.py`` — the sample grid
    and both interpolation grids — plus the BN-folded serving generator, with
@@ -368,6 +372,10 @@ WGMMA_DECONV_ODD_SHAPES = [((1, 5, 7, 64), 64, "relu"),
                            ((2, 6, 5, 64), 192, "none"),
                            ((1, 4, 8, 64), 128, "none"),
                            ((3, 8, 4, 128), 192, "lrelu")]
+# upconv3x3_dw's on-chip fold off the main path: its 32-column tile at Co
+# 96 and 32, K of one or two slices, maps of several images a box
+FOLD_UPCONV_ODD_SHAPES = [((2, 4, 4, 64), 96), ((3, 2, 8, 64), 32),
+                          ((2, 8, 8, 128), 32)]
 WGMMA_UPCONV_ODD_SHAPES = [((1, 5, 7, 64), 64, "relu"),
                            ((3, 5, 3, 128), 192, "lrelu"),
                            ((2, 7, 9, 64), 128, "tanh"),
@@ -1023,17 +1031,20 @@ def phase_upconv_bwd_kernels(device):
     """The up-block's two backward kernels, upconv3x3_dx and upconv3x3_dw,
     against their plain versions on the same inputs, bf16 and f32, at the
     eight StackGAN shapes, the six C-PGGAN shapes, the odd shapes (ragged
-    channels, every activation's shapes) and the wgmma path's odd shapes
-    (B = 1, M not a multiple of a tile, non-square maps): each output bit
-    for bit between two launches, the path read back from the C entry
-    point and held against the Python mirror, logged with its plan."""
+    channels, every activation's shapes), the wgmma path's odd shapes
+    (B = 1, M not a multiple of a tile, non-square maps) and the on-chip
+    fold's (FOLD_UPCONV_ODD_SHAPES): each output bit for bit between two
+    launches, the path read back from the C entry point and held against
+    the Python mirror, logged with its plan; each dw launch's modes read
+    back and held against `conv.dw_modes`, every mode reached."""
     from text_to_image_tpu_torch.ops.kernels import conv
     gen = torch.Generator().manual_seed(SEED + 17)
     errs = {"upconv3x3_dx": {}, "upconv3x3_dw": {}}
     paths = []
+    seen = set()
     shapes = list(dict.fromkeys(
         UPCONV_SHAPES["stage1"] + UPCONV_SHAPES["stage2"]
-        + PGGAN_UPCONV_SHAPES
+        + PGGAN_UPCONV_SHAPES + FOLD_UPCONV_ODD_SHAPES
         + [(s, c) for s, c, _ in ODD_UPCONV_SHAPES + WGMMA_UPCONV_ODD_SHAPES]))
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype)[6:]
@@ -1058,6 +1069,13 @@ def phase_upconv_bwd_kernels(device):
                 what = f"{name} {dt} {shape}->{co}"
                 check(path == mirror, f"{what}: path {path}, the mirror "
                                       f"says {mirror}")
+                if name == "upconv3x3_dw":
+                    modes = conv.dw_mode_on_card()
+                    want = conv.dw_modes(path, conv.dw_plan(
+                        b, h, wd, cin, co, dtype), 16, cin, h, wd)
+                    check(modes == want, f"{what}: modes {sorted(modes)}, "
+                                         f"the mirror says {sorted(want)}")
+                    seen |= modes
                 check(torch.equal(got, again),
                       f"{what}: two launches differ")
                 ref = plain()
@@ -1070,29 +1088,40 @@ def phase_upconv_bwd_kernels(device):
                 del got, again, ref
             del x, w, g
             torch.cuda.empty_cache()
+    # every way a launch can go: dw from the kernel itself, parts summed
+    # across a cluster, the workspace, the on-chip fold and its 32-column
+    # tile, the per-product blocks, the producer-warp main loop
+    check(seen == {"direct", "cluster", "workspace", "fold", "bn32",
+                   "producer"}, f"upconv3x3_dw modes reached {sorted(seen)}")
+    log(f"  upconv3x3_dw modes reached (read back from C): {sorted(seen)}")
     return errs, paths
 
 
-# conv5x5_s2_dw's main-path calls as (x shape, Co): the 64 px and the
+# conv5x5_s2_dw's main-path calls as (x shape, Co, flip): the 64 px and the
 # 256 px D's convs at both batches (the D step's 3·64, the G step's 64;
 # WGAN-CLS's critic has the 64 px D's shapes), the GAN-CLS generator's
-# deconvs (their cotangent [B,2H,2W,Co] as x, their input's Cin as Co)
+# deconvs (their cotangent [B,2H,2W,Co] as x, their input's Cin as Co,
+# written in the deconv's own weight layout as its backward asks)
 CONV_DW_MAIN = list(dict.fromkeys(
-    [(s, c) for b in (D_BATCH, BATCH) for s, c, _ in conv_shapes(b)]
-    + [(s, c) for b in (D_BATCH, BATCH) for s, c, _ in conv_shapes_256(b)]
-    + [((b, 2 * h, 2 * w, co), cin)
+    [(s, c, False) for b in (D_BATCH, BATCH) for s, c, _ in conv_shapes(b)]
+    + [(s, c, False) for b in (D_BATCH, BATCH)
+       for s, c, _ in conv_shapes_256(b)]
+    + [((b, 2 * h, 2 * w, co), cin, True)
        for (b, h, w, cin), co, _ in DECONV_SHAPES]))
 # off the main path: every odd conv and deconv shape of phase 2 (odd maps
-# and ragged channels: mma and tile; even maps with a box: wgmma)
+# and ragged channels: mma and tile; even maps with a box: wgmma), the
+# deconvs' in their layout
 CONV_DW_ODD = list(dict.fromkeys(
-    [(s, c) for s, c, _ in ODD_CONV_SHAPES + WGMMA_ODD_SHAPES
+    [(s, c, False) for s, c, _ in ODD_CONV_SHAPES + WGMMA_ODD_SHAPES
      + NEAR_MISS_CONV_SHAPES + DOWN0_ODD_SHAPES]
-    + [((b, 2 * h, 2 * w, co), cin) for (b, h, w, cin), co, _ in
+    + [((b, 2 * h, 2 * w, co), cin, True) for (b, h, w, cin), co, _ in
        ODD_DECONV_SHAPES + WGMMA_DECONV_ODD_SHAPES]))
-# Cin·Co over 1 M, where one part's workspace of every product is over
-# CONV_WS_CAP and the plans walk Cin in chunks: GAN-CLS G's first deconv at
-# gf 256 (its dw: d [64,8,8,1024] against x's 2048 channels) and Stage-I's
-# first up-block at gf 256 (4²×2048→1024)
+# Cin·Co over 1 M, where one part's workspace of every product would be
+# over CONV_WS_CAP: GAN-CLS G's first deconv at gf 256 (its dw: d
+# [64,8,8,1024] against x's 2048 channels) and Stage-I's first up-block at
+# gf 256 (4²×2048→1024).  bf16 sums every part on chip there (no
+# workspace, one chunk); the up-block's f32 FMA tile keeps a workspace of
+# every part and walks Cin in chunks
 CONV_DW_CHUNKED = [((BATCH, 8, 8, 1024), 2048)]
 UPCONV_DW_CHUNKED = [((BATCH, 4, 4, 2048), 1024)]
 
@@ -1148,12 +1177,14 @@ def conv_dx_vs_plain(conv, shape, co, dtype, device, gen):
 def phase_conv_bwd_kernels(device):
     """conv5x5_s2_dw against its plain version on the same inputs, bf16
     and f32, at every main-path call (CONV_DW_MAIN) and the odd shapes
-    (CONV_DW_ODD), each output bit for bit between two launches, the path
-    read back from C and held against the Python mirror; every path
-    reached.  Then the chunked workspaces (bf16): conv5x5_s2_dw and
-    upconv3x3_dw at Cin·Co over 1 M against their plain versions, bit for
-    bit twice, and that up-block's forward and backward through its
-    autograd.Function (no raise, finite, dw as the kernel gives it).  Last
+    (CONV_DW_ODD; the deconvs' in their own weight layout), each output
+    bit for bit between two launches, the path and the launch's modes read
+    back from C and held against the Python mirrors; every path and mode
+    reached.  Then Cin·Co over 1 M: conv5x5_s2_dw and upconv3x3_dw (bf16,
+    no workspace) and the up-block's f32 FMA tile (its workspace in
+    chunks) against their plain versions, bit for bit twice, and that
+    up-block's forward and backward through its autograd.Function (no
+    raise, finite, dw as the kernel gives it).  Last
     the input gradients, bf16 and f32: the conv's dx (deconv5x5_s2) at
     CONV_DX_SHAPES and the deconv's dx (conv5x5_s2_act, bias 0) at
     DECONV_DX_SHAPES against the plain versions, each path read back from
@@ -1164,6 +1195,7 @@ def phase_conv_bwd_kernels(device):
             "deconv5x5_s2 (conv dx)": {}, "conv5x5_s2_act (deconv dx)": {}}
     paths = []
     seen = set()
+    seen_modes = set()
 
     def held(name, fn, plain, path, mirror, tag, dtype, key):
         got, again = fn(), fn()
@@ -1183,22 +1215,43 @@ def phase_conv_bwd_kernels(device):
         return got
 
     for dtype in (torch.bfloat16, torch.float32):
-        for shape, co in CONV_DW_MAIN + CONV_DW_ODD + (
-                CONV_DW_CHUNKED if dtype == torch.bfloat16 else []):
+        for shape, co, flip in CONV_DW_MAIN + CONV_DW_ODD + (
+                [(s, c, False) for s, c in CONV_DW_CHUNKED]
+                if dtype == torch.bfloat16 else []):
             b, h, wd, cin = shape
             x = torch.randn(shape, generator=gen).to(dtype).to(device)
             g = torch.randn(b, (h + 1) // 2, (wd + 1) // 2, co,
                             generator=gen).to(dtype).to(device)
             path = conv.conv_dw_path_on_card(x, g)
             seen.add((dtype, path))
-            held("conv5x5_s2_dw", lambda: conv.conv5x5_s2_dw(x, g, dtype),
-                 lambda: conv.conv5x5_s2_dw_plain(x, g, dtype), path,
-                 conv.conv_dw_path(h, wd, cin, co, dtype),
-                 conv_dw_tag(conv, x, g), dtype, (shape, co))
-            del x, g
+            dw = held("conv5x5_s2_dw",
+                      lambda: conv.conv5x5_s2_dw(x, g, dtype, flip),
+                      lambda: conv.conv5x5_s2_dw_plain(x, g, dtype, flip),
+                      path, conv.conv_dw_path(h, wd, cin, co, dtype),
+                      conv_dw_tag(conv, x, g)
+                      + (" deconv layout" if flip else ""), dtype,
+                      (shape, co))
+            modes = conv.conv_dw_mode_on_card()
+            want = conv.dw_modes(path, conv.conv_dw_plan(
+                b, h, wd, cin, co, dtype), 25, cin, *g.shape[1:3])
+            check(modes == want, f"conv5x5_s2_dw {shape}->{co}: modes "
+                                 f"{sorted(modes)}, the mirror says "
+                                 f"{sorted(want)}")
+            check(dw.shape == ((5, 5, co, cin) if flip else (5, 5, cin, co)),
+                  f"conv5x5_s2_dw {shape}->{co}: shape {tuple(dw.shape)}")
+            seen_modes |= modes
+            del x, g, dw
             torch.cuda.empty_cache()
     check(seen >= {(torch.bfloat16, p) for p in conv.DW_PATHS}
           | {(torch.float32, "tile")}, f"conv5x5_s2_dw paths reached {seen}")
+    # dw from the kernel itself, parts summed across a cluster, the
+    # workspace past a cluster, the RGB layers' staged rows, the
+    # producer-warp main loop
+    check(seen_modes == {"direct", "cluster", "workspace", "staged",
+                         "producer"},
+          f"conv5x5_s2_dw modes reached {sorted(seen_modes)}")
+    log(f"  conv5x5_s2_dw modes reached (read back from C): "
+        f"{sorted(seen_modes)}")
     # its own backward (a gradient of dw: the conv's dx and the conv)
     # against autograd through the plain version, f32
     for shape, co in (((2, 8, 6, 16), 8), ((2, 9, 7, 12), 20)):
@@ -1212,21 +1265,32 @@ def phase_conv_bwd_kernels(device):
     bf = torch.bfloat16
     for shape, co in CONV_DW_CHUNKED:
         plan = conv.conv_dw_plan(*shape, co, bf)
-        check(plan.chunk < shape[-1], f"conv5x5_s2_dw {shape}->{co}: one "
-                                      f"chunk {plan}")
+        check(plan.chunk == shape[-1] and not conv.plan_ws_elems(plan, co, 25),
+              f"conv5x5_s2_dw {shape}->{co}: a workspace {plan}")
     for shape, co in UPCONV_DW_CHUNKED:
         b, h, wd, cin = shape
         plan = conv.dw_plan(b, h, wd, cin, co, bf)
-        check(plan.chunk < cin, f"upconv3x3_dw {shape}->{co}: one chunk "
-                                f"{plan}")
+        check(plan.chunk == cin and not conv.plan_ws_elems(plan, co, 16),
+              f"upconv3x3_dw {shape}->{co}: a workspace {plan}")
+        f32 = conv.dw_plan(b, h, wd, cin, co, torch.float32)
+        check(f32.chunk < cin, f"upconv3x3_dw f32 {shape}->{co}: one chunk "
+                               f"{f32}")
         x, w, _, t = upconv_inputs(shape, co, bf, device, gen)
         g = torch.randn(b, 2 * h, 2 * wd, co, generator=gen).to(bf).to(device)
         path = conv.dw_path_on_card(x, g)
         dw = held("upconv3x3_dw", lambda: conv.upconv3x3_dw(x, g, bf),
                   lambda: conv.upconv3x3_dw_plain(x, g, bf), path,
                   conv.dw_path(h, wd, cin, co, bf),
-                  f"{bwd_path_tag('upconv3x3_dw', path, shape, co)} chunk "
-                  f"{plan.chunk}", bf, (shape, co))
+                  bwd_path_tag("upconv3x3_dw", path, shape, co), bf,
+                  (shape, co))
+        x32, g32 = x.float(), g.float()
+        held("upconv3x3_dw", lambda: conv.upconv3x3_dw(x32, g32,
+                                                       torch.float32),
+             lambda: conv.upconv3x3_dw_plain(x32, g32, torch.float32),
+             conv.dw_path_on_card(x32, g32),
+             conv.dw_path(h, wd, cin, co, torch.float32),
+             f"tile chunk {f32.chunk}", torch.float32, (shape, co))
+        del x32, g32
         xs = [v.detach().requires_grad_(True) for v in (x, w, t)]
         y = conv.upconv3x3_bias(*xs, "none")
         grads = torch.autograd.grad(y, xs, g)

@@ -317,13 +317,64 @@ def test_conv5_grad_rows_hold_then_time(cpu_bench, monkeypatch, op):
             *bk.conv_work((b, 2 * h, 2 * w, co), cin), torch.bfloat16)[0]
     assert rows[2]["bound_ms"] == bk.bound(*dw_work, torch.bfloat16)[0]
     assert "conv2d_weight" in rows[2]["library"]
-    assert rows[2]["path"] == "plain parts 1"
+    assert rows[2]["path"] == "plain parts 1 cluster 1 direct"
     plain = conv.conv5x5_s2_dw_plain
     monkeypatch.setattr(conv, "conv5x5_s2_dw",
                         lambda *a: plain(*a) * 1.1 + 0.05)
     cpu_bench.clear()
     with pytest.raises(RuntimeError, match="grad dw"):
         bk.bench_conv5_grad(op, "cpu", None, gen)
+    assert cpu_bench == []
+
+
+def test_conv_dw_rows_hold_then_time(cpu_bench, monkeypatch):
+    """The dw table of ``--conv`` / ``--deconv --grad``: a row at every
+    main-path call (CONV_DW_CALLS; the generator's deconvs in their own
+    weight layout), the kernel and cuDNN's ``conv2d_weight`` timed, the
+    work of x and g read and dw written once, the plan tagged with what
+    the launch did; a launch whose modes are not the mirror's, or a wrong
+    dw, fails."""
+    monkeypatch.setattr(bk, "CONV_DW_CALLS", [((2, 8, 6, 8), 16, False),
+                                              ((2, 8, 8, 3), 8, True)])
+    monkeypatch.setattr(conv, "conv_dw_path_on_card", lambda *a: "plain")
+    mirror = {}
+
+    def modes():
+        return mirror["modes"]
+    monkeypatch.setattr(conv, "conv_dw_mode_on_card", modes)
+    real_modes = conv.dw_modes
+
+    def record(*a):
+        mirror["modes"] = real_modes(*a)
+        return mirror["modes"]
+    monkeypatch.setattr(conv, "dw_modes", record)
+    # the wrapper's launch reads the modes back after the call: the
+    # mirror's, as the card's entry point reports them
+    real_dw = conv.conv5x5_s2_dw
+
+    def dw(x, g, w_dtype, flip=False):
+        b, h, w, cin = x.shape
+        plan = conv.conv_dw_plan(b, h, w, cin, g.shape[-1], x.dtype)
+        mirror["modes"] = real_modes("plain", plan, 25, cin, *g.shape[1:3])
+        return real_dw(x, g, w_dtype, flip)
+    monkeypatch.setattr(conv, "conv5x5_s2_dw", dw)
+    gen = torch.Generator().manual_seed(0)
+    rows = bk.bench_conv_dw("cpu", None, gen)
+    assert [r["kernel"] for r in rows] == ["conv5x5_s2_dw"] * 2
+    assert len(cpu_bench) == 4
+    assert rows[1]["shape"].endswith("(deconv layout)")
+    for r, (shape, co, _) in zip(rows, bk.CONV_DW_CALLS):
+        assert r["op"] == "dw" and r["batch"] == shape[0]
+        assert r["max_abs_err"] == 0.0 and "conv2d_weight" in r["library"]
+        assert r["bound_ms"] == bk.bound(*bk.conv_dw_work(shape, co),
+                                         torch.bfloat16)[0]
+        assert r["path"] == "plain parts 1 cluster 1 direct"
+    mirror_modes = real_modes
+    monkeypatch.setattr(conv, "dw_modes",
+                        lambda *a: mirror_modes(*a) | {"workspace"})
+    cpu_bench.clear()
+    with pytest.raises(RuntimeError, match="modes"):
+        bk.bench_conv_dw("cpu", None, gen)
     assert cpu_bench == []
 
 

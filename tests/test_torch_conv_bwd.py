@@ -142,6 +142,70 @@ def test_deconv_dx_weight_is_the_flip_of_conv_transpose():
     assert torch.equal(conv.deconv_dx_weight(wc), w)
 
 
+@pytest.mark.parametrize("shape,co", DECONV_SHAPES)
+def test_plain_dw_in_the_deconv_layout(shape, co):
+    """`flip`: the weight-gradient's plain version writes the transposed
+    conv's own layout, bit for bit `deconv_dx_weight` of the conv layout,
+    and within 1e-5 of the largest element of JAX `_deconv_bwd`'s dw (even
+    and odd maps, 3-channel inputs and outputs)."""
+    x, w, _, _ = _deconv_inputs(shape, co, seed=31)
+    ones, zeros = np.ones(co, np.float32), np.zeros(co, np.float32)
+    y, vjp = jax.vjp(lambda w_: jconv.deconv5x5_s2(x, w_, ones, zeros,
+                                                   "none"), w)
+    d = _rng(32).normal(size=y.shape).astype(np.float32)
+    ref_dw, = vjp(jnp.asarray(d))
+    tx, td = torch.from_numpy(x), torch.from_numpy(d)
+    got = conv.conv5x5_s2_dw_plain(td, tx, torch.float32, flip=True)
+    assert got.shape == (5, 5, shape[-1], co) and got.is_contiguous()
+    assert torch.equal(got, conv.deconv_dx_weight(
+        conv.conv5x5_s2_dw_plain(td, tx, torch.float32)))
+    _close(got, ref_dw, f"flipped dw {shape}")
+    assert torch.equal(conv.conv5x5_s2_dw(td, tx, torch.float32, True), got)
+
+
+def test_deconv_backward_asks_for_dw_in_its_own_layout(monkeypatch):
+    """`_Deconv.backward` has the weight-gradient kernel write dw flipped
+    and returns it as it comes: no copy of dw (the copy of w for dx
+    stays)."""
+    seen = []
+    real = conv.conv5x5_s2_dw
+
+    def spy(x, g, w_dtype, flip=False):
+        out = real(x, g, w_dtype, flip)
+        seen.append((flip, out.data_ptr()))
+        return out
+    monkeypatch.setattr(conv, "conv5x5_s2_dw", spy)
+    x, w, s_, t = map(torch.from_numpy, _deconv_inputs((2, 4, 4, 8), 6,
+                                                       seed=33))
+    w.requires_grad_(True)
+    y = conv.deconv5x5_s2(x, w, s_, t, "relu")
+    gw, = torch.autograd.grad(y.sum(), w)
+    assert [f for f, _ in seen] == [True]
+    assert gw.data_ptr() == seen[0][1]
+
+
+def test_dw_function_backward_in_the_deconv_layout(monkeypatch):
+    """`_ConvDw` with `flip` (the transposed conv's dw on the card, which
+    WGAN-CLS's gradient penalty differentiates again), its launch swapped
+    for the plain version: its backward turns the cotangent back to the
+    conv's layout, against autograd through the plain flipped version."""
+    monkeypatch.setattr(conv, "_conv_dw_forward", conv.conv5x5_s2_dw_plain)
+    for seed, shape, co in ((34, (2, 7, 6, 4), 5), (35, (2, 8, 8, 3), 6)):
+        x, _, _ = map(torch.from_numpy, _conv_inputs(shape, co, seed=seed))
+        ho, wo = conv.same_pads(shape[1])[0], conv.same_pads(shape[2])[0]
+        g = torch.from_numpy(_rng(seed).normal(
+            size=(shape[0], ho, wo, co)).astype(np.float32))
+        c = torch.from_numpy(_rng(seed + 1).normal(
+            size=(5, 5, co, shape[-1])).astype(np.float32))
+        ins = [x.requires_grad_(True), g.requires_grad_(True)]
+        got = torch.autograd.grad(
+            conv._ConvDw.apply(*ins, torch.float32, True), ins, c)
+        want = torch.autograd.grad(
+            conv.conv5x5_s2_dw_plain(*ins, torch.float32, True), ins, c)
+        for name, u, v in zip(("d/dx", "d/dg"), got, want):
+            _close(u, v.numpy(), f"flipped {name} {shape}")
+
+
 # --- the two Functions' backwards against jax.vjp ----------------------------
 
 def _vjp_check(jax_fn, torch_fn, args, what, seed=0, dtype=torch.float32,
@@ -365,19 +429,49 @@ MAIN_CALLS = ([(b, 64, 64, 3, 64) for b in (192, 64)]
 
 @pytest.mark.parametrize("b,h,w,cin,co", MAIN_CALLS)
 def test_conv_dw_plan_fills_the_card_within_the_cap(b, h, w, cin, co):
+    """The wgmma kernel: at K of at least DW_LONG_SLICES slices where
+    DW_WS_PARTS parts make at most DW_TARGET_CTAS["apart"] CTAs, that many
+    parts apart (no cluster) through a workspace under CONV_WS_CAP; else a
+    power of two of parts of at least DW_MIN_SLICES slices each, all in one
+    cluster (no workspace), the most whose CTAs stay within
+    DW_TARGET_CTAS["conv"].  The RGB layers' mma path: towards
+    DW_TARGET_CTAS["latency"], clusters of 8, the clusters' sums through a
+    workspace under CONV_WS_CAP."""
     bf16 = torch.bfloat16
     plan = conv.conv_dw_plan(b, h, w, cin, co, bf16)
     path = conv.conv_dw_path(h, w, cin, co, bf16)
     assert path == ("mma" if cin == 3 else "wgmma")
     k = b * (h // 2) * (w // 2)
-    plane = conv.dw_ws_elems(plan.chunk, co, 1, 25) * 4
-    assert plan.chunk == cin and plan.parts * plane <= conv.CONV_WS_CAP
-    blocks = -(-25 * cin // plan.tile_m) * -(-co // plan.tile_n) * plan.parts
     slices = -(-k // conv.DW_SLICE[path])
-    assert (blocks >= conv.DW_TARGET_BLOCKS
-            or plan.parts == slices // conv.DW_MIN_SLICES
-            or plan.parts == conv.CONV_WS_CAP // plane)
+    ctas = -(-25 * cin // plan.tile_m) * -(-co // plan.tile_n)
+    assert plan.chunk == cin and plan.parts % plan.cluster == 0
+    assert plan.cluster <= conv.DW_MAX_CLUSTER and not plan.fold
     assert plan.parts == 1 or slices // plan.parts >= conv.DW_MIN_SLICES
+    apart = (slices >= conv.DW_LONG_SLICES
+             and slices // conv.DW_MIN_SLICES >= conv.DW_WS_PARTS
+             and ctas * conv.DW_WS_PARTS <= conv.DW_TARGET_CTAS["apart"])
+    if path == "wgmma" and apart:
+        assert (plan.parts, plan.cluster) == (conv.DW_WS_PARTS, 1)
+        ws = conv.plan_ws_elems(plan, co, 25)
+        assert ws == conv.DW_WS_PARTS * 25 * cin * co
+        assert ws * 4 <= conv.CONV_WS_CAP
+    elif path == "wgmma":
+        top = conv.DW_MAX_CLUSTER
+        assert plan.parts == plan.cluster <= top
+        assert plan.parts & (plan.parts - 1) == 0
+        assert plan.parts == 1 or (ctas * plan.parts
+                                   <= conv.DW_TARGET_CTAS["conv"])
+        assert (2 * plan.parts > min(top, slices // conv.DW_MIN_SLICES)
+                or 2 * ctas * plan.parts > conv.DW_TARGET_CTAS["conv"])
+        assert conv.plan_ws_elems(plan, co, 25) == 0
+    else:
+        assert plan.cluster == conv.DW_MAX_CLUSTER
+        assert ctas * plan.parts <= conv.DW_TARGET_CTAS["latency"]
+        assert ctas * (plan.parts + plan.cluster) > conv.DW_TARGET_CTAS[
+            "latency"]
+        ws = conv.plan_ws_elems(plan, co, 25)
+        assert ws == plan.groups * 25 * cin * co and ws * 4 <= \
+            conv.CONV_WS_CAP
 
 
 @pytest.mark.parametrize("what,b,h,w,cin,co,products", [
@@ -390,19 +484,32 @@ def test_conv_dw_plan_fills_the_card_within_the_cap(b, h, w, cin, co):
     ("upconv3x3_dw", 64, 4, 4, 2048, 1024, 16),
     ("upconv3x3_dw", 64, 4, 4, 1536, 768, 16)])
 def test_wgrad_plans_chunk_within_the_cap(what, b, h, w, cin, co, products):
-    """Over 1 M Cin·Co the workspace of one part of every product is over
-    CONV_WS_CAP: both plans walk Cin in chunks, each a multiple of the
-    tile's rows whose workspace fits, the widest such."""
+    """Over 1 M Cin·Co one part of every product would be over CONV_WS_CAP
+    in a workspace, but these plans sum every part on chip (the conv in one
+    cluster, bf16 and f32; the up-block's bf16 fold at these 4² maps): one
+    chunk, no workspace.  The up-block's f32 plan (the FMA tile: every
+    part's products in a workspace) walks Cin in chunks, each a multiple of
+    the tile's rows whose workspace fits, the widest such."""
     plan_of = conv.conv_dw_plan if products == 25 else conv.dw_plan
-    plan = plan_of(b, h, w, cin, co, torch.bfloat16)
     assert conv.dw_ws_elems(cin, co, 1, products) * 4 > conv.CONV_WS_CAP
+    for dtype in ((torch.bfloat16, torch.float32) if products == 25
+                  else (torch.bfloat16,)):
+        plan = plan_of(b, h, w, cin, co, dtype)
+        assert plan.chunk == cin, dtype
+        assert conv.plan_ws_elems(plan, co, products) == 0, dtype
+    assert plan_of(b, h, w, cin, co, torch.bfloat16).fold == (products == 16)
+    if products == 25:
+        return
+    plan = plan_of(b, h, w, cin, co, torch.float32)
+    planes = plan.groups * products
     assert plan.chunk < cin and plan.chunk % plan.tile_m == 0
     assert cin % plan.tile_m == 0
-    ws = plan.parts * conv.dw_ws_elems(plan.chunk, co, 1, products) * 4
-    assert ws <= conv.CONV_WS_CAP
-    assert (conv.dw_ws_elems(plan.chunk + plan.tile_m, co, 1, products) * 4
+    ws = conv.plan_ws_elems(plan, co, products)
+    assert 0 < ws * 4 <= conv.CONV_WS_CAP
+    assert ws == conv.dw_ws_elems(plan.chunk, co, 1, planes)
+    assert (conv.dw_ws_elems(plan.chunk + plan.tile_m, co, 1, planes) * 4
             > conv.CONV_WS_CAP)
-    assert plan.chunk == conv.wgrad_chunk(cin, co, products, plan.tile_m)
+    assert plan.chunk == conv.wgrad_chunk(cin, co, planes, plan.tile_m)
 
 
 def test_wgrad_chunk_is_cin_below_the_cap():
@@ -410,6 +517,91 @@ def test_wgrad_chunk_is_cin_below_the_cap():
     assert conv.wgrad_chunk(1024, 512, 16, 128) == 1024
     with pytest.raises(ValueError, match="workspace"):
         conv.wgrad_chunk(64, 2**15, 25, 64)
+
+
+# every up-block call of the training paths (tests/test_torch_upconv_bwd.py
+# MAIN_CALLS) as (B, H = W, Cin, Co)
+UPCONV_CALLS = [(64, 4, 1024, 512), (64, 8, 512, 256), (64, 16, 256, 128),
+                (64, 32, 128, 64), (64, 16, 512, 256), (64, 32, 256, 128),
+                (64, 64, 128, 64), (64, 128, 64, 64), (64, 4, 512, 512),
+                (64, 8, 512, 512), (32, 64, 128, 64), (32, 128, 64, 32)]
+# the main-path calls that keep a workspace: the RGB layers' conv dw (the
+# mma path: more parts than a cluster holds, their clusters' taps summed
+# by a second launch), the conv dw at long K with few tiles (10 parts
+# apart), C-PGGAN's Co 32 up-blocks (the fold's clusters of 4 parts in
+# groups) and every up-block on the per-product blocks
+CONV_WS_CALLS = [c for c in MAIN_CALLS
+                 if c[3] == 3 or (c[0] * c[1] * c[2] // 4 >= 512 * 64
+                                  and c[3] <= 128)]
+UPCONV_WS_CALLS = [c for c in UPCONV_CALLS if c[1] > 4 or c[0] != 64]
+
+
+@pytest.mark.parametrize("op,call", [("conv", c) for c in MAIN_CALLS]
+                         + [("upconv", c) for c in UPCONV_CALLS])
+def test_no_workspace_where_the_parts_fit_a_cluster(op, call):
+    """A plan whose parts one cluster holds (at most 8 CTAs: the conv's
+    parts, the up-block fold's parts times its two parities) allocates no
+    workspace; one that needs more sums each cluster on chip and only the
+    clusters through the workspace (the conv's 10 parts apart: clusters of
+    one).  Only the up-block's per-product blocks keep a workspace of
+    every part whatever their number."""
+    bf16 = torch.bfloat16
+    if op == "conv":
+        plan = conv.conv_dw_plan(*call, bf16)
+        ws = conv.plan_ws_elems(plan, call[-1], 25)
+        split = 1
+    else:
+        b, r, cin, co = call
+        plan = conv.dw_plan(b, r, r, cin, co, bf16)
+        ws = conv.plan_ws_elems(plan, co, 16)
+        split = 2 if plan.fold else 1
+    assert plan.cluster * split <= conv.DW_MAX_CLUSTER
+    if op == "conv" or plan.fold:
+        assert (ws == 0) == (plan.groups == 1)
+    else:
+        assert plan.cluster == 1 and ws > 0
+    assert (ws > 0) == (call in (CONV_WS_CALLS if op == "conv"
+                                 else UPCONV_WS_CALLS))
+
+
+def test_workspace_only_at_the_listed_shapes():
+    """The calls that keep a workspace, as `CONV_WS_CALLS` and
+    `UPCONV_WS_CALLS` list them: the four RGB conv calls of the two
+    discriminators, the GAN-CLS generator's RGB deconv, the long-K convs
+    of few tiles (the 64 px D's 32² layer at 3·64, the 256 px D's 128² and
+    64² layers), and the up-blocks past the 4² maps."""
+    assert CONV_WS_CALLS == [(192, 64, 64, 3, 64), (64, 64, 64, 3, 64),
+                             (192, 32, 32, 64, 128),
+                             (192, 256, 256, 3, 64), (64, 256, 256, 3, 64),
+                             (192, 128, 128, 64, 128),
+                             (192, 64, 64, 128, 256),
+                             (64, 128, 128, 64, 128),
+                             (64, 64, 64, 128, 256), (64, 64, 64, 3, 128)]
+    assert [c for c in UPCONV_CALLS if c not in UPCONV_WS_CALLS] == [
+        (64, 4, 1024, 512), (64, 4, 512, 512)]
+
+
+@pytest.mark.parametrize("call,dtype,modes", [
+    # the D's 8² layer: one part, dw straight from the kernel
+    ((192, 8, 8, 256, 512), torch.bfloat16, {"direct", "producer"}),
+    # its 16² layer: 4 parts summed across a cluster
+    ((192, 16, 16, 128, 256), torch.bfloat16, {"direct", "cluster",
+                                               "producer"}),
+    # the RGB layer: staged rows, clusters of 8 and their workspace
+    ((192, 64, 64, 3, 64), torch.bfloat16, {"workspace", "cluster",
+                                            "staged"}),
+    # an odd RGB map (no slice is one row of g's map): the gather
+    ((2, 9, 7, 3, 64), torch.bfloat16, {"direct"}),
+    # f32: the FMA tile, one part
+    ((2, 8, 8, 64, 64), torch.float32, {"direct"})])
+def test_dw_modes_mirror_the_launch(call, dtype, modes):
+    """What `dw_modes` says a conv5x5_s2_dw launch does (the C entry
+    point's Mode bits, read back on the card by chip_smoke.py)."""
+    b, h, w, cin, co = call
+    path = conv.conv_dw_path(h, w, cin, co, dtype)
+    plan = conv.conv_dw_plan(b, h, w, cin, co, dtype)
+    assert conv.dw_modes(path, plan, 25, cin, conv.same_pads(h)[0],
+                         conv.same_pads(w)[0]) == modes
 
 
 # --- the wrapper ----------------------------------------------------------------

@@ -6,6 +6,7 @@ checkout's package rather than from the root script, and
 spec's outcome the one of a launch of its own)."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -53,6 +54,14 @@ def test_tick_config_is_the_shipped_yaml_on_synthetic_data(model):
      "true>", "conv5x5_s2_dw (CUDA)"),
     ("void (anonymous namespace)::dw_tile_kernel<(anonymous namespace)::Dw, "
      "float>", "upconv3x3 backward (CUDA)"),
+    ("void (anonymous namespace)::dw_fold_kernel<32>",
+     "upconv3x3 backward (CUDA)"),
+    ("void (anonymous namespace)::dw_reduce_kernel<(anonymous namespace)::"
+     "Plain<9>, (anonymous namespace)::Dw>", "upconv3x3 backward (CUDA)"),
+    ("void (anonymous namespace)::dw_reduce_kernel<(anonymous namespace)::"
+     "Plain<25>, (anonymous namespace)::CDw>", "conv5x5_s2_dw (CUDA)"),
+    ("void (anonymous namespace)::dw_mma_kernel<(anonymous namespace)::CDw, "
+     "true, true>", "conv5x5_s2_dw (CUDA)"),
     ("void (anonymous namespace)::bn_reduce_kernel<true>",
      "batch norm (CUDA)"),
     ("down0_mma_kernel", "conv5x5_s2_act (CUDA)"),
@@ -65,6 +74,29 @@ def test_tick_config_is_the_shipped_yaml_on_synthetic_data(model):
     ("vectorized_elementwise_kernel<mul>", "other torch elementwise")])
 def test_kernel_families(name, family):
     assert ticks.kernel_family(name) == family
+
+
+def test_conv5x5_dw_launches_count_the_products_kernels():
+    """A conv5x5_s2_dw call is one launch of its products' kernel (wgmma,
+    mma or tile); its reduction runs only where the plan has a workspace
+    and is not a call; the up-block's dw kernels and host ranges are not
+    counted."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    ns = "void (anonymous namespace)::"
+    events = [
+        types.SimpleNamespace(key=k, count=c, device_type=d) for k, c, d in (
+            (ns + "dw_wgmma_kernel<(anonymous namespace)::CDw, 128, 128>",
+             6, cuda),
+            (ns + "dw_mma_kernel<(anonymous namespace)::CDw, true, true>",
+             3, cuda),
+            (ns + "dw_reduce_kernel<(anonymous namespace)::Plain<25>, "
+             "(anonymous namespace)::CDw>", 3, cuda),
+            (ns + "dw_fold_kernel<64>", 4, cuda),
+            (ns + "dw_wgmma_kernel<(anonymous namespace)::Dw, 128, 128>",
+             4, cuda),
+            (ns + "dw_mma_kernel<(anonymous namespace)::CDw, true, true>",
+             1, cpu))]
+    assert ticks.conv5x5_dw_launches(events) == 9
 
 
 def test_library_conv5x5_counts_the_5x5_library_convolutions():

@@ -290,24 +290,39 @@ MAIN_CALLS = [(64, 4, 1024, 512), (64, 8, 512, 256), (64, 16, 256, 128),
 
 @pytest.mark.parametrize("b,r,cin,co", MAIN_CALLS)
 def test_dw_plan_fills_the_card_within_the_workspace_cap(b, r, cin, co):
+    """Every main-path up-block takes wgmma (Co 32 too).  K of at most
+    DW_FOLD_SLICES slices or Co 32: the on-chip fold (64 × 64 or 64 × 32
+    tiles, two CTAs a part, up to 4 parts a cluster, towards
+    DW_TARGET_CTAS["fold"]); else the per-product blocks (tiles of 64 or
+    128, towards DW_TARGET_CTAS["products"], every part through the
+    workspace).  Each part at least DW_MIN_SLICES slices; the workspace
+    under CONV_WS_CAP."""
     bf16 = torch.bfloat16
     k = b * r * r
     plan = conv.dw_plan(b, r, r, cin, co, bf16)
     path = conv.dw_path(r, r, cin, co, bf16)
-    assert path == ("mma" if co % 64 else "wgmma")
+    assert path == "wgmma"
     assert conv.dx_path(cin, co, bf16) == ("pipelined" if co % 64
                                            else "wgmma")
-    if path == "wgmma":
-        assert cin % plan.tile_m == 0 and co % plan.tile_n == 0
-    plane = conv.dw_ws_elems(cin, co, 1) * 4
-    assert plan.parts * plane <= conv.CONV_WS_CAP
-    blocks = -(-cin // plan.tile_m) * -(-co // plan.tile_n) * 16 * plan.parts
     slices = -(-k // conv.DW_SLICE[path])
-    # as many blocks as the target asks, unless K or the workspace is short
-    assert (blocks >= conv.DW_TARGET_BLOCKS
-            or plan.parts == slices // conv.DW_MIN_SLICES
-            or plan.parts == conv.CONV_WS_CAP // plane)
+    assert plan.fold == (co % 64 != 0 or slices <= conv.DW_FOLD_SLICES)
+    if plan.fold:
+        assert plan.tile_m == 64 and plan.tile_n == (64 if co % 64 == 0
+                                                     else 32)
+        ctas = cin // 64 * (co // plan.tile_n) * 2
+        assert plan.cluster <= conv.DW_MAX_CLUSTER // 2
+        target = conv.DW_TARGET_CTAS["fold"]
+    else:
+        assert cin % plan.tile_m == 0 and co % plan.tile_n == 0
+        ctas = cin // plan.tile_m * (co // plan.tile_n) * 16
+        assert plan.cluster == 1
+        target = conv.DW_TARGET_CTAS["products"]
+    assert plan.parts % plan.cluster == 0
+    assert plan.parts == 1 or ctas * plan.parts <= target
     assert plan.parts == 1 or slices // plan.parts >= conv.DW_MIN_SLICES
+    ws = conv.plan_ws_elems(plan, co, 16)
+    assert ws * 4 <= conv.CONV_WS_CAP
+    assert (ws == 0) == (plan.fold and plan.groups == 1)
     assert conv.dw_plan(b, r, r, cin, co, torch.float32)[:2] == (64, 64)
     assert conv.dw_path(r, r, cin, co, torch.float32) == "tile"
     assert conv.dw_path(r, r, cin, co, bf16, aligned=False) == "tile"
@@ -356,40 +371,135 @@ def test_dw_odd_maps_take_no_box(h, w):
     ((4, 4), 64, 64, torch.bfloat16, True, "wgmma", "wgmma"),
     ((4, 4), 128, 192, torch.bfloat16, True, "wgmma", "wgmma"),
     ((5, 7), 128, 192, torch.bfloat16, True, "wgmma", "mma"),
-    ((4, 4), 64, 32, torch.bfloat16, True, "pipelined", "mma"),
+    ((4, 4), 64, 32, torch.bfloat16, True, "pipelined", "wgmma"),
     ((4, 4), 16, 8, torch.bfloat16, True, "pipelined", "mma"),
     ((4, 4), 64, 64, torch.bfloat16, False, "tile", "tile"),
     ((4, 4), 12, 20, torch.bfloat16, True, "tile", "tile"),
     ((4, 4), 64, 64, torch.float32, True, "tile", "tile")])
 def test_path_rules_mirror_the_kernels(hw, cin, co, dtype, aligned, dx, dw):
     """dx: wgmma for bf16 with Cin and Co multiples of 64, mma.sync
-    (pipelined) for multiples of 8, else the simple tile; dw: wgmma where
-    the map also has a TMA box, then mma.sync for multiples of 8, else the
-    FMA tile (f32 always)."""
+    (pipelined) for multiples of 8, else the simple tile; dw: wgmma for
+    bf16 with Cin a multiple of 64 and Co of 32 where the map also has a
+    TMA box, then mma.sync for multiples of 8, else the FMA tile (f32
+    always).  On wgmma the 4² maps at batch 64 (16 slices) and Co 32 fold
+    on chip (64 × 64 or 64 × 32 tiles); the per-product blocks take the
+    widest of 64 or 128 that divides Cin and Co."""
     h, w = hw
     assert conv.dx_path(cin, co, dtype, aligned) == dx
     assert conv.dw_path(h, w, cin, co, dtype, aligned) == dw
     plan = conv.dw_plan(64, h, w, cin, co, dtype, aligned)
+    assert plan.fold == (dw == "wgmma")
     assert (plan.tile_m, plan.tile_n) == (
-        (128 if cin % 128 == 0 else 64, 128 if co % 128 == 0 else 64)
-        if dw == "wgmma" else (64, 64))
+        (64, 64 if co % 64 == 0 else 32) if dw == "wgmma" else (64, 64))
+    plan = conv.dw_plan(64, 2 * h, 2 * w, cin, co, dtype, aligned)
+    if dw == "wgmma" and co % 64 == 0:
+        assert not plan.fold and (plan.tile_m, plan.tile_n) == (
+            128 if cin % 128 == 0 else 64, 128 if co % 128 == 0 else 64)
 
 
 def test_dw_plan_refuses_a_workspace_over_the_cap():
-    """Stage-I's first up-block at gf 256 (4²×2048→1024): one part of its
-    16 products over every Cin is 128 MiB, over CONV_WS_CAP, so the plan
-    walks Cin in chunks whose workspace stays within the cap (the parent
-    raised here); a chunk of one tile that does not fit still raises."""
+    """Stage-I's first up-block at gf 256 (4²×2048→1024): bf16 folds on
+    chip with every part in one cluster, so there is no workspace and one
+    chunk of all 2048 input channels (one part of its 16 products over
+    every Cin would be 128 MiB, over CONV_WS_CAP).  Its f32 plan (the FMA
+    tile, every part's products in a workspace) walks Cin in chunks whose
+    workspace stays within the cap; a chunk of one tile that does not fit
+    still raises."""
     plan = conv.dw_plan(64, 4, 4, 2048, 1024, torch.bfloat16)
     assert conv.dw_ws_elems(2048, 1024, 1) * 4 > conv.CONV_WS_CAP
+    assert plan.fold and plan.chunk == 2048
+    assert conv.plan_ws_elems(plan, 1024, 16) == 0
+    plan = conv.dw_plan(64, 4, 4, 2048, 1024, torch.float32)
     assert plan.chunk < 2048 and plan.chunk % plan.tile_m == 0
     assert plan.parts * conv.dw_ws_elems(plan.chunk, 1024, 1) * 4 \
         <= conv.CONV_WS_CAP
     # the widest chunk that fits: one more tile of rows would not
-    assert conv.dw_ws_elems(plan.chunk + plan.tile_m, 1024, 1) * 4 \
-        > conv.CONV_WS_CAP
+    assert conv.dw_ws_elems(plan.chunk + plan.tile_m, 1024, plan.parts) \
+        * 4 > conv.CONV_WS_CAP
     with pytest.raises(ValueError, match="workspace"):
-        conv.dw_plan(4, 4, 4, 64, 2**16, torch.bfloat16)
+        conv.dw_plan(4, 4, 4, 64, 2**16, torch.float32)
+
+
+# --- the on-chip fold's order, in numpy ---------------------------------------
+
+def _fold_on_chip(x, g):
+    """numpy replica of the wgmma path's on-chip fold for one part of K
+    (csrc/upconv3x3_bwd.cu dw_fold_kernel): the 16 f32 products [Cin × Co];
+    the CTA of row parity py takes, for tap (kh, kw), plane (py, 0)'s
+    product a = (kh >= 1 + py), c = (kw >= 1) and adds plane (py, 1)'s,
+    c = (kw >= 2); the epilogue adds the CTAs' partial taps in rank order
+    (py 0, then py 1)."""
+    b, h, w, ci = x.shape
+    co = g.shape[-1]
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    gp = g.reshape(b, h, 2, w, 2, co)
+    prod = {}
+    for py, px, a, c in conv.UPCONV_BWD_TAPS:
+        dy, dx = py + a - 1, px + c - 1
+        xs = xp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w].reshape(-1, ci)
+        prod[py, px, a, c] = (xs.T @ gp[:, :, py, :, px].reshape(-1, co)
+                              ).astype(np.float32)
+    dw = np.zeros((3, 3, ci, co), np.float32)
+    for kh in range(3):
+        for kw in range(3):
+            total = np.zeros((ci, co), np.float32)
+            for py in (0, 1):
+                a = int(kh >= 1 + py)
+                total = total + (prod[py, 0, a, int(kw >= 1)]
+                                 + prod[py, 1, a, int(kw >= 2)])
+            dw[kh, kw] = total
+    return dw
+
+
+def test_on_chip_fold_takes_each_taps_four_products():
+    """The fold's selection (one product of each plane a tap) is RECOMBINE:
+    tap (kh, kw) sums exactly the four products RECOMBINE gives it."""
+    for kh in range(3):
+        for kw in range(3):
+            picked = {(py, px, int(kh >= 1 + py), int(kw >= 1 + px))
+                      for py in (0, 1) for px in (0, 1)}
+            want = {t for i, t in enumerate(conv.UPCONV_BWD_TAPS)
+                    if conv.RECOMBINE[i][kh][kw]}
+            assert picked == want, (kh, kw)
+
+
+@pytest.mark.parametrize("shape,co", [SHAPES[0], SHAPES[1], SHAPES[2],
+                                      SHAPES[5], SHAPES[6]])
+def test_on_chip_fold_order_matches_jax_parity_dw(shape, co):
+    """The fold in the kernel's order of sums against the JAX package's
+    `_parity_dw`: f32 within 1e-5 of the largest element; bf16 inputs (f32
+    sums, one rounding) as the plain versions are held in bf16."""
+    x, _, g = _inputs(shape, co, seed=11)
+    np.testing.assert_allclose(
+        _fold_on_chip(x, g), np.asarray(jconv._parity_dw(x, g, jnp.float32)),
+        rtol=0, atol=1e-5 * float(np.abs(_fold_on_chip(x, g)).max()))
+    xb, gb = (jnp.asarray(v, jnp.bfloat16) for v in (x, g))
+    got = torch.from_numpy(_fold_on_chip(
+        np.asarray(xb.astype(jnp.float32)),
+        np.asarray(gb.astype(jnp.float32)))).bfloat16().float().numpy()
+    _close(got, jconv._parity_dw(xb, gb, jnp.bfloat16).astype(jnp.float32),
+           "fold bf16", BF16_RTOL, BF16_ATOL)
+
+
+@pytest.mark.parametrize("b,r,cin,co,dtype,modes", [
+    # Stage-I's first up-block: the fold, its two parities one cluster
+    (64, 4, 1024, 512, torch.bfloat16, {"direct", "cluster", "fold",
+                                        "producer"}),
+    # C-PGGAN's Co 32: the fold's 32-column tile, clusters of 4 parts,
+    # their groups through the workspace
+    (32, 128, 64, 32, torch.bfloat16, {"workspace", "cluster", "fold",
+                                       "bn32", "producer"}),
+    # Stage-II's 64²×128→64: the per-product blocks
+    (64, 64, 128, 64, torch.bfloat16, {"workspace", "producer"}),
+    # no box (mma) and f32 (tile): per-product blocks
+    (2, 5, 64, 64, torch.bfloat16, {"workspace"}),
+    (64, 4, 512, 512, torch.float32, {"workspace"})])
+def test_dw_modes_mirror_the_launch(b, r, cin, co, dtype, modes):
+    """What `dw_modes` says a launch does (the C entry point's Mode bits,
+    read back on the card by chip_smoke.py)."""
+    path = conv.dw_path(r, r + (r == 5) * 2, cin, co, dtype)
+    plan = conv.dw_plan(b, r, r + (r == 5) * 2, cin, co, dtype)
+    assert conv.dw_modes(path, plan, 16, cin, r, r) == modes
 
 
 # --- the backward's prologue ------------------------------------------------

@@ -229,14 +229,14 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// A bf16 tensor map with the 128-byte swizzle: `rank` (at most 5) dims, innermost
-// first, byte strides of the outer ones, one box per request; elements
-// outside the tensor arrive as zeros.  cuTensorMapEncodeTiled is reached
+// A bf16 tensor map with the 128-byte swizzle (or `swizzle`): `rank` (at
+// most 5) dims, innermost first, byte strides of the outer ones, one box
+// per request; elements outside the tensor arrive as zeros.  cuTensorMapEncodeTiled is reached
 // through the runtime, so the library links against no driver stub.
-inline cudaError_t encode_tiled(CUtensorMap* map, int rank, const void* base,
-                                const cuuint64_t* dims,
-                                const cuuint64_t* strides,
-                                const cuuint32_t* box) {
+inline cudaError_t encode_tiled(
+    CUtensorMap* map, int rank, const void* base, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -256,8 +256,8 @@ inline cudaError_t encode_tiled(CUtensorMap* map, int rank, const void* base,
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};   // up to rank 5
   const CUresult rc = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

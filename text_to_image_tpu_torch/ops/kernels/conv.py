@@ -39,20 +39,22 @@ the split of K, or the resident kernel for K of at most 8 slices),
 kernel launch (`combined_weights`).  Its backward is two hand-written
 kernels of ``csrc/upconv3x3_bwd.cu`` over the same combined taps
 (`upconv3x3_dx`: one GEMM over 16 taps of the cotangent, `dx_path`;
-`upconv3x3_dw`: 16 long-K products split over pixels, reduced and folded
-into the 3×3 taps in a fixed order, `dw_path` / `dw_plan`), in place of
-the JAX package's `_parity_dx` / `_parity_dw`.
+`upconv3x3_dw`: 16 long-K products split over pixels and folded into the
+3×3 taps in a fixed order, on chip at the 4² maps and Co 32, `dw_path` /
+`dw_plan`), in place of the JAX package's `_parity_dx` / `_parity_dw`.
 
 ``conv5x5_s2_dw``: the weight gradient of the stride-2 5×5 conv, 25
-long-K products over every output pixel split into parts and reduced in a
-fixed order (``csrc/conv5x5_s2_bwd.cu``, `conv_dw_path` / `conv_dw_plan`):
-the weight half of the JAX package's `_conv_bwd` and, with its operands
-swapped, of `_deconv_bwd`.  The input halves are the other op's forward
-kernel: the conv's dx is ``deconv5x5_s2`` of the cotangent with w flipped
-and transposed, the deconv's dx ``conv5x5_s2_act`` of its cotangent with the
-same weight.  Both kernels that take dw (``upconv3x3_dw``,
-``conv5x5_s2_dw``) walk Cin in chunks so that their workspace stays under
-CONV_WS_CAP at any Cin·Co (`wgrad_chunk`).
+long-K products over every output pixel split into parts that a
+thread-block cluster sums on chip and writes into dw, in the conv's
+layout or, for the transposed conv, in its own (``csrc/conv5x5_s2_bwd.cu``,
+`conv_dw_path` / `conv_dw_plan`): the weight half of the JAX package's
+`_conv_bwd` and, with its operands swapped, of `_deconv_bwd`.  The input
+halves are the other op's forward kernel: the conv's dx is
+``deconv5x5_s2`` of the cotangent with w flipped and transposed, the
+deconv's dx ``conv5x5_s2_act`` of its cotangent with the same weight.  A
+weight-gradient plan that needs more parts than a cluster holds (or the
+up-block's per-product blocks) takes a workspace, walked in chunks of Cin
+so that it stays under CONV_WS_CAP at any Cin·Co (`wgrad_chunk`).
 
 On CUDA each wrapper launches its hand-written kernel (each source note
 gives the bound on the H100 and the design).  On the CPU it runs the plain
@@ -287,7 +289,7 @@ class _Deconv(torch.autograd.Function):
         # _deconv_bwd: the epilogue's derivative from the saved output, then
         # the two adjoints of the (linear) transposed conv: dx the conv
         # kernel over d, dw the weight-gradient kernel with d as its map and
-        # x as its cotangent, flipped back
+        # x as its cotangent, written flipped back (no copy)
         x, w, scale, y = ctx.saved_tensors
         need = ctx.needs_input_grad
         g32 = g.float() * act_grad_from_output(ctx.act, y)
@@ -298,7 +300,7 @@ class _Deconv(torch.autograd.Function):
                                 torch.zeros(x.shape[-1], device=x.device),
                                 "none")
         if need[1]:
-            dw = deconv_dx_weight(conv5x5_s2_dw(d, x, w.dtype))
+            dw = conv5x5_s2_dw(d, x, w.dtype, True)      # flipped
         ds = None
         if need[2]:
             ones = torch.ones_like(scale)
@@ -948,10 +950,13 @@ def _bwd_lib() -> ctypes.CDLL:
         # g, wct, dx; Cin, Co, bf16
         "t2i_upconv3x3_dx_path": [_PTR] * 3 + [_INT] * 3,
         # x, g, dw, ws; B, H, W, Cin, Co, bf16, w_bf16, tile_m, tile_n,
-        # parts, chunk; stream
-        "t2i_upconv3x3_dw": [_PTR] * 4 + [_INT] * 11 + [_PTR],
+        # parts, cluster, chunk, fold; stream
+        "t2i_upconv3x3_dw": [_PTR] * 4 + [_INT] * 13 + [_PTR],
         # x, g; H, W, Cin, Co, bf16
-        "t2i_upconv3x3_dw_path": [_PTR] * 2 + [_INT] * 5})
+        "t2i_upconv3x3_dw_path": [_PTR] * 2 + [_INT] * 5,
+        "t2i_upconv3x3_dw_mode": [],
+        # csize, tile_n
+        "t2i_upconv3x3_dw_clusters": [_INT] * 2})
 
 
 # the code paths in the order of the C entry points' codes
@@ -981,7 +986,7 @@ def dw_path(h: int, w: int, cin: int, co: int, dtype: torch.dtype,
     [B,h,w,Cin].  `aligned`: x and g start on 16-byte boundaries."""
     if dtype != torch.bfloat16 or not aligned:
         return "tile"
-    if cin % 64 == 0 and co % 64 == 0 and dw_box(h, w):
+    if cin % 64 == 0 and co % 32 == 0 and dw_box(h, w):
         return "wgmma"
     return "mma" if cin % 8 == 0 and co % 8 == 0 else "tile"
 
@@ -1002,33 +1007,69 @@ def dw_box(h: int, w: int):
 
 class DwPlan(NamedTuple):
     """A launch of a weight-gradient kernel (upconv3x3_dw, conv5x5_s2_dw):
-    the [rows × Co] tile of a block (the mma and tile paths' is 64 × 64),
-    the parts K is cut into and the input channels of a chunk."""
+    the [rows × Co] tile of a block (the up-block's on-chip fold: 64 input
+    channels × 64 or 32 output channels, all 16 products; the mma and tile
+    paths' 64 × 64), the parts K is cut into, how many of them run as one
+    thread-block cluster and are summed on chip (parts // cluster > 1: the
+    clusters' sums go through a workspace), the input channels of a chunk
+    (all of Cin where there is no workspace) and, for the up-block's wgmma
+    path, whether its blocks fold the 16 products on chip or each computes
+    one product's tile (then every part through the workspace)."""
     tile_m: int
     tile_n: int
     parts: int
+    cluster: int
     chunk: int
+    fold: bool = False   # the up-block's 16 products folded on chip
+
+    @property
+    def groups(self) -> int:
+        """The clusters a tile's parts form: above 1, a workspace plane
+        each."""
+        return self.parts // self.cluster
 
 
 DW_SLICE = {"wgmma": 64, "mma": 32, "tile": 16}   # pixels a K slice
-DW_TARGET_BLOCKS = 4 * SM_COUNT        # enough to fill every SM twice over
+DW_MAX_CLUSTER = 8                     # the portable cluster size
 DW_MIN_SLICES = 8                      # the least K a part is given
+DW_TAPS = {16: 9, 25: 25}              # dw's taps by the op's products
+# The plans' targets, from tools/conv_plan_sweep.py --ops dw (every parts ×
+# cluster at every main-path call, H100 80GB HBM3, 700 W; PERF.md): the
+# CTAs a launch aims at, by kernel.  The conv's wgmma kernel does best with
+# about 200 CTAs, its parts a power of two in one cluster (clusters of 3,
+# 5-7 fit the GPCs worse); but where K is at least DW_LONG_SLICES slices
+# and DW_WS_PARTS parts make at most 500 CTAs ("apart"), that many parts
+# with no cluster and their sums through the workspace were faster than
+# any cluster (up to 1.6×; eight parts in one cluster were slower than
+# eight apart).  The up-block's per-product blocks do best at 256, the mma
+# and tile paths at 512, the on-chip fold at 112 (the card holds 120 of
+# its CTAs in clusters of 8, 132 alone).
+DW_TARGET_CTAS = {"conv": 200, "apart": 500, "products": 256,
+                  "latency": 512, "fold": 112}
+DW_LONG_SLICES = 512
+DW_WS_PARTS = 10
+# the up-block folds on chip where K is at most this many slices (the 4²
+# maps at batch 64, level with its per-product blocks) or Co is not a
+# multiple of 64 (C-PGGAN's Co 32, 4.5× faster than mma.sync); its
+# per-product blocks were faster at every other main-path call
+DW_FOLD_SLICES = 16
 
 
 def dw_ws_elems(cin: int, co: int, parts: int, products: int = 16) -> int:
-    """f32 elements of a weight-gradient workspace: the products of every
-    part over cin input channels (one chunk)."""
+    """f32 elements of `parts` workspace planes of `products` [cin × co]
+    matrices (one chunk)."""
     return parts * products * cin * co
 
 
 def wgrad_chunk(cin: int, co: int, products: int, unit: int) -> int:
     """The input channels one launch of a weight-gradient kernel covers
-    (csrc/wgrad.cuh): all of Cin where one part's workspace of `products`
-    [Cin × Co] f32 planes fits CONV_WS_CAP, else the most channels, a
-    multiple of `unit` (the tile's rows), that fit.  Each chunk holds every
-    product of its channels (the up-block folds its 16 products into 9 taps
-    within one), so the workspace stays under the cap at any Cin·Co; a
-    chunk of one unit that does not fit raises."""
+    where it has a workspace (csrc/wgrad.cuh): all of Cin where its
+    `products` [Cin × Co] f32 planes fit CONV_WS_CAP, else the most
+    channels, a multiple of `unit` (the tile's rows), that fit.  Each chunk
+    holds every product of its channels (the up-block's per-product paths
+    fold their 16 products into 9 taps within one), so the workspace stays
+    under the cap at any Cin·Co; a chunk of one unit that does not fit
+    raises."""
     if dw_ws_elems(cin, co, 1, products) * 4 <= CONV_WS_CAP:
         return cin
     chunk = CONV_WS_CAP // (dw_ws_elems(1, co, 1, products) * 4) // unit * unit
@@ -1039,22 +1080,62 @@ def wgrad_chunk(cin: int, co: int, products: int, unit: int) -> int:
 
 
 def _wgrad_plan(k: int, cin: int, co: int, products: int, path: str,
-                tm: int, tn: int, blocks_of) -> "DwPlan":
-    """The chunk of `wgrad_chunk` (unit: the tile's rows, 64 off wgmma) and
-    as many parts of the k pixels as give DW_TARGET_BLOCKS blocks
-    (`blocks_of(chunk)` a part), at most one a DW_MIN_SLICES slices and the
-    chunk's workspace under CONV_WS_CAP."""
-    chunk = wgrad_chunk(cin, co, products, tm)
-    plane = dw_ws_elems(chunk, co, 1, products) * 4
+                tm: int, tn: int, ctas_of, fold: bool = False) -> "DwPlan":
+    """The parts of the k pixels and their clusters (`ctas_of(chunk)`: the
+    CTAs of one part over a chunk), each part at least DW_MIN_SLICES
+    slices, towards DW_TARGET_CTAS.  The conv's wgmma kernel: a power of
+    two of parts, all in one cluster, no workspace; at long K with few
+    tiles DW_WS_PARTS parts apart, through the workspace.  Its mma and tile
+    paths: up to DW_MAX_CLUSTER parts a cluster, more as groups of
+    clusters whose sums go through a workspace of 25 taps each.  The
+    up-block's on-chip fold: up to 4 parts a cluster of 2 CTAs each, more
+    as groups through a workspace of 9 taps; its per-product blocks: no
+    cluster, every part's 16 products through the workspace.  A workspace
+    is walked in chunks of `wgrad_chunk`."""
     slices = -(-k // DW_SLICE[path])
-    parts = min(-(-DW_TARGET_BLOCKS // blocks_of(chunk)),
-                slices // DW_MIN_SLICES, CONV_WS_CAP // plane)
-    return DwPlan(tm, tn, max(1, parts), chunk)
+    most = max(1, slices // DW_MIN_SLICES)
+    ctas = ctas_of(cin)
+    if products == 25 and path == "wgmma":
+        if (slices >= DW_LONG_SLICES and most >= DW_WS_PARTS
+                and ctas * DW_WS_PARTS <= DW_TARGET_CTAS["apart"]):
+            return DwPlan(tm, tn, DW_WS_PARTS, 1, wgrad_chunk(
+                cin, co, DW_WS_PARTS * DW_TAPS[products], tm))
+        top = min(most, DW_MAX_CLUSTER)
+        parts = 1
+        while parts * 2 <= top and ctas * parts * 2 <= DW_TARGET_CTAS["conv"]:
+            parts *= 2
+        return DwPlan(tm, tn, parts, parts, cin)
+    kind = ("fold" if fold else "latency" if path != "wgmma"
+            else "products")
+    want = min(most, max(1, DW_TARGET_CTAS[kind] // ctas))
+    cmax = (DW_MAX_CLUSTER // 2 if fold else
+            DW_MAX_CLUSTER if products == 25 else 1)
+    cluster = min(cmax, want)
+    parts = want // cluster * cluster
+    if parts == cluster and (products == 25 or fold):
+        return DwPlan(tm, tn, parts, cluster, cin, fold)
+    planes = parts // cluster * (DW_TAPS[products] if products == 25 or fold
+                                 else products)
+    return DwPlan(tm, tn, parts, cluster, wgrad_chunk(cin, co, planes, tm),
+                  fold)
+
+
+def plan_ws_elems(plan: "DwPlan", co: int, products: int) -> int:
+    """f32 elements of the workspace a weight-gradient plan allocates (0:
+    none): on the up-block's per-product blocks every product of every
+    part; else a plane of every tap per cluster group, where there is more
+    than one; one chunk each."""
+    if products == 16 and not plan.fold:
+        return dw_ws_elems(plan.chunk, co, plan.parts, 16)
+    if plan.groups == 1:
+        return 0
+    return dw_ws_elems(plan.chunk, co, plan.groups, DW_TAPS[products])
 
 
 def _dw_tile(path: str, cin: int, co: int):
-    """The wgmma path's widest tile of 64 or 128 that divides Cin and Co;
-    64 × 64 on the others."""
+    """The per-product blocks' wgmma tile (the conv's, the up-block's past
+    the fold): the widest of 64 or 128 that divides Cin and Co; 64 × 64 on
+    the other paths."""
     if path != "wgmma":
         return 64, 64
     return (128 if cin % 128 == 0 else 64), (128 if co % 128 == 0 else 64)
@@ -1062,12 +1143,24 @@ def _dw_tile(path: str, cin: int, co: int):
 
 def dw_plan(b: int, h: int, w: int, cin: int, co: int, dtype: torch.dtype,
             aligned: bool = True) -> DwPlan:
-    """The tile, the parts and the chunk of upconv3x3_dw for x [b,h,w,Cin],
-    over its k = b·h·w pixels (`_wgrad_plan` of its 16 products, a block one
-    product's tile)."""
+    """The tile, the parts, their cluster, the chunk and the fold of
+    upconv3x3_dw for x [b,h,w,Cin], over its k = b·h·w pixels.  wgmma with
+    Co not a multiple of 64 or K of at most DW_FOLD_SLICES slices: a tile
+    of 64 input channels × 64 output channels (32 where Co is not a
+    multiple of 64), all 16 products, two CTAs a part (the row parities of
+    g), the fold on chip; else (and on the mma and tile paths) a block one
+    product's tile (`_dw_tile`), its parts through the workspace and
+    folded there."""
     path = dw_path(h, w, cin, co, dtype, aligned)
+    k = b * h * w
+    if path == "wgmma" and (co % 64 or -(-k // DW_SLICE[path])
+                            <= DW_FOLD_SLICES):
+        tn = 64 if co % 64 == 0 else 32
+        return _wgrad_plan(k, cin, co, 16, path, 64, tn,
+                           lambda c: -(-c // 64) * -(-co // tn) * 2,
+                           fold=True)
     tm, tn = _dw_tile(path, cin, co)
-    return _wgrad_plan(b * h * w, cin, co, 16, path, tm, tn,
+    return _wgrad_plan(k, cin, co, 16, path, tm, tn,
                        lambda c: -(-c // tm) * -(-co // tn) * 16)
 
 
@@ -1173,13 +1266,16 @@ def _dw_check(x, g, w_dtype):
     _bwd_common("upconv3x3_dw", [("x", x), ("g", g)], w_dtype)
 
 
-def upconv3x3_dw(x: torch.Tensor, g: torch.Tensor,
-                 w_dtype: torch.dtype) -> torch.Tensor:
+def upconv3x3_dw(x: torch.Tensor, g: torch.Tensor, w_dtype: torch.dtype,
+                 plan: "DwPlan" = None) -> torch.Tensor:
     """dw [3,3,Cin,Co] in w_dtype of conv3×3(up2(x), w) for the cotangent
     g [B,2H,2W,Co] in x's dtype: the 16 combined-tap products summed in f32
-    over every pixel, then recombined into the 3×3 taps, by one hand-written
-    kernel and its fixed-order reduction.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    over every pixel and folded into the 3×3 taps by one hand-written
+    kernel (on its wgmma path on chip, the parts a cluster holds summed
+    there; a workspace and a fixed-order reduction only past that), the
+    same bits every launch.  `plan` overrides `dw_plan` (a sweep's).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     _dw_check(x, g, w_dtype)
     if x.device.type == "cpu":
         return upconv3x3_dw_plain(x, g, w_dtype)
@@ -1187,15 +1283,18 @@ def upconv3x3_dw(x: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"upconv3x3_dw runs on cuda or cpu, not {x.device}")
     b, h, wd, cin = x.shape
     co = g.shape[-1]
-    plan = dw_plan(b, h, wd, cin, co, x.dtype, _aligned16(x, g))
-    ws = torch.empty(dw_ws_elems(plan.chunk, co, plan.parts),
-                     dtype=torch.float32, device=x.device)
+    aligned = _aligned16(x, g)
+    plan = plan or dw_plan(b, h, wd, cin, co, x.dtype, aligned)
+    n_ws = plan_ws_elems(plan, co, 16)
+    ws = (torch.empty(n_ws, dtype=torch.float32, device=x.device)
+          if n_ws else None)
     dw = torch.empty(3, 3, cin, co, dtype=w_dtype, device=x.device)
     rc = _bwd_lib().t2i_upconv3x3_dw(
-        x.data_ptr(), g.data_ptr(), dw.data_ptr(), ws.data_ptr(), b, h, wd,
-        cin, co, int(x.dtype == torch.bfloat16),
-        int(w_dtype == torch.bfloat16), plan.tile_m, plan.tile_n, plan.parts,
-        plan.chunk, _stream(x))
+        x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+        ws.data_ptr() if ws is not None else None, b, h, wd, cin, co,
+        int(x.dtype == torch.bfloat16), int(w_dtype == torch.bfloat16),
+        plan.tile_m, plan.tile_n, plan.parts, plan.cluster, plan.chunk,
+        int(plan.fold), _stream(x))
     if rc != 0:
         raise RuntimeError(f"upconv3x3_dw kernel launch failed: CUDA error "
                            f"{rc}")
@@ -1211,6 +1310,49 @@ def dw_path_on_card(x, g) -> str:
     return DW_PATHS[_bwd_lib().t2i_upconv3x3_dw_path(
         x.data_ptr(), g.data_ptr(), x.shape[1], x.shape[2], x.shape[-1],
         g.shape[-1], int(x.dtype == torch.bfloat16))]
+
+
+# what a weight-gradient launch did, in the order of csrc/wgrad.cuh's Mode
+# bits: dw written by the kernel itself (no workspace), parts summed across
+# a cluster, a workspace and its reduction, the up-block's 16 products
+# folded on chip, its 32-column tile, the RGB layers' staged gather, the
+# producer-warp main loop
+DW_MODES = ("direct", "cluster", "workspace", "fold", "bn32", "staged",
+            "producer")
+
+
+def dw_modes(path: str, plan: DwPlan, products: int, cin: int, hp: int,
+             wp: int) -> frozenset:
+    """The Python mirror of the Mode bits a launch of either weight-gradient
+    kernel reports, from its path and plan (`products` 16: upconv3x3_dw, 25:
+    conv5x5_s2_dw; hp × wp the map K runs over: g's for the conv).  The
+    conv's RGB layers stage their rows where 64 pixels are one row of g's
+    map or two whole rows of 32 (csrc/conv5x5_s2_bwd.cu can_stage)."""
+    fold_apart = products == 16 and not plan.fold
+    split = 2 if plan.fold else 1
+    modes = {"workspace" if plan.groups > 1 or fold_apart else "direct"}
+    if plan.cluster * split > 1:
+        modes.add("cluster")
+    if path == "wgmma":
+        modes.add("producer")
+    if plan.fold:
+        modes.add("fold")
+        if plan.tile_n == 32:
+            modes.add("bn32")
+    if (products == 25 and path == "mma" and cin <= 4
+            and (wp % 64 == 0 or (wp == 32 and hp % 2 == 0))):
+        modes.add("staged")
+    return frozenset(modes)
+
+
+def _modes(bits: int) -> frozenset:
+    return frozenset(n for i, n in enumerate(DW_MODES) if bits >> i & 1)
+
+
+def dw_mode_on_card() -> frozenset:
+    """What the last upconv3x3_dw launch of this process did (its C entry
+    point's Mode bits)."""
+    return _modes(_bwd_lib().t2i_upconv3x3_dw_mode())
 
 
 def act_backward(act: str, g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -1334,11 +1476,13 @@ def upconv3x3_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 # ================= conv 5x5 s2: the weight gradient (both ops) ================
 
 def conv5x5_s2_dw_plain(x: torch.Tensor, g: torch.Tensor,
-                        w_dtype: torch.dtype) -> torch.Tensor:
+                        w_dtype: torch.dtype,
+                        flip: bool = False) -> torch.Tensor:
     """The adjoint in w of conv5x5_s2 SAME for the cotangent g
     [B,⌈H/2⌉,⌈W/2⌉,Co] (in x's dtype): dw[kh,kw] = the f32 product of the
     SAME-padded x's tap view (every second pixel from (kh, kw)) against g
-    over every pixel, 25 matmuls; rounded once to w_dtype."""
+    over every pixel, 25 matmuls; rounded once to w_dtype.  `flip`: in the
+    transposed conv's weight layout, `deconv_dx_weight(dw)` [5,5,Co,Cin]."""
     b, h, wd, ci = x.shape
     co = g.shape[-1]
     ho, pt, pb = same_pads(h)
@@ -1350,16 +1494,19 @@ def conv5x5_s2_dw_plain(x: torch.Tensor, g: torch.Tensor,
         for kw in range(5):
             tap = xp[:, kh:kh + 2 * ho - 1:2, kw:kw + 2 * wo - 1:2, :]
             dw[kh, kw] = tap.reshape(-1, ci).T @ g2
-    return dw.to(w_dtype)
+    return (deconv_dx_weight(dw) if flip else dw).to(w_dtype)
 
 
 def _cdw_lib() -> ctypes.CDLL:
     return _build.bind("conv5x5_s2_bwd", {
         # x, g, dw, ws; B, H, W, Cin, Co, bf16, w_bf16, tile_m, tile_n,
-        # parts, chunk; stream
-        "t2i_conv5x5_s2_dw": [_PTR] * 4 + [_INT] * 11 + [_PTR],
+        # parts, cluster, chunk, flip; stream
+        "t2i_conv5x5_s2_dw": [_PTR] * 4 + [_INT] * 13 + [_PTR],
         # x, g; H, W, Cin, Co, bf16
-        "t2i_conv5x5_s2_dw_path": [_PTR] * 2 + [_INT] * 5})
+        "t2i_conv5x5_s2_dw_path": [_PTR] * 2 + [_INT] * 5,
+        "t2i_conv5x5_s2_dw_mode": [],
+        # csize, tile_m, tile_n
+        "t2i_conv5x5_s2_dw_clusters": [_INT] * 3})
 
 
 def conv_dw_path(h: int, w: int, cin: int, co: int, dtype: torch.dtype,
@@ -1380,9 +1527,10 @@ def conv_dw_path(h: int, w: int, cin: int, co: int, dtype: torch.dtype,
 
 def conv_dw_plan(b: int, h: int, w: int, cin: int, co: int,
                  dtype: torch.dtype, aligned: bool = True) -> DwPlan:
-    """The tile, the parts and the chunk of conv5x5_s2_dw for x [b,h,w,Cin]
-    (`_wgrad_plan` of its 25 products over k = b·⌈h/2⌉·⌈w/2⌉ pixels; a
-    block is a tile of the 25·chunk rows of the product matrix)."""
+    """The tile, the parts, their cluster and the chunk of conv5x5_s2_dw
+    for x [b,h,w,Cin] (`_wgrad_plan` of its 25 products over k =
+    b·⌈h/2⌉·⌈w/2⌉ pixels; a block is a tile of the 25·Cin rows of the
+    product matrix, which are dw's (tap, ci))."""
     path = conv_dw_path(h, w, cin, co, dtype, aligned)
     tm, tn = _dw_tile(path, cin, co)
     k = b * same_pads(h)[0] * same_pads(w)[0]
@@ -1401,18 +1549,22 @@ def _cdw_shapes(x, g):
                          f"{want[2]},Co], got {tuple(g.shape)}")
 
 
-def _conv_dw_forward(x, g, w_dtype):
+def _conv_dw_forward(x, g, w_dtype, flip=False, plan=None):
     b, h, wd, cin = x.shape
     co = g.shape[-1]
-    plan = conv_dw_plan(b, h, wd, cin, co, x.dtype, _aligned16(x, g))
-    ws = torch.empty(dw_ws_elems(plan.chunk, co, plan.parts, 25),
-                     dtype=torch.float32, device=x.device)
-    dw = torch.empty(5, 5, cin, co, dtype=w_dtype, device=x.device)
+    aligned = _aligned16(x, g)
+    plan = plan or conv_dw_plan(b, h, wd, cin, co, x.dtype, aligned)
+    n_ws = plan_ws_elems(plan, co, 25)
+    ws = (torch.empty(n_ws, dtype=torch.float32, device=x.device)
+          if n_ws else None)
+    dw = torch.empty((5, 5, co, cin) if flip else (5, 5, cin, co),
+                     dtype=w_dtype, device=x.device)
     rc = _cdw_lib().t2i_conv5x5_s2_dw(
-        x.data_ptr(), g.data_ptr(), dw.data_ptr(), ws.data_ptr(), b, h, wd,
-        cin, co, int(x.dtype == torch.bfloat16),
-        int(w_dtype == torch.bfloat16), plan.tile_m, plan.tile_n, plan.parts,
-        plan.chunk, _stream(x))
+        x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+        ws.data_ptr() if ws is not None else None, b, h, wd, cin, co,
+        int(x.dtype == torch.bfloat16), int(w_dtype == torch.bfloat16),
+        plan.tile_m, plan.tile_n, plan.parts, plan.cluster, plan.chunk,
+        int(flip), _stream(x))
     if rc != 0:
         raise RuntimeError(f"conv5x5_s2_dw kernel launch failed: CUDA error "
                            f"{rc}")
@@ -1422,17 +1574,21 @@ def _conv_dw_forward(x, g, w_dtype):
 
 class _ConvDw(torch.autograd.Function):
     """dw is bilinear in (x, g): its adjoints are the conv's dx of g with
-    the cotangent as the weight, and the conv of x with it."""
+    the cotangent as the weight, and the conv of x with it (a cotangent in
+    the flipped layout turned back to the conv's first)."""
 
     @staticmethod
-    def forward(ctx, x, g, w_dtype):
+    def forward(ctx, x, g, w_dtype, flip=False):
         ctx.save_for_backward(x, g)
-        return _conv_dw_forward(x, g, w_dtype)
+        ctx.flip = flip
+        return _conv_dw_forward(x, g, w_dtype, flip)
 
     @staticmethod
     def backward(ctx, gdw):
         x, g = ctx.saved_tensors
         need = ctx.needs_input_grad
+        if ctx.flip:
+            gdw = deconv_dx_weight(gdw)
         wd = gdw.to(x.dtype).contiguous()
         dx = conv_dx(g, wd, x.shape[1], x.shape[2]) if need[0] else None
         dg = None
@@ -1440,28 +1596,30 @@ class _ConvDw(torch.autograd.Function):
             dg = conv5x5_s2_act(x, wd,
                                 torch.zeros(g.shape[-1], device=x.device),
                                 "none")
-        return dx, dg, None
+        return dx, dg, None, None
 
 
-def conv5x5_s2_dw(x: torch.Tensor, g: torch.Tensor,
-                  w_dtype: torch.dtype) -> torch.Tensor:
+def conv5x5_s2_dw(x: torch.Tensor, g: torch.Tensor, w_dtype: torch.dtype,
+                  flip: bool = False) -> torch.Tensor:
     """dw [5,5,Cin,Co] in w_dtype of conv5x5_s2 SAME over x [B,H,W,Cin]
     for the cotangent g [B,⌈H/2⌉,⌈W/2⌉,Co] in x's dtype: 25 long-K products
-    summed in f32 over every pixel by one hand-written kernel and its
-    fixed-order reduction (the same bits every launch).  The transposed
-    conv's dw is this with its cotangent as x and its input as g, flipped
-    and transposed (`deconv_dx_weight`).  CPU tensors take the plain
-    version (in any float dtype, as the forwards' plain versions); CUDA
-    tensors launch the kernel or raise.  Differentiable in x and g."""
+    summed in f32 over every pixel by one hand-written kernel, which writes
+    dw itself where one cluster holds every part of K (the same bits every
+    launch).  The transposed conv's dw is this with its cotangent as x and
+    its input as g, flipped and transposed: `flip` has the kernel write it
+    in that layout, [5,5,Co,Cin] = `deconv_dx_weight(dw)`, with no copy.
+    CPU tensors take the plain version (in any float dtype, as the
+    forwards' plain versions); CUDA tensors launch the kernel or raise.
+    Differentiable in x and g."""
     _cdw_shapes(x, g)
     if x.device.type == "cpu":
-        return conv5x5_s2_dw_plain(x, g, w_dtype)
+        return conv5x5_s2_dw_plain(x, g, w_dtype, flip)
     if x.device.type != "cuda":
         raise ValueError(f"conv5x5_s2_dw runs on cuda or cpu, not {x.device}")
     _bwd_common("conv5x5_s2_dw", [("x", x), ("g", g)], w_dtype)
     if needs_grad(x, g):
-        return _ConvDw.apply(x, g, w_dtype)
-    return _conv_dw_forward(x, g, w_dtype)
+        return _ConvDw.apply(x, g, w_dtype, flip)
+    return _conv_dw_forward(x, g, w_dtype, flip)
 
 
 conv5x5_s2_dw.launches = 0
@@ -1472,3 +1630,9 @@ def conv_dw_path_on_card(x, g) -> str:
     return DW_PATHS[_cdw_lib().t2i_conv5x5_s2_dw_path(
         x.data_ptr(), g.data_ptr(), x.shape[1], x.shape[2], x.shape[-1],
         g.shape[-1], int(x.dtype == torch.bfloat16))]
+
+
+def conv_dw_mode_on_card() -> frozenset:
+    """What the last conv5x5_s2_dw launch of this process did (its C entry
+    point's Mode bits)."""
+    return _modes(_cdw_lib().t2i_conv5x5_s2_dw_mode())

@@ -43,7 +43,12 @@ kernel, dw on ``conv5x5_s2_dw``) against autograd through cuDNN's
 images; then dx (``deconv5x5_s2`` for the conv, ``conv5x5_s2_act`` for the
 deconv) and dw alone beside their plain versions and cuDNN's
 ``conv2d_input`` (the deconv's: ``conv2d``) and ``conv2d_weight`` over the
-SAME-padded input.  The flags combine: one call, one build.
+SAME-padded input; then ``conv5x5_s2_dw`` alone at every main-path call
+(``CONV_DW_CALLS``: the 64 px and 256 px discriminators' convs at 3·64 and
+64 rows, the generator's deconvs in their own weight layout) beside
+``conv2d_weight``, each dw row tagged with its plan: tile, parts of K and
+how many a cluster sums on chip, dw written directly or through a
+workspace.  The flags combine: one call, one build.
 
 Times are CUDA-event medians over launches each after an L2 flush
 (`time_ms`; ``chip_smoke.py`` times its kernels with the same function).
@@ -117,6 +122,20 @@ PGGAN_UPCONV_SHAPES = [((B, 4, 4, 512), 512), ((B, 8, 8, 512), 512),
 # them
 UPCONV_BWD_SHAPES = list(dict.fromkeys(UPCONV_GRAD_SHAPES
                                        + PGGAN_UPCONV_SHAPES))
+# (B, H, W, Cin), Co, flip of every conv5x5_s2_dw call on the training
+# paths: the 64 px D at 3·64 and 64 rows, the 256 px D, the GAN-CLS
+# generator's deconvs (their d as the map, x's channels as Co, written in
+# the deconv's weight layout)
+CONV_DW_CALLS = ([((b, 64, 64, 3), 64, False) for b in (3 * B, B)]
+                 + [((b, r, r, c), 2 * c, False) for b in (3 * B, B)
+                    for r, c in ((32, 64), (16, 128), (8, 256))]
+                 + [((b, 256, 256, 3), 64, False) for b in (3 * B, B)]
+                 + [((b, r, r, cin), co, False) for b in (3 * B, B)
+                    for r, cin, co in ((128, 64, 128), (64, 128, 256),
+                                       (32, 256, 512), (16, 512, 512),
+                                       (8, 512, 512))]
+                 + [((B, 2 * h, 2 * w, co), cin, True)
+                    for (_, h, w, cin), co, _ in DECONV_SHAPES])
 # (B, H, W, Cx), E, Co: the discriminator's text join over the D step's
 # three streams and the G step's one
 JOIN_SHAPES = [((3 * B, 4, 4, 512), 128, 512), ((B, 4, 4, 512), 128, 512)]
@@ -491,9 +510,22 @@ def bench_upconv_grad(device, flush, gen) -> List[Dict]:
     return rows
 
 
+def dw_plan_tag(path, plan, modes) -> str:
+    """A weight-gradient launch's plan as the tables print it: the path,
+    the tile (wgmma), the parts of K and how many a cluster sums on chip,
+    whether dw came straight from the kernel or through a workspace, the
+    chunk where Cin is walked in chunks, and the launch's other modes."""
+    tile = f" {plan.tile_m}x{plan.tile_n}" if path == "wgmma" else ""
+    chunk = f" chunk {plan.chunk}" if "workspace" in modes else ""
+    extra = sorted(modes & {"fold", "staged"})
+    return (f"{path}{tile} parts {plan.parts} cluster {plan.cluster} "
+            f"{'direct' if 'direct' in modes else 'workspace'}{chunk}"
+            + "".join(f" {m}" for m in extra))
+
+
 def bwd_path_tag(kernel, path, shape, co) -> str:
     """The path of an upconv3x3_dx / upconv3x3_dw call with its plan: dx's
-    tile and split of the 16 taps, dw's tile and parts of K."""
+    tile and split of the 16 taps, dw's `dw_plan_tag`."""
     from text_to_image_tpu_torch.ops.kernels import conv
     b, h, wd, cin = shape
     if kernel == "upconv3x3_dx":
@@ -501,11 +533,9 @@ def bwd_path_tag(kernel, path, shape, co) -> str:
             return path
         tm, tn, split = conv.dx_plan(b * h * wd, cin, co)
         return f"wgmma {tm}x{tn} split {split}"
-    plan = conv.dw_plan(b, h, wd, cin, co, torch.bfloat16
-                        if path in ("wgmma", "mma") else torch.float32)
-    if path != "wgmma":
-        return f"{path} parts {plan.parts}"
-    return f"wgmma {plan.tile_m}x{plan.tile_n} parts {plan.parts}"
+    dtype = torch.bfloat16 if path in ("wgmma", "mma") else torch.float32
+    plan = conv.dw_plan(b, h, wd, cin, co, dtype)
+    return dw_plan_tag(path, plan, conv.dw_modes(path, plan, 16, cin, h, wd))
 
 
 def bench_upconv_bwd(device, flush, gen) -> List[Dict]:
@@ -564,13 +594,54 @@ def bench_upconv_bwd(device, flush, gen) -> List[Dict]:
 
 def conv_dw_tag(conv, x, g) -> str:
     """The path of a conv5x5_s2_dw call, read back from the C entry point,
-    with its plan's tile, parts and chunk."""
+    with its plan (`dw_plan_tag`)."""
     b, h, wd, cin = x.shape
     path = conv.conv_dw_path_on_card(x, g)
     plan = conv.conv_dw_plan(b, h, wd, cin, g.shape[-1], x.dtype)
-    tile = f" {plan.tile_m}x{plan.tile_n}" if path == "wgmma" else ""
-    chunk = f" chunk {plan.chunk}" if plan.chunk < cin else ""
-    return f"{path}{tile} parts {plan.parts}{chunk}"
+    return dw_plan_tag(path, plan,
+                       conv.dw_modes(path, plan, 25, cin, *g.shape[1:3]))
+
+
+def bench_conv_dw(device, flush, gen) -> List[Dict]:
+    """``conv5x5_s2_dw`` alone at every main-path call (CONV_DW_CALLS; the
+    generator's deconvs in their own weight layout, as their backward
+    writes it), bf16, held against its plain version and timed beside
+    cuDNN's ``conv2d_weight`` over the SAME-padded input (padded
+    beforehand); the plan read back from the C entry point."""
+    from text_to_image_tpu_torch.ops.kernels import conv
+    bf = torch.bfloat16
+    rows = []
+    for shape, co, flip in CONV_DW_CALLS:
+        b, h, wd, cin = shape
+        x = randn(gen, shape).to(bf)
+        g = randn(gen, (b, half(h), half(wd), co)).to(bf)
+        dw = conv.conv5x5_s2_dw(x, g, bf, flip)
+        modes = conv.conv_dw_mode_on_card()
+        err = hold(dw, conv.conv5x5_s2_dw_plain(x, g, bf, flip), *TOL,
+                   f"conv5x5_s2_dw {shape}->{co}", rel_to_max=True)
+        path = conv.conv_dw_path_on_card(x, g)
+        plan = conv.conv_dw_plan(b, h, wd, cin, co, bf)
+        want = conv.dw_modes(path, plan, 25, cin, *g.shape[1:3])
+        if modes != want:
+            raise RuntimeError(f"conv5x5_s2_dw {shape}->{co}: modes "
+                               f"{sorted(modes)}, the mirror says "
+                               f"{sorted(want)}")
+        xp = F.pad(_nchw(x), (1, 2, 1, 2)).contiguous(
+            memory_format=torch.channels_last)
+        g_cl = _nchw(g)
+        r = _row("conv5x5_s2_dw", f"{list(shape)}->{co}"
+                 + (" (deconv layout)" if flip else ""),
+                 dw_plan_tag(path, plan, modes),
+                 time_ms(lambda: conv.conv5x5_s2_dw(x, g, bf, flip), flush),
+                 "cuDNN conv2d_weight (input padded beforehand)",
+                 time_ms(lambda: torch.nn.grad.conv2d_weight(
+                     xp, (co, cin, 5, 5), g_cl, stride=2), flush),
+                 conv_dw_work(shape, co), bf, err)
+        r["op"], r["batch"] = "dw", b
+        rows.append(r)
+        del x, g, dw, xp, g_cl
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _timed_row(flush, op, shape, co, kind, ours, lib_name, lib, plain, work,
@@ -708,20 +779,22 @@ def bench_conv5_grad(op, device, flush, gen) -> List[Dict]:
         rows.append(_timed_row(flush, op, shape, co, GRAD_TABLES[op][1],
                                dx_fn[0], dx_lib[0], dx_lib[1], dx_fn[1],
                                dx_work, dx_path, err_dx))
-        # dw alone
-        dw = conv.conv5x5_s2_dw(dw_x, dw_g, bf)
-        err_dw = hold(dw, conv.conv5x5_s2_dw_plain(dw_x, dw_g, bf), *TOL,
-                      f"{op} dw {shape}->{co}", rel_to_max=True)
+        # dw alone (the deconv's in its own weight layout, as its backward
+        # writes it)
+        flip = op == "deconv"
+        dw = conv.conv5x5_s2_dw(dw_x, dw_g, bf, flip)
+        err_dw = hold(dw, conv.conv5x5_s2_dw_plain(dw_x, dw_g, bf, flip),
+                      *TOL, f"{op} dw {shape}->{co}", rel_to_max=True)
         xp = F.pad(_nchw(dw_x), (1, 2, 1, 2)).contiguous(
             memory_format=torch.channels_last)
         dw_oihw = (dw_co, dw_shape[-1], 5, 5)
         rows.append(_timed_row(
             flush, op, shape, co, "conv5x5_s2_dw",
-            lambda: conv.conv5x5_s2_dw(dw_x, dw_g, bf),
+            lambda: conv.conv5x5_s2_dw(dw_x, dw_g, bf, flip),
             "cuDNN conv2d_weight (input padded beforehand)",
             lambda: torch.nn.grad.conv2d_weight(xp, dw_oihw, _nchw(dw_g),
                                                 stride=2),
-            lambda: conv.conv5x5_s2_dw_plain(dw_x, dw_g, bf),
+            lambda: conv.conv5x5_s2_dw_plain(dw_x, dw_g, bf, flip),
             conv_dw_work(dw_shape, dw_co), conv_dw_tag(conv, dw_x, dw_g),
             err_dw))
         del x, w, g, xs, leaves, x_cl, g_cl, dx, dx_ref, dw, xp
@@ -875,6 +948,8 @@ def run(grad, device=None) -> Dict:
             for op in ("conv", "deconv"):
                 if op in grad:
                     rows += bench_conv5_grad(op, device, flush, gen)
+            if "conv" in grad or "deconv" in grad:
+                rows += bench_conv_dw(device, flush, gen)
         else:
             rows = []
             for fn in (bench_deconv, bench_conv, bench_upconv, bench_join,

@@ -19,6 +19,12 @@ bit for bit between two runs, timed beside cuDNN's ``conv_transpose2d`` /
 which the constants of `grouped_plan` were set.  It prints the compiler's
 register report (``chip_smoke.py`` holds every path at odd shapes) and
 writes ``conv_plan_sweep.json`` to the output directory of ``chip_smoke.py``.
+``--ops dw`` sweeps the two weight-gradient kernels instead
+(``conv5x5_s2_dw`` at every main-path call, ``upconv3x3_dw`` at the
+up-block shapes of the microbench): every (parts, cluster) plan held
+against the plain version and timed beside the plan `conv_dw_plan` /
+`dw_plan` picks and cuDNN's ``conv2d_weight``, after the card's cluster
+capacity (the constants of `_wgrad_plan` were set from it).
 Needs one NVIDIA GPU with nvcc.
 """
 
@@ -243,17 +249,161 @@ def sweep_conv(gen, dev, flush):
     return bad, rows
 
 
+def dw_candidates(slices, cmax):
+    """(parts, cluster) plans a weight-gradient launch may take: parts as
+    groups × cluster with at most cmax in a cluster, each part at least
+    DW_MIN_SLICES slices."""
+    seen = []
+    for want in (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 16, 20, 24, 28, 32,
+                 40, 48, 56, 64, 72, 80, 96, 128, 192, 256):
+        if want > max(1, slices // conv.DW_MIN_SLICES):
+            break
+        groups = -(-want // cmax)
+        cluster = -(-want // groups)
+        if (groups * cluster, cluster) not in seen:
+            seen.append((groups * cluster, cluster))
+    return seen
+
+
+def sweep_dw(gen, dev, flush):
+    """Both weight-gradient kernels at every main-path call, bf16: every
+    (parts, cluster) plan of `dw_candidates` (for the up-block's wgmma
+    path, of its on-chip fold and of its per-product blocks) held against
+    the plain version (within 1e-2 of the largest |ref| plus 1e-2 of the
+    element: a rounding flip after f32 sums in another order) and timed,
+    beside the plan `conv_dw_plan` / `dw_plan` picks and cuDNN's
+    `conv2d_weight`; first the card's cluster capacity per cluster size
+    (cudaOccupancyMaxActiveClusters of each wgmma kernel)."""
+    bf = torch.bfloat16
+    bad, rows = 0, []
+    cdw, udw = conv._cdw_lib(), conv._bwd_lib()
+    caps = {f"conv {tm}x{tn}": [cdw.t2i_conv5x5_s2_dw_clusters(c, tm, tn)
+                                for c in range(1, 9)]
+            for tm, tn in ((64, 64), (64, 128), (128, 64), (128, 128))}
+    caps.update({f"upconv fold n{tn}": [udw.t2i_upconv3x3_dw_clusters(c, tn)
+                                        for c in range(1, 9)]
+                 for tn in (64, 32)})
+    print(f"clusters held at once, cluster size 1..8: {caps}", flush=True)
+    rows.append({"max_active_clusters": caps})
+    cases = [("conv", shape, co, flip)
+             for shape, co, flip in bench_kernels.CONV_DW_CALLS]
+    cases += [("upconv", shape, co, False)
+              for shape, co in bench_kernels.UPCONV_BWD_SHAPES]
+    for op, shape, co, flip in cases:
+        b, h, w, cin = shape
+        if op == "conv":
+            x = torch.randn(shape, generator=gen).to(bf).to(dev)
+            g = torch.randn(b, (h + 1) // 2, (w + 1) // 2, co,
+                            generator=gen).to(bf).to(dev)
+            path = conv.conv_dw_path(h, w, cin, co, bf)
+            chosen = conv.conv_dw_plan(b, h, w, cin, co, bf)
+            k, products = b * ((h + 1) // 2) * ((w + 1) // 2), 25
+            ref = conv.conv5x5_s2_dw_plain(x, g, bf, flip)
+
+            def run(plan):
+                return conv._conv_dw_forward(x, g, bf, flip, plan)
+            xp = F.pad(x.permute(0, 3, 1, 2), (1, 2, 1, 2)).contiguous(
+                memory_format=torch.channels_last)
+            g_cl = g.permute(0, 3, 1, 2)
+
+            def lib():
+                return torch.nn.grad.conv2d_weight(xp, (co, cin, 5, 5), g_cl,
+                                                   stride=2)
+        else:
+            x = torch.randn(shape, generator=gen).to(bf).to(dev)
+            g = torch.randn(b, 2 * h, 2 * w, co, generator=gen).to(bf).to(dev)
+            path = conv.dw_path(h, w, cin, co, bf)
+            chosen = conv.dw_plan(b, h, w, cin, co, bf)
+            k, products = b * h * w, 16
+            ref = conv.upconv3x3_dw_plain(x, g, bf)
+
+            def run(plan):
+                return conv.upconv3x3_dw(x, g, bf, plan)
+            up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                               mode="nearest").contiguous(
+                memory_format=torch.channels_last)
+            g_cl = g.permute(0, 3, 1, 2)
+
+            def lib():
+                return torch.nn.grad.conv2d_weight(up, (co, cin, 3, 3), g_cl,
+                                                   padding=1)
+        slices = -(-k // conv.DW_SLICE[path])
+        # the up-block's wgmma path: the on-chip fold and the per-product
+        # blocks, each at every (parts, cluster)
+        variants = [(False, chosen.tile_m, chosen.tile_n)]
+        # the conv's wgmma path: one cluster of a power of two of parts,
+        # and parts through the workspace with no cluster (cmax 1 below)
+        if op == "conv" and path == "wgmma":
+            variants.append((None, chosen.tile_m, chosen.tile_n))
+        if op == "upconv" and path == "wgmma":
+            variants = ([(True, 64, 64 if co % 64 == 0 else 32)]
+                        + ([(False, *conv._dw_tile(path, cin, co))]
+                           if co % 64 == 0 else []))
+        times = {}
+        lim = TOL * float(ref.float().abs().max())
+        for fold, tm, tn in variants:
+            apart = fold is None             # the conv: no cluster
+            fold = bool(fold)
+            folds_apart = products == 16 and not fold
+            cmax = (1 if folds_apart or apart else
+                    conv.DW_MAX_CLUSTER // (2 if fold else 1))
+            for parts, cluster in dw_candidates(slices, cmax):
+                if op == "conv" and path == "wgmma" and not apart and (
+                        parts != cluster or parts & (parts - 1)):
+                    continue                 # the plan's powers of two
+                if apart and (parts == 1 or parts > 16):
+                    continue
+                groups = parts // cluster
+                planes = groups * (products if folds_apart
+                                   else conv.DW_TAPS[products])
+                try:
+                    chunk = (cin if groups == 1 and not folds_apart else
+                             conv.wgrad_chunk(cin, co, planes, tm))
+                except ValueError:       # a workspace over the cap
+                    continue
+                plan = conv.DwPlan(tm, tn, parts, cluster, chunk, fold)
+                got = run(plan)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs()
+                n_bad = int((err > lim + TOL * ref.float().abs()).sum())
+                if n_bad:
+                    bad += 1
+                    print(f"  FAIL {op} dw {shape}->{co} {tuple(plan)}: "
+                          f"{n_bad} elements, max |err| "
+                          f"{float(err.max()):.3e}", flush=True)
+                key = (f"{'fold ' if fold else ''}{'ws ' if apart else ''}"
+                       f"{parts}/{cluster}")
+                times[key] = time_ms(lambda: run(plan), flush)
+        lib_ms = time_ms(lib, flush)
+        best = min(times, key=times.get)
+        pick = (f"{'fold ' if chosen.fold else ''}{chosen.parts}/"
+                f"{chosen.cluster}")
+        print(f"{op} dw {list(shape)}->{co}{' flip' if flip else ''} "
+              f"{path} {chosen.tile_m}x{chosen.tile_n}: plan {pick} "
+              f"{times.get(pick, float('nan')):.4f} ms, best {best} "
+              f"{times[best]:.4f}, cuDNN {lib_ms:.4f}; "
+              + " ".join(f"{k_}:{v:.4f}" for k_, v in times.items()),
+              flush=True)
+        rows.append({"op": f"{op} dw", "shape": list(shape), "co": co,
+                     "path": path, "plan": pick, "best": best,
+                     "ms": times, "cudnn_ms": lib_ms})
+        del x, g, ref
+        torch.cuda.empty_cache()
+    return bad, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ops", nargs="+", default=["conv", "deconv", "upconv"],
-                    choices=["conv", "deconv", "upconv"])
+                    choices=["conv", "deconv", "upconv", "dw"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    names = ["conv5x5_s2", "conditioning_join", "deconv5x5_s2", "upconv3x3"]
+    names = ["conv5x5_s2", "conditioning_join", "deconv5x5_s2", "upconv3x3",
+             "conv5x5_s2_bwd", "upconv3x3_bwd"]
     _build.build(names)
     for name in names:
         for line in _build.ptxas_report(name).splitlines():
@@ -269,6 +419,9 @@ def main() -> int:
         if op in args.ops:
             b, r = sweep_grouped(op, shapes, gen, dev, flush)
             bad, rows = bad + b, rows + r
+    if "dw" in args.ops:
+        b, r = sweep_dw(gen, dev, flush)
+        bad, rows = bad + b, rows + r
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

@@ -79,6 +79,16 @@ def tick_timing(device, model="gancls", ticks=10):
         (ts, step, batch)
 
 
+def conv5x5_dw_launches(events) -> int:
+    """conv5x5_s2_dw's calls among a profile's kernel events: one launch
+    of its products' kernel a call (a chunk: one on every main path), and
+    a reduction only where the plan has a workspace, so the reductions are
+    not counted."""
+    return sum(e.count for e in events
+               if is_kernel(e) and "dw_reduce_kernel" not in e.key
+               and kernel_family(e.key) == "conv5x5_s2_dw (CUDA)")
+
+
 def is_kernel(event) -> bool:
     """A device kernel of a profile, not a range annotated around kernels
     (``Optimizer.step#Adam.step`` has device time too, which would count
@@ -162,11 +172,7 @@ def tick_profile(ts, step, batch, tick_ms):
     print(f"  device busy {busy:.4f} ms of {tick_ms:.4f} ms per tick (idle "
           f"share {1 - busy / tick_ms:.1%}); {launches / n:.0f} kernel "
           f"launches per tick", flush=True)
-    # conv5x5_s2_dw: one reduction launch a call (a chunk: one on every
-    # main path)
-    dw = sum(e.count for e in prof.key_averages()
-             if is_kernel(e) and "dw_reduce_kernel" in e.key
-             and kernel_family(e.key) == "conv5x5_s2_dw (CUDA)") / n
+    dw = conv5x5_dw_launches(prof.key_averages()) / n
     lib5 = library_conv5x5(prof) / n
     print(f"  {lib5:g} library convolutions over a 5×5 filter and {dw:g} "
           f"conv5x5_s2_dw launches per tick", flush=True)
