@@ -27,9 +27,9 @@
    version, in f32 with TF32 off; the up-block's two backward kernels,
    ``upconv3x3_dx`` and ``upconv3x3_dw``, against their plain versions at
    the StackGAN, C-PGGAN and odd shapes (bf16 and f32, bit for bit between
-   two launches, each path and what each dw launch did read back from C:
-   dw from the kernel itself, parts summed across a cluster, the
-   workspace, the on-chip fold and its 32-column tile); the 5×5 ops'
+   two launches, each path and what each launch did read back from C:
+   for dw the kernel's own write, parts summed across a cluster, the
+X
    weight-gradient kernel ``conv5x5_s2_dw`` against its plain version at
    every main-path call (the 64 px and 256 px D's convs, the GAN-CLS
    generator's deconvs in their own weight layout) and the odd shapes
@@ -376,6 +376,18 @@ WGMMA_DECONV_ODD_SHAPES = [((1, 5, 7, 64), 64, "relu"),
 # 96 and 32, K of one or two slices, maps of several images a box
 FOLD_UPCONV_ODD_SHAPES = [((2, 4, 4, 64), 96), ((3, 2, 8, 64), 32),
                           ((2, 8, 8, 128), 32)]
+# upconv3x3_dx's TMA kernels off the main path: Co 32 on the ring kernel
+# with M not a multiple of the 128-row tile (the last box partly past the
+# batch), B = 1 (one box of two images, one of them past it), the
+# transposed kernel on a non-square map of 256-pixel rows with two column
+# tiles (Cin 128) and at Co 32 on 384-pixel rows, Co 96 (three 32-channel
+# slices a tap, parts in a cluster), and a map with no box (the gather
+# loop, its parts through a workspace)
+DX_ODD_SHAPES = [((5, 4, 8, 64), 32), ((1, 8, 8, 128), 64),
+                 ((1, 2, 256, 128), 64), ((2, 2, 384, 64), 32),
+                 ((2, 4, 4, 128), 96), ((2, 3, 5, 64), 64)]
+# C-PGGAN's 128²×64→32 at batch 64 too (stage 7 runs it at 32)
+DX_CO32_B64 = [((64, 128, 128, 64), 32)]
 WGMMA_UPCONV_ODD_SHAPES = [((1, 5, 7, 64), 64, "relu"),
                            ((3, 5, 3, 128), 192, "lrelu"),
                            ((2, 7, 9, 64), 128, "tanh"),
@@ -1036,15 +1048,21 @@ def phase_upconv_bwd_kernels(device):
     fold's (FOLD_UPCONV_ODD_SHAPES): each output bit for bit between two
     launches, the path read back from the C entry point and held against
     the Python mirror, logged with its plan; each dw launch's modes read
-    back and held against `conv.dw_modes`, every mode reached."""
+    back and held against `conv.dw_modes`, every mode reached; dx on
+    wgmma at every StackGAN and C-PGGAN shape (128²×64→32 at batch 32 and
+    64 too), each dx launch's modes read back and held against
+    `conv.dx_modes`, every mode reached (DX_ODD_SHAPES among the shapes)."""
     from text_to_image_tpu_torch.ops.kernels import conv
     gen = torch.Generator().manual_seed(SEED + 17)
     errs = {"upconv3x3_dx": {}, "upconv3x3_dw": {}}
     paths = []
-    seen = set()
+    seen, seen_dx = set(), set()
+    main = set(UPCONV_SHAPES["stage1"] + UPCONV_SHAPES["stage2"]
+               + PGGAN_UPCONV_SHAPES + DX_CO32_B64)
     shapes = list(dict.fromkeys(
         UPCONV_SHAPES["stage1"] + UPCONV_SHAPES["stage2"]
-        + PGGAN_UPCONV_SHAPES + FOLD_UPCONV_ODD_SHAPES
+        + PGGAN_UPCONV_SHAPES + DX_CO32_B64 + FOLD_UPCONV_ODD_SHAPES
+        + DX_ODD_SHAPES
         + [(s, c) for s, c, _ in ODD_UPCONV_SHAPES + WGMMA_UPCONV_ODD_SHAPES]))
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype)[6:]
@@ -1058,7 +1076,7 @@ def phase_upconv_bwd_kernels(device):
                     ("upconv3x3_dx", lambda: conv.upconv3x3_dx(g, w, dtype),
                      lambda: conv.upconv3x3_dx_plain(g, w, dtype),
                      lambda out: conv.dx_path_on_card(g, out),
-                     conv.dx_path(cin, co, dtype)),
+                     conv.dx_path(h, wd, cin, co, dtype)),
                     ("upconv3x3_dw", lambda: conv.upconv3x3_dw(x, g, dtype),
                      lambda: conv.upconv3x3_dw_plain(x, g, dtype),
                      lambda out: conv.dw_path_on_card(x, g),
@@ -1076,6 +1094,16 @@ def phase_upconv_bwd_kernels(device):
                     check(modes == want, f"{what}: modes {sorted(modes)}, "
                                          f"the mirror says {sorted(want)}")
                     seen |= modes
+                else:
+                    modes = conv.dx_mode_on_card()
+                    want = conv.dx_modes(path, conv.dx_plan(
+                        b, h, wd, cin, co) if path == "wgmma" else None, co)
+                    check(modes == want, f"{what}: modes {sorted(modes)}, "
+                                         f"the mirror says {sorted(want)}")
+                    check(path == "wgmma" or dtype != torch.bfloat16
+                          or (shape, co) not in main,
+                          f"{what}: a main-path call off wgmma ({path})")
+                    seen_dx |= modes
                 check(torch.equal(got, again),
                       f"{what}: two launches differ")
                 ref = plain()
@@ -1094,6 +1122,11 @@ def phase_upconv_bwd_kernels(device):
     check(seen == {"direct", "cluster", "workspace", "fold", "bn32",
                    "producer"}, f"upconv3x3_dw modes reached {sorted(seen)}")
     log(f"  upconv3x3_dw modes reached (read back from C): {sorted(seen)}")
+    # every way a dx launch can go: A by TMA, the shared patch, 64-byte K
+    # slices, parts summed in a cluster, the gather loop and its workspace
+    check(seen_dx == set(conv.DX_MODES),
+          f"upconv3x3_dx modes reached {sorted(seen_dx)}")
+    log(f"  upconv3x3_dx modes reached (read back from C): {sorted(seen_dx)}")
     return errs, paths
 
 

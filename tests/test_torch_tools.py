@@ -42,6 +42,10 @@ def test_tick_config_is_the_shipped_yaml_on_synthetic_data(model):
      "upconv3x3 backward (CUDA)"),
     ("void (anonymous namespace)::dx_transpose_kernel<unsigned short>",
      "upconv3x3 backward (CUDA)"),
+    ("void dx90::ring_kernel<256, 64>(dx90::Params, CUtensorMap_st, "
+     "CUtensorMap_st)", "upconv3x3 backward (CUDA)"),
+    ("void dx90::resident_kernel<true, 64>(dx90::Params, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st)", "upconv3x3 backward (CUDA)"),
     ("void (anonymous namespace)::dw_wgmma_kernel<64, 64>",
      "upconv3x3 backward (CUDA)"),
     ("void (anonymous namespace)::dw_reduce_kernel<unsigned short>",

@@ -302,8 +302,7 @@ def test_dw_plan_fills_the_card_within_the_workspace_cap(b, r, cin, co):
     plan = conv.dw_plan(b, r, r, cin, co, bf16)
     path = conv.dw_path(r, r, cin, co, bf16)
     assert path == "wgmma"
-    assert conv.dx_path(cin, co, bf16) == ("pipelined" if co % 64
-                                           else "wgmma")
+    assert conv.dx_path(r, r, cin, co, bf16) == "wgmma"
     slices = -(-k // conv.DW_SLICE[path])
     assert plan.fold == (co % 64 != 0 or slices <= conv.DW_FOLD_SLICES)
     if plan.fold:
@@ -371,21 +370,25 @@ def test_dw_odd_maps_take_no_box(h, w):
     ((4, 4), 64, 64, torch.bfloat16, True, "wgmma", "wgmma"),
     ((4, 4), 128, 192, torch.bfloat16, True, "wgmma", "wgmma"),
     ((5, 7), 128, 192, torch.bfloat16, True, "wgmma", "mma"),
-    ((4, 4), 64, 32, torch.bfloat16, True, "pipelined", "wgmma"),
+    ((4, 4), 64, 32, torch.bfloat16, True, "wgmma", "wgmma"),
+    ((5, 7), 64, 32, torch.bfloat16, True, "pipelined", "mma"),
+    ((4, 4), 128, 96, torch.bfloat16, True, "wgmma", "wgmma"),
+    ((5, 7), 128, 96, torch.bfloat16, True, "pipelined", "mma"),
     ((4, 4), 16, 8, torch.bfloat16, True, "pipelined", "mma"),
     ((4, 4), 64, 64, torch.bfloat16, False, "tile", "tile"),
     ((4, 4), 12, 20, torch.bfloat16, True, "tile", "tile"),
     ((4, 4), 64, 64, torch.float32, True, "tile", "tile")])
 def test_path_rules_mirror_the_kernels(hw, cin, co, dtype, aligned, dx, dw):
-    """dx: wgmma for bf16 with Cin and Co multiples of 64, mma.sync
-    (pipelined) for multiples of 8, else the simple tile; dw: wgmma for
+    """dx: wgmma for bf16 with Cin a multiple of 64 and Co of 64 (any map)
+    or of 32 on a map with a TMA box (Co 32, Co 96), mma.sync (pipelined)
+    for multiples of 8, else the simple tile; dw: wgmma for
     bf16 with Cin a multiple of 64 and Co of 32 where the map also has a
     TMA box, then mma.sync for multiples of 8, else the FMA tile (f32
     always).  On wgmma the 4² maps at batch 64 (16 slices) and Co 32 fold
     on chip (64 × 64 or 64 × 32 tiles); the per-product blocks take the
     widest of 64 or 128 that divides Cin and Co."""
     h, w = hw
-    assert conv.dx_path(cin, co, dtype, aligned) == dx
+    assert conv.dx_path(h, w, cin, co, dtype, aligned) == dx
     assert conv.dw_path(h, w, cin, co, dtype, aligned) == dw
     plan = conv.dw_plan(64, h, w, cin, co, dtype, aligned)
     assert plan.fold == (dw == "wgmma")

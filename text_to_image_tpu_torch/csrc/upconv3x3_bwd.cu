@@ -32,19 +32,28 @@
 // there, by operations elsewhere.
 //
 // upconv3x3_dx: one implicit GEMM, M = B*H*W pixels of dx, N = Cin, K = 16
-// taps x Co.  Row (b, i, j) of tap (py, px, a, c) reads g at the fixed
-// offset (2-py-2a, 2-px-2c) from (2i, 2j): the same for every row, so the
-// gather is the forward's (igemm_sm90.cuh: one table read and one bit test
-// per tap and 16-byte copy, zeros where the tap leaves the map), and the
-// weights are Cw transposed, [16][Co][Cin] (dx_transpose_kernel, one launch
-// over the combined weights).  Paths, from shapes, types and alignment only
-// (dx_path; the wrapper mirrors the rule):
-//  * wgmma: bf16 with Cin and Co multiples of 64 (every StackGAN and the
-//    C-PGGAN calls up to Co 64): igemm_sm90.cuh's main loop, weights by
-//    TMA, A gathered by cp.async; the caller's plan (conv_plan of
-//    ops/kernels/conv.py over 16 taps) picks the tile and a split of K over
-//    whole taps, reduced in a fixed order.
-//  * pipelined / tile (igemm.cuh, mma.sync / f32 FMA): otherwise.
+// taps x Co.  Row (b, i, j) of tap (py, px, a, c) reads g's parity plane
+// (py, px) at (i+1-py-a, j+1-px-c), zero outside it.  Paths, from shapes,
+// types and alignment only (dx_path; the wrapper mirrors the rule):
+//  * wgmma: bf16, Cin a multiple of 64, 16-byte-aligned g, combined
+//    weights and dx, and Co a multiple of 64 -- or of 32 on a map where a
+//    tile of 128 rows is one TMA box (C-PGGAN's Co 32).  Where a tile is a
+//    box, the kernels of upconv_dx.cuh: A by TMA from g's parity planes,
+//    the weights K-major straight from the combined weights, a producer
+//    warp, 64- or 32-channel K slices, and by the caller's plan (conv.py
+//    dx_plan) either the ring kernel (128 x 64/128/256 tiles, the parts of
+//    K summed in one cluster) or, at Co 32 and 64 on the 128^2 maps, the
+//    transposed kernel (dx^T on m64n128k16, the four taps of a plane from
+//    one staged patch).  Maps with no box keep the forward's gather loop
+//    (igemm_sm90.cuh: one table read and one bit test per tap and 16-byte
+//    cp.async copy, the weights transposed to [16][Co][Cin] by
+//    dx_transpose_kernel, K split over whole taps through a workspace and
+//    a fixed-order reduce).
+//  * pipelined / tile (igemm.cuh, mma.sync / f32 FMA): otherwise, on the
+//    transposed weights.
+// The gather loop alone took 1.1023 ms on the H100 for a Stage-I plus
+// Stage-II G step's 8 calls (2.3x their bound), and Co 32 ran on mma.sync
+// at 10x its bound (tools/bench_kernels.py --upconv --grad).
 //
 // upconv3x3_dw: sixteen GEMMs [Cin x Co] over K = B*H*W pixels of a parity
 // plane -- a long-K reduction with few outputs, on the weight-gradient
@@ -92,7 +101,7 @@
 // caller's cap at any Cin * Co.  Whichever the path, the weights' gradient
 // is summed in f32 and rounded once to w's type.
 
-#include "wgrad.cuh"
+#include "upconv_dx.cuh"
 
 namespace {
 
@@ -186,8 +195,14 @@ UpconvDx make_dx(const void* g, const void* wct, void* dx, int B, int H,
   return p;
 }
 
-int dx_path(const UpconvDx& p, bool bf16) {
-  if (bf16 && igemm90::applies(p)) return kDxWgmma;
+// wgmma where a K slice is 64 channels of g (the gather loop takes those
+// on any map) or 32 on a map with a box; mma.sync or FMA otherwise
+int dx_path(const UpconvDx& p, int H, int W, bool bf16) {
+  const bool aligned = igemm::aligned16(p.a) && igemm::aligned16(p.w) &&
+                       igemm::aligned16(p.y);
+  if (bf16 && aligned && p.N % 64 == 0 &&
+      (p.Cin % 64 == 0 || (p.Cin % 32 == 0 && dx90::boxes(H, W))))
+    return kDxWgmma;
   return bf16 && p.vec_a && p.vec_w && p.vec_y ? kDxPipelined : kDxTile;
 }
 
@@ -548,32 +563,42 @@ int dw_path(const void* x, const void* g, int H, int W, int Cin, int Co,
                                                         : wgrad::kTile;
 }
 
-int g_last_mode = 0;   // the Mode bits of t2i_upconv3x3_dw's last launch
+int g_last_mode = 0;      // the Mode bits of t2i_upconv3x3_dw's last launch
+int g_last_dx_mode = 0;   // dx90::Mode bits of t2i_upconv3x3_dx's last launch
 
 }  // namespace
 
-// The path t2i_upconv3x3_dx takes for these pointers and shapes: 0 the
-// simple tile, 1 the pipelined tile, 2 wgmma.
-extern "C" int t2i_upconv3x3_dx_path(const void* g, const void* wct,
-                                     const void* dx, int Cin, int Co,
-                                     int bf16) {
-  return dx_path(make_dx(g, wct, const_cast<void*>(dx), 1, 1, 1, Cin, Co,
+// The path t2i_upconv3x3_dx takes for these pointers and shapes (dx's map
+// H x W): 0 the simple tile, 1 the pipelined tile, 2 wgmma.
+extern "C" int t2i_upconv3x3_dx_path(const void* g, const void* wc,
+                                     const void* dx, int H, int W, int Cin,
+                                     int Co, int bf16) {
+  return dx_path(make_dx(g, wc, const_cast<void*>(dx), 1, H, W, Cin, Co,
                          bf16),
-                 bf16 != 0);
+                 H, W, bf16 != 0);
 }
 
 // dx [B][H][W][Cin] from g [B][2H][2W][Co] and the combined weights wc
-// [16][Cin][Co] (upconv3x3.cu t2i_upconv3x3_combine), on `stream`: first
-// wct = wc transposed to [16][Co][Cin] (the caller's buffer), then the
-// GEMM.  `tile` (igemm90::TileId, not the resident kernel) and `split`
-// (parts of K, whole taps each; above 1 needs `ws`, split planes of
-// B*H*W x Cin f32) are read on the wgmma path only.  Returns the CUDA
-// error code (0 when launched); no path gives way to another.
+// [16][Cin][Co] (upconv3x3.cu t2i_upconv3x3_combine), on `stream`.  On the
+// wgmma path `kernel` (dx90::Kernel) picks the loop: kRing (`tile` the
+// tile's columns, `parts` of K in one cluster) or kTransposed (`tile` 64,
+// one part) read wc as it is; kCpAsync (`tile` an igemm90::TileId, not the
+// resident one; `parts` of whole taps, above 1 through `ws`, split planes
+// of B*H*W x Cin f32) and the other paths first write wct = wc transposed
+// to [16][Co][Cin] (the caller's buffer).  Returns the CUDA error code (0
+// when launched); no path gives way to another.
 extern "C" int t2i_upconv3x3_dx(const void* g, const void* wc, void* wct,
                                 void* dx, void* ws, int B, int H, int W,
-                                int Cin, int Co, int bf16, int tile,
-                                int split, void* stream) {
+                                int Cin, int Co, int bf16, int kernel,
+                                int tile, int parts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int path =
+      dx_path(make_dx(g, wc, dx, B, H, W, Cin, Co, bf16), H, W, bf16 != 0);
+  if (path == kDxWgmma && kernel != dx90::kCpAsync)
+    return static_cast<int>(dx90::launch(g, wc, dx, B, H, W, Cin, Co,
+                                         kernel, tile, parts, s,
+                                         &g_last_dx_mode));
+  if (wct == nullptr || (path == kDxWgmma && Co % 64)) return cudaErrorInvalidValue;
   const dim3 tgrid((Co + 31) / 32, (Cin + 31) / 32, 16);
   if (bf16)
     dx_transpose_kernel<uint16_t><<<tgrid, 256, 0, s>>>(
@@ -585,14 +610,22 @@ extern "C" int t2i_upconv3x3_dx(const void* g, const void* wc, void* wct,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const UpconvDx p = make_dx(g, wct, dx, B, H, W, Cin, Co, bf16);
-  if (dx_path(p, bf16 != 0) == kDxWgmma) {
+  if (path == kDxWgmma) {
     if (tile == igemm90::kResident128x64) return cudaErrorInvalidValue;
-    const int parts[1] = {split};
+    const int split[1] = {parts};
+    g_last_dx_mode = dx90::kGather | (parts > 1 ? dx90::kWorkspace : 0);
     return static_cast<int>(
-        igemm90::launch(p, tile, parts, static_cast<float*>(ws), s));
+        igemm90::launch(p, tile, split, static_cast<float*>(ws), s));
   }
+  g_last_dx_mode = 0;
   return static_cast<int>(igemm::launch(p, bf16 != 0, s));
 }
+
+// What the last launch of t2i_upconv3x3_dx in this process did (dx90::Mode
+// bits: 1 A by TMA, 2 the shared patch, 4 64-byte K slices, 8 parts summed
+// in a cluster, 16 a workspace and its reduce, 32 A gathered by cp.async;
+// 0 the mma.sync and FMA tiles).
+extern "C" int t2i_upconv3x3_dx_mode() { return g_last_dx_mode; }
 
 // The path t2i_upconv3x3_dw takes for x [B][H][W][Cin] and g: 0 the FMA
 // tile, 1 wgmma, 2 mma.sync.

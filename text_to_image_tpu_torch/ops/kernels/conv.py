@@ -38,8 +38,10 @@ the split of K, or the resident kernel for K of at most 8 slices),
 ``pipelined`` / ``tile`` otherwise.  The combined weights come from one
 kernel launch (`combined_weights`).  Its backward is two hand-written
 kernels of ``csrc/upconv3x3_bwd.cu`` over the same combined taps
-(`upconv3x3_dx`: one GEMM over 16 taps of the cotangent, `dx_path`;
-`upconv3x3_dw`: 16 long-K products split over pixels and folded into the
+(`upconv3x3_dx`: one GEMM over 16 taps of the cotangent, A by TMA from
+its parity planes, on the 128² maps dxᵀ with the four taps of a plane
+from one staged patch, elsewhere the parts of K summed in a cluster:
+`dx_path` / `dx_plan`; `upconv3x3_dw`: 16 long-K products split over pixels and folded into the
 3×3 taps in a fixed order, on chip at the 4² maps and Co 32, `dw_path` /
 `dw_plan`), in place of the JAX package's `_parity_dx` / `_parity_dw`.
 
@@ -945,10 +947,12 @@ def upconv3x3_dw_plain(x: torch.Tensor, g: torch.Tensor,
 
 def _bwd_lib() -> ctypes.CDLL:
     return _build.bind("upconv3x3_bwd", {
-        # g, wc, wct, dx, ws; B, H, W, Cin, Co, bf16, tile, split; stream
-        "t2i_upconv3x3_dx": [_PTR] * 5 + [_INT] * 8 + [_PTR],
-        # g, wct, dx; Cin, Co, bf16
-        "t2i_upconv3x3_dx_path": [_PTR] * 3 + [_INT] * 3,
+        # g, wc, wct, dx, ws; B, H, W, Cin, Co, bf16, kernel, tile, parts;
+        # stream
+        "t2i_upconv3x3_dx": [_PTR] * 5 + [_INT] * 9 + [_PTR],
+        # g, wc, dx; H, W, Cin, Co, bf16
+        "t2i_upconv3x3_dx_path": [_PTR] * 3 + [_INT] * 5,
+        "t2i_upconv3x3_dx_mode": [],
         # x, g, dw, ws; B, H, W, Cin, Co, bf16, w_bf16, tile_m, tile_n,
         # parts, cluster, chunk, fold; stream
         "t2i_upconv3x3_dw": [_PTR] * 4 + [_INT] * 13 + [_PTR],
@@ -964,20 +968,131 @@ def _bwd_lib() -> ctypes.CDLL:
 DX_PATHS = ("tile", "pipelined", "wgmma")
 DW_PATHS = ("tile", "wgmma", "mma")
 
+# dx's wgmma loops (csrc/upconv_dx.cuh): their codes (dx90::Kernel), the
+# rows of the ring kernel's tile, its tile widths and parts of K (one
+# cluster of at most 8)
+DX_KERNELS = ("cp_async", "ring", "transposed")
+DX_BM = 128
+DX_TILES_N = (256, 128, 64)
+DX_PARTS = (1, 2, 4, 8)
 
-def dx_path(cin: int, co: int, dtype: torch.dtype,
+
+def dx_boxes(h: int, w: int) -> bool:
+    """Whether a tile of DX_BM rows of dx's h×w map is one TMA box of g's
+    parity planes (csrc/upconv_dx.cuh `boxes`): a part of one image row,
+    whole rows of one image or whole images."""
+    hw = h * w
+    return w % DX_BM == 0 or (DX_BM % w == 0 and (hw % DX_BM == 0
+                                                  or DX_BM % hw == 0))
+
+
+def dx_patches(h: int, w: int) -> bool:
+    """Whether the transposed kernel's tiles, two image rows of a 128-pixel
+    segment, cover dx's h×w map (csrc/upconv_dx.cuh `patches`): there the
+    four taps of a parity plane share one staged patch."""
+    return w % 128 == 0 and h % 2 == 0
+
+
+def dx_path(h: int, w: int, cin: int, co: int, dtype: torch.dtype,
             aligned: bool = True) -> str:
-    """The Python mirror of `dx_path` in csrc/upconv3x3_bwd.cu (the GEMM's
-    K channels are Co and its N is Cin: the forward's rule, which is
-    symmetric in the two).  `aligned`: g, the transposed weights and dx
-    start on 16-byte boundaries."""
-    return upconv_path(cin, co, dtype, aligned)
+    """The Python mirror of `dx_path` in csrc/upconv3x3_bwd.cu for dx's
+    h×w map (the GEMM's N is Cin, its K slices Co's channels): wgmma for
+    bf16 with Cin a multiple of 64 and Co of 64, or of 32 where a tile is a
+    TMA box (`dx_boxes`); mma.sync (pipelined) for multiples of 8; else the
+    simple tile.  `aligned`: g, the combined weights and dx start on
+    16-byte boundaries."""
+    bf16 = dtype == torch.bfloat16
+    if bf16 and aligned and cin % 64 == 0 and (
+            co % 64 == 0 or (co % 32 == 0 and dx_boxes(h, w))):
+        return "wgmma"
+    return ("pipelined" if bf16 and aligned and cin % 8 == 0 and co % 8 == 0
+            else "tile")
 
 
-def dx_plan(m: int, cin: int, co: int):
-    """(tile_m, tile_n, split) of dx's wgmma GEMM: `conv_plan` of m = B·H·W
-    rows, n = Cin and K = 16 taps of Co channels."""
-    return conv_plan(m, cin, 16 * co, taps=16)
+class DxPlan(NamedTuple):
+    """A launch of dx's wgmma path: the loop (`DX_KERNELS`), its tile (the
+    transposed kernel's: 256 pixels × 64 input channels) and the parts of
+    K (the ring kernel: one cluster of them, summed on chip; the gather
+    loop: split planes through a workspace)."""
+    kernel: str
+    tile_m: int
+    tile_n: int
+    parts: int
+
+    @property
+    def cluster(self) -> int:
+        """CTAs of one cluster: the ring kernel's parts, else 1."""
+        return self.parts if self.kernel == "ring" else 1
+
+    @property
+    def staging(self) -> str:
+        """How A reaches shared memory: a TMA box a tap ("tap", the ring
+        kernel), one patch a plane for its four taps ("patch", the
+        transposed kernel) or cp.async row by row ("gather")."""
+        return {"ring": "tap", "transposed": "patch"}.get(self.kernel,
+                                                           "gather")
+
+
+# The ring kernel's cost model, in units of one 128x128x64 slice on one SM
+# (ranks plans; not a prediction): work per product relative to the
+# 128x128 tile, the fixed cost of a block (ring fill, epilogue) and of
+# each extra part of a cluster (its tile through distributed shared memory)
+_DX_TILE_COST = {256: 0.9, 128: 1.0, 64: 1.1}
+_DX_PART_COST = 4.0
+
+
+def dx_k_slice(co: int) -> int:
+    """Channels of g a K slice of the TMA loops takes: 64 (128-byte rows),
+    or 32 (64-byte rows) where Co is not a multiple of 64."""
+    return 64 if co % 64 == 0 else 32
+
+
+def dx_ring_cost(m: int, cin: int, co: int, tile_n: int, parts: int) -> float:
+    """The model's time of the ring kernel with 128×tile_n tiles and
+    `parts` parts of the 16·Co/slice items: its blocks in waves of one a
+    SM (blocks an SM shares run at its shared rate), each the items of its
+    part plus the cost of each other part's tile summed through the
+    cluster."""
+    items = 16 * co // dx_k_slice(co)
+    blocks = -(-m // DX_BM) * (cin // tile_n) * parts
+    per_item = tile_n / 128 * dx_k_slice(co) / 64 * _DX_TILE_COST[tile_n]
+    work = -(-items // parts) * per_item + (parts - 1) * _DX_PART_COST
+    return -(-blocks // SM_COUNT) * work
+
+
+def dx_candidates(b: int, h: int, w: int, cin: int, co: int):
+    """Every TMA plan the launcher takes at this shape (a map with a box):
+    the ring kernel at each tile width dividing Cin and 1, 2, 4 or 8 parts
+    (at most the items), and the transposed kernel at Co 32 and 64 on maps
+    with `dx_patches`."""
+    items = 16 * co // dx_k_slice(co)
+    plans = [DxPlan("ring", DX_BM, tn, parts)
+             for tn in DX_TILES_N if cin % tn == 0
+             for parts in DX_PARTS if parts <= items]
+    if co in (32, 64) and dx_patches(h, w):
+        plans.append(DxPlan("transposed", 256, 64, 1))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)   # a training run repeats a few shapes
+def dx_plan(b: int, h: int, w: int, cin: int, co: int) -> DxPlan:
+    """The plan of dx's wgmma path for x [b,h,w,Cin] and Co.  Maps with no
+    box: the gather loop with `conv_plan`'s tile and split of the 16 taps.
+    Co 32 and 64 on maps with `dx_patches` (the 128² maps, bound by
+    bytes): the transposed kernel, 1.3-1.7× faster than the ring there
+    (tools/conv_plan_sweep.py --ops dx on the H100).  Elsewhere the ring
+    kernel, its tile and parts the cheapest by `dx_ring_cost` (ties to
+    fewer parts, then the wider tile)."""
+    m = b * h * w
+    if not dx_boxes(h, w):
+        tm, tn, split = conv_plan(m, cin, 16 * co, taps=16)
+        return DxPlan("cp_async", tm, tn, split)
+    cands = dx_candidates(b, h, w, cin, co)
+    if cands[-1].kernel == "transposed":
+        return cands[-1]
+    return min(cands, key=lambda p: (dx_ring_cost(m, cin, co, p.tile_n,
+                                                  p.parts),
+                                     p.parts, -p.tile_n))
 
 
 def dw_path(h: int, w: int, cin: int, co: int, dtype: torch.dtype,
@@ -1210,12 +1325,13 @@ def _dx_check(g, w, out_dtype):
 
 
 def upconv3x3_dx(g: torch.Tensor, w: torch.Tensor,
-                 out_dtype: torch.dtype) -> torch.Tensor:
+                 out_dtype: torch.dtype, plan: DxPlan = None) -> torch.Tensor:
     """dx [B,H,W,Cin] of conv3×3(up2(x), w) for the cotangent g
     [B,2H,2W,Co] (the activation's derivative already in it), in g's dtype
     (out_dtype must be it): the combined weights of w in g's dtype, then
-    one hand-written GEMM over the 16 taps.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    one hand-written GEMM over the 16 taps (on its wgmma path the loop,
+    tile and parts of `dx_plan`, or `plan`: a sweep's).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
     _dx_check(g, w, out_dtype)
     if g.device.type == "cpu":
         return upconv3x3_dx_plain(g, w, out_dtype)
@@ -1224,20 +1340,28 @@ def upconv3x3_dx(g: torch.Tensor, w: torch.Tensor,
     b, h2, w2, co = g.shape
     h, wd, cin = h2 // 2, w2 // 2, w.shape[2]
     wc = combined_weights(w.to(g.dtype))
-    wct = torch.empty_like(wc)
     dx = torch.empty(b, h, wd, cin, dtype=g.dtype, device=g.device)
-    tile, split, ws = 0, 1, None
-    if dx_path(cin, co, g.dtype, _aligned16(g, wct, dx)) == "wgmma":
-        rows = b * h * wd
-        tm, tn, split = dx_plan(rows, cin, co)
-        tile = CONV_TILES.index((tm, tn))
-        if split > 1:
-            ws = torch.empty(split * rows * cin, dtype=torch.float32,
-                             device=g.device)
+    path = dx_path(h, wd, cin, co, g.dtype, _aligned16(g, wc, dx))
+    kernel, tile, parts, ws = 0, 0, 1, None
+    if path == "wgmma":
+        plan = plan or dx_plan(b, h, wd, cin, co)
+        kernel, parts = DX_KERNELS.index(plan.kernel), plan.parts
+        if plan.kernel == "cp_async":
+            tile = CONV_TILES.index((plan.tile_m, plan.tile_n))
+            if parts > 1:
+                ws = torch.empty(parts * b * h * wd * cin,
+                                 dtype=torch.float32, device=g.device)
+        else:
+            tile = plan.tile_n
+    # the weights transposed to [16][Co][Cin], for the loops that read them
+    # N-major (the gather, mma.sync and FMA tiles)
+    wct = (torch.empty_like(wc)
+           if path != "wgmma" or plan.kernel == "cp_async" else None)
     rc = _bwd_lib().t2i_upconv3x3_dx(
-        g.data_ptr(), wc.data_ptr(), wct.data_ptr(), dx.data_ptr(),
+        g.data_ptr(), wc.data_ptr(),
+        wct.data_ptr() if wct is not None else None, dx.data_ptr(),
         ws.data_ptr() if ws is not None else None, b, h, wd, cin, co,
-        int(g.dtype == torch.bfloat16), tile, split, _stream(g))
+        int(g.dtype == torch.bfloat16), kernel, tile, parts, _stream(g))
     if rc != 0:
         raise RuntimeError(f"upconv3x3_dx kernel launch failed: CUDA error "
                            f"{rc}")
@@ -1249,11 +1373,44 @@ upconv3x3_dx.launches = 0
 
 
 def dx_path_on_card(g, dx) -> str:
-    """The path t2i_upconv3x3_dx takes for these tensors (the transposed
+    """The path t2i_upconv3x3_dx takes for these tensors (the combined
     weights come from the caching allocator: 16-byte aligned)."""
     return DX_PATHS[_bwd_lib().t2i_upconv3x3_dx_path(
-        g.data_ptr(), dx.data_ptr(), dx.data_ptr(), dx.shape[-1],
-        g.shape[-1], int(g.dtype == torch.bfloat16))]
+        g.data_ptr(), dx.data_ptr(), dx.data_ptr(), dx.shape[1], dx.shape[2],
+        dx.shape[-1], g.shape[-1], int(g.dtype == torch.bfloat16))]
+
+
+# what a dx launch did, in the order of csrc/upconv_dx.cuh's Mode bits: A
+# by TMA (the ring and transposed kernels, both with a producer warp), the
+# four taps of a plane from one shared patch (the transposed kernel),
+# 64-byte K slices (Co not a multiple of 64), the parts of K summed in a
+# cluster, a workspace and its reduce launch, A gathered by cp.async
+DX_MODES = ("tma_a", "patch", "k32", "cluster", "workspace", "cp_async")
+
+
+def dx_modes(path: str, plan: DxPlan, co: int) -> frozenset:
+    """The Python mirror of the Mode bits a dx launch reports, from its path
+    and plan (none on the mma.sync and FMA tiles)."""
+    if path != "wgmma":
+        return frozenset()
+    if plan.kernel == "cp_async":
+        return frozenset({"cp_async"} | ({"workspace"} if plan.parts > 1
+                                         else set()))
+    modes = {"tma_a"}
+    if co % 64:
+        modes.add("k32")
+    if plan.kernel == "ring" and plan.parts > 1:
+        modes.add("cluster")
+    if plan.kernel == "transposed":
+        modes.add("patch")
+    return frozenset(modes)
+
+
+def dx_mode_on_card() -> frozenset:
+    """What the last upconv3x3_dx launch of this process did (its C entry
+    point's Mode bits)."""
+    bits = _bwd_lib().t2i_upconv3x3_dx_mode()
+    return frozenset(n for i, n in enumerate(DX_MODES) if bits >> i & 1)
 
 
 def _dw_check(x, g, w_dtype):

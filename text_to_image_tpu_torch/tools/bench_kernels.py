@@ -523,16 +523,26 @@ def dw_plan_tag(path, plan, modes) -> str:
             + "".join(f" {m}" for m in extra))
 
 
+def dx_plan_tag(plan, modes) -> str:
+    """A dx launch's plan as the tables print it: the loop (the ring
+    kernel, the transposed one, the gather loop), its tile, the parts of K
+    (the ring's in one cluster, the gather loop's through a workspace),
+    and the launch's modes."""
+    parts = (f" parts {plan.parts}" if plan.kernel != "transposed" else "")
+    return (f"wgmma {plan.kernel} {plan.tile_m}x{plan.tile_n}{parts} "
+            f"{plan.staging} [{' '.join(sorted(modes))}]")
+
+
 def bwd_path_tag(kernel, path, shape, co) -> str:
     """The path of an upconv3x3_dx / upconv3x3_dw call with its plan: dx's
-    tile and split of the 16 taps, dw's `dw_plan_tag`."""
+    `dx_plan_tag`, dw's `dw_plan_tag`."""
     from text_to_image_tpu_torch.ops.kernels import conv
     b, h, wd, cin = shape
     if kernel == "upconv3x3_dx":
         if path != "wgmma":
             return path
-        tm, tn, split = conv.dx_plan(b * h * wd, cin, co)
-        return f"wgmma {tm}x{tn} split {split}"
+        plan = conv.dx_plan(b, h, wd, cin, co)
+        return dx_plan_tag(plan, conv.dx_modes(path, plan, co))
     dtype = torch.bfloat16 if path in ("wgmma", "mma") else torch.float32
     plan = conv.dw_plan(b, h, wd, cin, co, dtype)
     return dw_plan_tag(path, plan, conv.dw_modes(path, plan, 16, cin, h, wd))
@@ -542,7 +552,8 @@ def bench_upconv_bwd(device, flush, gen) -> List[Dict]:
     """upconv3x3_dx and upconv3x3_dw alone (bf16), each held against its
     plain version (within 1e-2 of the largest |ref| plus 1e-2 relative: a
     rounding flip after f32 sums in another order) and timed beside it and
-    one library call."""
+    one library call; dx's row names its plan and modes, on the card read
+    back from its C entry point and held against `dx_modes`."""
     from text_to_image_tpu_torch.ops.kernels import conv
     bf = torch.bfloat16
     rows = []
@@ -556,8 +567,16 @@ def bench_upconv_bwd(device, flush, gen) -> List[Dict]:
                       f"upconv3x3_dx {shape}->{co}", rel_to_max=True)
         err_dw = hold(dw, conv.upconv3x3_dw_plain(x, g, bf), *TOL,
                       f"upconv3x3_dw {shape}->{co}", rel_to_max=True)
-        dx_path = bwd_path_tag("upconv3x3_dx", conv.dx_path_on_card(g, dx),
-                               shape, co)
+        on_card = conv.dx_path_on_card(g, dx)
+        dx_path = bwd_path_tag("upconv3x3_dx", on_card, shape, co)
+        if torch.device(device).type == "cuda" and on_card == "wgmma":
+            modes = conv.dx_mode_on_card()
+            want = conv.dx_modes(on_card, conv.dx_plan(bsz, h, wd, cin, co),
+                                 co)
+            if modes != want:
+                raise RuntimeError(f"upconv3x3_dx {shape}->{co}: modes "
+                                   f"{sorted(modes)}, the mirror says "
+                                   f"{sorted(want)}")
         dw_path = bwd_path_tag("upconv3x3_dw", conv.dw_path_on_card(x, g),
                                shape, co)
         # the library: autograd's backward through F.interpolate +

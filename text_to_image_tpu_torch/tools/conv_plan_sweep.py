@@ -24,7 +24,14 @@ writes ``conv_plan_sweep.json`` to the output directory of ``chip_smoke.py``.
 up-block shapes of the microbench): every (parts, cluster) plan held
 against the plain version and timed beside the plan `conv_dw_plan` /
 `dw_plan` picks and cuDNN's ``conv2d_weight``, after the card's cluster
-capacity (the constants of `_wgrad_plan` were set from it).
+capacity (the constants of `_wgrad_plan` were set from it).  ``--ops
+dx`` sweeps ``upconv3x3_dx`` at the up-block shapes of the microbench
+(``UPCONV_BWD_SHAPES``): every plan of `dx_candidates` (the ring kernel's
+tiles × parts in one cluster, the transposed kernel with its shared
+patch) and the gather loop's `conv_plan` plan, each held against the
+plain version, bit for bit between two runs, and timed beside the plan
+`dx_plan` picks, the ring's cost-model estimate and cuDNN's input
+gradient (autograd through ``F.interpolate`` + ``conv2d``).
 Needs one NVIDIA GPU with nvcc.
 """
 
@@ -392,10 +399,92 @@ def sweep_dw(gen, dev, flush):
     return bad, rows
 
 
+def dx_plans(b, h, w, cin, co):
+    """Every plan dx's wgmma path takes at this shape: `dx_candidates`
+    where a tile is a box, and the gather loop's `conv_plan` plan where K
+    slices are 64 channels."""
+    plans = conv.dx_candidates(b, h, w, cin, co) if conv.dx_boxes(h, w) \
+        else []
+    if co % 64 == 0:
+        tm, tn, split = conv.conv_plan(b * h * w, cin, 16 * co, taps=16)
+        plans.append(conv.DxPlan("cp_async", tm, tn, split))
+    return plans
+
+
+def dx_key(plan) -> str:
+    if plan.kernel == "ring":
+        return f"ring {plan.tile_n} x{plan.parts}"
+    if plan.kernel == "transposed":
+        return "transposed patch"
+    return f"gather {plan.tile_m}x{plan.tile_n} split {plan.parts}"
+
+
+def sweep_dx(gen, dev, flush):
+    """upconv3x3_dx at the microbench's up-block shapes, bf16: every plan of
+    `dx_plans` held against the plain version (within 1e-2 of the largest
+    |ref| plus 1e-2 of the element), bit for bit between two launches, its
+    modes read back against `dx_modes`, and timed; beside the plan
+    `dx_plan` picks, the ring plans' `dx_ring_cost` and cuDNN's dx."""
+    bf = torch.bfloat16
+    bad, rows = 0, []
+    for shape, co in bench_kernels.UPCONV_BWD_SHAPES:
+        b, h, w, cin = shape
+        g = torch.randn(b, 2 * h, 2 * w, co, generator=gen).to(bf).to(dev)
+        wt = (torch.randn(3, 3, cin, co, generator=gen) * 0.05).to(bf).to(dev)
+        ref = conv.upconv3x3_dx_plain(g, wt, bf).float()
+        lim = TOL * float(ref.abs().max())
+        path = conv.dx_path(h, w, cin, co, bf)
+        chosen = conv.dx_plan(b, h, w, cin, co)
+        times, costs = {}, {}
+        for plan in dx_plans(b, h, w, cin, co):
+            got = conv.upconv3x3_dx(g, wt, bf, plan)
+            again = conv.upconv3x3_dx(g, wt, bf, plan)
+            torch.cuda.synchronize()
+            modes = conv.dx_mode_on_card()
+            err = (got.float() - ref).abs()
+            n_bad = int((err > lim + TOL * ref.abs()).sum())
+            if (n_bad or not torch.equal(got, again)
+                    or modes != conv.dx_modes(path, plan, co)):
+                bad += 1
+                print(f"  FAIL dx {shape}->{co} {dx_key(plan)}: {n_bad} "
+                      f"elements, max |err| {float(err.max()):.3e}, modes "
+                      f"{sorted(modes)}", flush=True)
+            times[dx_key(plan)] = time_ms(
+                lambda: conv.upconv3x3_dx(g, wt, bf, plan), flush)
+            if plan.kernel == "ring":
+                costs[dx_key(plan)] = conv.dx_ring_cost(
+                    b * h * w, cin, co, plan.tile_n, plan.parts)
+            del got, again
+        x_cl = torch.randn(b, cin, h, w, generator=gen).to(bf).to(dev) \
+            .contiguous(memory_format=torch.channels_last) \
+            .requires_grad_(True)
+        w_cl = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        out = F.conv2d(F.interpolate(x_cl, scale_factor=2, mode="nearest"),
+                       w_cl, padding=1)
+        g_cl = g.permute(0, 3, 1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(out, x_cl, g_cl,
+                                                     retain_graph=True),
+                         flush)
+        best = min(times, key=times.get)
+        pick = dx_key(chosen)
+        print(f"dx {list(shape)}->{co}: plan {pick} {times[pick]:.4f} ms, "
+              f"best {best} {times[best]:.4f}, cuDNN {lib_ms:.4f}; "
+              + " ".join(f"[{k}] {v:.4f}"
+                         + (f" (model {costs[k]:.0f})" if k in costs else "")
+                         for k, v in times.items()), flush=True)
+        rows.append({"op": "dx", "shape": list(shape), "co": co,
+                     "plan": pick, "best": best, "ms": times,
+                     "model": costs, "cudnn_ms": lib_ms})
+        del g, wt, ref, x_cl, out, g_cl
+        torch.cuda.empty_cache()
+    return bad, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ops", nargs="+", default=["conv", "deconv", "upconv"],
-                    choices=["conv", "deconv", "upconv", "dw"])
+                    choices=["conv", "deconv", "upconv", "dw", "dx"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -421,6 +510,9 @@ def main() -> int:
             bad, rows = bad + b, rows + r
     if "dw" in args.ops:
         b, r = sweep_dw(gen, dev, flush)
+        bad, rows = bad + b, rows + r
+    if "dx" in args.ops:
+        b, r = sweep_dx(gen, dev, flush)
         bad, rows = bad + b, rows + r
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -103,10 +103,10 @@ def kernel_family(name: str) -> str:
             (("deconv5x5_s2", "namespace)::deconv"), "deconv5x5_s2 (CUDA)"),
             # csrc/wgrad.cuh's dw_* kernels serve both ops and carry the
             # op's policy in their names: CDw the conv's (so before
-            # "::dw_"), Dw the up-block's
+            # "::dw_"), Dw the up-block's; dx90:: the up-block's dx
             (("namespace)::cdw",), "conv5x5_s2_dw (CUDA)"),
-            (("namespace)::upconvdx", "namespace)::dx_", "namespace)::dw_"),
-             "upconv3x3 backward (CUDA)"),
+            (("namespace)::upconvdx", "namespace)::dx_", "namespace)::dw_",
+              "dx90::"), "upconv3x3 backward (CUDA)"),
             (("namespace)::upconv", "combine_kernel"), "upconv3x3 (CUDA)"),
             (("namespace)::conv", "down0_mma_kernel"),
              "conv5x5_s2_act (CUDA)"),
