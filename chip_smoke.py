@@ -29,7 +29,6 @@
    the StackGAN, C-PGGAN and odd shapes (bf16 and f32, bit for bit between
    two launches, each path and what each launch did read back from C:
    for dw the kernel's own write, parts summed across a cluster, the
-X
    weight-gradient kernel ``conv5x5_s2_dw`` against its plain version at
    every main-path call (the 64 px and 256 px D's convs, the GAN-CLS
    generator's deconvs in their own weight layout) and the odd shapes
@@ -37,7 +36,13 @@ X
    reached, the RGB layers' staged rows among them), and both
    weight-gradient kernels at Cin·Co over 1 M (bf16 on chip with no
    workspace; the up-block's f32 tile walking Cin in chunks; an up-block
-   of that size forward and backward through its Function);
+   of that size forward and backward through its Function); the conv's
+   input gradient ``conv5x5_s2_dx`` at every D call of both batches and
+   at odd shapes (its route read back from C against the mirror, its
+   plan's modes, bit for bit twice, every plan it takes at each deep call,
+   its Function's first and second order in bf16 against autograd through
+   the plain version), the RGB layer's dx and forward on the thin path of
+   ``deconv5x5_s2`` and that path at Co 1-4 on odd maps;
 3. drives the sampling path at the flagship widths (gf 128, z 100,
    embed 1024, batch 64, bf16) through ``eval/sampler.py`` — the sample grid
    and both interpolation grids — plus the BN-folded serving generator, with
@@ -214,6 +219,13 @@ BN_SHAPES = [(BATCH, 4, 4, 1024), (BATCH, 8, 8, 512), (BATCH, 16, 16, 256),
 # of each kernel is held against its plain version too
 ODD_DECONV_SHAPES = [((2, 5, 7, 12), 20, "lrelu"), ((3, 8, 8, 8), 16, "none"),
                      ((2, 5, 7, 6), 3, "tanh"), ((2, 4, 4, 16), 2, "relu")]
+# the thin path (bf16, Co <= 4, Cin a multiple of 16) off the main path:
+# Co 1-4 on odd and non-square maps, a row of two 64-pixel segments, Cin
+# 16 / 32 / 48 (32- and 64-byte K slices) and 512, B 1; f32 takes the
+# direct kernel
+THIN_ODD_SHAPES = [((2, 5, 7, 16), 1, "relu"), ((2, 9, 6, 48), 2, "lrelu"),
+                   ((3, 7, 70, 32), 4, "none"), ((1, 3, 5, 64), 3, "tanh"),
+                   ((2, 4, 4, 512), 3, "tanh"), ((1, 11, 13, 128), 2, "none")]
 # off the main path, (input, streams, act): the scalar path (C = 20), four
 # channel slices the last of one group (C = 200), three streams of ragged C
 ODD_BN_CALLS = [((3, 5, 7, 20), 1, "tanh"), ((2, 3, 3, 200), 1, "lrelu"),
@@ -336,14 +348,17 @@ TRAIN_TICKS = 3
 # differentiated); then each of the 2 G steps: G (4 deconv, 4 BN) and D on
 # one stream (4 conv, 1 join, 4 BN), both differentiated.  BN calls forward
 # 4 + 4 + 2·(4 + 4) = 24, backward 4 + 2·(4 + 4) = 20.  The 5×5 backwards
-# run on the kernels too: a conv's dx is one deconv5x5_s2 launch, a
-# deconv's dx one conv5x5_s2_act launch, each one's dw one conv5x5_s2_dw.
-# The D step differentiates D's 4 convs in w and down1-3 in x (the images
-# need no gradient): 4 dw, 3 deconv; each G step D's 4 convs in x only (D
-# is not trained there: 4 deconv) and G's 4 deconvs in x and w (4 conv,
-# 4 dw).  deconv 12 + 3 + 2·4 = 23, conv 12 + 2·4 = 20, dw 4 + 2·4 = 12.
-TICK_LAUNCHES = {"deconv5x5_s2": 23, "bn_stats": 24, "bn_act": 24,
-                 "bn_bwd_reduce": 20, "bn_bwd_apply": 20,
+# run on the kernels too (ops/kernels/conv.py): a conv's dx is one
+# conv5x5_s2_dx launch where its Cin and Co are multiples of 64 (bf16:
+# down1-3, `conv_dx_path`), else one deconv5x5_s2 launch (the RGB layer
+# down0, Cin 3: the thin path); a deconv's dx one conv5x5_s2_act launch;
+# each one's dw one conv5x5_s2_dw.  The D step differentiates D's 4 convs
+# in w and down1-3 in x (the images need no gradient): 4 dw, 3 dx; each G
+# step D's 4 convs in x only (D is not trained there: 3 dx and down0's
+# deconv) and G's 4 deconvs in x and w (4 conv, 4 dw).  deconv 12 + 2·1 =
+# 14, conv5x5_s2_dx 3 + 2·3 = 9, conv 12 + 2·4 = 20, dw 4 + 2·4 = 12.
+TICK_LAUNCHES = {"deconv5x5_s2": 14, "conv5x5_s2_dx": 9, "bn_stats": 24,
+                 "bn_act": 24, "bn_bwd_reduce": 20, "bn_bwd_apply": 20,
                  "conv5x5_s2_act": 20, "conditioning_join": 3,
                  "conv5x5_s2_dw": 12}
 # the up-block's forward and its two backward kernels, on a path without one
@@ -408,19 +423,21 @@ WGMMA_UPCONV_ODD_SHAPES = [((1, 5, 7, 64), 64, "relu"),
 # step differentiates the 4 up-blocks it trains: 4 upconv3x3_dx (the first
 # block's input comes from the trained stem) and 4 upconv3x3_dw a tick.
 # The D's convs as in TICK_LAUNCHES: the D step's dw of each and dx of all
-# but the first, the G step's dx of each (deconv5x5_s2 launches; no deconv
-# forward): Stage-I 3 + 4, Stage-II 5 + 6.
+# but the first, the G step's dx of each (no deconv forward): Stage-I 3 + 4
+# (6 conv5x5_s2_dx, down0's one deconv5x5_s2), Stage-II 5 + 6 (10 and 1).
 STACKGAN_TICK_LAUNCHES = {
     "stackgan_stage1": {"upconv3x3": 8, "upconv3x3_dx": 4,
                         "upconv3x3_dw": 4, "bn_stats": 18, "bn_act": 18,
                         "bn_bwd_reduce": 13, "bn_bwd_apply": 13,
                         "conv5x5_s2_act": 8, "conditioning_join": 2,
-                        "deconv5x5_s2": 7, "conv5x5_s2_dw": 4},
+                        "deconv5x5_s2": 1, "conv5x5_s2_dx": 6,
+                        "conv5x5_s2_dw": 4},
     "stackgan_stage2": {"upconv3x3": 16, "upconv3x3_dx": 4,
                         "upconv3x3_dw": 4, "bn_stats": 44, "bn_act": 44,
                         "bn_bwd_reduce": 23, "bn_bwd_apply": 23,
                         "conv5x5_s2_act": 12, "conditioning_join": 2,
-                        "deconv5x5_s2": 11, "conv5x5_s2_dw": 6}}
+                        "deconv5x5_s2": 1, "conv5x5_s2_dx": 10,
+                        "conv5x5_s2_dw": 6}}
 # per sampling forward (train-mode BN, no gradient): Stage-I 4 upconv + 5 BN
 # calls; Stage-II 8 upconv (4 of them in the frozen Stage-I) + 16 BN calls
 STACKGAN_FORWARD_LAUNCHES = {
@@ -683,7 +700,8 @@ def phase_kernels(device):
             errs["deconv5x5_s2"][(dtype, shape)] = grouped_vs_plain(
                 conv, "deconv", args, dtype,
                 f"deconv5x5_s2 {str(dtype)[6:]} {shape}->{co} {act}")[0]
-        for shape, co, act in ODD_DECONV_SHAPES + WGMMA_DECONV_ODD_SHAPES:
+        for shape, co, act in (ODD_DECONV_SHAPES + WGMMA_DECONV_ODD_SHAPES
+                               + THIN_ODD_SHAPES):
             args = [*deconv_inputs(shape, co, dtype, device, gen), act]
             grouped_vs_plain(
                 conv, "deconv", args, dtype,
@@ -712,7 +730,8 @@ def expected_conv_path(cin, co, dtype):
 def expected_deconv_path(cin, co, dtype):
     """The deconv path the port is meant to take for a contiguous tensor."""
     if co <= 4 and cin <= 512:
-        return "direct"
+        return ("thin" if dtype == torch.bfloat16 and cin % 16 == 0
+                else "direct")
     if dtype != torch.bfloat16:
         return "tile"
     if cin % 64 == 0 and co % 64 == 0:
@@ -900,6 +919,23 @@ def phase_backward(device):
         errs[f"conv5x5_s2_act {shape}->{co} {act}"] = grad_compare(
             conv.conv5x5_s2_act, conv.conv5x5_s2_act_plain, [x, w, b, act],
             (0, 1, 2), gen, f"conv5x5_s2_act bwd {shape}->{co} {act}")
+    # conv5x5_s2_dx's Function: its backward (the conv and conv5x5_s2_dw
+    # kernels, f32) with its forward, bf16 only on the card, swapped for
+    # the plain version
+    dx_forward = conv._conv_dx_forward
+    conv._conv_dx_forward = lambda gc, w, h, wd: conv.conv5x5_s2_dx_plain(
+        gc, w, h, wd)
+    try:
+        for (b, h, wd, cin), co in (((BATCH, 16, 16, 128), 256),
+                                    ((2, 9, 7, 64), 64)):
+            gc = torch.randn(b, (h + 1) // 2, (wd + 1) // 2, co,
+                             generator=gen).to(device)
+            w = (torch.randn(5, 5, cin, co, generator=gen) * 0.05).to(device)
+            errs[f"conv5x5_s2_dx {(b, h, wd, cin)}->{co}"] = grad_compare(
+                conv._ConvDx.apply, conv.conv5x5_s2_dx_plain, [gc, w, h, wd],
+                (0, 1), gen, f"conv5x5_s2_dx bwd {(b, h, wd, cin)}->{co}")
+    finally:
+        conv._conv_dx_forward = dx_forward
     for (shape, e, co), act in ((join_shape(BATCH), "none"),
                                 (ODD_JOIN_SHAPES[1][:3], "tanh")):
         args = join_inputs(shape, e, co, f32, device, gen)
@@ -1159,52 +1195,144 @@ CONV_DW_CHUNKED = [((BATCH, 8, 8, 1024), 2048)]
 UPCONV_DW_CHUNKED = [((BATCH, 4, 4, 2048), 1024)]
 
 
-# the 5×5 ops' input gradients, each the opposite forward kernel at the
-# shapes the backward gives it: the conv's dx (deconv5x5_s2 of its
-# cotangent) at every D call, the 64 px and the 256 px D's at both batches
-# (WGAN-CLS's critic has the 64 px D's shapes), and the odd conv shapes;
-# the deconv's dx (conv5x5_s2_act of its cotangent) at the GAN-CLS
-# generator's calls and the odd deconv shapes
+# the 5×5 ops' input gradients at the shapes the backward gives them: the
+# conv's dx (conv5x5_s2_dx where bf16 Cin and Co are multiples of 64, else
+# deconv5x5_s2 of its cotangent) at every D call, the 64 px and the 256 px
+# D's at both batches (WGAN-CLS's critic has the 64 px D's shapes), the odd
+# conv shapes (odd maps on the kernel's ring: WGMMA_ODD_SHAPES) and
+# CDX_ODD_SHAPES (the patch kernel at B 1, an odd map whose plane tiles
+# span images, one pixel); the deconv's dx (conv5x5_s2_act of its
+# cotangent) at the GAN-CLS generator's calls and the odd deconv shapes
+CDX_ODD_SHAPES = [((1, 16, 128, 64), 64), ((2, 3, 5, 64), 128),
+                  ((1, 1, 1, 128), 64)]
 CONV_DX_SHAPES = list(dict.fromkeys(
     [(s, c) for b in (D_BATCH, BATCH)
      for s, c, _ in conv_shapes(b) + conv_shapes_256(b)]
-    + [(s, c) for s, c, _ in ODD_CONV_SHAPES + WGMMA_ODD_SHAPES]))
+    + [(s, c) for s, c, _ in ODD_CONV_SHAPES + WGMMA_ODD_SHAPES]
+    + CDX_ODD_SHAPES))
 DECONV_DX_SHAPES = [(s, c) for s, c, _ in DECONV_SHAPES + ODD_DECONV_SHAPES
                     + WGMMA_DECONV_ODD_SHAPES]
 
 
 def conv_dx_vs_plain(conv, shape, co, dtype, device, gen):
-    """The conv's dx for x `shape` and Co (`conv.conv_dx`: deconv5x5_s2 of
-    the cotangent with w flipped and transposed, rows 1..h on an odd map)
-    against the plain deconv of the same inputs, cropped alike; the path
-    read back from C and held against the mirror and the expected one, a
-    second launch bit for bit.  Returns max |err|."""
+    """The conv's dx for x `shape` and Co through `conv.conv_dx`, its route
+    read back from C (`conv_dx_path_on_card`) and held against the mirror
+    and the expected one.  conv5x5_s2_dx (bf16, Cin and Co multiples of
+    64): against its plain version, its plan's modes read back from C
+    against `conv_dx_modes`, a second launch bit for bit.  The deconv
+    route: against the plain deconv of the flipped weight, cropped alike,
+    its path read back from C.  Returns (max |err|, route)."""
     b, h, wd, cin = shape
     ho, wo = (h + 1) // 2, (wd + 1) // 2
     gc = torch.randn(b, ho, wo, co, generator=gen).to(dtype).to(device)
     w = (torch.randn(5, 5, cin, co, generator=gen) * 0.02).to(dtype).to(device)
-    wdx = conv.deconv_dx_weight(w)
-    one = torch.ones(cin, device=device)
-    zero = torch.zeros(cin, device=device)
     got = conv.conv_dx(gc, w, h, wd)
-    full = conv.deconv5x5_s2(gc, wdx, one, zero)
+    again = conv.conv_dx(gc, w, h, wd)
     torch.cuda.synchronize()
-    what = f"conv dx (deconv5x5_s2) {str(dtype)[6:]} {shape}->{co}"
-    path = conv.deconv_path_on_card(gc, wdx, full)
-    mirror = conv.deconv_path(co, cin, dtype)
-    want = expected_deconv_path(co, cin, dtype)
-    check(path == mirror == want, f"{what}: path {path}, mirror {mirror}, "
-                                  f"expected {want}")
-    ot, ol = conv.same_pads(h)[1] - 1, conv.same_pads(wd)[1] - 1
-    check(torch.equal(got, full[:, ot:ot + h, ol:ol + wd]),
-          f"{what}: two launches differ")
-    ref = conv.deconv5x5_s2_plain(gc, wdx, one, zero)[:, ot:ot + h,
-                                                      ol:ol + wd]
-    plan = (conv.deconv_plan(b * ho * wo, cin, co) if path == "wgmma"
-            else None)
-    return compare(got, ref, *TOL[dtype],
-                   f"{what} [{grouped_tag(conv, path, plan, ho, wo)}] "
-                   f"(bit-identical twice)")
+    what = f"conv dx {str(dtype)[6:]} {shape}->{co}"
+    route = conv.conv_dx_path_on_card(gc, w, got)
+    mirror = conv.conv_dx_path(cin, co, dtype)
+    want = ("wgmma" if dtype == torch.bfloat16 and cin % 64 == 0
+            and co % 64 == 0 else "deconv")
+    check(route == mirror == want, f"{what}: route {route}, mirror {mirror}, "
+                                   f"expected {want}")
+    check(torch.equal(got, again), f"{what}: two launches differ")
+    if route == "wgmma":
+        plan = conv.conv_dx_plan(b, h, wd, cin, co)
+        modes = conv.conv_dx_mode_on_card()
+        check(modes == conv.conv_dx_modes(plan),
+              f"{what}: modes {sorted(modes)}, the mirror says "
+              f"{sorted(conv.conv_dx_modes(plan))}")
+        ref = conv.conv5x5_s2_dx_plain(gc, w, h, wd)
+        tag = (f"conv5x5_s2_dx {plan.kernel} {plan.tile_m}x{plan.tile_n} "
+               f"parts {plan.parts}")
+    else:
+        wdx = conv.deconv_dx_weight(w)
+        one = torch.ones(cin, device=device)
+        zero = torch.zeros(cin, device=device)
+        full = conv.deconv5x5_s2(gc, wdx, one, zero)
+        path = conv.deconv_path_on_card(gc, wdx, full)
+        dwant = expected_deconv_path(co, cin, dtype)
+        check(path == conv.deconv_path(co, cin, dtype) == dwant,
+              f"{what}: deconv path {path}, expected {dwant}")
+        ot, ol = conv.same_pads(h)[1] - 1, conv.same_pads(wd)[1] - 1
+        ref = conv.deconv5x5_s2_plain(gc, wdx, one, zero)[:, ot:ot + h,
+                                                          ol:ol + wd]
+        plan = (conv.deconv_plan(b * ho * wo, cin, co) if path == "wgmma"
+                else None)
+        tag = f"deconv5x5_s2 {grouped_tag(conv, path, plan, ho, wo)}"
+    check(got.shape == (b, h, wd, cin), f"{what}: shape {tuple(got.shape)}")
+    return compare(got, ref, *TOL[dtype], f"{what} [{tag}] (bit-identical "
+                                          f"twice)"), route
+
+
+def every_conv_dx_plan(conv, shapes, device, gen):
+    """conv5x5_s2_dx under every plan `conv_dx_candidates` gives at
+    `shapes` (bf16): within tolerance of the plain version, bit for bit
+    between two launches, the modes read back from C as the mirror says."""
+    dtype = torch.bfloat16
+    for (b, h, wd, cin), co in shapes:
+        gc = torch.randn(b, (h + 1) // 2, (wd + 1) // 2, co,
+                         generator=gen).to(dtype).to(device)
+        w = (torch.randn(5, 5, cin, co, generator=gen) * 0.02).to(
+            dtype).to(device)
+        ref = conv.conv5x5_s2_dx_plain(gc, w, h, wd).float()
+        plans = conv.conv_dx_candidates(b, h, wd, cin, co)
+        worst, same = 0.0, True
+        for plan in plans:
+            got = conv.conv5x5_s2_dx(gc, w, h, wd, plan=plan)
+            modes = conv.conv_dx_mode_on_card()
+            again = conv.conv5x5_s2_dx(gc, w, h, wd, plan=plan)
+            torch.cuda.synchronize()
+            same = same and torch.equal(got, again)
+            check(modes == conv.conv_dx_modes(plan),
+                  f"conv5x5_s2_dx plan {plan} at {(b, h, wd, cin)}->{co}: "
+                  f"modes {sorted(modes)}")
+            err = (got.float() - ref).abs()
+            bad = err > TOL[dtype][0] + TOL[dtype][1] * ref.abs()
+            check(not bool(bad.any()), f"conv5x5_s2_dx plan {plan} at "
+                                       f"{(b, h, wd, cin)}->{co}: max|err| "
+                                       f"{float(err.max()):.3e}")
+            worst = max(worst, float(err.max()))
+        log(f"  conv5x5_s2_dx bfloat16 {(b, h, wd, cin)}->{co}: "
+            f"{len(plans)} plans ({sorted({p.kernel for p in plans})}): "
+            f"max|err| {worst:.3e}, two runs bit-identical {same}")
+        check(same, f"conv5x5_s2_dx: output differs between two runs at "
+                    f"{(b, h, wd, cin)}->{co}")
+        del gc, w, ref
+        torch.cuda.empty_cache()
+
+
+def conv_dx_function_vs_autograd(conv, device, gen):
+    """conv5x5_s2_dx's autograd.Function in bf16 on the card (its forward
+    the kernel, its backward the conv and conv5x5_s2_dw kernels), first and
+    second order, against autograd through the plain version in f32 on the
+    same bf16 values: within BWD_TOL[bf16] of each gradient's largest
+    element.  Returns the worst relative error."""
+    worst = 0.0
+    for (b, h, wd, cin), co in (((2, 8, 8, 64), 128), ((3, 9, 7, 128), 64)):
+        gc0 = torch.randn(b, (h + 1) // 2, (wd + 1) // 2, co,
+                          generator=gen).to(torch.bfloat16).to(device)
+        w0 = (torch.randn(5, 5, cin, co, generator=gen) * 0.05).to(
+            torch.bfloat16).to(device)
+        c = torch.randn(b, h, wd, cin, generator=gen).to(device)
+
+        def grads(fn, dt):
+            gc = gc0.to(dt).requires_grad_(True)
+            w = w0.to(dt).requires_grad_(True)
+            first = torch.autograd.grad(fn(gc, w, h, wd), [gc, w], c.to(dt),
+                                        create_graph=True)
+            second = torch.autograd.grad(
+                sum((g.float()**2).sum() for g in first), [gc, w])
+            return [v.float() for v in (*first, *second)]
+        got = grads(conv.conv5x5_s2_dx, torch.bfloat16)
+        want = grads(conv.conv5x5_s2_dx_plain, torch.float32)
+        for name, u, v in zip(("d/dgc", "d/dw", "d2/dgc", "d2/dw"), got, want):
+            tol = BWD_TOL[torch.bfloat16] * float(v.abs().max())
+            err = compare(u, v, tol, 0.0, f"conv5x5_s2_dx Function {name} "
+                                          f"{(b, h, wd, cin)}->{co} (bf16)")
+            worst = max(worst, err / float(v.abs().max()))
+    return worst
 
 
 def phase_conv_bwd_kernels(device):
@@ -1224,7 +1352,7 @@ def phase_conv_bwd_kernels(device):
     C; the conv's dx and every split-K output bit for bit twice."""
     from text_to_image_tpu_torch.ops.kernels import conv
     gen = torch.Generator().manual_seed(SEED + 19)
-    errs = {"conv5x5_s2_dw": {}, "upconv3x3_dw": {},
+    errs = {"conv5x5_s2_dw": {}, "upconv3x3_dw": {}, "conv5x5_s2_dx": {},
             "deconv5x5_s2 (conv dx)": {}, "conv5x5_s2_act (deconv dx)": {}}
     paths = []
     seen = set()
@@ -1336,11 +1464,23 @@ def phase_conv_bwd_kernels(device):
             f"its Function (Cin·Co {cin * co}): finite, dw the kernel's")
         del x, w, t, g, xs, y, grads, dw
         torch.cuda.empty_cache()
+    routes = set()
     for dtype in (torch.bfloat16, torch.float32):
         for shape, co in CONV_DX_SHAPES:
-            errs["deconv5x5_s2 (conv dx)"][(dtype, (shape, co))] = \
-                conv_dx_vs_plain(conv, shape, co, dtype, device, gen)
+            err, route = conv_dx_vs_plain(conv, shape, co, dtype, device, gen)
+            routes.add((dtype, route))
+            errs["conv5x5_s2_dx" if route == "wgmma"
+                 else "deconv5x5_s2 (conv dx)"][(dtype, (shape, co))] = err
             torch.cuda.empty_cache()
+    check(routes == {(torch.bfloat16, "wgmma"), (torch.bfloat16, "deconv"),
+                     (torch.float32, "deconv")}, f"conv dx routes {routes}")
+    every_conv_dx_plan(conv, [(s, c) for s, c in CONV_DX_SHAPES
+                              if conv.conv_dx_path(s[-1], c, torch.bfloat16)
+                              == "wgmma"], device, gen)
+    paths.append({"kernel": "conv5x5_s2_dx",
+                  "function_first_second_order_rel_err_bf16":
+                      conv_dx_function_vs_autograd(conv, device, gen)})
+    for dtype in (torch.bfloat16, torch.float32):
         for (b, h, wd, cin), co in DECONV_DX_SHAPES:
             d = torch.randn(b, 2 * h, 2 * wd, co, generator=gen).to(
                 dtype).to(device)
@@ -1549,6 +1689,29 @@ def phase_conv_256_timing(device, flush):
             f"(bound {bms:.4f} by {by}, {r['tflops']:.1f} TFLOP/s, "
             f"{r['gbytes_per_s']:.0f} GB/s), cuDNN {r['library_ms']:.4f} ms "
             f"({r['ms'] / r['library_ms']:.2f}x)")
+        # its dx (the gradient into x: every layer's in the G step, all
+        # but the RGB layer's in the D step) beside cuDNN's conv2d_input
+        if cin > 3 or b == BATCH:
+            gc = torch.randn(y.shape, generator=gen).to(dtype).to(device)
+            dx = conv.conv_dx(gc, w, h, wd)
+            g_cl = gc.permute(0, 3, 1, 2)
+            padded = (b, cin, h + 3, wd + 3)
+            nb = nbytes(gc, w, dx)
+            bms, by = bound(nb, flops, dtype)
+            d = {"shape": [list(shape), co, "dx"], "batch": b,
+                 "path": conv.conv_dx_route(b, h, wd, cin, co, dtype),
+                 "ms": time_ms(lambda: conv.conv_dx(gc, w, h, wd), flush,
+                               iters=10, spin=HOST_SPIN),
+                 "library_ms": time_ms(
+                     lambda: torch.nn.grad.conv2d_input(padded, w_t, g_cl,
+                                                        stride=2),
+                     flush, iters=10, spin=HOST_SPIN),
+                 "bound_ms": bms, "bound_by": by}
+            rows.append(d)
+            log(f"  conv dx {shape}->{co} [{d['path']}]: {d['ms']:.4f} ms "
+                f"(bound {bms:.4f} by {by}), cuDNN conv2d_input "
+                f"{d['library_ms']:.4f} ms ({d['ms'] / d['library_ms']:.2f}x)")
+            del gc, dx, g_cl
         del x, y, xp
         torch.cuda.empty_cache()
     return rows
@@ -1599,7 +1762,7 @@ def all_counters():
     return (conv.deconv5x5_s2, fused.bn_stats, fused.bn_act,
             fused.bn_bwd_reduce, fused.bn_bwd_apply, conv.conv5x5_s2_act,
             fused.conditioning_join, conv.upconv3x3, conv.upconv3x3_dx,
-            conv.upconv3x3_dw, conv.conv5x5_s2_dw)
+            conv.upconv3x3_dw, conv.conv5x5_s2_dw, conv.conv5x5_s2_dx)
 
 
 def flat(tree):
@@ -2667,14 +2830,17 @@ def wgan_tick_launches(n_critic, g_steps):
     penalty (4 conv, 1 join); each G update: G (4 deconv, 4 BN calls,
     differentiated) and the critic on one stream (4 conv, 1 join).  The
     layer norm launches none of the kernels.  The 5×5 backwards (a conv's
-    dx a deconv launch, a deconv's dx a conv launch, each dw one
-    conv5x5_s2_dw): a critic update differentiates the three streams' convs
-    (3 dx, 4 dw), the penalty's inner gradient at x̂ (4 dx, and the 4 dw it
-    forms unasked) and then that gradient (the 4 dx deconvs' backward: 4
-    conv, 4 dw; the forward at x̂ again: 4 dx, 4 dw); a G update D's 4
-    convs in x (4 dx) and G's 4 deconvs (4 conv, 4 dw)."""
-    return {"deconv5x5_s2": 4 * (n_critic + g_steps) + 11 * n_critic
-            + 4 * g_steps,
+    dx a conv5x5_s2_dx launch, the RGB layer's, Cin 3, a deconv launch; a
+    deconv's dx a conv launch; each dw one conv5x5_s2_dw): a critic update
+    differentiates the three streams' convs (3 dx of the deep layers, 4
+    dw), the penalty's inner gradient at x̂ (4 dx, and the 4 dw it forms
+    unasked) and then that gradient (the 4 dx ops' backward: 4 conv, 4 dw;
+    the dw ops' backward: 4 dx, 4 conv at x̂ counted above), 3 + 3 + 3
+    conv5x5_s2_dx and 1 + 1 deconv; a G update D's 4 convs in x (3
+    conv5x5_s2_dx, 1 deconv) and G's 4 deconvs (4 conv, 4 dw)."""
+    return {"deconv5x5_s2": 4 * (n_critic + g_steps) + 2 * n_critic
+            + g_steps,
+            "conv5x5_s2_dx": 9 * n_critic + 3 * g_steps,
             "bn_stats": 4 * (n_critic + g_steps),
             "bn_act": 4 * (n_critic + g_steps),
             "bn_bwd_reduce": 4 * g_steps, "bn_bwd_apply": 4 * g_steps,
@@ -4286,13 +4452,14 @@ RUNBOOK_TIMEOUT_S = 300
 # the kernels of the GAN-CLS tick; of the StackGAN and C-PGGAN paths
 GANCLS_KERNELS = ("deconv5x5_s2", "conv5x5_s2_act", "conditioning_join",
                   "bn_stats", "bn_act", "bn_bwd_reduce", "bn_bwd_apply",
-                  "conv5x5_s2_dw")
+                  "conv5x5_s2_dw", "conv5x5_s2_dx")
 UPCONV_KERNELS = ("upconv3x3",)
-# (the D's conv backward: its dx on deconv5x5_s2, its dw on conv5x5_s2_dw)
+# (the D's conv backward: its dx on conv5x5_s2_dx, the RGB layer's on
+# deconv5x5_s2, its dw on conv5x5_s2_dw)
 STACKGAN_KERNELS = ("upconv3x3", "upconv3x3_dx", "upconv3x3_dw",
                     "conv5x5_s2_act", "conditioning_join", "bn_stats",
                     "bn_act", "bn_bwd_reduce", "bn_bwd_apply",
-                    "deconv5x5_s2", "conv5x5_s2_dw")
+                    "deconv5x5_s2", "conv5x5_s2_dw", "conv5x5_s2_dx")
 PGGAN_KERNELS = ("upconv3x3", "upconv3x3_dx", "upconv3x3_dw")
 
 
@@ -4552,6 +4719,7 @@ def phase_scripts(device, runs):
               f"bench_kernels {argv}: rc {rc}")
         check({r["kernel"] for r in bench["rows"]} ==
               ({k for t in bench_kernels.GRAD_TABLES.values() for k in t}
+               | {bench_kernels.CONV_DX_VIA_DECONV}
                if argv else set(bench_kernels.KERNELS)),
               f"bench_kernels kernels {[r['kernel'] for r in bench['rows']]}")
         report[fname[:-5]] = bench
@@ -4624,9 +4792,10 @@ def run(runs: str) -> int:
     phases.start("phase 3c: the 5x5 ops' weight-gradient kernel "
                  "(conv5x5_s2_dw) vs its plain version at the main-path and "
                  "odd shapes (bf16 and f32), bit-identical twice; the chunked "
-                 "workspaces at Cin·Co over 1 M; the input gradients (the "
-                 "opposite forward kernels) at the shapes the backward gives "
-                 "them")
+                 "workspaces at Cin·Co over 1 M; the input gradients "
+                 "(conv5x5_s2_dx under every plan, its Function's second "
+                 "order; the RGB layer's on deconv5x5_s2; the deconv's on "
+                 "the conv) at the shapes the backward gives them")
     cdw_errs, cdw_paths = phase_conv_bwd_kernels(device)
     errs["upconv3x3_dw"].update(cdw_errs.pop("upconv3x3_dw"))
     errs.update(cdw_errs)
@@ -4816,6 +4985,13 @@ def run(runs: str) -> int:
         and (r["op"], r["batch"]) in (("conv", D_BATCH), ("deconv", BATCH))]
     check(len(rows["conv5x5_s2_dw"]) == 8, f"conv5x5_s2_dw rows "
                                           f"{rows['conv5x5_s2_dw']}")
+    # conv5x5_s2_dx: the microbench's rows of one GAN-CLS tick's calls, the
+    # D step's three deep convs at 3·64 and two G steps' three at 64
+    rows["conv5x5_s2_dx"] = [
+        r for r in scripts["bench_kernels_grad"]["rows"]
+        if r["kernel"] == "conv5x5_s2_dx" and r["op"] == "conv"]
+    check(len(rows["conv5x5_s2_dx"]) == 6, f"conv5x5_s2_dx rows "
+                                          f"{rows['conv5x5_s2_dx']}")
 
     src = "text_to_image_tpu_torch/"
     meta = {
@@ -4847,6 +5023,9 @@ def run(runs: str) -> int:
         # with its operands swapped, the deconv's _deconv_bwd :233), which
         # the JAX package leaves to XLA
         "conv5x5_s2_dw": ("cuda", src + "csrc/conv5x5_s2_bwd.cu",
+                          "text_to_image_tpu/ops/pallas/conv.py:891"),
+        # the input half of the same custom VJP (_conv_bwd :891)
+        "conv5x5_s2_dx": ("cuda", src + "csrc/conv5x5_s2_bwd.cu",
                           "text_to_image_tpu/ops/pallas/conv.py:891"),
     }
 

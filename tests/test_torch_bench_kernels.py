@@ -285,19 +285,44 @@ def test_every_kernel_of_the_main_paths_has_a_table():
     assert bk.GRAD_KERNELS == bk.GRAD_TABLES["upconv"]
 
 
+def _conv_dx_on_cpu(monkeypatch):
+    """conv5x5_s2_dx's C entry points as the card answers them: its route,
+    and the modes of its last launch (the mirror's)."""
+    monkeypatch.setattr(conv, "conv_dx_path_on_card", lambda *a: "plain")
+    last = {}
+    real = conv.conv5x5_s2_dx
+
+    def dx(gc, w, h, wd, plan=None):
+        last["modes"] = conv.conv_dx_modes(
+            plan or conv.conv_dx_plan(gc.shape[0], h, wd, w.shape[2],
+                                      w.shape[3]))
+        return real(gc, w, h, wd, plan)
+    monkeypatch.setattr(conv, "conv5x5_s2_dx", dx)
+    monkeypatch.setattr(conv, "conv_dx_mode_on_card", lambda: last["modes"])
+    return last
+
+
 @pytest.mark.parametrize("op", ["conv", "deconv"])
 def test_conv5_grad_rows_hold_then_time(cpu_bench, monkeypatch, op):
     """``--conv --grad`` / ``--deconv --grad``: a forward + backward row
-    (gradients held in f32 first), a dx row (the other op's kernel) and a
-    dw row a shape, each with its own work, the op and the batch; the dx
-    and dw rows with the plain version's ms; a wrong dw fails before
-    anything is timed (the Function's gradients are held first)."""
-    monkeypatch.setattr(bk, "CONV_SHAPES", [((2, 8, 6, 8), 16, "lrelu")])
+    (gradients held in f32 first), a dx row (the conv's on conv5x5_s2_dx,
+    tagged with its plan and the modes its launch reports; the deconv's
+    the conv's kernel) and a dw row a shape, each with its own work, the op
+    and the batch; the dx and dw rows with the plain version's ms; a wrong
+    dw fails before anything is timed (the Function's gradients are held
+    first)."""
+    monkeypatch.setattr(bk, "CONV_SHAPES", [((2, 8, 6, 64), 64, "lrelu")])
     monkeypatch.setattr(conv, "conv_path_on_card", lambda *a: "plain")
     monkeypatch.setattr(conv, "conv_dw_path_on_card", lambda *a: "plain")
+    _conv_dx_on_cpu(monkeypatch)
     gen = torch.Generator().manual_seed(0)
     rows = bk.bench_conv5_grad(op, "cpu", None, gen)
     assert [r["kernel"] for r in rows] == list(bk.GRAD_TABLES[op])
+    if op == "conv":
+        plan = conv.conv_dx_plan(2, 8, 6, 64, 64)
+        assert rows[1]["path"].startswith(
+            f"plain {plan.kernel} {plan.tile_m}x{plan.tile_n} parts "
+            f"{plan.parts} (")
     assert len(cpu_bench) == 2 + 3 + 3
     shape, co, _ = (bk.CONV_SHAPES if op == "conv" else bk.DECONV_SHAPES)[0]
     b, h, w, cin = shape
@@ -325,6 +350,30 @@ def test_conv5_grad_rows_hold_then_time(cpu_bench, monkeypatch, op):
     with pytest.raises(RuntimeError, match="grad dw"):
         bk.bench_conv5_grad(op, "cpu", None, gen)
     assert cpu_bench == []
+
+
+def test_conv_dx_rows_name_their_route(cpu_bench, monkeypatch):
+    """The RGB layer's dx (Cin 3) keeps the transposed conv: its row is
+    CONV_DX_VIA_DECONV with the deconv's path; a deep layer's launch whose
+    modes are not its plan's fails before the dx row is timed (after the
+    forward + backward row's two timings)."""
+    monkeypatch.setattr(bk, "CONV_SHAPES", [((2, 8, 8, 3), 64, "lrelu")])
+    monkeypatch.setattr(conv, "conv_path_on_card", lambda *a: "plain")
+    monkeypatch.setattr(conv, "conv_dw_path_on_card", lambda *a: "plain")
+    monkeypatch.setattr(conv, "deconv_path_on_card", lambda *a: "thin")
+    gen = torch.Generator().manual_seed(0)
+    rows = bk.bench_conv5_grad("conv", "cpu", None, gen)
+    assert [r["kernel"] for r in rows][1] == bk.CONV_DX_VIA_DECONV
+    assert rows[1]["path"] == "thin" and rows[1]["max_abs_err"] == 0.0
+    monkeypatch.setattr(bk, "CONV_SHAPES", [((2, 8, 6, 64), 64, "lrelu")])
+    last = _conv_dx_on_cpu(monkeypatch)
+    real = conv.conv_dx_mode_on_card
+    monkeypatch.setattr(conv, "conv_dx_mode_on_card",
+                        lambda: real() | {"patch"})
+    cpu_bench.clear()
+    with pytest.raises(RuntimeError, match="modes"):
+        bk.bench_conv5_grad("conv", "cpu", None, gen)
+    assert len(cpu_bench) == 2 and last
 
 
 def test_conv_dw_rows_hold_then_time(cpu_bench, monkeypatch):

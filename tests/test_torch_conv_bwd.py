@@ -294,6 +294,75 @@ def test_backwards_reach_no_library_convolution(act, no_library_convolution):
     assert torch.autograd.grad((gxd**2).sum(), wd)[0].abs().sum() > 0
 
 
+@pytest.fixture
+def counted_dx(monkeypatch):
+    """Calls of conv5x5_s2_dx's plain version (what its wrapper and its
+    Function run on the CPU), counted."""
+    calls = []
+    plain = conv.conv5x5_s2_dx_plain
+
+    def counted(*a):
+        calls.append(tuple(a[0].shape))
+        return plain(*a)
+    monkeypatch.setattr(conv, "conv5x5_s2_dx_plain", counted)
+    return calls
+
+
+def _deep(seed, shape=(1, 8, 6, 64), co=64):
+    """A deep bf16 conv (Cin and Co multiples of 64): conv_dx's route is
+    conv5x5_s2_dx there."""
+    x, w, b = map(torch.from_numpy, _conv_inputs(shape, co, seed=seed))
+    assert conv.conv_dx_path(shape[-1], co, torch.bfloat16) == "wgmma"
+    return x.bfloat16(), w.bfloat16(), b
+
+
+def test_conv_backward_sends_the_deep_dx_through_its_kernel(
+        counted_dx, no_library_convolution):
+    """`_Conv.backward` at a deep bf16 shape: dx through conv5x5_s2_dx
+    (no flipped copy, no deconv), at first order and, through `_ConvDx`,
+    at second order, with no library convolution anywhere."""
+    x, w, b = _deep(31)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    before = conv.deconv5x5_s2.launches
+    y = conv.conv5x5_s2_act(x, w, b, "lrelu")
+    gx, = torch.autograd.grad(y.float().sum(), x, create_graph=True)
+    assert counted_dx == [(1, 4, 3, 64)]
+    gw, = torch.autograd.grad((gx.float()**2).sum(), w)
+    assert gw.abs().sum() > 0
+    assert counted_dx == [(1, 4, 3, 64)]      # its backward: conv and dw
+    assert conv.deconv5x5_s2.launches == before
+    # without a graph the Function is not recorded: the wrapper alone
+    x2 = x.detach().requires_grad_(True)
+    torch.autograd.grad(conv.conv5x5_s2_act(x2, w.detach(), b, "none").sum(),
+                        x2)
+    assert len(counted_dx) == 2
+
+
+def test_dw_backward_sends_the_deep_dx_through_its_kernel(
+        monkeypatch, counted_dx, no_library_convolution):
+    """`_ConvDw.backward` (the GP's second order; what a CUDA call records,
+    its launch swapped for the plain version): the conv's dx of g with the
+    cotangent as its weight on conv5x5_s2_dx at a deep bf16 shape, and its
+    own second order through `_ConvDx`."""
+    monkeypatch.setattr(conv, "_conv_dw_forward", conv.conv5x5_s2_dw_plain)
+    x, _, _ = _deep(32)
+    g = torch.from_numpy(_rng(33).normal(size=(1, 4, 3, 64)).astype(
+        np.float32)).bfloat16()
+    x.requires_grad_(True)
+    g.requires_grad_(True)
+    dw = conv._ConvDw.apply(x, g, torch.bfloat16)
+    c = torch.from_numpy(_rng(34).normal(size=dw.shape).astype(
+        np.float32)).bfloat16()
+    gx, gg = torch.autograd.grad(dw, [x, g], c, create_graph=True)
+    assert counted_dx == [(1, 4, 3, 64)]
+    second = torch.autograd.grad((gx.float()**2).sum(), [g])
+    assert second[0].abs().sum() > 0
+    assert len(counted_dx) == 1               # its backward: conv and dw
+    _close(gx, conv.conv5x5_s2_dx_plain(g.detach(), c, 8, 6).float(),
+           "d/dx", BF16_TOL)
+
+
 # --- the WGAN-CLS gradient penalty ---------------------------------------------
 
 RES = 16

@@ -241,11 +241,13 @@ def test_deconv_path_mirror_sends_each_shape_where_the_smoke_run_expects(
 def test_deep_deconv_calls_take_wgmma_and_the_rgb_layer_direct():
     paths = [conv.deconv_path(s[-1], co, BF16)
              for s, co, _ in smoke.DECONV_SHAPES]
-    assert paths == ["wgmma", "wgmma", "wgmma", "direct"]
+    assert paths == ["wgmma", "wgmma", "wgmma", "thin"]
     assert [conv.deconv_path(s[-1], co, F32)
             for s, co, _ in smoke.DECONV_SHAPES] == ["tile"] * 3 + ["direct"]
-    # the direct kernel keeps 25·Cin float4 weight rows in 200 KB
-    assert conv.deconv_path(512, 3, BF16) == "direct"
+    # Co <= 4 up to Cin 512 (the direct kernel's 25·Cin float4 weight rows
+    # in 200 KB): the thin wgmma path in bf16 with Cin a multiple of 16
+    assert conv.deconv_path(512, 3, BF16) == "thin"
+    assert conv.deconv_path(512, 3, BF16, aligned=False) == "direct"
     assert conv.deconv_path(520, 3, BF16) == "tile"
 
 

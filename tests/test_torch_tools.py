@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from tests.helpers import tiny_config
-from text_to_image_tpu_torch.tools import dp_ticks, tick_ab, ticks
+from text_to_image_tpu_torch.ops.kernels import conv
+from text_to_image_tpu_torch.tools import (conv_plan_sweep, dp_ticks, dx_ab,
+                                          tick_ab, ticks)
 
 LAUNCH_TIMEOUT_S = 120
 
@@ -66,6 +68,17 @@ def test_tick_config_is_the_shipped_yaml_on_synthetic_data(model):
      "Plain<25>, (anonymous namespace)::CDw>", "conv5x5_s2_dw (CUDA)"),
     ("void (anonymous namespace)::dw_mma_kernel<(anonymous namespace)::CDw, "
      "true, true>", "conv5x5_s2_dw (CUDA)"),
+    ("void dx90::ring_kernel<128, 256, 64, (anonymous namespace)::"
+     "CDxRing<false> >(...)", "conv5x5_s2_dx (CUDA)"),
+    ("void dx90::ring_kernel<256, 64, 64, (anonymous namespace)::"
+     "CDxRing<true> >(...)", "conv5x5_s2_dx (CUDA)"),
+    ("void (anonymous namespace)::cdxp::patch_kernel((anonymous namespace)"
+     "::CDxParams, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st)",
+     "conv5x5_s2_dx (CUDA)"),
+    ("void dx90::ring_kernel<128, 128, 64, dx90::UpconvRing>(...)",
+     "upconv3x3 backward (CUDA)"),
+    ("void (anonymous namespace)::thin::thin_kernel<64, 4>((anonymous "
+     "namespace)::thin::P, CUtensorMap_st)", "deconv5x5_s2 (CUDA)"),
     ("void (anonymous namespace)::bn_reduce_kernel<true>",
      "batch norm (CUDA)"),
     ("down0_mma_kernel", "conv5x5_s2_act (CUDA)"),
@@ -165,3 +178,33 @@ def test_launch_many_refuses_specs_of_another_group(tmp_path):
         dp_ticks.launch_many({"a": _spec(0, "float32"), "b": other},
                              tmp_path, LAUNCH_TIMEOUT_S)
     assert not any(tmp_path.iterdir())           # nothing launched
+
+
+def test_cdx_sweep_covers_every_deep_conv_dx_of_a_tick():
+    """``conv_plan_sweep --ops cdx`` sweeps the conv's dx at every shape of
+    the 64 px and 256 px D whose route is conv5x5_s2_dx (bf16, Cin and Co
+    multiples of 64), at the D step's 3·64 rows and the G step's 64, and
+    names each plan of `conv_dx_candidates` once."""
+    shapes = conv_plan_sweep.cdx_shapes()
+    assert len(shapes) == len(set(shapes)) == 16
+    assert {s[0] for s, _ in shapes} == {192, 64}
+    for (b, h, w, cin), co in shapes:
+        assert conv.conv_dx_path(cin, co, torch.bfloat16) == "wgmma"
+        keys = [conv_plan_sweep.cdx_key(p)
+                for p in conv.conv_dx_candidates(b, h, w, cin, co)]
+        assert len(keys) == len(set(keys))
+        assert conv_plan_sweep.cdx_key(conv.conv_dx_plan(b, h, w, cin,
+                                                         co)) in keys
+
+
+def test_dx_ab_times_every_conv_dx_of_a_tick_and_the_rgb_layer():
+    """``tools/dx_ab.py``: the conv's dx of every D call (the RGB layer's at
+    the G step's 64 rows only: the D step's images need no gradient), the
+    GAN-CLS generator's RGB layer, each checkout in a child that takes the
+    checkout's own package."""
+    assert len(dx_ab.DX_CALLS) == len(set(dx_ab.DX_CALLS)) == 18
+    assert [c for c in dx_ab.DX_CALLS if c[0][-1] == 3] == [
+        ((64, 64, 64, 3), 64), ((64, 256, 256, 3), 64)]
+    assert dx_ab.RGB_CALLS == [((64, 32, 32, 128), 3)]
+    assert "sys.path.insert(0, root)" in dx_ab._CHILD
+    assert "conv.conv_dx(gc, w, h, wd)" in dx_ab._CHILD

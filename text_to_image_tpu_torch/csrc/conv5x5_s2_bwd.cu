@@ -10,9 +10,22 @@
 // [B,ceil(H/2),ceil(W/2),Co] (the activation's derivative already in it, in
 // x's type).  bf16 or f32 in, f32 sums, dw rounded once to w's type.  The
 // transposed convolution's dw is this kernel with its cotangent as x and
-// its input as g, flipped and transposed by the caller.  The input
-// gradients of both ops are the other op's forward kernel (ops/kernels/
-// conv.py `_Conv` / `_Deconv`): no library convolution.
+// its input as g, flipped and transposed by the caller.  The transposed
+// convolution's dx is the conv's forward kernel (ops/kernels/conv.py
+// `_Deconv`); the conv's dx is conv5x5_s2_dx below (bf16, Cin and Co
+// multiples of 64; the other shapes the transposed convolution's forward
+// kernel with w flipped and transposed): no library convolution.
+//
+// conv5x5_s2_dx replaces the input half of text_to_image_tpu/ops/pallas/
+// conv.py _conv_bwd (jax.vjp of _lax_conv_s2, left to XLA): dx [B,H,W,Cin]
+// as four parity GEMMs of 9, 6, 6 and 4 taps (M = B*Ho*Wo rows of a
+// parity plane, N = Cin, K = taps x Co), 2*25*B*Ho*Wo*Cin*Co operations,
+// as many as the forward: bound by operations on every deep call of the
+// 64 px and 256 px D (0.020 ms for each of the 64 px D's three at 3*64,
+// 0.326 ms for the 256 px D's 128^2 x 64 at 3*64).  Two loops (the
+// caller's plan, conv.py conv_dx_plan; tools/conv_plan_sweep.py --ops cdx
+// fitted it): dx90's ring loop (upconv_dx.cuh) under the policy CDxRing,
+// and at Cin 64 on the 128^2 maps the patch kernel (cdxp) -- see below.
 //
 // Replaces the weight half of text_to_image_tpu/ops/pallas/conv.py
 // _conv_bwd (jax.vjp of _lax_conv_s2) and _deconv_bwd
@@ -60,7 +73,7 @@
 //    (staged).
 //  * tile (f32 FMA): f32 and ragged channels.
 
-#include "wgrad.cuh"
+#include "upconv_dx.cuh"
 
 namespace {
 
@@ -201,6 +214,392 @@ int cdw_path(const void* x, const void* g, int H, int W, int Cin, int Co,
              ? wgrad::kMma : wgrad::kTile;
 }
 
+// ---------------------------------------------------------------- dx ----
+// The conv's input gradient on dx90's ring loop (upconv_dx.cuh), under the
+// policy CDxRing.  For dx's parity (py, px) and the SAME pads (pt, pl), the
+// taps kh = (py + pt) % 2 + 2*ih (ih < 3 where py + pt is even, else < 2)
+// read gc's row m + (py + pt - kh) / 2 for dx row i = 2m + py, and the same
+// along the columns: four GEMMs of 9, 6, 6 and 4 taps, M = B*Ho*Wo rows of
+// a parity plane of dx (a row past the map on an odd map writes nothing),
+// N = Cin, K = taps x Co.
+//
+// A tile is BM pixels of the plane as one box of gc [B][Ho][Wo][Co] of
+// 2^lw pixels x 2^lh rows x 2^lb images (each a power of two, the box
+// zero-filled past every edge of gc, the SAME pads among them), shifted by
+// the tap's offset: every map has a box, the rows of a box past the map are
+// computed and dropped.  The weights are w [25][Cin][Co] as they lie, Co
+// (K) contiguous: wgmma's K-major operand, no flipped or transposed copy,
+// the flip a table of taps.  Row r of the tile is dx's pixel (2m + py,
+// 2n + px), written in place (no crop).  The parities run heaviest first
+// (the 9-tap one), and the parts of K of a tile are one cluster, summed on
+// chip and rounded once (no workspace).
+struct CDxParams : dx90::Params {
+  int B, Ho, Wo, pt, pl;
+  int lw, lh, lb;    // log2 of the tile box's pixels, rows and images
+  int ntw, nth;      // tiles along a row of the plane, along its rows
+  int tiles;         // tiles of one parity
+};
+
+struct CDxRing {
+  using P = CDxParams;
+  struct T {
+    int n0, items, py, px, nw, b0, m0, j0;
+  };
+  __device__ static T tile(const P& p, int y, int bn) {
+    T t;
+    const int col = y % p.n_col, rest = y / p.n_col;
+    const int k = rest / p.tiles, u = rest - k * p.tiles;
+    const int qy = k >> 1, qx = k & 1;   // 0: the 3-tap direction
+    t.n0 = col * bn;
+    t.py = (p.pt & 1) ^ qy;
+    t.px = (p.pl & 1) ^ qx;
+    t.nw = 3 - qx;
+    t.items = (3 - qy) * t.nw * p.S;
+    const int per_img = p.nth * p.ntw, ib = u / per_img,
+              rem = u - ib * per_img, ih = rem / p.ntw;
+    t.b0 = ib << p.lb;
+    t.m0 = ih << p.lh;
+    t.j0 = (rem - ih * p.ntw) << p.lw;
+    return t;
+  }
+  template <int BK>
+  __device__ static void load(const P& p, const T& t, int item, uint32_t a,
+                              uint32_t b, const CUtensorMap* gmap,
+                              const CUtensorMap* wmap, uint32_t bar) {
+    const int tap = item / p.S, k0 = (item - tap * p.S) * BK;
+    const int ih = tap / t.nw, iw = tap - ih * t.nw;
+    const int kh = ((t.py + p.pt) & 1) + 2 * ih;
+    const int kw = ((t.px + p.pl) & 1) + 2 * iw;
+    igemm90::tma_load_4d(a, gmap, k0, t.j0 + (t.px + p.pl - kw) / 2,
+                         t.m0 + (t.py + p.pt - kh) / 2, t.b0, bar);
+    igemm90::tma_load_2d(b, wmap, k0, (kh * 5 + kw) * p.Cin + t.n0, bar);
+  }
+  __device__ static long long out(const P& p, const T& t, int r) {
+    const int b = t.b0 + (r >> (p.lh + p.lw));
+    const int i = 2 * (t.m0 + ((r >> p.lw) & ((1 << p.lh) - 1))) + t.py;
+    const int j = 2 * (t.j0 + (r & ((1 << p.lw) - 1))) + t.px;
+    if (b >= p.B || i >= p.H || j >= p.W) return -1;
+    return ((static_cast<long long>(b) * p.H + i) * p.W + j) * p.Cin;
+  }
+};
+
+inline int log2_ceil(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
+// The tile's box of bm pixels of an Ho x Wo plane: 2^lw pixels (the row's
+// power of two, at most bm), 2^lh rows, 2^lb images.
+inline void cdx_box(CDxParams& p, int bm) {
+  const int lbm = log2_ceil(bm);
+  p.lw = log2_ceil(p.Wo) < lbm ? log2_ceil(p.Wo) : lbm;
+  p.lh = log2_ceil(p.Ho) < lbm - p.lw ? log2_ceil(p.Ho) : lbm - p.lw;
+  p.lb = lbm - p.lw - p.lh;
+  p.ntw = (p.Wo + (1 << p.lw) - 1) >> p.lw;
+  p.nth = (p.Ho + (1 << p.lh) - 1) >> p.lh;
+  p.tiles = ((p.B + (1 << p.lb) - 1) >> p.lb) * p.nth * p.ntw;
+}
+
+template <int BN>
+cudaError_t launch_cdx(const void* gc, const void* w, void* dx, int B, int H,
+                       int W, int Cin, int Co, int parts, cudaStream_t s) {
+  constexpr int BK = 64;
+  using R = dx90::Ring<BN, BK>;
+  auto kernel = dx90::ring_kernel<BN, BK, CDxRing>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+  if (err != cudaSuccess) return err;
+  CDxParams p;
+  static_cast<dx90::Params&>(p) =
+      dx90::params(dx, B, H, W, Cin, Co, BK, BN, parts);
+  p.B = B;
+  p.Ho = (H + 1) / 2;
+  p.Wo = (W + 1) / 2;
+  p.pt = ((p.Ho - 1) * 2 + 5 - H) / 2;
+  p.pl = ((p.Wo - 1) * 2 + 5 - W) / 2;
+  cdx_box(p, dx90::BM);
+  const long long blocks = 4LL * p.tiles * p.n_col;
+  if (blocks > 65535) return cudaErrorInvalidValue;   // the grid's y extent
+  const cuuint64_t gd[4] = {static_cast<cuuint64_t>(Co),
+                            static_cast<cuuint64_t>(p.Wo),
+                            static_cast<cuuint64_t>(p.Ho),
+                            static_cast<cuuint64_t>(B)};
+  const cuuint64_t gs[3] = {gd[0] * 2, gd[0] * gd[1] * 2,
+                            gd[0] * gd[1] * gd[2] * 2};
+  const cuuint32_t gb[4] = {BK, 1u << p.lw, 1u << p.lh, 1u << p.lb};
+  CUtensorMap gmap = {}, wmap = {};
+  if ((err = igemm90::encode_tiled(&gmap, 4, gc, gd, gs, gb)) !=
+          cudaSuccess ||
+      (err = dx90::w_map(&wmap, w, Cin, Co, BK, BN, 25)) != cudaSuccess)
+    return err;
+  return launch_clustered(kernel, dim3(parts, static_cast<unsigned>(blocks),
+                                       1),
+                          dx90::THREADS, R::SMEM, parts, s, p, gmap, wmap);
+}
+
+// The patch kernel (Cin 64 on maps of 64-pixel plane rows: the 256 px D's
+// 128^2 dx, bound by operations at 2*25*B*64^2*64*Co / 4, where the box of
+// gc a tap of the ring moves 25x gc and, with it, the weights of a tile
+// across L2 -> SM for only 64 columns of dx): a block owns one parity
+// plane's tile of 8 plane rows x 64 pixels and computes dx^T, D[64 ci x 64
+// px] per plane row on m64n64k16, the weights w[kh][kw] (64 ci x 64 k, as
+// they lie) as the 64-row operand.  Every tap of the parity reads one staged
+// patch of gc (10 rows x 66 pixels around the tile, zero-filled past the
+// edges): tap (di, dj) of plane row r starts its descriptor at patch row
+// r + di + 1, pixel dj + 1 -- whole 128-byte rows of the swizzled layout,
+// so no base offset.  L2 -> SM bytes of A fall from 25x gc to ~1.3x gc per
+// parity's taps, of weights to a tap's 8 KB per 512 pixels.  A producer
+// warp keeps two patches (a K slice each) and three weight tiles in
+// flight; the blocks are persistent (one an SM), walking the tiles of the
+// four parities heaviest first.  Each warpgroup owns 4 plane rows; a row's
+// 64 px x 64 ci go out through a swizzled staging tile and one TMA store
+// into dx viewed as [B][H/2][2][W/2][2*Cin], the parity plane a
+// coordinate, while the next tile's loads run.
+namespace cdxp {
+
+constexpr int TR = 8, TW = 64, PW = TW + 2, ROWS = TR + 2;
+constexpr int PATCH = (ROWS * PW * 128 + 1023) / 1024 * 1024;
+constexpr int PATCH_BOX = ROWS * PW * 128;
+constexpr int W_TILE = 64 * 128;
+constexpr int W_STAGES = 3;
+constexpr int Y_TILE = TW * 128;                     // 64 px x 64 ci bf16
+constexpr int SMEM = 1024 + 2 * PATCH + W_STAGES * W_TILE + 2 * Y_TILE;
+
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+struct Tile {
+  int py, px, nw, taps, b, m0, j0;
+};
+
+__device__ __forceinline__ Tile tile_of(const CDxParams& p, int t) {
+  Tile q;
+  const int k = t / p.tiles, u = t - k * p.tiles;
+  const int qy = k >> 1, qx = k & 1;
+  q.py = (p.pt & 1) ^ qy;
+  q.px = (p.pl & 1) ^ qx;
+  q.nw = 3 - qx;
+  q.taps = (3 - qy) * q.nw;
+  const int per_img = p.nth * p.ntw, rem = u % per_img;
+  q.b = u / per_img;
+  q.m0 = rem / p.ntw * TR;
+  q.j0 = rem % p.ntw * TW;
+  return q;
+}
+
+// tap i of the tile's parity: (kh, kw) and gc's offset (di, dj)
+__device__ __forceinline__ int4 tap_of(const CDxParams& p, const Tile& q,
+                                       int i) {
+  const int ih = i / q.nw, iw = i - ih * q.nw;
+  const int kh = ((q.py + p.pt) & 1) + 2 * ih;
+  const int kw = ((q.px + p.pl) & 1) + 2 * iw;
+  return make_int4(kh, kw, (q.py + p.pt - kh) / 2, (q.px + p.pl - kw) / 2);
+}
+
+__global__ void __launch_bounds__(dx90::THREADS, 1)
+    patch_kernel(const CDxParams p, const __grid_constant__ CUtensorMap gmap,
+                 const __grid_constant__ CUtensorMap wmap,
+                 const __grid_constant__ CUtensorMap ymap) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) unsigned long long pfull[2], pempty[2];
+  __shared__ __align__(8) unsigned long long wfull[W_STAGES], wempty[W_STAGES];
+  const uint32_t raw = igemm90::smem_u32(smem_raw);
+  const uint32_t patches = (raw + 1023u) & ~1023u;
+  const uint32_t wts = patches + 2 * PATCH;
+  const uint32_t ystage = wts + W_STAGES * W_TILE;
+  const int tid = threadIdx.x;
+  const int total = 4 * p.tiles;
+  const int my_tiles = blockIdx.x < total
+                           ? (total - blockIdx.x + gridDim.x - 1) / gridDim.x
+                           : 0;
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      igemm90::mbar_init(igemm90::smem_u32(&pfull[s]), 1);
+      igemm90::mbar_init(igemm90::smem_u32(&pempty[s]), 2);
+    }
+    for (int s = 0; s < W_STAGES; ++s) {
+      igemm90::mbar_init(igemm90::smem_u32(&wfull[s]), 1);
+      igemm90::mbar_init(igemm90::smem_u32(&wempty[s]), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= dx90::CONSUMERS) {
+    if (tid == dx90::CONSUMERS) {
+      int np = 0, nw = 0;   // patches and weight tiles loaded so far
+      for (int k = 0; k < my_tiles; ++k) {
+        const Tile q = tile_of(p, blockIdx.x + k * gridDim.x);
+        for (int s = 0; s < p.S; ++s, ++np) {
+          const int ps = np & 1;
+          if (np >= 2)
+            igemm90::mbar_wait(igemm90::smem_u32(&pempty[ps]),
+                               ((np >> 1) + 1) & 1);
+          const uint32_t bar = igemm90::smem_u32(&pfull[ps]);
+          igemm90::mbar_expect_tx(bar, PATCH_BOX);
+          igemm90::tma_load_4d(patches + ps * PATCH, &gmap, s * 64,
+                               q.j0 - 1, q.m0 - 1, q.b, bar);
+          for (int i = 0; i < q.taps; ++i, ++nw) {
+            const int ws = nw % W_STAGES;
+            if (nw >= W_STAGES)
+              igemm90::mbar_wait(igemm90::smem_u32(&wempty[ws]),
+                                 ((nw / W_STAGES) + 1) & 1);
+            const int4 t = tap_of(p, q, i);
+            const uint32_t wb = igemm90::smem_u32(&wfull[ws]);
+            igemm90::mbar_expect_tx(wb, W_TILE);
+            igemm90::tma_load_2d(wts + ws * W_TILE, &wmap, s * 64,
+                                 (t.x * 5 + t.y) * p.Cin, wb);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7, tid128 = tid & 127;
+  const uint32_t y_mine = ystage + wg * Y_TILE;
+  uint8_t* y_ptr = smem_raw + (y_mine - raw);
+  float acc[4][32];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[r][i] = 0.f;
+  int np = 0, nw = 0;
+  for (int k = 0; k < my_tiles; ++k) {
+    const Tile q = tile_of(p, blockIdx.x + k * gridDim.x);
+    for (int s = 0; s < p.S; ++s, ++np) {
+      const int ps = np & 1;
+      igemm90::mbar_wait(igemm90::smem_u32(&pfull[ps]), (np >> 1) & 1);
+      const uint32_t patch = patches + ps * PATCH;
+      for (int i = 0; i < q.taps; ++i, ++nw) {
+        const int ws = nw % W_STAGES;
+        igemm90::mbar_wait(igemm90::smem_u32(&wfull[ws]),
+                           (nw / W_STAGES) & 1);
+        const int4 t = tap_of(p, q, i);
+        const uint64_t ad = dx90::desc<128>(wts + ws * W_TILE);
+        igemm90::wgmma_fence();
+        const uint64_t bd = dx90::desc<128>(
+            patch + ((wg * 4 + t.z + 1) * PW + t.w + 1) * 128);
+        // the four rows' chains interleaved (each row's k16 steps in
+        // order): one row's next step waits on its accumulator
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)     // +32 bytes a k16 step
+#pragma unroll
+          for (int r = 0; r < 4; ++r)      // +PW rows of 128 bytes a row
+            dx90::Mma<64>::mma(acc[r], ad + 2 * kk,
+                               bd + 2 * kk + r * (PW * 128 >> 4));
+        igemm90::wgmma_commit();
+        igemm90::wgmma_wait<1>();
+        // the group of the previous tap of this slice is done: its
+        // weights are free
+        if (i > 0 && tid128 == 0)
+          wgrad::mbar_arrive(
+              igemm90::smem_u32(&wempty[(nw - 1) % W_STAGES]));
+      }
+      igemm90::wgmma_wait<0>();
+      if (tid128 == 0) {
+        wgrad::mbar_arrive(igemm90::smem_u32(&wempty[(nw - 1) % W_STAGES]));
+        wgrad::mbar_arrive(igemm90::smem_u32(&pempty[ps]));
+      }
+    }
+    // the warpgroup's 4 plane rows out: 64 px x 64 ci each, transposed
+    // into the swizzled staging tile, one TMA store into the parity view
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (tid128 == 0) dx90::bulk_wait_read();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int ci = igemm90::acc_row(tid128, i);
+        const int px = igemm90::acc_col(tid128, i);
+        *reinterpret_cast<__nv_bfloat16*>(
+            y_ptr + px * 128 + (((ci >> 3) ^ (px & 7)) << 4) + (ci & 7) * 2) =
+            __float2bfloat16(acc[r][i]);
+        acc[r][i] = 0.f;
+      }
+      igemm90::fence_async_proxy();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+      if (tid128 == 0)
+        tma_store_5d(&ymap, y_mine, q.px * p.Cin, q.j0, q.py,
+                     q.m0 + wg * 4 + r, q.b);
+    }
+  }
+  if (tid128 == 0) dx90::bulk_wait();
+}
+
+}  // namespace cdxp
+
+// the patch kernel's maps: 8-row x 64-pixel plane tiles, dx viewed by
+// parity plane (even maps)
+inline bool cdx_patches(int H, int W) { return H % 16 == 0 && W % 128 == 0; }
+
+cudaError_t launch_cdx_patch(const void* gc, const void* w, void* dx, int B,
+                             int H, int W, int Cin, int Co, cudaStream_t s) {
+  auto kernel = cdxp::patch_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cdxp::SMEM);
+  if (err != cudaSuccess) return err;
+  CDxParams p;
+  static_cast<dx90::Params&>(p) = dx90::params(dx, B, H, W, Cin, Co, 64, 64, 1);
+  p.B = B;
+  p.Ho = H / 2;
+  p.Wo = W / 2;
+  p.pt = 1;
+  p.pl = 1;
+  p.ntw = p.Wo / cdxp::TW;
+  p.nth = p.Ho / cdxp::TR;
+  p.tiles = B * p.nth * p.ntw;
+  const cuuint64_t gd[4] = {static_cast<cuuint64_t>(Co),
+                            static_cast<cuuint64_t>(p.Wo),
+                            static_cast<cuuint64_t>(p.Ho),
+                            static_cast<cuuint64_t>(B)};
+  const cuuint64_t gs[3] = {gd[0] * 2, gd[0] * gd[1] * 2,
+                            gd[0] * gd[1] * gd[2] * 2};
+  const cuuint32_t gb[4] = {64, cdxp::PW, cdxp::ROWS, 1};
+  const cuuint32_t yb[3] = {cdxp::TW, 1, 1};
+  CUtensorMap gmap = {}, wmap = {}, ymap = {};
+  if ((err = igemm90::encode_tiled(&gmap, 4, gc, gd, gs, gb)) !=
+          cudaSuccess ||
+      (err = dx90::w_map(&wmap, w, Cin, Co, 64, 64, 25)) != cudaSuccess ||
+      (err = dx90::g_map(&ymap, dx, B, p.Ho, p.Wo, Cin, 64, yb)) !=
+          cudaSuccess)
+    return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int grid = 4 * p.tiles < sms ? 4 * p.tiles : sms;
+  kernel<<<grid, dx90::THREADS, cdxp::SMEM, s>>>(p, gmap, wmap, ymap);
+  return cudaGetLastError();
+}
+
+enum CDxKernel { kCdxRing = 0, kCdxPatch = 1 };
+// What a launch of t2i_conv5x5_s2_dx did, as bits: A by TMA (every launch),
+// the parts of K summed in a cluster, the taps of a parity from one staged
+// patch (the patch kernel's dx^T)
+enum CDxMode { kCdxTmaA = 1, kCdxCluster = 2, kCdxShared = 4 };
+
+// bf16, Cin and Co multiples of 64, 16-byte-aligned gc, w and dx: every
+// map (odd ones too) has a box
+bool cdx_applies(const void* gc, const void* w, const void* dx, int Cin,
+                 int Co, bool bf16) {
+  return bf16 && Cin % 64 == 0 && Co % 64 == 0 && igemm::aligned16(gc) &&
+         igemm::aligned16(w) && igemm::aligned16(dx);
+}
+
+int g_last_dx_mode = 0;   // the CDxMode bits of t2i_conv5x5_s2_dx's last launch
+
 }  // namespace
 
 // The path t2i_conv5x5_s2_dw takes for x [B][H][W][Cin] and g: 0 the FMA
@@ -270,3 +669,58 @@ extern "C" int t2i_conv5x5_s2_dw_clusters(int csize, int tile_m,
                                      wgrad::Tile<128, 128>::THREADS,
                                      wgrad::Tile<128, 128>::SMEM, csize);
 }
+
+// 1 where t2i_conv5x5_s2_dx takes these pointers and shapes, else 0 (the
+// caller's route for the others: deconv5x5_s2 with w flipped and
+// transposed).
+extern "C" int t2i_conv5x5_s2_dx_path(const void* gc, const void* w,
+                                      const void* dx, int Cin, int Co,
+                                      int bf16) {
+  return cdx_applies(gc, w, dx, Cin, Co, bf16 != 0) ? 1 : 0;
+}
+
+// dx [B][H][W][Cin] of conv5x5_s2 SAME for the cotangent gc
+// [B][ceil(H/2)][ceil(W/2)][Co] and w [5][5][Cin][Co] (all bf16), on
+// `stream`: `kernel` kCdxRing with tiles of 128 pixels x `tile_n` (64, 128,
+// 256; dividing Cin) columns and `parts` (1..8, at most the 4*Co/64 items
+// of the lightest parity) parts of K in one cluster, or kCdxPatch (Cin 64,
+// tile_n 64, one part, H % 16 == 0 and W % 128 == 0).  Returns the CUDA error
+// code (0 when launched); no path gives way to another.
+extern "C" int t2i_conv5x5_s2_dx(const void* gc, const void* w, void* dx,
+                                 int B, int H, int W, int Cin, int Co,
+                                 int kernel, int tile_n, int parts,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!cdx_applies(gc, w, dx, Cin, Co, true) || parts < 1 ||
+      parts > dx90::MAX_PARTS || parts > 4 * (Co / 64) ||
+      static_cast<long long>(B) * H * W * Cin >= (1ll << 31))
+    return cudaErrorInvalidValue;
+  const int cluster = parts > 1 ? kCdxCluster : 0;
+  if (kernel == kCdxPatch) {
+    if (Cin != 64 || tile_n != 64 || parts != 1 || !cdx_patches(H, W))
+      return cudaErrorInvalidValue;
+    g_last_dx_mode = kCdxTmaA | kCdxShared;
+    return static_cast<int>(
+        launch_cdx_patch(gc, w, dx, B, H, W, Cin, Co, s));
+  }
+  if (kernel != kCdxRing ||
+      (tile_n != 64 && tile_n != 128 && tile_n != 256) || Cin % tile_n)
+    return cudaErrorInvalidValue;
+  g_last_dx_mode = kCdxTmaA | cluster;
+  switch (tile_n) {
+    case 64:
+      return static_cast<int>(
+          launch_cdx<64>(gc, w, dx, B, H, W, Cin, Co, parts, s));
+    case 128:
+      return static_cast<int>(
+          launch_cdx<128>(gc, w, dx, B, H, W, Cin, Co, parts, s));
+    default:
+      return static_cast<int>(
+          launch_cdx<256>(gc, w, dx, B, H, W, Cin, Co, parts, s));
+  }
+}
+
+// What the last launch of t2i_conv5x5_s2_dx in this process did (CDxMode
+// bits: 1 A by TMA, 2 parts summed in a cluster, 4 the taps of a parity
+// from one staged patch).
+extern "C" int t2i_conv5x5_s2_dx_mode() { return g_last_dx_mode; }

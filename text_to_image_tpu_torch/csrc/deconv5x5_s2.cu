@@ -45,8 +45,13 @@
 //    ops/kernels/conv.py) picks the tile and splits each parity's K over
 //    whole taps in its own number of parts, so that the blocks even out;
 //    partial sums are reduced in a fixed order (the same bits every run).
-//  * direct: Co <= 4 (the RGB layer): one thread per input pixel and its
-//    2x2 outputs, f32 FMA, all weights in shared memory.
+//  * thin: Co <= 4 with Cin a multiple of 16 up to 512, bf16, 16-byte-
+//    aligned x, w and y (the RGB layer; the conv's first-layer dx): one
+//    GEMM per input pixel of its 3x3 neighbourhood against the four
+//    parities' weights, m64n16k16 on wgmma from one staged patch of x a K
+//    slice (thin:: below).
+//  * direct: Co <= 4 otherwise (f32, ragged Cin): one thread per input
+//    pixel and its 2x2 outputs, f32 FMA, all weights in shared memory.
 //  * pipelined: bf16 with channels that are multiples of 8 otherwise: the
 //    first version's 128x128 mma.sync tile in a 3-stage cp.async ring.
 //  * tile: f32 and ragged channels: 128x64 tiles, K slices of 32 through
@@ -498,11 +503,11 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// Narrow Co (the RGB layer, Co=3): a GEMM tile would waste almost all of its
-// MMA columns, so one thread takes one input pixel and computes the 2x2
-// output pixels it feeds (its 3x3 neighbourhood through the 25 taps), in f32
-// FMA.  All 25*Cin weight rows sit in shared memory as float4 (Co padded to
-// 4), read as warp-wide broadcasts.
+// Narrow Co in f32 or with ragged Cin (the thin path below takes the bf16
+// RGB layer): one thread takes one input pixel and computes the 2x2 output
+// pixels it feeds (its 3x3 neighbourhood through the 25 taps), in f32 FMA.
+// All 25*Cin weight rows sit in shared memory as float4 (Co padded to 4),
+// read as warp-wide broadcasts.
 constexpr int D_THREADS = 256;
 constexpr int D_MAX_SMEM = 200 * 1024;
 
@@ -629,6 +634,398 @@ bool aligned16(const void* q) {
 }
 
 // ---------------------------------------------------------------------------
+// thin: Co <= 4 on the tensor cores (bf16, Cin a multiple of 16 up to 512,
+// 16-byte-aligned x, w and y: the RGB layer and the conv's first-layer dx),
+// in place of the direct kernel's f32 FMA.  Bound by the bytes of x (the
+// RGB layer: 16.8 MB in, 1.6 MB out, 5.5 us at 3.35 TB/s; its 2*25*Cin*Co
+// operations a pixel are nothing to the tensor cores), so the design reads
+// x once from HBM and once into shared memory, with little over:
+//  * one GEMM per input pixel (m, n): its 3x3 neighbourhood x Cin against
+//    a [9*Cin x 16] matrix whose 16 columns are the 4 output parities x 4
+//    channels (channels past Co zero), with zeros where a parity does not
+//    read a neighbour (parity 0 reads offsets {-1, 0} through taps 3 + 2d,
+//    parity 1 reads {-1, 0, 1} through taps 2 + 2d): m64n16k16, the extra
+//    products free at this intensity.  That matrix is built in shared
+//    memory by each block from w (no torch-side copy).
+//  * A tile is TR image rows x TW pixels.  Its input, with a one-pixel
+//    halo, is one TMA box of x a K slice: (TR+2) rows of PW = TW + 2
+//    pixels, zero-filled past every edge.  The GEMM's rows are the patch's
+//    pixels in order (the halo columns among them, computed and dropped),
+//    so the A operand of neighbour (dy, dx) is the same patch from a start
+//    dy*PW + dx rows on: nine descriptor starts, no nine boxes (the
+//    swizzle follows the address bits in TMA and wgmma alike, so any row
+//    may start a descriptor).  L2 -> SM bytes (TR+2)*PW / (TR*TW) of x.
+//  * A producer warp keeps the patches coming; blocks are persistent (the
+//    weights are built once a block) and walk tiles, two warpgroups taking
+//    alternate ones, each through its own ring of patches, so that one's
+//    epilogue runs beside the other's products.
+//  * The epilogue act(acc*scale + shift) in f32, the tile's 2TR x 2TW x Co
+//    outputs staged in shared memory and stored coalesced, row by row.
+// On the H100 one warpgroup ran it at 4-8x its bytes bound, held not by
+// the loads (a copy of the patches alone runs near the memory rate) but by
+// the products and the epilogue after them (PERF.md).
+namespace thin {
+
+constexpr int CONSUMERS = 256;                // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;       // + the producer warp
+constexpr int SMEM_CAP = 227 * 1024;
+constexpr int MAX_STAGES = 8;
+
+struct P {
+  const uint16_t* w;
+  const float* scale;
+  const float* shift;
+  uint16_t* y;
+  int B, H, W, Cin, Co, act;
+  int tr, tw, pw, nb;      // a tile: rows, pixels, patch row, m64 blocks
+  int slices, ntw, nth, tiles;
+  int stages;              // patches in flight, half a warpgroup
+  int patch_bytes;         // one stage (a patch and its slack rows)
+  int box_bytes;           // what one TMA box brings
+  int w_bytes;             // the built weights
+};
+
+// byte offset `a` (from an atom-aligned base) in the RB-byte swizzle
+template <int RB>
+__device__ __forceinline__ uint32_t swizzled(uint32_t a) {
+  constexpr uint32_t mask = RB / 16 - 1;
+  return a ^ (((a >> 7) & mask) << 4);
+}
+
+// K-major descriptor of rows of RB bytes in the RB-byte swizzle (layout
+// type 1, 2, 3 for 128, 64, 32; 8-row groups 8*RB bytes apart)
+template <int RB>
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  constexpr uint64_t type = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  return (igemm90::make_desc(addr, 16, 8 * RB) & ~(3ull << 62)) |
+         (type << 62);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// D[64 x 16] += A[64 x 16] * B[16 x 16], both K-major
+__device__ __forceinline__ void mma16(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int BK, int NB>
+__global__ void __launch_bounds__(THREADS)
+    thin_kernel(const P p, const __grid_constant__ CUtensorMap xmap) {
+  constexpr int RB = BK * 2, W_BLOCK = 16 * RB;   // 16 columns x a slice
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) unsigned long long full[MAX_STAGES];
+  __shared__ __align__(8) unsigned long long empty[MAX_STAGES];
+  const uint32_t raw = igemm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t wts = base;                            // [9][slices][16][RB]
+  const uint32_t ring = wts + ((p.w_bytes + 1023) & ~1023);
+  const int tid = threadIdx.x, wg = tid >> 7, tid128 = tid & 127;
+  const int half = p.stages / 2;   // each warpgroup's ring of patches
+  const int ow = 2 * p.tw * p.Co;   // a staged output row
+  uint16_t* out = reinterpret_cast<uint16_t*>(
+                      smem_raw + (ring - raw) + p.stages * p.patch_bytes) +
+                  wg * 2 * p.tr * ow;
+
+  // the [9*Cin x 16] matrix, a K slice at a time: the slice's rows of w
+  // (BK*Co contiguous elements a tap) staged raw in the ring by 16-byte
+  // loads, then scattered into the swizzled blocks of its nine
+  // neighbours; neighbour o = (dy+1)*3 + dx+1, column n = (py*2+px)*4 + co
+  {
+    uint16_t* raw_w = reinterpret_cast<uint16_t*>(smem_raw + (ring - raw));
+    const int tap_words = BK * p.Co / 8;   // 16-byte words of a tap's rows
+    for (int sl = 0; sl < p.slices; ++sl) {
+      for (int q = tid; q < 25 * tap_words; q += THREADS) {
+        const int tap = q / tap_words;
+        reinterpret_cast<uint4*>(raw_w)[q] = __ldg(
+            reinterpret_cast<const uint4*>(p.w + (tap * p.Cin + sl * BK) *
+                                                     p.Co) +
+            (q - tap * tap_words));
+      }
+      __syncthreads();
+      for (int e = tid; e < 9 * 16 * BK; e += THREADS) {
+        const int kk = e % BK, n = (e / BK) % 16, o = e / (16 * BK);
+        const int dy = o / 3 - 1, dx = o % 3 - 1;
+        const int py = n >> 3, px = (n >> 2) & 1, co = n & 3;
+        uint16_t v = 0;
+        if (co < p.Co && (py || dy <= 0) && (px || dx <= 0)) {
+          const int kh = py ? 2 * dy + 2 : 2 * dy + 3;
+          const int kw = px ? 2 * dx + 2 : 2 * dx + 3;
+          v = raw_w[((kh * 5 + kw) * BK + kk) * p.Co + co];
+        }
+        *reinterpret_cast<uint16_t*>(smem_raw + (wts - raw) +
+                                     (o * p.slices + sl) * W_BLOCK +
+                                     swizzled<RB>(n * RB + kk * 2)) = v;
+      }
+      __syncthreads();
+    }
+  }
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      igemm90::mbar_init(igemm90::smem_u32(&full[s]), 1);
+      igemm90::mbar_init(igemm90::smem_u32(&empty[s]), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  igemm90::fence_async_proxy();   // the weights, for wgmma
+  __syncthreads();
+
+  const int my_tiles = blockIdx.x < p.tiles
+                           ? (p.tiles - blockIdx.x + gridDim.x - 1) / gridDim.x
+                           : 0;
+  auto origin = [&](int k) {   // (col0, row0, b) of this block's k-th tile
+    const int t = blockIdx.x + k * gridDim.x;
+    const int per = p.nth * p.ntw, b = t / per, rem = t - b * per;
+    const int ih = rem / p.ntw;
+    return make_int3((rem - ih * p.ntw) * p.tw, ih * p.tr, b);
+  };
+
+  // tile k goes to warpgroup k % 2, its slices through that warpgroup's
+  // own ring of `half` stages (so that one warpgroup's epilogue overlaps
+  // the other's products)
+  if (tid >= CONSUMERS) {
+    if (tid == CONSUMERS) {
+      int n[2] = {0, 0};   // items loaded into each warpgroup's ring
+      for (int k = 0; k < my_tiles; ++k) {
+        const int w = k & 1;
+        const int3 q = origin(k);
+        for (int sl = 0; sl < p.slices; ++sl, ++n[w]) {
+          const int s = w * half + n[w] % half;
+          if (n[w] >= half)
+            igemm90::mbar_wait(igemm90::smem_u32(&empty[s]),
+                               ((n[w] / half) + 1) & 1);
+          const uint32_t bar = igemm90::smem_u32(&full[s]);
+          igemm90::mbar_expect_tx(bar, p.box_bytes);
+          igemm90::tma_load_4d(ring + s * p.patch_bytes, &xmap, sl * BK,
+                               q.x - 1, q.y - 1, q.z, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  float acc[NB][8];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[b][i] = 0.f;
+  // where this thread's accumulators go, the same for every tile: rows
+  // warp*16 + lane/4 (+8) of m64 block b are the patch's pixel pos = PW + 1
+  // + 64b + row at (r, c) = (pos / PW, pos % PW), valid on 1..TR x 1..TW;
+  // columns n = (i>>2)*8 + (tid&3)*2 + (i&1): py = i>>2, px = (tid&3)>>1,
+  // co = 2*(tid&1) + (i&1)
+  const int co0 = 2 * (tid & 1), px_t = (tid & 3) >> 1;
+  float sc[2], sh[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    sc[j] = co0 + j < p.Co ? p.scale[co0 + j] : 0.f;
+    sh[j] = co0 + j < p.Co ? p.shift[co0 + j] : 0.f;
+  }
+  const int pos0 = p.pw + 1 + igemm90::acc_row(tid128, 0);
+  const int r0 = pos0 / p.pw, c0 = pos0 - r0 * p.pw;
+  const int step8_r = 8 / p.pw, step8_c = 8 - step8_r * p.pw;
+  const int step56_r = 56 / p.pw, step56_c = 56 - step56_r * p.pw;
+  int it = 0;   // items of this warpgroup's ring
+  for (int k = wg; k < my_tiles; k += 2) {
+    for (int sl = 0; sl < p.slices; ++sl, ++it) {
+      const int s = wg * half + it % half;
+      igemm90::mbar_wait(igemm90::smem_u32(&full[s]), (it / half) & 1);
+      const uint32_t patch = ring + s * p.patch_bytes;
+      // a commit group a neighbour, one in flight behind the next (a group
+      // that spans a loop's back edge would serialize its wgmmas)
+#pragma unroll 1
+      for (int o = 0; o < 9; ++o) {
+        const int shift = (o / 3 - 1) * p.pw + o % 3 - 1;
+        const uint64_t bd = desc<RB>(wts + (o * p.slices + sl) * W_BLOCK);
+        const uint64_t ad = desc<RB>(patch + (p.pw + 1 + shift) * RB);
+        igemm90::wgmma_fence();
+        // the NB blocks' chains interleaved: a k16 step of m64n16 is too
+        // short to cover the latency of the next one on its accumulator
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)   // +32 bytes a k16 step
+#pragma unroll
+          for (int b = 0; b < NB; ++b)         // +64 rows a block
+            mma16(acc[b], ad + 2 * kk + b * (64 * RB >> 4), bd + 2 * kk);
+        igemm90::wgmma_commit();
+        igemm90::wgmma_wait<1>();
+      }
+      igemm90::wgmma_wait<0>();
+      if (tid128 == 0) mbar_arrive(igemm90::smem_u32(&empty[s]));
+    }
+
+    // the tile's outputs: act(acc*scale + shift), staged [2TR][2TW][Co];
+    // (r, c) of each row stepped from the last (no division a value)
+    {
+      int r = r0, c = c0;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // rows +8 (h) then +56 (the next block's first)
+          const int at_h =
+              r >= 1 && r <= p.tr && c >= 1 && c <= p.tw
+                  ? 2 * (r - 1) * ow + (2 * (c - 1) + px_t) * p.Co + co0
+                  : -1;
+#pragma unroll
+          for (int i = 2 * h; i < 8; i += 4) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              // read on every thread's path: an accumulator read behind a
+              // branch would serialize the wgmmas
+              const float a = acc[b][i + j];
+              acc[b][i + j] = 0.f;
+              if (at_h >= 0 && co0 + j < p.Co)
+                out[at_h + (i >> 2) * ow + j] =
+                    __bfloat16_as_ushort(__float2bfloat16(
+                        apply_act(fmaf(a, sc[j], sh[j]), p.act)));
+            }
+          }
+          const int step_r = h ? step56_r : step8_r;
+          const int step_c = h ? step56_c : step8_c;
+          c += step_c;
+          r += step_r + (c >= p.pw ? 1 : 0);
+          c -= c >= p.pw ? p.pw : 0;
+        }
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    // row by row, 4 bytes a thread (rows, their starts and ow are even)
+    const int3 q = origin(k);
+    const int x0 = 2 * q.x * p.Co, xw = 2 * p.W * p.Co;
+    const int words = ((xw - x0 < ow ? xw - x0 : ow)) / 2;
+    for (int oy = 0; oy < 2 * p.tr && 2 * q.y + oy < 2 * p.H; ++oy) {
+      uint32_t* dst = reinterpret_cast<uint32_t*>(
+          p.y + (static_cast<size_t>(q.z) * 2 * p.H + 2 * q.y + oy) * xw +
+          x0);
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(out + oy * ow);
+      for (int e = tid128; e < words; e += 128) dst[e] = src[e];
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  }
+}
+
+// The tile of a map: TW = min(W, 64) pixels of TR rows, a tile's GEMM rows
+// NB m64 blocks (NB of 8, 4, 2: a template argument, so that no wgmma sits
+// behind a branch), TR the most rows whose patch those rows cover: of the
+// three, the fewest rows computed over the map (ties to the larger NB)
+// whose two patches, weights and staged outputs fit the SM.  The stage and
+// smem sizes with it.
+template <int BK>
+bool plan(P& p, int& smem) {
+  constexpr int RB = BK * 2;
+  p.tw = p.W < 64 ? p.W : 64;
+  p.pw = p.tw + 2;
+  p.slices = p.Cin / BK;
+  p.w_bytes = 9 * p.Cin * 16 * 2;
+  long long best = -1;
+  P pick = p;
+  int pick_smem = 0;
+  const int choices[3] = {8, 4, 2};
+  for (int nb : choices) {
+    P q = p;
+    q.nb = nb;
+    q.tr = (64 * nb + 2) / q.pw;
+    if (q.tr > q.H) q.tr = q.H;
+    if (q.tr < 1) continue;
+    // rows read: up to 2*PW + 1 + 64*NB past the start (slack past the
+    // patch: computed and dropped), 8-row atoms
+    const int box_rows = (q.tr + 2) * q.pw;
+    const int reach = 2 * q.pw + 2 + 64 * nb;
+    const int rows = ((box_rows > reach ? box_rows : reach) + 7) / 8 * 8;
+    q.patch_bytes = (rows * RB + 1023) / 1024 * 1024;
+    q.box_bytes = box_rows * RB;
+    const int out_bytes = 2 * q.tr * 2 * q.tw * q.Co * 2;   // a warpgroup's
+    const int fixed =
+        1024 + (q.w_bytes + 1023) / 1024 * 1024 + 2 * out_bytes;
+    q.stages = (SMEM_CAP - fixed) / q.patch_bytes;
+    if (q.stages > MAX_STAGES) q.stages = MAX_STAGES;
+    q.stages &= ~1;   // a ring each warpgroup
+    if (q.stages < 2) continue;
+    const int need = fixed + q.stages * q.patch_bytes;
+    const long long cost =
+        static_cast<long long>((q.H + q.tr - 1) / q.tr) * nb;
+    if (best < 0 || cost < best) {
+      best = cost;
+      pick = q;
+      pick_smem = need;
+    }
+  }
+  if (best < 0) return false;
+  p = pick;
+  smem = pick_smem;
+  p.ntw = (p.W + p.tw - 1) / p.tw;
+  p.nth = (p.H + p.tr - 1) / p.tr;
+  p.tiles = p.B * p.nth * p.ntw;
+  return true;
+}
+
+template <int BK, int NB>
+cudaError_t launch_nb(const P& p, const CUtensorMap& xmap, int smem,
+                      cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      thin_kernel<BK, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, thin_kernel<BK, NB>, THREADS, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = p.tiles < per_sm * sms ? p.tiles : per_sm * sms;
+  thin_kernel<BK, NB><<<grid, THREADS, smem, s>>>(p, xmap);
+  return cudaGetLastError();
+}
+
+template <int BK>
+cudaError_t launch(const Params& q, cudaStream_t s) {
+  P p;
+  p.w = static_cast<const uint16_t*>(q.w);
+  p.scale = q.scale;
+  p.shift = q.shift;
+  p.y = static_cast<uint16_t*>(q.y);
+  p.B = q.B;
+  p.H = q.H;
+  p.W = q.W;
+  p.Cin = q.Cin;
+  p.Co = q.Co;
+  p.act = q.act;
+  int smem = 0;
+  if (!plan<BK>(p, smem)) return cudaErrorInvalidValue;
+  // x [B][H][W][Cin]: boxes of BK channels x PW pixels x TR+2 rows
+  const cuuint64_t d[4] = {static_cast<cuuint64_t>(q.Cin),
+                           static_cast<cuuint64_t>(q.W),
+                           static_cast<cuuint64_t>(q.H),
+                           static_cast<cuuint64_t>(q.B)};
+  const cuuint64_t st[3] = {d[0] * 2, d[0] * d[1] * 2, d[0] * d[1] * d[2] * 2};
+  const cuuint32_t box[4] = {BK, static_cast<cuuint32_t>(p.pw),
+                             static_cast<cuuint32_t>(p.tr + 2), 1};
+  CUtensorMap xmap = {};
+  cudaError_t err = igemm90::encode_tiled(
+      &xmap, 4, q.x, d, st, box,
+      BK == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+               : BK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B);
+  if (err != cudaSuccess) return err;
+  switch (p.nb) {
+    case 8: return launch_nb<BK, 8>(p, xmap, smem, s);
+    case 4: return launch_nb<BK, 4>(p, xmap, smem, s);
+    default: return launch_nb<BK, 2>(p, xmap, smem, s);
+  }
+}
+
+}  // namespace thin
+
+// ---------------------------------------------------------------------------
 // The wgmma path: four groups, one per output parity g = (py, px) =
 // (g >> 1, g & 1), (2+py)(2+px) taps each; tap t = (th, tw), th = t / (2+px).
 struct Deconv : igemm::Common {
@@ -698,7 +1095,7 @@ struct Deconv : igemm::Common {
   }
 };
 
-enum Path { kTile = 0, kPipelined = 1, kDirect = 2, kWgmma = 3 };
+enum Path { kTile = 0, kPipelined = 1, kDirect = 2, kWgmma = 3, kThin = 4 };
 
 Params make_params(const void* x, const void* w, const void* scale,
                    const void* shift, void* y, int B, int H, int W, int Cin,
@@ -734,7 +1131,10 @@ Deconv make_deconv(const Params& q) {
 // The path a call takes: from shapes, types and alignment only.
 int deconv_path(const Params& q, bool bf16) {
   if (q.Co <= 4 && 25 * q.Cin * static_cast<int>(sizeof(float4)) <= D_MAX_SMEM)
-    return kDirect;
+    return bf16 && q.Cin % 16 == 0 && aligned16(q.x) && aligned16(q.w) &&
+                   aligned16(q.y)
+               ? kThin
+               : kDirect;
   if (bf16 && igemm90::applies(make_deconv(q))) return kWgmma;
   return bf16 && q.vec_x && q.vec_w && q.vec_y ? kPipelined : kTile;
 }
@@ -742,7 +1142,7 @@ int deconv_path(const Params& q, bool bf16) {
 }  // namespace
 
 // The path t2i_deconv5x5_s2 takes for these pointers and shapes: 0 the
-// simple tile, 1 the pipelined tile, 2 the direct kernel, 3 wgmma.
+// simple tile, 1 the pipelined tile, 2 the direct kernel, 3 wgmma, 4 thin.
 extern "C" int t2i_deconv5x5_s2_path(const void* x, const void* w,
                                      const void* y, int Cin, int Co,
                                      int bf16) {
@@ -771,6 +1171,10 @@ extern "C" int t2i_deconv5x5_s2(const void* x, const void* w,
       return static_cast<int>(igemm90::launch(
           make_deconv(p), tile, parts, static_cast<float*>(ws), s));
     }
+    case kThin:
+      return static_cast<int>(p.Cin % 64 == 0   ? thin::launch<64>(p, s)
+                              : p.Cin % 32 == 0 ? thin::launch<32>(p, s)
+                                                : thin::launch<16>(p, s));
     case kDirect:
       return static_cast<int>(bf16 ? launch_direct_co<true>(p, s)
                                    : launch_direct_co<false>(p, s));

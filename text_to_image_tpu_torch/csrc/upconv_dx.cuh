@@ -1,5 +1,7 @@
 // upconv3x3_dx's main loops on Hopper (sm_90a), included by
-// upconv3x3_bwd.cu: dx [B,H,W,Cin] of conv3x3(up2(x)) for the cotangent g
+// upconv3x3_bwd.cu; its ring loop also runs the conv's dx
+// (conv5x5_s2_bwd.cu's policy CDxRing, see "ring" below): dx [B,H,W,Cin]
+// of conv3x3(up2(x)) for the cotangent g
 // [B,2H,2W,Co] as one implicit GEMM, M = B*H*W rows of dx, N = Cin, K = 16
 // taps x Co, f32 sums rounded once to bf16.  They replace the forward's
 // gather loop (igemm_sm90.cuh) that dx ran on before, whose A came by
@@ -240,6 +242,13 @@ __device__ __forceinline__ void bulk_wait() {
 }
 
 // ------------------------------------------------------------------ ring --
+// The ring loop serves two ops through one template hook, a policy Pol
+// that says what a tile is (`tile`: from blockIdx.y, with its number of
+// (tap, slice) items), where item it's A and B boxes come from (`load`)
+// and where row r of the tile goes in dx (`out`: the element offset of its
+// channel 0, or -1 past the map): UpconvRing below (upconv3x3_dx, 16
+// combined taps) and conv5x5_s2_bwd.cu's CDxRing (the conv's dx, the 4 / 6
+// / 6 / 9 taps of a parity).
 template <int BN, int BK>
 struct Ring {
   static constexpr int RB = BK * 2;                  // bytes of a K row
@@ -259,10 +268,11 @@ struct Ring {
 // rows of BN + 4 floats) added in rank order and rounded into dx: CTA
 // `rank` of `csize` takes rows [rank*BM/csize, (rank+1)*BM/csize), four
 // columns a thread (every rank's four loaded before the adds).
-template <int BN>
-__device__ __forceinline__ void sum_store(const Params& p, float* stg,
-                                          const float* acc, int row0, int n0,
-                                          int csize) {
+template <int BN, class Pol>
+__device__ __forceinline__ void sum_store(const typename Pol::P& p,
+                                          const typename Pol::T& t,
+                                          float* stg, const float* acc,
+                                          int n0, int csize) {
   constexpr int LD = BN + 4, C4 = BN / 4;
   const int tid = threadIdx.x;
   if (tid < CONSUMERS) {
@@ -281,7 +291,8 @@ __device__ __forceinline__ void sum_store(const Params& p, float* stg,
   uint16_t* dx = static_cast<uint16_t*>(p.dx);
   for (int e = tid; e < (r_hi - r_lo) * C4; e += THREADS) {
     const int r = r_lo + e / C4, c = (e % C4) * 4;
-    if (row0 + r >= p.M) continue;
+    const long long o = Pol::out(p, t, r);
+    if (o < 0) continue;
     const int off = r * LD + c;
     float4 s;
     if (csize > 1) {
@@ -304,8 +315,7 @@ __device__ __forceinline__ void sum_store(const Params& p, float* stg,
     }
     const __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
     const __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
-    *reinterpret_cast<uint2*>(
-        dx + static_cast<size_t>(row0 + r) * p.Cin + n0 + c) =
+    *reinterpret_cast<uint2*>(dx + o + n0 + c) =
         make_uint2(*reinterpret_cast<const unsigned*>(&lo),
                    *reinterpret_cast<const unsigned*>(&hi));
   }
@@ -313,11 +323,46 @@ __device__ __forceinline__ void sum_store(const Params& p, float* stg,
   if (csize > 1) wgrad::cluster_sync();
 }
 
-// A block computes the 128 x BN tile blockIdx.y over part blockIdx.x of
-// its 16 * S (tap, slice) items, in clusters of the tile's parts along x.
-template <int BN, int BK>
+// upconv3x3_dx's policy: a tile is BM rows of dx from row0, columns n0 on;
+// its 16 * S items are (tap t, slice) in that order, tap t one box of g's
+// parity plane (py, px) shifted by (1-py-a, 1-px-c)
+struct UpconvRing {
+  using P = Params;
+  struct T {
+    int row0, n0, items;
+    int3 q;   // (j, i, b) of row0
+  };
+  __device__ static T tile(const P& p, int y, int bn) {
+    T t;
+    t.row0 = y / p.n_col * BM;
+    t.n0 = (y % p.n_col) * bn;
+    t.items = 16 * p.S;
+    t.q = pixel(p, t.row0);
+    return t;
+  }
+  template <int BK>
+  __device__ static void load(const P& p, const T& t, int item, uint32_t a,
+                              uint32_t b, const CUtensorMap* gmap,
+                              const CUtensorMap* wmap, uint32_t bar) {
+    const int tap = item / p.S, k0 = (item - tap * p.S) * BK;
+    const int py = tap >> 3, px = (tap >> 2) & 1, ta = (tap >> 1) & 1,
+              tc = tap & 1;
+    wgrad::tma_load_5d(a, gmap, px * p.Co + k0, t.q.x + 1 - px - tc, py,
+                       t.q.y + 1 - py - ta, t.q.z, bar);
+    igemm90::tma_load_2d(b, wmap, k0, tap * p.Cin + t.n0, bar);
+  }
+  __device__ static long long out(const P& p, const T& t, int r) {
+    return t.row0 + r < p.M ? static_cast<long long>(t.row0 + r) * p.Cin
+                            : -1;
+  }
+};
+
+// A block computes the BM x BN tile blockIdx.y over part blockIdx.x of
+// its (tap, slice) items, in clusters of the tile's parts along x.
+template <int BN, int BK, class Pol>
 __global__ void __launch_bounds__(THREADS, Ring<BN, BK>::BLOCKS)
-    ring_kernel(const Params p, const __grid_constant__ CUtensorMap gmap,
+    ring_kernel(const typename Pol::P p,
+                const __grid_constant__ CUtensorMap gmap,
                 const __grid_constant__ CUtensorMap wmap) {
   using R = Ring<BN, BK>;
   extern __shared__ uint8_t smem_raw[];
@@ -326,9 +371,8 @@ __global__ void __launch_bounds__(THREADS, Ring<BN, BK>::BLOCKS)
   const uint32_t raw = igemm90::smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
   const int tid = threadIdx.x;
-  const int tile = blockIdx.y;
-  const int row0 = tile / p.n_col * BM, n0 = (tile % p.n_col) * BN;
-  const int2 span = wgrad::part(blockIdx.x, p.parts, 16 * p.S);
+  const typename Pol::T t = Pol::tile(p, blockIdx.y, BN);
+  const int2 span = wgrad::part(blockIdx.x, p.parts, t.items);
   const int n_iter = span.y - span.x;
   if (tid == 0) {
     for (int s = 0; s < R::STAGES; ++s) {
@@ -346,7 +390,6 @@ __global__ void __launch_bounds__(THREADS, Ring<BN, BK>::BLOCKS)
 
   if (tid >= CONSUMERS) {
     if (tid == CONSUMERS) {
-      const int3 q = pixel(p, row0);
       for (int it = 0; it < n_iter; ++it) {
         const int s = it % R::STAGES;
         if (it >= R::STAGES)
@@ -355,13 +398,8 @@ __global__ void __launch_bounds__(THREADS, Ring<BN, BK>::BLOCKS)
         const uint32_t st = ring + s * R::STAGE;
         const uint32_t bar = igemm90::smem_u32(&full[s]);
         igemm90::mbar_expect_tx(bar, R::STAGE);
-        const int item = span.x + it, t = item / p.S;
-        const int k0 = (item - t * p.S) * BK;
-        const int py = t >> 3, px = (t >> 2) & 1, a = (t >> 1) & 1, c = t & 1;
-        wgrad::tma_load_5d(st, &gmap, px * p.Co + k0, q.x + 1 - px - c, py,
-                           q.y + 1 - py - a, q.z, bar);
-        igemm90::tma_load_2d(st + R::A_STAGE, &wmap, k0, t * p.Cin + n0,
-                             bar);
+        Pol::template load<BK>(p, t, span.x + it, st, st + R::A_STAGE,
+                               &gmap, &wmap, bar);
       }
     }
   } else {
@@ -384,8 +422,8 @@ __global__ void __launch_bounds__(THREADS, Ring<BN, BK>::BLOCKS)
     igemm90::wgmma_wait<0>();
   }
   __syncthreads();   // every stage consumed: the ring is free
-  sum_store<BN>(p, reinterpret_cast<float*>(smem_raw + (ring - raw)), acc,
-                row0, n0, p.parts);
+  sum_store<BN, Pol>(p, t, reinterpret_cast<float*>(smem_raw + (ring - raw)),
+                     acc, t.n0, p.parts);
 }
 
 // ------------------------------------------------------------ transposed --
@@ -570,11 +608,12 @@ inline cudaError_t g_map(CUtensorMap* map, const void* g, int B, int H,
                                         : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
-// wc [16][Cin][Co] as [16*Cin][Co]: boxes of BK channels x `rows` columns
+// wc [taps][Cin][Co] as [taps*Cin][Co] (the combined weights: 16 taps;
+// the conv's w: 25): boxes of BK channels x `rows` columns
 inline cudaError_t w_map(CUtensorMap* map, const void* wc, int Cin, int Co,
-                         int BK, int rows) {
+                         int BK, int rows, int taps = 16) {
   const cuuint64_t d[2] = {static_cast<cuuint64_t>(Co),
-                           16 * static_cast<cuuint64_t>(Cin)};
+                           static_cast<cuuint64_t>(taps) * Cin};
   const cuuint64_t s[1] = {d[0] * 2};
   const cuuint32_t b[2] = {static_cast<cuuint32_t>(BK),
                            static_cast<cuuint32_t>(rows)};
@@ -604,7 +643,7 @@ cudaError_t launch_ring(const void* g, const void* wc, void* dx, int B,
                         int H, int W, int Cin, int Co, int parts,
                         cudaStream_t s) {
   using R = Ring<BN, BK>;
-  auto kernel = ring_kernel<BN, BK>;
+  auto kernel = ring_kernel<BN, BK, UpconvRing>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
   if (err != cudaSuccess) return err;

@@ -6,11 +6,14 @@ up-blocks and the discriminator's down-block convolutions (counterpart of
 shift)`` over NHWC x and HWIO w, with ``lax.conv_transpose`` semantics (no
 kernel flip).  Replaces `deconv5x5_s2` (Pallas bodies `_deconv_kernel_vpad`
 and its HBM-staged twin `_deconv_kernel`).  CUDA kernel:
-``csrc/deconv5x5_s2.cu``, four code paths (`deconv_path` mirrors the rule):
+``csrc/deconv5x5_s2.cu``, five code paths (`deconv_path` mirrors the rule):
 ``wgmma`` for bf16 with Cin and Co multiples of 64 (the three deep
 generator layers: the four output parities as one grouped GEMM, whose tile
-and per-parity split of K `deconv_plan` picks), ``direct`` for Co ≤ 4 (the
-RGB layer), ``pipelined`` / ``tile`` (mma.sync / f32 FMA) otherwise.
+and per-parity split of K `deconv_plan` picks), ``thin`` for bf16 with Co ≤
+4 and Cin a multiple of 16 (the RGB layer, the conv's first-layer dx: one
+m64n16k16 GEMM of each pixel's 3×3 neighbourhood from one staged patch,
+`thin_plan`), ``direct`` for Co ≤ 4 otherwise, ``pipelined`` / ``tile``
+(mma.sync / f32 FMA) otherwise.
 
 ``conv5x5_s2_act``: ``y = act(conv_5x5_s2_SAME(x, w) + b)``, TF SAME
 padding (an even map pads 1 before and 2 after).  Replaces
@@ -50,10 +53,17 @@ long-K products over every output pixel split into parts that a
 thread-block cluster sums on chip and writes into dw, in the conv's
 layout or, for the transposed conv, in its own (``csrc/conv5x5_s2_bwd.cu``,
 `conv_dw_path` / `conv_dw_plan`): the weight half of the JAX package's
-`_conv_bwd` and, with its operands swapped, of `_deconv_bwd`.  The input
-halves are the other op's forward kernel: the conv's dx is
-``deconv5x5_s2`` of the cotangent with w flipped and transposed, the
-deconv's dx ``conv5x5_s2_act`` of its cotangent with the same weight.  A
+`_conv_bwd` and, with its operands swapped, of `_deconv_bwd`.
+``conv5x5_s2_dx``: the conv's input gradient, the other half of
+`_conv_bwd` (same source; `conv_dx_path` / `conv_dx_plan`): four parity
+GEMMs of 9, 6, 6 and 4 taps, A a TMA box of the cotangent a tap, w read
+K-major as it lies (no flipped copy), the parts of K of a tile summed in a
+cluster, dx written in place by parity (no crop), on the ring loop it
+shares with upconv3x3_dx; at Cin 64 on the 128² maps every tap of a parity
+from one staged patch.  It takes bf16 with Cin and Co multiples of 64; the
+conv's other dx (the RGB layer's Cin 3, f32) is ``deconv5x5_s2`` of the
+cotangent with w flipped and transposed (`conv_dx` picks by shape).  The
+deconv's dx is ``conv5x5_s2_act`` of its cotangent with that weight.  A
 weight-gradient plan that needs more parts than a cluster holds (or the
 up-block's per-product blocks) takes a workspace, walked in chunks of Cin
 so that it stays under CONV_WS_CAP at any Cin·Co (`wgrad_chunk`).
@@ -68,7 +78,8 @@ saved output, then the conv's two adjoints, which the JAX package leaves to
 XLA and the port computes on the kernels above, no library convolution
 among them (tanh's up-block backward, on no training path, differentiates
 the composed version again).  The conv's dx goes through the differentiable
-deconv and the deconv's through the conv, so a gradient of a gradient (the
+conv5x5_s2_dx (whose own backward is the conv and conv5x5_s2_dw) or deconv,
+and the deconv's through the conv, so a gradient of a gradient (the
 WGAN-CLS gradient penalty) runs on the same kernels.
 """
 
@@ -183,18 +194,20 @@ def _deconv_lib() -> ctypes.CDLL:
 
 # The kernel's code paths in the order of the C entry point's codes
 # (csrc/deconv5x5_s2.cu `Path`), chosen from shapes, types and alignment.
-DECONV_PATHS = ("tile", "pipelined", "direct", "wgmma")
+DECONV_PATHS = ("tile", "pipelined", "direct", "wgmma", "thin")
 _DIRECT_MAX_CIN = 200 * 1024 // (25 * 16)     # its weights in shared memory
 
 
 def deconv_path(cin: int, co: int, dtype: torch.dtype,
                 aligned: bool = True) -> str:
     """The Python mirror of `deconv_path` in csrc/deconv5x5_s2.cu.
-    `aligned`: x, w and y start on 16-byte boundaries."""
+    `aligned`: x, w and y start on 16-byte boundaries.  Co <= 4 with Cin
+    up to 512 (the RGB layer, the conv's first-layer dx): `thin` (wgmma)
+    for bf16 with Cin a multiple of 16, else the `direct` FMA kernel."""
     bf16 = dtype == torch.bfloat16
     vec = 8 if bf16 else 4
     if co <= 4 and cin <= _DIRECT_MAX_CIN:
-        return "direct"
+        return "thin" if bf16 and aligned and cin % 16 == 0 else "direct"
     if bf16 and cin % 64 == 0 and co % 64 == 0 and aligned:
         return "wgmma"
     return ("pipelined" if bf16 and aligned and cin % vec == 0
@@ -203,6 +216,56 @@ def deconv_path(cin: int, co: int, dtype: torch.dtype,
 
 def _check(x, w, scale, shift, act):
     _check_common(x, w, (("scale", scale), ("shift", shift)), act)
+
+
+class ThinPlan(NamedTuple):
+    """The thin path's tiling (csrc/deconv5x5_s2.cu `thin::plan`): TR
+    image rows of TW pixels a tile, its patch rows of PW = TW + 2 pixels
+    (a one-pixel halo), NB m64 blocks of GEMM rows (the patch's pixels
+    from PW + 1 on), the K slice and the patches in flight (half of them
+    each of the two warpgroups', which take alternate tiles)."""
+    tw: int
+    pw: int
+    nb: int
+    tr: int
+    bk: int
+    stages: int
+
+
+_THIN_SMEM_CAP = 227 * 1024
+_THIN_MAX_STAGES = 8
+
+
+def thin_plan(h: int, w: int, cin: int, co: int) -> ThinPlan:
+    """The Python mirror of `thin::plan`: of NB 8, 4 and 2 m64 blocks (TR
+    the most rows whose patch NB·64 rows cover, at most H), the one that
+    computes the fewest rows over the map (ties to the larger NB) whose
+    weights, two warpgroups' staged outputs and a patch for each fit the
+    SM."""
+    bk = 64 if cin % 64 == 0 else 32 if cin % 32 == 0 else 16
+    tw = min(w, 64)
+    pw = tw + 2
+    w_bytes = 9 * cin * 16 * 2
+    best = None
+    for nb in (8, 4, 2):
+        tr = min((64 * nb + 2) // pw, h)
+        if tr < 1:
+            continue
+        rows = -(-max((tr + 2) * pw, 2 * pw + 2 + 64 * nb) // 8) * 8
+        patch = -(-rows * 2 * bk // 1024) * 1024
+        # two warpgroups' staged outputs; a ring of stages each
+        fixed = (1024 + -(-w_bytes // 1024) * 1024
+                 + 2 * (2 * tr * 2 * tw * co * 2))
+        stages = min((_THIN_SMEM_CAP - fixed) // patch,
+                     _THIN_MAX_STAGES) // 2 * 2
+        if stages < 2:
+            continue
+        cost = -(-h // tr) * nb
+        if best is None or cost < best[0]:
+            best = (cost, ThinPlan(tw, pw, nb, tr, bk, stages))
+    if best is None:
+        raise ValueError(f"thin path: no tile fits for {h}x{w}x{cin}->{co}")
+    return best[1]
 
 
 def _grouped_launch_args(x, plan, rows, co):
@@ -263,11 +326,17 @@ def deconv_dx_weight(w: torch.Tensor) -> torch.Tensor:
 
 def conv_dx(gc: torch.Tensor, w: torch.Tensor, h: int, wd: int) -> torch.Tensor:
     """dx [B,h,wd,Cin] of conv5x5_s2 SAME over an h×wd map for the
-    cotangent gc [B,⌈h/2⌉,⌈wd/2⌉,Co] (in w's dtype): the transposed conv of
-    gc with `deconv_dx_weight(w)`, scale 1 and shift 0, through the
-    differentiable `deconv5x5_s2`.  It writes 2·⌈h/2⌉ rows with the (1, 2)
-    pads of an even map; an odd map pads (2, 2), one more before, so its dx
-    is rows 1..h."""
+    cotangent gc [B,⌈h/2⌉,⌈wd/2⌉,Co] (in w's dtype), the route chosen by
+    shape (`conv_dx_path`): `conv5x5_s2_dx` (bf16, Cin and Co multiples of
+    64: every deep layer, odd maps too), else the transposed conv of gc
+    with `deconv_dx_weight(w)`, scale 1 and shift 0, through the
+    differentiable `deconv5x5_s2` (the first layers' Cin 3 on its thin or
+    direct path; f32 and ragged channels), which writes 2·⌈h/2⌉ rows with
+    the (1, 2) pads of an even map; an odd map pads (2, 2), one more
+    before, so its dx is rows 1..h."""
+    if conv_dx_path(w.shape[2], w.shape[3], gc.dtype,
+                    _aligned16(gc, w)) == "wgmma":
+        return conv5x5_s2_dx(gc, w, h, wd)
     ci = w.shape[2]
     dx = deconv5x5_s2(gc, deconv_dx_weight(w),
                       torch.ones(ci, device=gc.device),
@@ -1663,7 +1732,12 @@ def _cdw_lib() -> ctypes.CDLL:
         "t2i_conv5x5_s2_dw_path": [_PTR] * 2 + [_INT] * 5,
         "t2i_conv5x5_s2_dw_mode": [],
         # csize, tile_m, tile_n
-        "t2i_conv5x5_s2_dw_clusters": [_INT] * 3})
+        "t2i_conv5x5_s2_dw_clusters": [_INT] * 3,
+        # gc, w, dx; B, H, W, Cin, Co, kernel, tile_n, parts; stream
+        "t2i_conv5x5_s2_dx": [_PTR] * 3 + [_INT] * 8 + [_PTR],
+        # gc, w, dx; Cin, Co, bf16
+        "t2i_conv5x5_s2_dx_path": [_PTR] * 3 + [_INT] * 3,
+        "t2i_conv5x5_s2_dx_mode": []})
 
 
 def conv_dw_path(h: int, w: int, cin: int, co: int, dtype: torch.dtype,
@@ -1793,3 +1867,278 @@ def conv_dw_mode_on_card() -> frozenset:
     """What the last conv5x5_s2_dw launch of this process did (its C entry
     point's Mode bits)."""
     return _modes(_cdw_lib().t2i_conv5x5_s2_dw_mode())
+
+
+# ================= conv 5x5 s2: the input gradient (conv5x5_s2_dx) ============
+
+def conv5x5_s2_dx_plain(gc: torch.Tensor, w: torch.Tensor, h: int,
+                        wd: int) -> torch.Tensor:
+    """The adjoint in x of conv5x5_s2 SAME over an h×wd map for the
+    cotangent gc [B,⌈h/2⌉,⌈wd/2⌉,Co]: 25 f32 tap matmuls with w as it lies,
+    tap (kh, kw) adding gc·w[kh,kw]ᵀ to every second pixel of the
+    SAME-padded map from (kh, kw), then the map cropped; rounded once to
+    gc's dtype."""
+    b, ho, wo, _ = gc.shape
+    _, pt, pb = same_pads(h)
+    _, pl, pr = same_pads(wd)
+    dxp = torch.zeros(b, h + pt + pb, wd + pl + pr, w.shape[2],
+                      device=gc.device)
+    g32, w32 = gc.float(), w.float()
+    for kh in range(5):
+        for kw in range(5):
+            dxp[:, kh:kh + 2 * ho - 1:2, kw:kw + 2 * wo - 1:2, :] += \
+                g32 @ w32[kh, kw].T
+    return dxp[:, pt:pt + h, pl:pl + wd].to(gc.dtype)
+
+
+# the route of the conv's dx (csrc/conv5x5_s2_bwd.cu t2i_conv5x5_s2_dx_path:
+# 0 the caller's deconv5x5_s2 route, 1 conv5x5_s2_dx); the kernel's two
+# loops (CDxKernel); what a launch did (CDxMode bits)
+CDX_PATHS = ("deconv", "wgmma")
+CDX_KERNELS = ("ring", "patch")
+CDX_MODES = ("tma_a", "cluster", "patch")
+CDX_BM = 128                   # dx90::BM: pixels of a ring tile
+CDX_TILES_N = (256, 128, 64)
+CDX_PARTS = (1, 2, 4, 8)
+
+
+def conv_dx_path(cin: int, co: int, dtype: torch.dtype,
+                 aligned: bool = True) -> str:
+    """The Python mirror of `cdx_applies` in csrc/conv5x5_s2_bwd.cu:
+    `wgmma` (conv5x5_s2_dx) for bf16 with Cin and Co multiples of 64 on
+    any map, `deconv` (deconv5x5_s2 of gc with w flipped and transposed)
+    otherwise.  `aligned`: gc, w and dx start on 16-byte boundaries."""
+    if (dtype == torch.bfloat16 and aligned and cin % 64 == 0
+            and co % 64 == 0):
+        return "wgmma"
+    return "deconv"
+
+
+class CdxPlan(NamedTuple):
+    """A launch of conv5x5_s2_dx: the loop (`CDX_KERNELS`: the ring, or at
+    Cin 64 on maps of 64-pixel plane rows the patch kernel, every tap of a
+    parity from one staged patch), its tile (pixels of a parity plane ×
+    input channels) and the parts of K, one cluster of them."""
+    kernel: str
+    tile_m: int
+    tile_n: int
+    parts: int
+
+
+def _log2_ceil(n: int) -> int:
+    return max(0, (n - 1).bit_length())
+
+
+def cdx_box(b: int, ho: int, wo: int, bm: int):
+    """(log2 pixels, log2 rows, log2 images, tiles of a parity) of the box
+    of gc that is one tile of bm pixels of a ⌈h/2⌉×⌈w/2⌉ parity plane
+    (csrc/conv5x5_s2_bwd.cu `cdx_box`): the row's power of two (at most
+    bm), then rows, then images."""
+    lbm = _log2_ceil(bm)
+    lw = min(_log2_ceil(wo), lbm)
+    lh = min(_log2_ceil(ho), lbm - lw)
+    lb = lbm - lw - lh
+    tiles = (-(-b // (1 << lb)) * -(-ho // (1 << lh))
+             * -(-wo // (1 << lw)))
+    return lw, lh, lb, tiles
+
+
+# the parities' taps in launch order (the heaviest first)
+CDX_PARITY_TAPS = (9, 6, 6, 4)
+# The ring plan's cost model, in units of one 128x128x64 slice on one SM
+# (ranks plans; not a prediction): work per product of each tile width
+# relative to the 128x128 tile, a block's fixed cost, and the cost of each
+# extra part of a cluster (its tile through distributed shared memory).
+# Fitted to tools/conv_plan_sweep.py --ops cdx on the H100 (16 deep calls:
+# the pick within 4 % of the fastest plan at each)
+_CDX_TILE_COST = {256: 0.8, 128: 1.0, 64: 1.6}
+_CDX_BLOCK_COST = 12.0
+_CDX_PART_COST = 8.0
+
+
+def cdx_patches(h: int, w: int) -> bool:
+    """Whether the patch kernel's tiles, 8 plane rows of 64 pixels, cover
+    dx's h×w map, viewed by parity plane (csrc/conv5x5_s2_bwd.cu
+    `cdx_patches`): the 256 px D's 128² dx."""
+    return h % 16 == 0 and w % 128 == 0
+
+
+CDX_PATCH_TILE = (512, 64)     # 8 plane rows × 64 pixels, 64 channels
+
+
+def conv_dx_candidates(b: int, h: int, w: int, cin: int, co: int):
+    """Every plan conv5x5_s2_dx takes at this shape: the ring at each tile
+    width dividing Cin with 1, 2, 4 or 8 parts (at most the lightest
+    parity's 4·Co/64 items), whose grid fits the launch's y extent; at Cin
+    64 on maps with `cdx_patches` the patch kernel (one part)."""
+    tiles = cdx_box(b, -(-h // 2), -(-w // 2), CDX_BM)[3]
+    plans = [CdxPlan("ring", CDX_BM, tn, parts)
+             for tn in CDX_TILES_N
+             if cin % tn == 0 and 4 * tiles * (cin // tn) <= 65535
+             for parts in CDX_PARTS if parts <= 4 * (co // 64)]
+    if cin == 64 and cdx_patches(h, w):
+        plans.append(CdxPlan("patch", *CDX_PATCH_TILE, 1))
+    return plans
+
+
+def conv_dx_blocks(b: int, h: int, w: int, cin: int, plan: CdxPlan) -> int:
+    """Tiles × parts of a launch: 4 parities × tiles × column tiles × parts
+    (the patch kernel's persistent CTAs walk its tiles)."""
+    if plan.kernel == "patch":
+        return 4 * b * (h // 16) * (w // 128)
+    tiles = cdx_box(b, -(-h // 2), -(-w // 2), plan.tile_m)[3]
+    return 4 * tiles * (cin // plan.tile_n) * plan.parts
+
+
+def conv_dx_cost(b: int, h: int, w: int, cin: int, co: int,
+                 plan: CdxPlan) -> float:
+    """The model's relative time of a ring plan: its CTAs in launch order
+    (the parities heaviest first, each tile's parts together) handed to
+    the SMs' block slots (one a SM for the 256-wide tile, two otherwise,
+    each then at half the rate), each its part's items at the tile's cost
+    plus a block's and the cluster's fixed costs."""
+    tiles = cdx_box(b, -(-h // 2), -(-w // 2), plan.tile_m)[3]
+    per_sm = 1 if plan.tile_n == 256 else 2
+    per_item = (plan.tile_m * plan.tile_n / 16384.0
+                * _CDX_TILE_COST[plan.tile_n])
+    durations = []
+    for taps in CDX_PARITY_TAPS:
+        d = per_sm * (-(-taps * (co // 64) // plan.parts) * per_item
+                      + _CDX_BLOCK_COST
+                      + (plan.parts - 1) * _CDX_PART_COST)
+        durations += [d] * (tiles * (cin // plan.tile_n) * plan.parts)
+    return _makespan(durations, per_sm * SM_COUNT)
+
+
+@functools.lru_cache(maxsize=None)   # a training run repeats a few shapes
+def conv_dx_plan(b: int, h: int, w: int, cin: int, co: int) -> CdxPlan:
+    """The plan of conv5x5_s2_dx for dx [b,h,w,Cin] and Co: among
+    `conv_dx_candidates`, the patch kernel where it is one of them;
+    otherwise those that give every SM a CTA (where none does, those with
+    the most), the cheapest by `conv_dx_cost`; ties to fewer parts, then
+    the wider tile.  No plan has a workspace: every part of a
+    tile is in its cluster."""
+    cands = conv_dx_candidates(b, h, w, cin, co)
+    if not cands:
+        raise ValueError(f"conv5x5_s2_dx: no plan for {(b, h, w, cin)}->{co}")
+    if cands[-1].kernel == "patch":
+        return cands[-1]
+    return min(cands, key=lambda p: (
+        -min(conv_dx_blocks(b, h, w, cin, p), SM_COUNT),
+        conv_dx_cost(b, h, w, cin, co, p), p.parts, -p.tile_n))
+
+
+def conv_dx_modes(plan: CdxPlan) -> frozenset:
+    """The Python mirror of the CDxMode bits a launch reports."""
+    modes = {"tma_a"}
+    if plan.parts > 1:
+        modes.add("cluster")
+    if plan.kernel == "patch":
+        modes.add("patch")
+    return frozenset(modes)
+
+
+def conv_dx_route(b: int, h: int, w: int, cin: int, co: int,
+                  dtype: torch.dtype) -> str:
+    """A tag of the route `conv_dx` takes (tools and the smoke run): the
+    kernel with its plan, or the deconv and its path."""
+    if conv_dx_path(cin, co, dtype) == "wgmma":
+        p = conv_dx_plan(b, h, w, cin, co)
+        return (f"conv5x5_s2_dx {p.kernel} {p.tile_m}x{p.tile_n} parts "
+                f"{p.parts}")
+    return f"deconv5x5_s2 {deconv_path(co, cin, dtype)}"
+
+
+def _cdx_check(gc, w, h, wd):
+    if w.dim() != 4 or tuple(w.shape[:2]) != (5, 5):
+        raise ValueError(f"conv5x5_s2_dx: w must be [5,5,Cin,Co], got "
+                         f"{tuple(w.shape)}")
+    want = (same_pads(h)[0], same_pads(wd)[0], w.shape[3])
+    if gc.dim() != 4 or tuple(gc.shape[1:]) != want:
+        raise ValueError(f"conv5x5_s2_dx: gc must be [B,{want[0]},{want[1]},"
+                         f"{want[2]}], got {tuple(gc.shape)}")
+    _bwd_common("conv5x5_s2_dx", [("gc", gc), ("w", w)], gc.dtype)
+    if gc.shape[0] * h * wd * w.shape[2] >= 2**31:
+        raise ValueError("conv5x5_s2_dx: dx too large for the kernel's "
+                         "int32 extents")
+
+
+def _conv_dx_forward(gc, w, h, wd, plan=None):
+    if gc.device.type == "cpu":
+        return conv5x5_s2_dx_plain(gc, w, h, wd)
+    if gc.device.type != "cuda":
+        raise ValueError(f"conv5x5_s2_dx runs on cuda or cpu, not "
+                         f"{gc.device}")
+    b, cin, co = gc.shape[0], w.shape[2], w.shape[3]
+    dx = torch.empty(b, h, wd, cin, dtype=gc.dtype, device=gc.device)
+    if conv_dx_path(cin, co, gc.dtype, _aligned16(gc, w, dx)) != "wgmma":
+        raise ValueError(f"conv5x5_s2_dx takes bf16 with Cin and Co "
+                         f"multiples of 64, not {gc.dtype} {cin}->{co}")
+    plan = plan or conv_dx_plan(b, h, wd, cin, co)
+    rc = _cdw_lib().t2i_conv5x5_s2_dx(
+        gc.data_ptr(), w.data_ptr(), dx.data_ptr(), b, h, wd, cin, co,
+        CDX_KERNELS.index(plan.kernel), plan.tile_n, plan.parts, _stream(gc))
+    if rc != 0:
+        raise RuntimeError(f"conv5x5_s2_dx kernel launch failed: CUDA error "
+                           f"{rc}")
+    conv5x5_s2_dx.launches += 1
+    return dx
+
+
+class _ConvDx(torch.autograd.Function):
+    """dx is linear in gc and in w: its adjoints are the conv of the
+    cotangent with w (the forward the dx is the adjoint of) and the conv's
+    weight gradient with the cotangent as x and gc as g, both on kernels,
+    both differentiable again."""
+
+    @staticmethod
+    def forward(ctx, gc, w, h, wd):
+        ctx.save_for_backward(gc, w)
+        return _conv_dx_forward(gc, w, h, wd)
+
+    @staticmethod
+    def backward(ctx, gdx):
+        gc, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        gdx = gdx.to(gc.dtype).contiguous()
+        dgc = dw = None
+        if need[0]:
+            dgc = conv5x5_s2_act(gdx, w, torch.zeros(w.shape[3],
+                                                     device=gc.device),
+                                 "none")
+        if need[1]:
+            dw = conv5x5_s2_dw(gdx, gc, w.dtype)
+        return dgc, dw, None, None
+
+
+def conv5x5_s2_dx(gc: torch.Tensor, w: torch.Tensor, h: int, wd: int,
+                  plan: CdxPlan = None) -> torch.Tensor:
+    """dx [B,h,wd,Cin] of conv5x5_s2 SAME for the cotangent gc
+    [B,⌈h/2⌉,⌈wd/2⌉,Co] (the activation's derivative already in it) and w
+    [5,5,Cin,Co] in gc's dtype, by one hand-written kernel (four parity
+    GEMMs of 9, 6, 6 and 4 taps, w read as it lies, the parts of K of a
+    tile summed in a cluster; `plan` overrides `conv_dx_plan`: a sweep's).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (bf16, Cin and Co multiples of 64) or raise.  Differentiable in gc and
+    w, at every order on kernels."""
+    _cdx_check(gc, w, h, wd)
+    if needs_grad(gc, w):
+        return _ConvDx.apply(gc, w, h, wd)
+    return _conv_dx_forward(gc, w, h, wd, plan)
+
+
+conv5x5_s2_dx.launches = 0
+
+
+def conv_dx_path_on_card(gc, w, dx) -> str:
+    """The route t2i_conv5x5_s2_dx_path reports for these tensors."""
+    return CDX_PATHS[_cdw_lib().t2i_conv5x5_s2_dx_path(
+        gc.data_ptr(), w.data_ptr(), dx.data_ptr(), w.shape[2], w.shape[3],
+        int(gc.dtype == torch.bfloat16))]
+
+
+def conv_dx_mode_on_card() -> frozenset:
+    """What the last conv5x5_s2_dx launch of this process did (its C entry
+    point's CDxMode bits)."""
+    bits = _cdw_lib().t2i_conv5x5_s2_dx_mode()
+    return frozenset(n for i, n in enumerate(CDX_MODES) if bits >> i & 1)

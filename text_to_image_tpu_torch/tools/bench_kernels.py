@@ -37,11 +37,13 @@ one library call: for dx the backward of autograd through
 
 ``--conv --grad`` and ``--deconv --grad`` do the same for the two 5×5
 stride-2 ops at their main-path shapes: forward + backward (the
-``autograd.Function``: the forward kernel, dx on the other op's forward
-kernel, dw on ``conv5x5_s2_dw``) against autograd through cuDNN's
-``conv2d`` / ``conv_transpose2d``, after the f32 gradients are held on two
-images; then dx (``deconv5x5_s2`` for the conv, ``conv5x5_s2_act`` for the
-deconv) and dw alone beside their plain versions and cuDNN's
+``autograd.Function``: the forward kernel, the dx kernel, dw on
+``conv5x5_s2_dw``) against autograd through cuDNN's ``conv2d`` /
+``conv_transpose2d``, after the f32 gradients are held on two images; then
+dx (``conv5x5_s2_dx`` for the conv, its row tagged with its plan and the
+modes its launch reports, or ``deconv5x5_s2`` at the RGB layer;
+``conv5x5_s2_act`` for the deconv) and dw alone beside their plain
+versions and cuDNN's
 ``conv2d_input`` (the deconv's: ``conv2d``) and ``conv2d_weight`` over the
 SAME-padded input; then ``conv5x5_s2_dw`` alone at every main-path call
 (``CONV_DW_CALLS``: the 64 px and 256 px discriminators' convs at 3·64 and
@@ -149,18 +151,20 @@ BN_CALLS = ([((B, 4, 4, 1024), 1, "relu"), ((B, 8, 8, 512), 1, "relu"),
 BN_STEPS = ("bn_stats", "bn_act", "bn_bwd_reduce", "bn_bwd_apply")
 # the kernel of each row of the default table, and of each op's ``--grad``
 # table: the forward + backward row, then the backward's kernels alone (the
-# 5×5 ops' dx is the other op's forward kernel)
+# conv's dx conv5x5_s2_dx, or at the RGB layer, Cin 3, the transposed conv:
+# CONV_DX_VIA_DECONV; the deconv's dx the conv's forward kernel)
 KERNELS = ("deconv5x5_s2", "conv5x5_s2_act", "upconv3x3_bias",
            "conditioning_join", *BN_STEPS)
 GRAD_TABLES = {
     "upconv": ("upconv3x3_bias fwd+bwd", "upconv3x3_dx", "upconv3x3_dw"),
-    "conv": ("conv5x5_s2_act fwd+bwd", "deconv5x5_s2 (conv dx)",
-             "conv5x5_s2_dw"),
+    "conv": ("conv5x5_s2_act fwd+bwd", "conv5x5_s2_dx", "conv5x5_s2_dw"),
     "deconv": ("deconv5x5_s2 fwd+bwd", "conv5x5_s2_act (deconv dx)",
                "conv5x5_s2_dw")}
+CONV_DX_VIA_DECONV = "deconv5x5_s2 (conv dx)"
 GRAD_KERNELS = GRAD_TABLES["upconv"]
 # the kernels that only the backwards launch
-BACKWARD_KERNELS = ("upconv3x3_dx", "upconv3x3_dw", "conv5x5_s2_dw")
+BACKWARD_KERNELS = ("upconv3x3_dx", "upconv3x3_dw", "conv5x5_s2_dw",
+                    "conv5x5_s2_dx")
 
 
 class L2Flush:
@@ -760,21 +764,38 @@ def bench_conv5_grad(op, device, flush, gen) -> List[Dict]:
             None, conv5_grad_work(shape, co) if op == "conv"
             else conv5_grad_work(out_shape[:3] + (co,), cin),
             "forward kernel, dx and dw kernels", err))
-        # dx alone: the other op's forward kernel
+        # dx alone: the conv's on conv5x5_s2_dx (its plan and the modes
+        # the launch reports tagged), the RGB layer's on the transposed
+        # conv; the deconv's on the conv's forward kernel
+        dx_kind = GRAD_TABLES[op][1]
         if op == "conv":
-            gc, wc = g, conv.deconv_dx_weight(w)
-            one = torch.ones(cin, device=device)
-            zero = torch.zeros(cin, device=device)
+            gc = g
             dx = conv.conv_dx(gc, w, h, wd)
-            dx_ref = conv.deconv5x5_s2_plain(gc, wc, one, zero)
-            dx_path = conv.deconv_path_on_card(gc, wc, dx)
+            if conv.conv_dx_path(cin, co, bf) == "wgmma":
+                plan = conv.conv_dx_plan(b, h, wd, cin, co)
+                modes = conv.conv_dx_mode_on_card()
+                if modes != conv.conv_dx_modes(plan):
+                    raise RuntimeError(
+                        f"conv dx {shape}->{co}: modes {sorted(modes)}, the "
+                        f"mirror says {sorted(conv.conv_dx_modes(plan))}")
+                dx_path = (f"{conv.conv_dx_path_on_card(gc, w, dx)} "
+                           f"{plan.kernel} {plan.tile_m}x{plan.tile_n} parts "
+                           f"{plan.parts} ({', '.join(sorted(modes))})")
+                dx_plain = (lambda: conv.conv5x5_s2_dx_plain(gc, w, h, wd))
+            else:
+                wc = conv.deconv_dx_weight(w)
+                one = torch.ones(cin, device=device)
+                zero = torch.zeros(cin, device=device)
+                dx_path = conv.deconv_path_on_card(gc, wc, dx)
+                dx_kind = CONV_DX_VIA_DECONV
+                dx_plain = (lambda: conv.deconv5x5_s2_plain(gc, wc, one, zero))
+            dx_ref = dx_plain()
             w_oihw = w.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
             padded = (b, cin, h + 3, wd + 3)
             dx_lib = ("cuDNN conv2d_input", lambda: torch.nn.grad.conv2d_input(
                 padded, w_oihw, g_cl, stride=2))
-            dx_fn = (lambda: conv.conv_dx(gc, w, h, wd),
-                     lambda: conv.deconv5x5_s2_plain(gc, wc, one, zero))
+            dx_fn = (lambda: conv.conv_dx(gc, w, h, wd), dx_plain)
             dx_work = conv_dx_work(shape, co)
             dw_x, dw_g, dw_shape, dw_co = x, g, shape, co
         else:
@@ -795,7 +816,7 @@ def bench_conv5_grad(op, device, flush, gen) -> List[Dict]:
             dw_x, dw_g, dw_shape, dw_co = d, x, out_shape[:3] + (co,), cin
         err_dx = hold(dx, dx_ref, *TOL, f"{op} dx {shape}->{co}",
                       rel_to_max=True)
-        rows.append(_timed_row(flush, op, shape, co, GRAD_TABLES[op][1],
+        rows.append(_timed_row(flush, op, shape, co, dx_kind,
                                dx_fn[0], dx_lib[0], dx_lib[1], dx_fn[1],
                                dx_work, dx_path, err_dx))
         # dw alone (the deconv's in its own weight layout, as its backward

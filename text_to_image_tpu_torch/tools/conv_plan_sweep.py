@@ -31,7 +31,17 @@ tiles × parts in one cluster, the transposed kernel with its shared
 patch) and the gather loop's `conv_plan` plan, each held against the
 plain version, bit for bit between two runs, and timed beside the plan
 `dx_plan` picks, the ring's cost-model estimate and cuDNN's input
-gradient (autograd through ``F.interpolate`` + ``conv2d``).
+gradient (autograd through ``F.interpolate`` + ``conv2d``).  ``--ops
+cdx`` sweeps ``conv5x5_s2_dx`` at every deep conv dx of the 64 px and
+256 px D at batch 192 and 64 (`cdx_shapes`): every plan of
+`conv_dx_candidates` (the ring at each tile and 1-8 parts in a cluster,
+at Cin 64 on the 128² maps the patch kernel), each held
+against the plain version, bit for bit between two runs, its modes read
+back against `conv_dx_modes`, and timed beside the plan `conv_dx_plan`
+picks, `conv_dx_cost`'s estimate, the route the conv's dx took before it
+(``deconv5x5_s2`` of gc with w flipped and transposed, the copy and the
+scale and shift fills timed with it) and cuDNN's ``conv2d_input``: the
+numbers the constants of `conv_dx_cost` were set from.
 Needs one NVIDIA GPU with nvcc.
 """
 
@@ -481,10 +491,84 @@ def sweep_dx(gen, dev, flush):
     return bad, rows
 
 
+def cdx_shapes():
+    """((B, H, W, Cin), Co) of every deep conv dx of a training tick: the
+    64 px and the 256 px D at the D step's 3·64 rows and the G step's 64."""
+    return [(shape, co) for b in (3 * bench_kernels.B, bench_kernels.B)
+            for res in (64, 256) for shape, co in conv_shapes(b, res)]
+
+
+def cdx_key(plan) -> str:
+    if plan.kernel == "ring":
+        return f"ring {plan.tile_n} x{plan.parts}"
+    return "patch"
+
+
+def sweep_cdx(gen, dev, flush):
+    """conv5x5_s2_dx at `cdx_shapes`, bf16: every plan of
+    `conv_dx_candidates` held against the plain version (within 1e-2 of
+    the largest |ref| plus 1e-2 of the element), bit for bit between two
+    launches, its modes read back against `conv_dx_modes`, and timed;
+    beside the plan `conv_dx_plan` picks, `conv_dx_cost`, the deconv route
+    and cuDNN's conv2d_input."""
+    bf = torch.bfloat16
+    bad, rows = 0, []
+    for shape, co in cdx_shapes():
+        b, h, w, cin = shape
+        gc = torch.randn(b, h // 2, w // 2, co, generator=gen).to(bf).to(dev)
+        wt = (torch.randn(5, 5, cin, co, generator=gen) * 0.05).to(bf).to(dev)
+        ref = conv.conv5x5_s2_dx_plain(gc, wt, h, w).float()
+        lim = TOL * float(ref.abs().max())
+        chosen = conv.conv_dx_plan(b, h, w, cin, co)
+        times, costs = {}, {}
+        for plan in conv.conv_dx_candidates(b, h, w, cin, co):
+            got = conv.conv5x5_s2_dx(gc, wt, h, w, plan)
+            modes = conv.conv_dx_mode_on_card()
+            again = conv.conv5x5_s2_dx(gc, wt, h, w, plan)
+            torch.cuda.synchronize()
+            err = (got.float() - ref).abs()
+            n_bad = int((err > lim + TOL * ref.abs()).sum())
+            if (n_bad or not torch.equal(got, again)
+                    or modes != conv.conv_dx_modes(plan)):
+                bad += 1
+                print(f"  FAIL cdx {shape}->{co} {cdx_key(plan)}: {n_bad} "
+                      f"elements, max |err| {float(err.max()):.3e}, modes "
+                      f"{sorted(modes)}", flush=True)
+            times[cdx_key(plan)] = time_ms(
+                lambda: conv.conv5x5_s2_dx(gc, wt, h, w, plan), flush)
+            if plan.kernel != "patch":
+                costs[cdx_key(plan)] = conv.conv_dx_cost(b, h, w, cin, co,
+                                                         plan)
+            del got, again
+        deconv_ms = time_ms(lambda: conv.deconv5x5_s2(
+            gc, conv.deconv_dx_weight(wt), torch.ones(cin, device=dev),
+            torch.zeros(cin, device=dev)), flush)
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        g_cl = gc.permute(0, 3, 1, 2)
+        lib_ms = time_ms(lambda: torch.nn.grad.conv2d_input(
+            (b, cin, h + 3, w + 3), w_oihw, g_cl, stride=2), flush)
+        best = min(times, key=times.get)
+        pick = cdx_key(chosen)
+        print(f"cdx {list(shape)}->{co}: plan {pick} {times[pick]:.4f} ms, "
+              f"best {best} {times[best]:.4f}, deconv route {deconv_ms:.4f}, "
+              f"cuDNN {lib_ms:.4f}; "
+              + " ".join(f"[{k}] {v:.4f}"
+                         + (f" (model {costs[k]:.0f})" if k in costs else "")
+                         for k, v in times.items()), flush=True)
+        rows.append({"op": "cdx", "shape": list(shape), "co": co,
+                     "plan": pick, "best": best, "ms": times,
+                     "model": costs, "deconv_route_ms": deconv_ms,
+                     "cudnn_ms": lib_ms})
+        del gc, wt, ref, g_cl, w_oihw
+        torch.cuda.empty_cache()
+    return bad, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ops", nargs="+", default=["conv", "deconv", "upconv"],
-                    choices=["conv", "deconv", "upconv", "dw", "dx"])
+                    choices=["conv", "deconv", "upconv", "dw", "dx", "cdx"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -513,6 +597,9 @@ def main() -> int:
         bad, rows = bad + b, rows + r
     if "dx" in args.ops:
         b, r = sweep_dx(gen, dev, flush)
+        bad, rows = bad + b, rows + r
+    if "cdx" in args.ops:
+        b, r = sweep_cdx(gen, dev, flush)
         bad, rows = bad + b, rows + r
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

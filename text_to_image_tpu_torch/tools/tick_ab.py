@@ -6,7 +6,7 @@ ms per tick, images/s, peak memory, and device time by kernel family with
 the launches per tick — for a before/after comparison inside one run.
 
     python text_to_image_tpu_torch/tools/tick_ab.py OLD NEW NEW OLD
-    python text_to_image_tpu_torch/tools/tick_ab.py --models gancls wgancls stackgan_stage2 OLD NEW NEW OLD
+    python text_to_image_tpu_torch/tools/tick_ab.py OLD NEW NEW OLD --models gancls wgancls stackgan_stage2
 
 Each positional argument is the root of a checkout (for example the parent
 commit unpacked with ``git archive`` into a git-ignored directory); each

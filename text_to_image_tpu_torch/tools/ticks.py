@@ -100,11 +100,14 @@ def is_kernel(event) -> bool:
 def kernel_family(name: str) -> str:
     low = name.lower()
     for keys, fam in (
-            (("deconv5x5_s2", "namespace)::deconv"), "deconv5x5_s2 (CUDA)"),
+            (("deconv5x5_s2", "namespace)::deconv", "namespace)::thin::"),
+             "deconv5x5_s2 (CUDA)"),
             # csrc/wgrad.cuh's dw_* kernels serve both ops and carry the
             # op's policy in their names: CDw the conv's (so before
-            # "::dw_"), Dw the up-block's; dx90:: the up-block's dx
+            # "::dw_"), Dw the up-block's; dx90::'s ring loop the conv's dx
+            # under CDxRing (so before "dx90::"), else the up-block's dx
             (("namespace)::cdw",), "conv5x5_s2_dw (CUDA)"),
+            (("cdxring", "namespace)::cdxp::"), "conv5x5_s2_dx (CUDA)"),
             (("namespace)::upconvdx", "namespace)::dx_", "namespace)::dw_",
               "dx90::"), "upconv3x3 backward (CUDA)"),
             (("namespace)::upconv", "combine_kernel"), "upconv3x3 (CUDA)"),
