@@ -42,7 +42,13 @@
    plan's modes, bit for bit twice, every plan it takes at each deep call,
    its Function's first and second order in bf16 against autograd through
    the plain version), the RGB layer's dx and forward on the thin path of
-   ``deconv5x5_s2`` and that path at Co 1-4 on odd maps;
+   ``deconv5x5_s2`` and that path at Co 1-4 on odd maps; the transposed
+   conv's input gradient ``deconv5x5_s2_dx`` (the ring and the thin path
+   of ``down0.cuh``) at the generator's calls, the gradient penalty's
+   critic first layer and odd shapes, alike (its path read back from C,
+   bit for bit twice, every plan at each shape, its Function at first
+   and second order), f32 and ragged channels on the
+   conv of the flipped weight;
 3. drives the sampling path at the flagship widths (gf 128, z 100,
    embed 1024, batch 64, bf16) through ``eval/sampler.py`` — the sample grid
    and both interpolation grids — plus the BN-folded serving generator, with
@@ -190,7 +196,7 @@ import torch
 # microbench, and the tick timing shared with tools/tick_ab.py
 from text_to_image_tpu_torch.tools.bench_kernels import (
     PGGAN_UPCONV_SHAPES, L2Flush, bound, bwd_path_tag, conv_dw_tag, nbytes,
-    time_ms)
+    s2_ops, time_ms, up_taps)
 from text_to_image_tpu_torch.tools.ticks import (
     config_path, is_kernel, kernel_family, train_config)
 from text_to_image_tpu_torch.tools.ticks import (
@@ -351,15 +357,18 @@ TRAIN_TICKS = 3
 # run on the kernels too (ops/kernels/conv.py): a conv's dx is one
 # conv5x5_s2_dx launch where its Cin and Co are multiples of 64 (bf16:
 # down1-3, `conv_dx_path`), else one deconv5x5_s2 launch (the RGB layer
-# down0, Cin 3: the thin path); a deconv's dx one conv5x5_s2_act launch;
-# each one's dw one conv5x5_s2_dw.  The D step differentiates D's 4 convs
-# in w and down1-3 in x (the images need no gradient): 4 dw, 3 dx; each G
-# step D's 4 convs in x only (D is not trained there: 3 dx and down0's
-# deconv) and G's 4 deconvs in x and w (4 conv, 4 dw).  deconv 12 + 2·1 =
-# 14, conv5x5_s2_dx 3 + 2·3 = 9, conv 12 + 2·4 = 20, dw 4 + 2·4 = 12.
-TICK_LAUNCHES = {"deconv5x5_s2": 14, "conv5x5_s2_dx": 9, "bn_stats": 24,
+# down0, Cin 3: the thin path); a deconv's dx one deconv5x5_s2_dx launch
+# (bf16: the ring for the three deep layers, the thin path for the RGB
+# layer; `deconv_dx_path`); each one's dw one conv5x5_s2_dw.  The D step
+# differentiates D's 4 convs in w and down1-3 in x (the images need no
+# gradient): 4 dw, 3 dx; each G step D's 4 convs in x only (D is not
+# trained there: 3 dx and down0's deconv) and G's 4 deconvs in x and w (4
+# deconv5x5_s2_dx, 4 dw).  deconv 12 + 2·1 = 14, conv5x5_s2_dx 3 + 2·3 =
+# 9, deconv5x5_s2_dx 2·4 = 8, conv 12, dw 4 + 2·4 = 12.
+TICK_LAUNCHES = {"deconv5x5_s2": 14, "conv5x5_s2_dx": 9,
+                 "deconv5x5_s2_dx": 8, "bn_stats": 24,
                  "bn_act": 24, "bn_bwd_reduce": 20, "bn_bwd_apply": 20,
-                 "conv5x5_s2_act": 20, "conditioning_join": 3,
+                 "conv5x5_s2_act": 12, "conditioning_join": 3,
                  "conv5x5_s2_dw": 12}
 # the up-block's forward and its two backward kernels, on a path without one
 NO_UPCONV = {"upconv3x3": 0, "upconv3x3_dx": 0, "upconv3x3_dw": 0}
@@ -431,13 +440,13 @@ STACKGAN_TICK_LAUNCHES = {
                         "bn_bwd_reduce": 13, "bn_bwd_apply": 13,
                         "conv5x5_s2_act": 8, "conditioning_join": 2,
                         "deconv5x5_s2": 1, "conv5x5_s2_dx": 6,
-                        "conv5x5_s2_dw": 4},
+                        "deconv5x5_s2_dx": 0, "conv5x5_s2_dw": 4},
     "stackgan_stage2": {"upconv3x3": 16, "upconv3x3_dx": 4,
                         "upconv3x3_dw": 4, "bn_stats": 44, "bn_act": 44,
                         "bn_bwd_reduce": 23, "bn_bwd_apply": 23,
                         "conv5x5_s2_act": 12, "conditioning_join": 2,
                         "deconv5x5_s2": 1, "conv5x5_s2_dx": 10,
-                        "conv5x5_s2_dw": 6}}
+                        "deconv5x5_s2_dx": 0, "conv5x5_s2_dw": 6}}
 # per sampling forward (train-mode BN, no gradient): Stage-I 4 upconv + 5 BN
 # calls; Stage-II 8 upconv (4 of them in the frozen Stage-I) + 16 BN calls
 STACKGAN_FORWARD_LAUNCHES = {
@@ -936,6 +945,20 @@ def phase_backward(device):
                 (0, 1), gen, f"conv5x5_s2_dx bwd {(b, h, wd, cin)}->{co}")
     finally:
         conv._conv_dx_forward = dx_forward
+    # deconv5x5_s2_dx's Function alike: its backward the transposed conv
+    # and conv5x5_s2_dw (f32), its forward swapped for the plain version
+    ddx_forward = conv._deconv_dx_forward
+    conv._deconv_dx_forward = conv.deconv5x5_s2_dx_plain
+    try:
+        for (b, h, wd, cin), co in (((BATCH, 8, 8, 512), 256),
+                                    ((2, 5, 7, 64), 3)):
+            d = torch.randn(b, 2 * h, 2 * wd, co, generator=gen).to(device)
+            w = (torch.randn(5, 5, cin, co, generator=gen) * 0.05).to(device)
+            errs[f"deconv5x5_s2_dx {(b, h, wd, cin)}->{co}"] = grad_compare(
+                conv._DeconvDx.apply, conv.deconv5x5_s2_dx_plain, [d, w],
+                (0, 1), gen, f"deconv5x5_s2_dx bwd {(b, h, wd, cin)}->{co}")
+    finally:
+        conv._deconv_dx_forward = ddx_forward
     for (shape, e, co), act in ((join_shape(BATCH), "none"),
                                 (ODD_JOIN_SHAPES[1][:3], "tanh")):
         args = join_inputs(shape, e, co, f32, device, gen)
@@ -1201,8 +1224,7 @@ UPCONV_DW_CHUNKED = [((BATCH, 4, 4, 2048), 1024)]
 # D's at both batches (WGAN-CLS's critic has the 64 px D's shapes), the odd
 # conv shapes (odd maps on the kernel's ring: WGMMA_ODD_SHAPES) and
 # CDX_ODD_SHAPES (the patch kernel at B 1, an odd map whose plane tiles
-# span images, one pixel); the deconv's dx (conv5x5_s2_act of its
-# cotangent) at the GAN-CLS generator's calls and the odd deconv shapes
+# span images, one pixel)
 CDX_ODD_SHAPES = [((1, 16, 128, 64), 64), ((2, 3, 5, 64), 128),
                   ((1, 1, 1, 128), 64)]
 CONV_DX_SHAPES = list(dict.fromkeys(
@@ -1210,8 +1232,18 @@ CONV_DX_SHAPES = list(dict.fromkeys(
      for s, c, _ in conv_shapes(b) + conv_shapes_256(b)]
     + [(s, c) for s, c, _ in ODD_CONV_SHAPES + WGMMA_ODD_SHAPES]
     + CDX_ODD_SHAPES))
+# the deconv's dx (deconv5x5_s2_dx where bf16 Cin is a multiple of 64 and
+# Co a multiple of 64 or at most 4, else conv5x5_s2_act of d with the
+# flipped weight) at the GAN-CLS generator's calls, the odd deconv shapes
+# (the ring at odd maps and Co 192 / 256, the conv route at ragged
+# channels) and DDX_ODD_SHAPES: the thin path at the gradient penalty's
+# critic first layer (Cin 64), at Cin 192 (three 64-column tiles) and 256
+# (two 128-column tiles), an odd map at B 1 on both paths, one pixel
+DDX_ODD_SHAPES = [((BATCH, 32, 32, 64), 3), ((2, 5, 7, 192), 4),
+                  ((3, 8, 6, 256), 1), ((1, 5, 7, 64), 3),
+                  ((1, 5, 3, 128), 64), ((1, 1, 1, 64), 64)]
 DECONV_DX_SHAPES = [(s, c) for s, c, _ in DECONV_SHAPES + ODD_DECONV_SHAPES
-                    + WGMMA_DECONV_ODD_SHAPES]
+                    + WGMMA_DECONV_ODD_SHAPES] + DDX_ODD_SHAPES
 
 
 def conv_dx_vs_plain(conv, shape, co, dtype, device, gen):
@@ -1335,6 +1367,114 @@ def conv_dx_function_vs_autograd(conv, device, gen):
     return worst
 
 
+def expected_deconv_dx_path(cin, co, dtype):
+    """The route of the deconv's dx the port is meant to take for a
+    contiguous tensor."""
+    if dtype != torch.bfloat16 or cin % 64:
+        return "conv"
+    if co % 64 == 0:
+        return "ring"
+    return "thin" if co <= 4 else "conv"
+
+
+def deconv_dx_vs_plain(conv, shape, co, dtype, device, gen):
+    """The deconv's dx for x `shape` and Co through `conv.deconv_dx` (the
+    route `_Deconv.backward` takes), its path read back from C
+    (`deconv_dx_path_on_card`) and held against the mirror and the expected
+    one.  deconv5x5_s2_dx (ring, thin): against its plain version, a
+    second launch bit for bit.  The conv route: conv5x5_s2_act of d with the
+    flipped weight and a zero bias against its plain version, its path read
+    back.  Returns (max |err|, path)."""
+    b, h, wd, cin = shape
+    d = torch.randn(b, 2 * h, 2 * wd, co, generator=gen).to(dtype).to(device)
+    w = (torch.randn(5, 5, cin, co, generator=gen) * 0.02).to(dtype).to(device)
+    what = f"deconv dx {str(dtype)[6:]} {shape}->{co}"
+    path = conv.deconv_dx_path_on_card(
+        d, w, torch.empty(b, h, wd, cin, dtype=dtype, device=device))
+    mirror = conv.deconv_dx_path(cin, co, dtype)
+    want = expected_deconv_dx_path(cin, co, dtype)
+    check(path == mirror == want, f"{what}: path {path}, mirror {mirror}, "
+                                  f"expected {want}")
+    if path == "conv":
+        return conv_vs_plain(
+            conv, d, conv.deconv_dx_weight(w), torch.zeros(cin, device=device),
+            "none", dtype, f"{what} (conv5x5_s2_act)")[0], path
+    got = conv.deconv_dx(d, w)
+    again = conv.deconv_dx(d, w)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{what}: two launches differ")
+    check(got.shape == (b, h, wd, cin), f"{what}: shape {tuple(got.shape)}")
+    tag = conv.deconv_dx_route(b, h, wd, cin, co, dtype)
+    return compare(got, conv.deconv5x5_s2_dx_plain(d, w), *TOL[dtype],
+                   f"{what} [{tag}] (bit-identical twice)"), path
+
+
+def every_deconv_dx_plan(conv, shapes, device, gen):
+    """deconv5x5_s2_dx under every plan `deconv_dx_candidates` gives at
+    `shapes` (bf16): within tolerance of the plain version, bit for bit
+    between two launches."""
+    dtype = torch.bfloat16
+    for (b, h, wd, cin), co in shapes:
+        d = torch.randn(b, 2 * h, 2 * wd, co, generator=gen).to(dtype).to(
+            device)
+        w = (torch.randn(5, 5, cin, co, generator=gen) * 0.02).to(
+            dtype).to(device)
+        ref = conv.deconv5x5_s2_dx_plain(d, w).float()
+        plans = conv.deconv_dx_candidates(b, h, wd, cin, co)
+        worst, same = 0.0, True
+        for plan in plans:
+            got = conv.deconv5x5_s2_dx(d, w, plan=plan)
+            again = conv.deconv5x5_s2_dx(d, w, plan=plan)
+            torch.cuda.synchronize()
+            same = same and torch.equal(got, again)
+            err = (got.float() - ref).abs()
+            bad = err > TOL[dtype][0] + TOL[dtype][1] * ref.abs()
+            check(not bool(bad.any()), f"deconv5x5_s2_dx plan {plan} at "
+                                       f"{(b, h, wd, cin)}->{co}: max|err| "
+                                       f"{float(err.max()):.3e}")
+            worst = max(worst, float(err.max()))
+        log(f"  deconv5x5_s2_dx bfloat16 {(b, h, wd, cin)}->{co}: "
+            f"{len(plans)} plans ({sorted({p.kernel for p in plans})}): "
+            f"max|err| {worst:.3e}, two runs bit-identical {same}")
+        check(same, f"deconv5x5_s2_dx: output differs between two runs at "
+                    f"{(b, h, wd, cin)}->{co}")
+        del d, w, ref
+        torch.cuda.empty_cache()
+
+
+def deconv_dx_function_vs_autograd(conv, device, gen):
+    """deconv5x5_s2_dx's autograd.Function in bf16 on the card (its forward
+    the kernel, its backward the transposed conv and conv5x5_s2_dw
+    kernels), first and second order, on the ring and the thin path,
+    against autograd through the plain version in f32 on the same bf16
+    values: within BWD_TOL[bf16] of each gradient's largest element.
+    Returns the worst relative error."""
+    worst = 0.0
+    for (b, h, wd, cin), co in (((2, 4, 4, 128), 64), ((3, 5, 7, 64), 3)):
+        d0 = torch.randn(b, 2 * h, 2 * wd, co, generator=gen).to(
+            torch.bfloat16).to(device)
+        w0 = (torch.randn(5, 5, cin, co, generator=gen) * 0.05).to(
+            torch.bfloat16).to(device)
+        c = torch.randn(b, h, wd, cin, generator=gen).to(device)
+
+        def grads(fn, dt):
+            d = d0.to(dt).requires_grad_(True)
+            w = w0.to(dt).requires_grad_(True)
+            first = torch.autograd.grad(fn(d, w), [d, w], c.to(dt),
+                                        create_graph=True)
+            second = torch.autograd.grad(
+                sum((g.float()**2).sum() for g in first), [d, w])
+            return [v.float() for v in (*first, *second)]
+        got = grads(conv.deconv5x5_s2_dx, torch.bfloat16)
+        want = grads(conv.deconv5x5_s2_dx_plain, torch.float32)
+        for name, u, v in zip(("d/dd", "d/dw", "d2/dd", "d2/dw"), got, want):
+            tol = BWD_TOL[torch.bfloat16] * float(v.abs().max())
+            err = compare(u, v, tol, 0.0, f"deconv5x5_s2_dx Function {name} "
+                                          f"{(b, h, wd, cin)}->{co} (bf16)")
+            worst = max(worst, err / float(v.abs().max()))
+    return worst
+
+
 def phase_conv_bwd_kernels(device):
     """conv5x5_s2_dw against its plain version on the same inputs, bf16
     and f32, at every main-path call (CONV_DW_MAIN) and the odd shapes
@@ -1346,14 +1486,18 @@ def phase_conv_bwd_kernels(device):
     chunks) against their plain versions, bit for bit twice, and that
     up-block's forward and backward through its autograd.Function (no
     raise, finite, dw as the kernel gives it).  Last
-    the input gradients, bf16 and f32: the conv's dx (deconv5x5_s2) at
-    CONV_DX_SHAPES and the deconv's dx (conv5x5_s2_act, bias 0) at
+    the input gradients, bf16 and f32: the conv's dx (conv5x5_s2_dx or
+    deconv5x5_s2) at CONV_DX_SHAPES and the deconv's dx (deconv5x5_s2_dx,
+    or conv5x5_s2_act with bias 0 for f32 and ragged channels) at
     DECONV_DX_SHAPES against the plain versions, each path read back from
-    C; the conv's dx and every split-K output bit for bit twice."""
+    C, both dx kernels under every plan they take and through their
+    Functions at first and second order; both dx and every split-K output
+    bit for bit twice."""
     from text_to_image_tpu_torch.ops.kernels import conv
     gen = torch.Generator().manual_seed(SEED + 19)
     errs = {"conv5x5_s2_dw": {}, "upconv3x3_dw": {}, "conv5x5_s2_dx": {},
-            "deconv5x5_s2 (conv dx)": {}, "conv5x5_s2_act (deconv dx)": {}}
+            "deconv5x5_s2 (conv dx)": {}, "deconv5x5_s2_dx": {},
+            "conv5x5_s2_act (deconv dx)": {}}
     paths = []
     seen = set()
     seen_modes = set()
@@ -1480,19 +1624,25 @@ def phase_conv_bwd_kernels(device):
     paths.append({"kernel": "conv5x5_s2_dx",
                   "function_first_second_order_rel_err_bf16":
                       conv_dx_function_vs_autograd(conv, device, gen)})
+    ddx_paths = set()
     for dtype in (torch.bfloat16, torch.float32):
-        for (b, h, wd, cin), co in DECONV_DX_SHAPES:
-            d = torch.randn(b, 2 * h, 2 * wd, co, generator=gen).to(
-                dtype).to(device)
-            w = (torch.randn(5, 5, cin, co, generator=gen) * 0.02).to(
-                dtype).to(device)
-            errs["conv5x5_s2_act (deconv dx)"][(dtype, ((b, h, wd, cin), co))] \
-                = conv_vs_plain(
-                    conv, d, conv.deconv_dx_weight(w),
-                    torch.zeros(cin, device=device), "none", dtype,
-                    f"deconv dx (conv5x5_s2_act) {str(dtype)[6:]} "
-                    f"{(b, h, wd, cin)}->{co}")[0]
-            del d, w
+        for shape, co in DECONV_DX_SHAPES:
+            err, path = deconv_dx_vs_plain(conv, shape, co, dtype, device,
+                                           gen)
+            ddx_paths.add((dtype, path))
+            errs["conv5x5_s2_act (deconv dx)" if path == "conv"
+                 else "deconv5x5_s2_dx"][(dtype, (shape, co))] = err
+            torch.cuda.empty_cache()
+    check(ddx_paths == {(torch.bfloat16, "ring"), (torch.bfloat16, "thin"),
+                        (torch.bfloat16, "conv"), (torch.float32, "conv")},
+          f"deconv dx paths {ddx_paths}")
+    every_deconv_dx_plan(conv, [(s, c) for s, c in DECONV_DX_SHAPES
+                                if conv.deconv_dx_path(s[-1], c,
+                                                       torch.bfloat16)
+                                != "conv"], device, gen)
+    paths.append({"kernel": "deconv5x5_s2_dx",
+                  "function_first_second_order_rel_err_bf16":
+                      deconv_dx_function_vs_autograd(conv, device, gen)})
     return errs, paths
 
 
@@ -1605,7 +1755,7 @@ def phase_upconv_timing(device, flush):
             lib_err = float((lib().permute(0, 2, 3, 1).float()
                              - upconv_bias_plain(x, w, t, "none").float()
                              ).abs().max())
-            flops = 2 * 16 * b * h * wd * cin * co
+            flops = 2 * b * up_taps(h) * up_taps(wd) * cin * co
             nb = nbytes(x, w, t, y)
             bms, by = bound(nb, flops, dtype)
             path = conv.upconv_path(cin, co, dtype)
@@ -1672,7 +1822,7 @@ def phase_conv_256_timing(device, flush):
         def lib():
             out = F.conv2d(xp, w_t, b16, stride=2)
             return F.leaky_relu(out, 0.2) if act == "lrelu" else out
-        flops = 2 * 25 * b * (h // 2) * (wd // 2) * cin * co
+        flops = s2_ops(b, h, wd, cin, co)
         nb = nbytes(x, w, bias, y)
         bms, by = bound(nb, flops, dtype)
         path, plan, tag = conv_plan_tag(conv, shape, co, dtype)
@@ -1762,7 +1912,8 @@ def all_counters():
     return (conv.deconv5x5_s2, fused.bn_stats, fused.bn_act,
             fused.bn_bwd_reduce, fused.bn_bwd_apply, conv.conv5x5_s2_act,
             fused.conditioning_join, conv.upconv3x3, conv.upconv3x3_dx,
-            conv.upconv3x3_dw, conv.conv5x5_s2_dw, conv.conv5x5_s2_dx)
+            conv.upconv3x3_dw, conv.conv5x5_s2_dw, conv.conv5x5_s2_dx,
+            conv.deconv5x5_s2_dx)
 
 
 def flat(tree):
@@ -2509,7 +2660,7 @@ def phase_timing(device, cfg, bundle, ts, gen, z, emb):
         lib_y = lib()[:, :, :2 * h, :2 * wd].permute(0, 2, 3, 1)
         plain = conv.deconv5x5_s2_plain(x, w, s, t, "none")
         lib_err = float(((lib_y.float() * s + t) - plain.float()).abs().max())
-        flops = 2 * 25 * b * h * wd * cin * co
+        flops = s2_ops(b, 2 * h, 2 * wd, cin, co)
         bms, by = bound(nbytes(x, w, s, t, y), flops, dtype)
         path = conv.deconv_path(cin, co, dtype)
         plan = conv.deconv_plan(b * h * wd, co, cin) if path == "wgmma" else None
@@ -2712,7 +2863,7 @@ def phase_train_timing(device, flush):
             lib_err = float((lib().permute(0, 2, 3, 1).float()
                              - conv.conv5x5_s2_act_plain(x, w, bias, act).float()
                              ).abs().max())
-            flops = 2 * 25 * b * (h // 2) * (wd // 2) * cin * co
+            flops = s2_ops(b, h, wd, cin, co)
             nb = nbytes(x, w, bias, y)
             bms, by = bound(nb, flops, dtype)
             path, plan, tag = conv_plan_tag(conv, shape, co, dtype)
@@ -2831,20 +2982,23 @@ def wgan_tick_launches(n_critic, g_steps):
     differentiated) and the critic on one stream (4 conv, 1 join).  The
     layer norm launches none of the kernels.  The 5×5 backwards (a conv's
     dx a conv5x5_s2_dx launch, the RGB layer's, Cin 3, a deconv launch; a
-    deconv's dx a conv launch; each dw one conv5x5_s2_dw): a critic update
-    differentiates the three streams' convs (3 dx of the deep layers, 4
-    dw), the penalty's inner gradient at x̂ (4 dx, and the 4 dw it forms
-    unasked) and then that gradient (the 4 dx ops' backward: 4 conv, 4 dw;
-    the dw ops' backward: 4 dx, 4 conv at x̂ counted above), 3 + 3 + 3
-    conv5x5_s2_dx and 1 + 1 deconv; a G update D's 4 convs in x (3
-    conv5x5_s2_dx, 1 deconv) and G's 4 deconvs (4 conv, 4 dw)."""
+    deconv's dx a deconv5x5_s2_dx launch (bf16, Cin 64 or more); each dw
+    one conv5x5_s2_dw): a critic update differentiates the three streams'
+    convs (3 dx of the deep layers, 4 dw), the penalty's inner gradient at
+    x̂ (4 dx, and the 4 dw it forms unasked) and then that gradient (the 4
+    dx ops' backward: 3 conv and, for the RGB layer's deconv of Cin 64 to
+    Co 3, 1 deconv5x5_s2_dx on its thin path; 4 dw; the dw ops' backward:
+    4 dx, 4 conv at x̂ counted above), 3 + 3 + 3 conv5x5_s2_dx and 1 + 1
+    deconv; a G update D's 4 convs in x (3 conv5x5_s2_dx, 1 deconv) and
+    G's 4 deconvs (4 deconv5x5_s2_dx, 4 dw)."""
     return {"deconv5x5_s2": 4 * (n_critic + g_steps) + 2 * n_critic
             + g_steps,
             "conv5x5_s2_dx": 9 * n_critic + 3 * g_steps,
+            "deconv5x5_s2_dx": n_critic + 4 * g_steps,
             "bn_stats": 4 * (n_critic + g_steps),
             "bn_act": 4 * (n_critic + g_steps),
             "bn_bwd_reduce": 4 * g_steps, "bn_bwd_apply": 4 * g_steps,
-            "conv5x5_s2_act": 12 * n_critic + 8 * g_steps,
+            "conv5x5_s2_act": 11 * n_critic + 4 * g_steps,
             "conditioning_join": 2 * n_critic + g_steps,
             "conv5x5_s2_dw": 16 * n_critic + 4 * g_steps, **NO_UPCONV}
 
@@ -3117,7 +3271,7 @@ def phase_pggan_upconv(device, flush):
                     return F.leaky_relu(F.conv2d(
                         F.interpolate(x_cl, scale_factor=2, mode="nearest"),
                         w_t, t16, padding=1), 0.2)
-                flops = 2 * 16 * b * h * wd * cin * co
+                flops = 2 * b * up_taps(h) * up_taps(wd) * cin * co
                 nb = nbytes(x, w, t, got)
                 bms, by = bound(nb, flops, dtype)
                 r = {"shape": [list(shape), co, "lrelu"], "path": path,
@@ -4992,6 +5146,20 @@ def run(runs: str) -> int:
         if r["kernel"] == "conv5x5_s2_dx" and r["op"] == "conv"]
     check(len(rows["conv5x5_s2_dx"]) == 6, f"conv5x5_s2_dx rows "
                                           f"{rows['conv5x5_s2_dx']}")
+    # deconv5x5_s2_dx: the microbench's rows of the generator's four
+    # deconvs at 64 (two G steps a GAN-CLS tick), each route timed whole
+    # beside cuDNN conv2d over the padded cotangent and its bound
+    rows["deconv5x5_s2_dx"] = [
+        r for r in scripts["bench_kernels_grad"]["rows"]
+        if r["kernel"] == "deconv5x5_s2_dx" and r["op"] == "deconv"]
+    check(len(rows["deconv5x5_s2_dx"]) == 4, f"deconv5x5_s2_dx rows "
+                                            f"{rows['deconv5x5_s2_dx']}")
+    for r in rows["deconv5x5_s2_dx"]:
+        log(f"  deconv dx {r['shape']} [{r['path']}]: {r['ms']:.4f} ms, "
+            f"cuDNN conv2d {r['library_ms']:.4f} "
+            f"({r['ms'] / r['library_ms']:.2f}x), bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f}")
 
     src = "text_to_image_tpu_torch/"
     meta = {
@@ -5027,6 +5195,11 @@ def run(runs: str) -> int:
         # the input half of the same custom VJP (_conv_bwd :891)
         "conv5x5_s2_dx": ("cuda", src + "csrc/conv5x5_s2_bwd.cu",
                           "text_to_image_tpu/ops/pallas/conv.py:891"),
+        # the input half of the deconv's custom VJP (_deconv_bwd :233, the
+        # linear transpose of _raw_deconv :227, left to XLA); its thin
+        # path's kernel in csrc/down0.cuh
+        "deconv5x5_s2_dx": ("cuda", src + "csrc/conv5x5_s2_bwd.cu",
+                            "text_to_image_tpu/ops/pallas/conv.py:233"),
     }
 
     def per_unit(per, key):
@@ -5039,7 +5212,8 @@ def run(runs: str) -> int:
         upconv3x3_dx and upconv3x3_dw: the backward of a Stage-I and of a
         Stage-II G step (the same eight calls).  conv5x5_s2_dw: one GAN-CLS
         tick's calls (the D step's four at 3·64, two G steps' four deconvs
-        at 64)."""
+        at 64).  deconv5x5_s2_dx: one GAN-CLS tick's calls (two G steps'
+        four deconvs at 64)."""
         return sum(r[key] * (1 if r.get("batch", D_BATCH) == D_BATCH else 2)
                    for r in per)
 

@@ -83,25 +83,46 @@ def _inputs(shape, co, k, gen):
     return x, w
 
 
+def _in_map_products(h, w, op):
+    """(output pixel, tap) pairs of a one-channel op whose tap lands inside
+    its input, counted by the plain version itself: the sum of its output
+    for an all-ones input and weight."""
+    ones = torch.ones(1, h, w, 1)
+    w5, one, zero = torch.ones(5, 5, 1, 1), torch.ones(1), torch.zeros(1)
+    if op == "conv":
+        return int(conv.conv5x5_s2_act_plain(ones, w5, zero, "none").sum())
+    return int(conv.deconv5x5_s2_plain(ones, w5, one, zero, "none").sum())
+
+
+def _combined_taps(n):
+    """upconv3x3's combined taps along an n-long axis that land inside it:
+    the distinct input rows each of the 2n output rows reads."""
+    return sum(len({(o + k - 1) // 2 for k in range(3)
+                    if 0 <= o + k - 1 < 2 * n}) for o in range(2 * n))
+
+
 @pytest.mark.parametrize("shape,co", [((2, 5, 7, 8), 16), ((3, 4, 4, 64), 3)])
 def test_bytes_and_operations_match_the_tensors(shape, co):
     """Each input read once, each output written once (the bf16 tensors
-    and the f32 per-channel vectors the bench builds), and the
-    multiply-adds of each kernel counted by hand."""
+    and the f32 per-channel vectors the bench builds), and 2 operations
+    for each product whose tap lands inside the map (the pads' products
+    are no work), counted by the plain versions."""
     gen = torch.Generator().manual_seed(0)
     b, h, w, cin = shape
     x, w5 = _inputs(shape, co, 5, gen)
     s = t = torch.ones(co)
     y = conv.deconv5x5_s2(x, w5, s, t, "relu")
-    assert bk.deconv_work(shape, co) == (bk.nbytes(x, w5, s, t, y),
-                                         2 * 25 * b * h * w * cin * co)
+    assert bk.deconv_work(shape, co) == (
+        bk.nbytes(x, w5, s, t, y),
+        2 * b * _in_map_products(h, w, "deconv") * cin * co)
     y = conv.conv5x5_s2_act(x, w5, t, "lrelu")
     assert bk.conv_work(shape, co) == (
         bk.nbytes(x, w5, t, y),
-        2 * 25 * y.shape[0] * y.shape[1] * y.shape[2] * cin * co)
+        2 * b * _in_map_products(h, w, "conv") * cin * co)
     x3, w3 = _inputs(shape, co, 3, gen)
     y = conv.upconv3x3_bias(x3, w3, t, "none")
-    fwd = (bk.nbytes(x3, w3, t, y), 2 * 16 * b * h * w * cin * co)
+    fwd = (bk.nbytes(x3, w3, t, y),
+           2 * b * _combined_taps(h) * _combined_taps(w) * cin * co)
     assert bk.upconv_work(shape, co) == fwd
     # backward: g read, dx, dw, db written; x and w read again
     assert bk.upconv_grad_work(shape, co) == (
@@ -125,13 +146,15 @@ def test_bytes_and_operations_match_the_tensors(shape, co):
 
 def test_backward_work_at_a_hand_computed_shape():
     """dx and dw of the 32²×256→128 up-block at batch 64, by hand: 2 bytes
-    an element; 2·16 multiply-adds per (pixel, Cin, Co) of x's map."""
+    an element; each of the 64 output rows (and columns) reads 2 combined
+    taps of x, less the one past each end: 126² products per (image, Cin,
+    Co), not 16·32²."""
     shape, co = (64, 32, 32, 256), 128
     g_bytes = 2 * 64 * 64 * 64 * 128            # [64, 64, 64, 128]
     x_bytes = 2 * 64 * 32 * 32 * 256            # [64, 32, 32, 256]
     w_bytes = 2 * 9 * 256 * 128
-    ops = 2 * 16 * 64 * 32 * 32 * 256 * 128     # 68.7 GFLOP
-    assert ops == 68_719_476_736
+    ops = 2 * 64 * 126 * 126 * 256 * 128        # 66.6 GFLOP
+    assert ops == 66_588_770_304 and bk.up_taps(32) == 126
     assert bk.upconv_dx_work(shape, co) == (g_bytes + w_bytes + x_bytes, ops)
     assert bk.upconv_dw_work(shape, co) == (x_bytes + g_bytes + w_bytes, ops)
     ms, by = bk.bound(*bk.upconv_dw_work(shape, co), torch.bfloat16)
@@ -144,10 +167,11 @@ def test_bound_is_the_larger_of_bytes_and_operations():
     ms, by = bk.bound(1.0, 989e9, torch.bfloat16)
     assert (ms, by) == (pytest.approx(1.0), "operations")
     assert bk.bound(1.0, 67e9, torch.float32)[0] == pytest.approx(1.0)
-    # the GAN-CLS generator's first deconv is bound by its operations
+    # the GAN-CLS generator's first deconv is bound by its operations: 17
+    # of the 20 (output, tap) pairs of each axis of its 8² map land in it
     ms, by = bk.bound(*bk.deconv_work((64, 4, 4, 1024), 512), torch.bfloat16)
     assert by == "operations" and ms == pytest.approx(
-        2 * 25 * 64 * 16 * 1024 * 512 / 989e12 * 1e3)
+        2 * 64 * 17 * 17 * 1024 * 512 / 989e12 * 1e3)
 
 
 def test_table_has_a_row_a_measurement():
@@ -302,27 +326,49 @@ def _conv_dx_on_cpu(monkeypatch):
     return last
 
 
+def _deconv_dx_on_cpu(monkeypatch):
+    """deconv5x5_s2_dx's path read-back as the card answers it; records
+    the plan of each launch."""
+    monkeypatch.setattr(conv, "deconv_dx_path_on_card", lambda *a: "plain")
+    plans = []
+    real = conv.deconv5x5_s2_dx
+
+    def dx(d, w, plan=None):
+        plans.append(plan or conv.deconv_dx_plan(
+            d.shape[0], d.shape[1] // 2, d.shape[2] // 2, w.shape[2],
+            w.shape[3]))
+        return real(d, w, plan)
+    monkeypatch.setattr(conv, "deconv5x5_s2_dx", dx)
+    return plans
+
+
 @pytest.mark.parametrize("op", ["conv", "deconv"])
 def test_conv5_grad_rows_hold_then_time(cpu_bench, monkeypatch, op):
     """``--conv --grad`` / ``--deconv --grad``: a forward + backward row
     (gradients held in f32 first), a dx row (the conv's on conv5x5_s2_dx,
     tagged with its plan and the modes its launch reports; the deconv's
-    the conv's kernel) and a dw row a shape, each with its own work, the op
-    and the batch; the dx and dw rows with the plain version's ms; a wrong
-    dw fails before anything is timed (the Function's gradients are held
+    on deconv5x5_s2_dx, tagged with its path and plan) and a dw row a
+    shape, each with its own work, the op and the batch; the dx and dw
+    rows with the plain version's ms; a wrong dw fails before anything is timed (the Function's gradients are held
     first)."""
     monkeypatch.setattr(bk, "CONV_SHAPES", [((2, 8, 6, 64), 64, "lrelu")])
+    monkeypatch.setattr(bk, "DECONV_SHAPES", [((2, 4, 3, 64), 64, "relu")])
     monkeypatch.setattr(conv, "conv_path_on_card", lambda *a: "plain")
     monkeypatch.setattr(conv, "conv_dw_path_on_card", lambda *a: "plain")
     _conv_dx_on_cpu(monkeypatch)
+    _deconv_dx_on_cpu(monkeypatch)
     gen = torch.Generator().manual_seed(0)
     rows = bk.bench_conv5_grad(op, "cpu", None, gen)
     assert [r["kernel"] for r in rows] == list(bk.GRAD_TABLES[op])
+    plan = (conv.conv_dx_plan(2, 8, 6, 64, 64) if op == "conv"
+            else conv.deconv_dx_plan(2, 4, 3, 64, 64))
     if op == "conv":
-        plan = conv.conv_dx_plan(2, 8, 6, 64, 64)
         assert rows[1]["path"].startswith(
             f"plain {plan.kernel} {plan.tile_m}x{plan.tile_n} parts "
             f"{plan.parts} (")
+    else:
+        assert rows[1]["path"] == (
+            f"plain {plan.tile_m}x{plan.tile_n} parts {plan.parts}")
     assert len(cpu_bench) == 2 + 3 + 3
     shape, co, _ = (bk.CONV_SHAPES if op == "conv" else bk.DECONV_SHAPES)[0]
     b, h, w, cin = shape
@@ -339,7 +385,7 @@ def test_conv5_grad_rows_hold_then_time(cpu_bench, monkeypatch, op):
     else:
         dw_work = bk.conv_dw_work((b, 2 * h, 2 * w, co), cin)
         assert rows[1]["bound_ms"] == bk.bound(
-            *bk.conv_work((b, 2 * h, 2 * w, co), cin), torch.bfloat16)[0]
+            *bk.deconv_dx_work(shape, co), torch.bfloat16)[0]
     assert rows[2]["bound_ms"] == bk.bound(*dw_work, torch.bfloat16)[0]
     assert "conv2d_weight" in rows[2]["library"]
     assert rows[2]["path"] == "plain parts 1 cluster 1 direct"
@@ -374,6 +420,29 @@ def test_conv_dx_rows_name_their_route(cpu_bench, monkeypatch):
     with pytest.raises(RuntimeError, match="modes"):
         bk.bench_conv5_grad("conv", "cpu", None, gen)
     assert len(cpu_bench) == 2 and last
+
+
+def test_deconv_dx_rows_name_their_route(cpu_bench, monkeypatch):
+    """The deconv's dx at ragged channels keeps the conv of the flipped
+    weight: its row is DECONV_DX_VIA_CONV with the conv's path; the RGB
+    layer's (Co 3) is deconv5x5_s2_dx on its thin plan, launched once to
+    hold it and then timed, its bound d and w read and dx written once."""
+    monkeypatch.setattr(conv, "conv_path_on_card", lambda *a: "pipelined")
+    monkeypatch.setattr(conv, "conv_dw_path_on_card", lambda *a: "plain")
+    gen = torch.Generator().manual_seed(0)
+    rows = bk.bench_conv5_grad("deconv", "cpu", None, gen)
+    assert [r["kernel"] for r in rows][1] == bk.DECONV_DX_VIA_CONV
+    assert rows[1]["path"] == "pipelined" and rows[1]["max_abs_err"] == 0.0
+    monkeypatch.setattr(bk, "DECONV_SHAPES", [((2, 4, 3, 64), 3, "tanh")])
+    plans = _deconv_dx_on_cpu(monkeypatch)
+    rows = bk.bench_conv5_grad("deconv", "cpu", None, gen)
+    thin = conv.DdxPlan("thin", 128, 64, 1)
+    assert [r["kernel"] for r in rows][1] == "deconv5x5_s2_dx"
+    assert rows[1]["path"] == "plain 128x64 parts 1"
+    assert rows[1]["max_abs_err"] == 0.0 and plans[0] == thin
+    assert rows[1]["bound_ms"] == bk.bound(
+        2 * (2 * 8 * 6 * 3 + 25 * 64 * 3 + 2 * 4 * 3 * 64),
+        2 * 2 * bk.s2_taps(8) * bk.s2_taps(6) * 64 * 3, torch.bfloat16)[0]
 
 
 def test_conv_dw_rows_hold_then_time(cpu_bench, monkeypatch):
@@ -428,11 +497,37 @@ def test_conv_dw_rows_hold_then_time(cpu_bench, monkeypatch):
 
 
 def test_conv5_work_at_a_hand_computed_shape():
-    """x [2,8,8,4] → 4×4×6: 32 output pixels; 2·25·32·4·6 = 38400
+    """x [2,8,8,4] → 4×4×6: along each axis the four outputs' taps land in
+    x 4 + 5 + 5 + 3 = 17 times (pads 1 and 2), so 2·2·17²·4·6 = 27744
     operations for dx and for dw; bytes of x (512), g (192) and w (600)
     elements of 2 bytes."""
-    assert bk.conv_dw_work((2, 8, 8, 4), 6) == (2 * (512 + 192 + 600), 38400)
-    assert bk.conv_dx_work((2, 8, 8, 4), 6) == (2 * (192 + 600 + 512), 38400)
+    assert bk.s2_taps(8) == 17
+    assert bk.conv_dw_work((2, 8, 8, 4), 6) == (2 * (512 + 192 + 600), 27744)
+    assert bk.conv_dx_work((2, 8, 8, 4), 6) == (2 * (192 + 600 + 512), 27744)
     fb, fo = bk.conv_work((2, 8, 8, 4), 6)
     assert bk.conv5_grad_work((2, 8, 8, 4), 6) == (
         fb + 2 * (192 + 2 * 512 + 2 * 600) + 24, 3 * fo)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 3), (7, 8), (16, 16), (33, 5)])
+def test_in_map_taps_are_the_plain_versions_products(h, w):
+    """s2_taps and up_taps, the products a bound counts, against the plain
+    versions (5×5: the sum of an all-ones conv and deconv; upconv3x3: the
+    distinct input rows each output row reads)."""
+    assert bk.s2_taps(h) * bk.s2_taps(w) == _in_map_products(h, w, "conv")
+    assert (bk.s2_taps(2 * h) * bk.s2_taps(2 * w)
+            == _in_map_products(h, w, "deconv"))
+    assert bk.up_taps(h) * bk.up_taps(w) == (_combined_taps(h)
+                                             * _combined_taps(w))
+
+
+def test_deconv_dx_work_matches_the_tensors():
+    """The deconv's dx: d and w read once, dx written once, the deconv's
+    products (no bias: the route has none)."""
+    gen = torch.Generator().manual_seed(0)
+    shape, co = (2, 3, 5, 64), 8
+    d = torch.randn(2, 6, 10, co, generator=gen).to(torch.bfloat16)
+    w = torch.randn(5, 5, 64, co, generator=gen).to(torch.bfloat16)
+    dx = conv.deconv5x5_s2_dx(d, w)
+    assert bk.deconv_dx_work(shape, co) == (bk.nbytes(d, w, dx),
+                                            bk.deconv_work(shape, co)[1])

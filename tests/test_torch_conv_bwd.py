@@ -363,6 +363,51 @@ def test_dw_backward_sends_the_deep_dx_through_its_kernel(
            "d/dx", BF16_TOL)
 
 
+@pytest.fixture
+def counted_ddx(monkeypatch):
+    """Calls of deconv5x5_s2_dx's plain version (what its wrapper and its
+    Function run on the CPU) and of the conv's (the old route of the
+    deconv's dx), counted."""
+    calls = {"deconv5x5_s2_dx": [], "conv5x5_s2_act": []}
+    for name, key in (("deconv5x5_s2_dx_plain", "deconv5x5_s2_dx"),
+                      ("conv5x5_s2_act_plain", "conv5x5_s2_act")):
+        plain = getattr(conv, name)
+
+        def counted(*a, plain=plain, key=key):
+            calls[key].append(tuple(a[0].shape))
+            return plain(*a)
+        monkeypatch.setattr(conv, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("co,act", [(64, "relu"), (3, "tanh")])
+def test_deconv_backward_sends_the_bf16_dx_through_its_kernel(
+        counted_ddx, no_library_convolution, co, act):
+    """`_Deconv.backward` at a deep bf16 shape (Cin and Co multiples of
+    64: the ring) and at the RGB layer's Co 3 (the thin path): dx through
+    deconv5x5_s2_dx (no flipped copy, no zero bias, no conv), at first
+    order and, through `_DeconvDx`, at second order (the transposed conv
+    and conv5x5_s2_dw), with no library convolution anywhere."""
+    x, w, s, t = map(torch.from_numpy, _deconv_inputs((1, 4, 3, 64), co,
+                                                      seed=35))
+    assert conv.deconv_dx_path(64, co, torch.bfloat16) == (
+        "ring" if co == 64 else "thin")
+    x = x.bfloat16().requires_grad_(True)
+    w = w.bfloat16().requires_grad_(True)
+    y = conv.deconv5x5_s2(x, w, s, t, act)
+    gx, = torch.autograd.grad(y.float().sum(), x, create_graph=True)
+    assert counted_ddx["deconv5x5_s2_dx"] == [(1, 8, 6, co)]
+    gw, = torch.autograd.grad((gx.float()**2).sum(), w)
+    assert gw.abs().sum() > 0
+    # tanh's derivative depends on y: the second order runs the deconv's
+    # backward once more, its dx on the kernel again
+    assert set(counted_ddx["deconv5x5_s2_dx"]) == {(1, 8, 6, co)}
+    assert counted_ddx["conv5x5_s2_act"] == []
+    _close(gx, conv.deconv5x5_s2_dx_plain(
+        (conv.act_grad_from_output(act, y.detach()) * s).bfloat16(),
+        w.detach()).float(), "d/dx", BF16_TOL)
+
+
 # --- the WGAN-CLS gradient penalty ---------------------------------------------
 
 RES = 16

@@ -82,6 +82,12 @@ def test_tick_config_is_the_shipped_yaml_on_synthetic_data(model):
     ("void (anonymous namespace)::bn_reduce_kernel<true>",
      "batch norm (CUDA)"),
     ("down0_mma_kernel", "conv5x5_s2_act (CUDA)"),
+    ("void down0::kernel<3, 64, (anonymous namespace)::Conv>(...)",
+     "conv5x5_s2_act (CUDA)"),
+    ("void down0::kernel<3, 128, (anonymous namespace)::DDxThin>(...)",
+     "deconv5x5_s2_dx (CUDA)"),
+    ("void dx90::ring_kernel<128, 64, (anonymous namespace)::DDxRing>(...)",
+     "deconv5x5_s2_dx (CUDA)"),
     ("join_text_kernel", "conditioning_join (CUDA)"),
     ("bn_dx_kernel<true>", "batch norm (CUDA)"),
     ("sm90_xmma_gemm_bf16bf16", "matmul (cuBLAS)"),
@@ -195,6 +201,56 @@ def test_cdx_sweep_covers_every_deep_conv_dx_of_a_tick():
         assert len(keys) == len(set(keys))
         assert conv_plan_sweep.cdx_key(conv.conv_dx_plan(b, h, w, cin,
                                                          co)) in keys
+
+
+def test_conv_plan_sweep_ddx_names_every_plan_once():
+    """``conv_plan_sweep --ops ddx`` sweeps the deconv's dx at the
+    generator's four calls and the gradient penalty's critic first layer
+    (batch 64), every one on deconv5x5_s2_dx (the ring, the thin path),
+    and names each plan of `deconv_dx_candidates` once."""
+    shapes = conv_plan_sweep.ddx_shapes()
+    assert len(shapes) == len(set(shapes)) == 5
+    assert shapes == dx_ab.DDX_CALLS
+    paths = []
+    for (b, h, w, cin), co in shapes:
+        paths.append(conv.deconv_dx_path(cin, co, torch.bfloat16))
+        keys = [conv_plan_sweep.ddx_key(p)
+                for p in conv.deconv_dx_candidates(b, h, w, cin, co)]
+        assert len(keys) == len(set(keys))
+        assert conv_plan_sweep.ddx_key(conv.deconv_dx_plan(b, h, w, cin,
+                                                           co)) in keys
+    assert paths == ["ring"] * 3 + ["thin"] * 2
+
+
+def test_dx_ab_times_the_deconv_dx_of_every_generator_call():
+    """``tools/dx_ab.py``: the deconv's dx through `conv.deconv_dx` where
+    the checkout has it, else through the route it replaced (the conv of
+    the flipped weight with a zero bias), that route's parts timed alone
+    in every checkout."""
+    assert [c for c in dx_ab.DDX_CALLS if c[0][1] == 32] == [
+        ((64, 32, 32, 128), 3), ((64, 32, 32, 64), 3)]
+    assert 'getattr(conv, "deconv_dx", old_deconv_dx)' in dx_ab._CHILD
+    for part in ("flip copy", "zero bias", "conv5x5_s2_act alone"):
+        assert f'"{part}"' in dx_ab._CHILD
+
+
+def test_dx_ab_times_the_d_rgb_forward_and_bounds_every_row_alike():
+    """``tools/dx_ab.py``: the 64 px discriminator's RGB forward at the D
+    step's 3·64 rows and the G step's 64; every row's bound from this
+    tree's work counts (the same for every checkout), the deconv's dx with
+    no bias and only the taps that land in d."""
+    from text_to_image_tpu_torch.tools import bench_kernels as bk
+    assert dx_ab.D_RGB_CALLS == [((192, 64, 64, 3), 64), ((64, 64, 64, 3), 64)]
+    assert '"conv5x5_s2_act (D RGB)"' in dx_ab._CHILD
+    assert "bound" not in dx_ab._CHILD
+    rows = [{"kernel": "deconv dx", "shape": [64, 4, 4, 1024], "co": 512},
+            {"kernel": "conv5x5_s2_act (D RGB)", "shape": [192, 64, 64, 3],
+             "co": 64}]
+    dx_ab.with_bounds(bk, rows)
+    assert rows[0]["bound_by"] == "operations" and rows[0]["bound_ms"] == (
+        pytest.approx(2 * 64 * 17 * 17 * 1024 * 512 / 989e12 * 1e3))
+    assert rows[1]["bound_by"] == "bytes" and rows[1]["bound_ms"] == (
+        bk.bound(*bk.conv_work((192, 64, 64, 3), 64), torch.bfloat16)[0])
 
 
 def test_dx_ab_times_every_conv_dx_of_a_tick_and_the_rgb_layer():

@@ -37,7 +37,8 @@
 //    64x128, 128x256) and a split of K over whole
 //    taps, so that the calls with few output tiles (8x8 and 16x16 maps)
 //    still fill 132 SMs; partial sums are reduced in a fixed order.
-//  * down0_mma: bf16, Cin <= 4, Co = 64 -- the RGB input.  One block makes
+//  * down0_mma: bf16, Cin <= 4, Co = 64 -- the RGB input (down0.cuh, which
+//    the transposed conv's RGB dx shares at N = 64 / 128).  One block makes
 //    all 64 channels of a tile of 8x16 output pixels: it stages the 19x35
 //    input patch once, builds the im2col tile [128][K padded to 16] in
 //    swizzled shared memory and runs K/16 wgmma steps against the weights,
@@ -49,7 +50,7 @@
 //  * direct: Cin <= 4 otherwise (f32, or Co != 64): one thread per output
 //    pixel and 16 output channels, f32 FMA.
 
-#include "igemm_sm90.cuh"
+#include "down0.cuh"
 
 namespace {
 
@@ -114,6 +115,23 @@ struct Conv : Common {
     const int kh = tap / 5, kw = tap - 5 * kh;
     return (static_cast<long long>(kh) * W + kw) * Cin;
   }
+
+  // down0.cuh's launch has one column tile (N = Co = 64): its column
+  // offsets fold to constants
+  static constexpr bool kOneColumnTile = true;
+  // down0.cuh's weights [K][N]: w [25*Cin][Co] as it lies, 16 bytes a
+  // chunk of 8 columns
+  template <int CIN, int NT, int KP, int THREADS>
+  __device__ void stage_weights(uint8_t* b, uint8_t*, int, int tid) const {
+    const uint16_t* wp = static_cast<const uint16_t*>(w);
+    for (int q = tid; q < KP * (NT / 8); q += THREADS) {
+      const int kr = q / (NT / 8), c = q % (NT / 8);
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (kr < 25 * CIN)
+        v = __ldg(reinterpret_cast<const uint4*>(wp + kr * NT + c * 8));
+      *reinterpret_cast<uint4*>(b + down0::b_chunk(kr, c)) = v;
+    }
+  }
 };
 
 // ---------------------------------------------------------------------------
@@ -166,170 +184,12 @@ __global__ void __launch_bounds__(D_THREADS) direct_kernel(Conv p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// down0 on the tensor cores: bf16, Cin <= 4, Co = 64.  See the note at the
-// top.  One warpgroup a block; shared memory (1024-byte aligned by hand):
-// the im2col tile A as two K panels of [128 rows][128 bytes], the weights
-// [T_KMAX][128 bytes], both 128-byte swizzled, and the input patch.  The
-// epilogue's bf16 staging reuses A.
-constexpr int T_OH = 8, T_OW = 16;                       // output tile
-constexpr int T_PH = 2 * T_OH + 3, T_PW = 2 * T_OW + 3;  // input patch
-constexpr int T_ROWS = T_OH * T_OW;                      // 128 GEMM rows
-constexpr int T_CO = 64;
-constexpr int T_KMAX = 112;                              // 25*4 -> 112
-constexpr int T_A_PANEL = T_ROWS * 128;
-constexpr int T_A_BYTES = 2 * T_A_PANEL;
-constexpr int T_B_BYTES = T_KMAX * 128;
-constexpr int T_PATCH_BYTES = T_PH * T_PW * 4 * 2;
-constexpr int T_SMEM = T_A_BYTES + T_B_BYTES + T_PATCH_BYTES + 1024;
-constexpr int T_BLOCKS_PER_SM = 4;
-
-template <int CIN>
-__global__ void __launch_bounds__(128) down0_mma_kernel(Conv p, int tiles_y,
-                                                        int tiles_x,
-                                                        int n_tiles) {
-  constexpr int K = 25 * CIN, KP = (K + 15) / 16 * 16, STEPS = KP / 16;
-  constexpr int ROW = T_PW * CIN;   // patch row, elements
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = igemm90::smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  uint8_t* sm = smem_raw + (base - raw);
-  const uint32_t a_addr = base, b_addr = base + T_A_BYTES;
-  uint16_t* patch = reinterpret_cast<uint16_t*>(sm + T_A_BYTES + T_B_BYTES);
-  uint16_t* stage = reinterpret_cast<uint16_t*>(sm);
-
-  const int tid = threadIdx.x;
-  const uint16_t* x = static_cast<const uint16_t*>(p.a);
-  const uint16_t* w = static_cast<const uint16_t*>(p.w);
-
-  // the weights [K][64], zero rows up to KP: resident for every tile
-  for (int q = tid; q < KP * 8; q += 128) {
-    const int kr = q >> 3, c = q & 7;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (kr < K) v = __ldg(reinterpret_cast<const uint4*>(w + kr * T_CO + c * 8));
-    *reinterpret_cast<uint4*>(sm + T_A_BYTES + igemm90::swz(kr, c)) = v;
-  }
-
-  // This thread's share of a tile's input patch, read into registers in one
-  // batch (the loads are all in flight together) and stored to shared
-  // memory when the tile's turn comes; zeros stand outside the image.
-  constexpr int PATCH = T_PH * ROW, N_LD = (PATCH + 127) / 128;
-  uint16_t held[N_LD];
-  auto read_patch = [&](int tile) {
-    const int tx = tile % tiles_x, ty = (tile / tiles_x) % tiles_y;
-    const int b = tile / (tiles_x * tiles_y);
-    const int iy0 = 2 * ty * T_OH - p.pad_top, ix0 = 2 * tx * T_OW - p.pad_left;
-#pragma unroll
-    for (int i = 0; i < N_LD; ++i) {
-      const int q = tid + i * 128;
-      const int py = q / ROW, rem = q - py * ROW;
-      const int iy = iy0 + py, ix = ix0 + rem / CIN;
-      held[i] = 0;
-      if (q < PATCH && iy >= 0 && iy < p.H && ix >= 0 && ix < p.W)
-        held[i] = __ldg(
-            x + ((static_cast<long long>(b) * p.H + iy) * p.W + ix0) * CIN +
-            rem);
-    }
-  };
-
-  const int ly = tid / T_OW, lx = tid % T_OW;
-  if (blockIdx.x < n_tiles) read_patch(blockIdx.x);
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int tx = tile % tiles_x, ty = (tile / tiles_x) % tiles_y;
-    const int b = tile / (tiles_x * tiles_y);
-    const int oy0 = ty * T_OH, ox0 = tx * T_OW;
-    __syncthreads();   // the last tile's staging and patch are read
-#pragma unroll
-    for (int i = 0; i < N_LD; ++i)
-      if (tid + i * 128 < PATCH) patch[tid + i * 128] = held[i];
-    __syncthreads();
-    // the next tile's reads travel while this one is multiplied and stored
-    if (tile + gridDim.x < n_tiles) read_patch(tile + gridDim.x);
-    // im2col: this thread's pixel, K = (kh, kw, ci) as the weights lie
-    const uint16_t* src = patch + 2 * ly * ROW + 2 * lx * CIN;
-#pragma unroll
-    for (int kc = 0; kc < KP / 8; ++kc) {
-      uint32_t u[4];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int k = kc * 8 + e;
-        const uint32_t v =
-            k < K ? src[(k / (5 * CIN)) * ROW + k % (5 * CIN)] : 0u;
-        if (e & 1)
-          u[e >> 1] |= v << 16;
-        else
-          u[e >> 1] = v;
-      }
-      *reinterpret_cast<uint4*>(sm + (kc >> 3) * T_A_PANEL +
-                                igemm90::swz(tid, kc & 7)) =
-          make_uint4(u[0], u[1], u[2], u[3]);
-    }
-    igemm90::fence_async_proxy();
-    __syncthreads();
-
-    float acc[2][32];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
-    igemm90::wgmma_fence();
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < STEPS; ++j)
-        igemm90::Wgmma<64>::mma(
-            acc[h],
-            igemm90::make_desc(a_addr + (j >> 2) * T_A_PANEL + h * 64 * 128 +
-                                   (j & 3) * 32, 16, 1024),
-            igemm90::make_desc(b_addr + j * 2048, 8192, 1024));
-    igemm90::wgmma_commit();
-    igemm90::wgmma_wait<0>();
-    __syncthreads();   // A is free: it becomes the staging tile
-
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      igemm90::stage_out<Conv, T_CO>(p, acc[h], stage, h * 64, 0, 0, tid);
-    __syncthreads();
-    uint16_t* y = static_cast<uint16_t*>(p.y);
-    for (int q = tid; q < T_ROWS * 8; q += 128) {
-      const int px = q >> 3, c8 = (q & 7) * 8;
-      const int oy = oy0 + px / T_OW, ox = ox0 + px % T_OW;
-      if (oy < p.Ho && ox < p.Wo)
-        *reinterpret_cast<uint4*>(
-            y + ((static_cast<size_t>(b) * p.Ho + oy) * p.Wo + ox) * T_CO +
-            c8) =
-            *reinterpret_cast<const uint4*>(stage + px * (T_CO + 8) + c8);
-    }
-  }
-}
-
-template <int CIN>
-cudaError_t launch_down0(const Conv& p, int B, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      down0_mma_kernel<CIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T_SMEM);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  const int tiles_y = (p.Ho + T_OH - 1) / T_OH;
-  const int tiles_x = (p.Wo + T_OW - 1) / T_OW;
-  const int n_tiles = B * tiles_y * tiles_x;
-  const int grid = n_tiles < sms * T_BLOCKS_PER_SM ? n_tiles
-                                                   : sms * T_BLOCKS_PER_SM;
-  down0_mma_kernel<CIN><<<grid, 128, T_SMEM, s>>>(p, tiles_y, tiles_x,
-                                                  n_tiles);
-  return cudaGetLastError();
-}
-
 enum Path { kTile = 0, kPipelined = 1, kDirect = 2, kWgmma = 3, kDown0Mma = 4 };
 
 // The path a call takes: from shapes, types and alignment only.
 int conv_path(const Conv& p, bool bf16) {
   if (p.Cin <= D_MAX_CIN)
-    return bf16 && p.N == T_CO && p.vec_w && p.vec_y ? kDown0Mma : kDirect;
+    return bf16 && p.N == 64 && p.vec_w && p.vec_y ? kDown0Mma : kDirect;
   if (bf16 && igemm90::applies(p)) return kWgmma;
   return bf16 && p.vec_a && p.vec_w && p.vec_y ? kPipelined : kTile;
 }
@@ -389,10 +249,10 @@ extern "C" int t2i_conv5x5_s2(const void* x, const void* w, const void* b,
           igemm90::launch(p, tile, &split, static_cast<float*>(ws), s));
     case kDown0Mma:
       switch (Cin) {
-        case 1: return static_cast<int>(launch_down0<1>(p, B, s));
-        case 2: return static_cast<int>(launch_down0<2>(p, B, s));
-        case 3: return static_cast<int>(launch_down0<3>(p, B, s));
-        default: return static_cast<int>(launch_down0<4>(p, B, s));
+        case 1: return static_cast<int>(down0::launch<1, 64>(p, B, s));
+        case 2: return static_cast<int>(down0::launch<2, 64>(p, B, s));
+        case 3: return static_cast<int>(down0::launch<3, 64>(p, B, s));
+        default: return static_cast<int>(down0::launch<4, 64>(p, B, s));
       }
     case kDirect: {
       const dim3 grid((p.M + D_THREADS - 1) / D_THREADS,

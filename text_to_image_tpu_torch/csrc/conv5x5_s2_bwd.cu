@@ -11,10 +11,12 @@
 // x's type).  bf16 or f32 in, f32 sums, dw rounded once to w's type.  The
 // transposed convolution's dw is this kernel with its cotangent as x and
 // its input as g, flipped and transposed by the caller.  The transposed
-// convolution's dx is the conv's forward kernel (ops/kernels/conv.py
-// `_Deconv`); the conv's dx is conv5x5_s2_dx below (bf16, Cin and Co
-// multiples of 64; the other shapes the transposed convolution's forward
-// kernel with w flipped and transposed): no library convolution.
+// convolution's dx is deconv5x5_s2_dx below (bf16, Cin a multiple of 64 and
+// Co a multiple of 64 or at most 4; the other shapes the conv's forward
+// kernel with w flipped and transposed); the conv's dx is conv5x5_s2_dx
+// below (bf16, Cin and Co multiples of 64; the other shapes the transposed
+// convolution's forward kernel with w flipped and transposed): no library
+// convolution.
 //
 // conv5x5_s2_dx replaces the input half of text_to_image_tpu/ops/pallas/
 // conv.py _conv_bwd (jax.vjp of _lax_conv_s2, left to XLA): dx [B,H,W,Cin]
@@ -73,6 +75,7 @@
 //    (staged).
 //  * tile (f32 FMA): f32 and ragged channels.
 
+#include "down0.cuh"
 #include "upconv_dx.cuh"
 
 namespace {
@@ -242,6 +245,7 @@ struct CDxParams : dx90::Params {
 
 struct CDxRing {
   using P = CDxParams;
+  static constexpr bool kOneBlock = false;
   struct T {
     int n0, items, py, px, nw, b0, m0, j0;
   };
@@ -600,6 +604,193 @@ bool cdx_applies(const void* gc, const void* w, const void* dx, int Cin,
 
 int g_last_dx_mode = 0;   // the CDxMode bits of t2i_conv5x5_s2_dx's last launch
 
+// ----------------------------------------------------------- deconv dx ----
+// deconv5x5_s2_dx: the transposed convolution's input gradient, the input
+// half of text_to_image_tpu/ops/pallas/conv.py _deconv_bwd (the
+// jax.linear_transpose of its lax.conv_transpose, left to XLA):
+//
+//   dx[b,i,j,ci] = sum_{kh,kw,co} d[b, 2i+kh-1, 2j+kw-1, co]
+//                                 * w[4-kh, 4-kw, ci, co]
+//
+// for the cotangent d [B,2H,2W,Co] (act' and the scale already in it) and
+// w [5,5,Cin,Co]: the stride-2 SAME conv of d with w flipped and
+// transposed, M = B*H*W rows of dx, N = Cin, K = 25*Co, 2*M*N*K operations
+// (0.0271 ms at 989 TFLOP/s for each of the GAN-CLS generator's three deep
+// calls at B 64; its RGB layer's, Co = 3, bound by dx's bytes: 0.0055 ms).
+// No flipped copy of w, no zero bias, no workspace.  Two paths (the
+// wrapper mirrors the rule, ops/kernels/conv.py deconv_dx_path):
+//  * ring (bf16, Cin and Co multiples of 64): dx90's ring loop under the
+//    policy DDxRing.  d's map is always even, so tap kh reads d's row
+//    parity py = (kh + 1) % 2 shifted by (kh - 1 - py) / 2 in {-1, 0, 1}:
+//    one zero-filled box a tap of d viewed as [B][H][2][W][2*Co] (the dw
+//    kernels' view; the SAME pads (1, 2) are the box's edges), a tile of
+//    BM pixels of dx a box of 2^lw x 2^lh x 2^lb (cdx_box).  B is w[4-kh,
+//    4-kw] = [Cin][Co] with Co (K) contiguous, wgmma's K-major operand as
+//    the weight lies: the flip is a table of taps.  dx is written in plain
+//    NHWC rows by the cluster's sum_store, the parts of K of a tile summed
+//    on chip (the 4^2 output: M = 1024, K = 12800).
+//  * thin (bf16, Co <= 4, Cin a multiple of 64; the RGB layer's dx and the
+//    critic's first-layer dx in the gradient penalty's second order):
+//    down0.cuh's kernel with N = 128 (64 where Cin is not a multiple of
+//    128) columns of dx a block, the weights B[(kh,kw,c)][n] = w[4-kh]
+//    [4-kw][n][c] built in shared memory from w as it lies (its taps copied
+//    by 16-byte loads, then gathered with the flip and the transpose in the
+//    index); d read once, dx written as whole rows.
+struct DDxRing {
+  using P = CDxParams;   // Ho x Wo: dx's map H x W
+  static constexpr bool kOneBlock = true;
+  struct T {
+    int n0, items, b0, i0, j0;
+  };
+  __device__ static T tile(const P& p, int y, int bn) {
+    T t;
+    const int col = y % p.n_col, u = y / p.n_col;
+    t.n0 = col * bn;
+    t.items = 25 * p.S;
+    const int per_img = p.nth * p.ntw, ib = u / per_img,
+              rem = u - ib * per_img, ih = rem / p.ntw;
+    t.b0 = ib << p.lb;
+    t.i0 = ih << p.lh;
+    t.j0 = (rem - ih * p.ntw) << p.lw;
+    return t;
+  }
+  template <int BK>
+  __device__ static void load(const P& p, const T& t, int item, uint32_t a,
+                              uint32_t b, const CUtensorMap* gmap,
+                              const CUtensorMap* wmap, uint32_t bar) {
+    const int tap = item / p.S, k0 = (item - tap * p.S) * BK;
+    const int kh = tap / 5, kw = tap - kh * 5;
+    const int py = (kh + 1) & 1, px = (kw + 1) & 1;
+    wgrad::tma_load_5d(a, gmap, px * p.Co + k0, t.j0 + (kw - 1 - px) / 2,
+                       py, t.i0 + (kh - 1 - py) / 2, t.b0, bar);
+    igemm90::tma_load_2d(b, wmap, k0, (24 - tap) * p.Cin + t.n0, bar);
+  }
+  __device__ static long long out(const P& p, const T& t, int r) {
+    const int b = t.b0 + (r >> (p.lh + p.lw));
+    const int i = t.i0 + ((r >> p.lw) & ((1 << p.lh) - 1));
+    const int j = t.j0 + (r & ((1 << p.lw) - 1));
+    if (b >= p.B || i >= p.H || j >= p.W) return -1;
+    return ((static_cast<long long>(b) * p.H + i) * p.W + j) * p.Cin;
+  }
+};
+
+template <int BN>
+cudaError_t launch_ddx(const void* d, const void* w, void* dx, int B, int H,
+                       int W, int Cin, int Co, int parts, cudaStream_t s) {
+  constexpr int BK = 64;
+  using R = dx90::Ring<BN, BK, DDxRing::kOneBlock>;
+  auto kernel = dx90::ring_kernel<BN, BK, DDxRing>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+  if (err != cudaSuccess) return err;
+  CDxParams p;
+  static_cast<dx90::Params&>(p) =
+      dx90::params(dx, B, H, W, Cin, Co, BK, BN, parts);
+  p.B = B;
+  p.Ho = H;
+  p.Wo = W;
+  p.pt = p.pl = 1;
+  cdx_box(p, dx90::BM);
+  const long long blocks = static_cast<long long>(p.tiles) * p.n_col;
+  if (blocks > 65535) return cudaErrorInvalidValue;   // the grid's y extent
+  const cuuint32_t box[3] = {1u << p.lw, 1u << p.lh, 1u << p.lb};
+  CUtensorMap gmap = {}, wmap = {};
+  if ((err = dx90::g_map(&gmap, d, B, H, W, Co, BK, box)) != cudaSuccess ||
+      (err = dx90::w_map(&wmap, w, Cin, Co, BK, BN, 25)) != cudaSuccess)
+    return err;
+  return launch_clustered(kernel, dim3(parts, static_cast<unsigned>(blocks),
+                                       1),
+                          dx90::THREADS, R::SMEM, parts, s, p, gmap, wmap);
+}
+
+// down0.cuh's problem for the thin path: the conv of d (2H x 2W, Co <= 4
+// channels, pads (1, 2)) into dx's H x W map, Cin columns; no bias, no
+// activation
+struct DDxThin : igemm::Common {
+  static constexpr bool kOneColumnTile = false;   // Cin / N column tiles
+  int H, W, Ho, Wo, pad_top, pad_left;
+  __device__ float add(int, int) const { return 0.f; }
+  // the weights [K][N] of column tile n0: each tap's slice w[t][n0 ..
+  // n0 + N)[0 .. CIN) (contiguous) copied into `scratch` by 16-byte loads,
+  // then B[(kh, kw, c)][n] = w[4 - kh][4 - kw][n0 + n][c] gathered from it
+  template <int CIN, int NT, int KP, int THREADS>
+  __device__ void stage_weights(uint8_t* b, uint8_t* scratch, int n0,
+                                int tid) const {
+    constexpr int TAP = NT * CIN, V = TAP / 8;
+    constexpr int LOADS = (25 * V + THREADS - 1) / THREADS;
+    const uint16_t* wp = static_cast<const uint16_t*>(w);
+    uint16_t* sc = reinterpret_cast<uint16_t*>(scratch);
+    // every load of this thread in flight together, then stored
+    uint4 r[LOADS];
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int q = tid + i * THREADS, t = q / V, v = q - t * V;
+      if (q < 25 * V)
+        r[i] = __ldg(reinterpret_cast<const uint4*>(
+            wp + (static_cast<long long>(t) * N + n0) * CIN + v * 8));
+    }
+#pragma unroll
+    for (int i = 0; i < LOADS; ++i) {
+      const int q = tid + i * THREADS;   // tap q / V, vector q % V
+      if (q < 25 * V) *reinterpret_cast<uint4*>(sc + q * 8) = r[i];
+    }
+    __syncthreads();
+    for (int q = tid; q < KP * (NT / 8); q += THREADS) {
+      const int kr = q / (NT / 8), c = q % (NT / 8);
+      uint32_t u[4] = {0u, 0u, 0u, 0u};
+      if (kr < 25 * CIN) {
+        const int tap = kr / CIN, ch = kr - tap * CIN;
+        const uint16_t* src = sc + (24 - tap) * TAP + c * 8 * CIN + ch;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          u[e >> 1] |= static_cast<uint32_t>(src[e * CIN]) << (16 * (e & 1));
+      }
+      *reinterpret_cast<uint4*>(b + down0::b_chunk(kr, c)) =
+          make_uint4(u[0], u[1], u[2], u[3]);
+    }
+  }
+};
+
+template <int N>
+cudaError_t launch_ddx_thin(const void* d, const void* w, void* dx, int B,
+                            int H, int W, int Cin, int Co, cudaStream_t s) {
+  DDxThin p;
+  p.a = d;
+  p.w = w;
+  p.y = dx;
+  p.M = B * H * W;
+  p.N = Cin;
+  p.Cin = Co;
+  p.taps = 25;
+  p.act = igemm::kNone;
+  p.vec_a = p.vec_w = p.vec_y = 1;
+  p.H = 2 * H;
+  p.W = 2 * W;
+  p.Ho = H;
+  p.Wo = W;
+  p.pad_top = p.pad_left = 1;
+  switch (Co) {
+    case 1: return down0::launch<1, N>(p, B, s);
+    case 2: return down0::launch<2, N>(p, B, s);
+    case 3: return down0::launch<3, N>(p, B, s);
+    default: return down0::launch<4, N>(p, B, s);
+  }
+}
+
+enum DDxPath { kDdxConv = 0, kDdxRing = 1, kDdxThin = 2 };
+
+// bf16 and 16-byte-aligned d, w and dx: the ring for Cin and Co multiples
+// of 64, the thin path for Co <= 4 and Cin a multiple of 64; else the
+// caller's route (conv5x5_s2_act of d with w flipped and transposed)
+int ddx_path(const void* d, const void* w, const void* dx, int Cin, int Co,
+             bool bf16) {
+  if (!bf16 || !igemm::aligned16(d) || !igemm::aligned16(w) ||
+      !igemm::aligned16(dx) || Cin % 64)
+    return kDdxConv;
+  if (Co % 64 == 0) return kDdxRing;
+  return Co <= 4 ? kDdxThin : kDdxConv;
+}
+
 }  // namespace
 
 // The path t2i_conv5x5_s2_dw takes for x [B][H][W][Cin] and g: 0 the FMA
@@ -724,3 +915,50 @@ extern "C" int t2i_conv5x5_s2_dx(const void* gc, const void* w, void* dx,
 // bits: 1 A by TMA, 2 parts summed in a cluster, 4 the taps of a parity
 // from one staged patch).
 extern "C" int t2i_conv5x5_s2_dx_mode() { return g_last_dx_mode; }
+
+// The path t2i_deconv5x5_s2_dx takes for these pointers and channels: 0
+// none (the caller's conv5x5_s2_act route), 1 the ring, 2 thin.
+extern "C" int t2i_deconv5x5_s2_dx_path(const void* d, const void* w,
+                                        const void* dx, int Cin, int Co,
+                                        int bf16) {
+  return ddx_path(d, w, dx, Cin, Co, bf16 != 0);
+}
+
+// dx [B][H][W][Cin] of deconv5x5_s2 for its cotangent d [B][2H][2W][Co]
+// and w [5][5][Cin][Co] (all bf16), on `stream`: the ring with tiles of
+// 128 pixels x `tile_n` (64, 128, 256; dividing Cin) columns and `parts`
+// (1..8) parts of K in one cluster, or the thin path (tile_n 128 where Cin
+// is a multiple of 128, else 64; one part).  Returns the CUDA error code
+// (0 when launched); no path gives way to another.
+extern "C" int t2i_deconv5x5_s2_dx(const void* d, const void* w, void* dx,
+                                   int B, int H, int W, int Cin, int Co,
+                                   int tile_n, int parts, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int path = ddx_path(d, w, dx, Cin, Co, true);
+  if (path == kDdxConv || parts < 1 || B < 1 || H < 1 || W < 1 ||
+      static_cast<long long>(B) * H * W * Cin >= (1ll << 31) ||
+      static_cast<long long>(B) * 4 * H * W * Co >= (1ll << 31))
+    return cudaErrorInvalidValue;
+  if (path == kDdxThin) {
+    if (parts != 1 || tile_n != (Cin % 128 == 0 ? 128 : 64))
+      return cudaErrorInvalidValue;
+    return static_cast<int>(
+        tile_n == 128
+            ? launch_ddx_thin<128>(d, w, dx, B, H, W, Cin, Co, s)
+            : launch_ddx_thin<64>(d, w, dx, B, H, W, Cin, Co, s));
+  }
+  if ((tile_n != 64 && tile_n != 128 && tile_n != 256) || Cin % tile_n ||
+      parts > dx90::MAX_PARTS)
+    return cudaErrorInvalidValue;
+  switch (tile_n) {
+    case 64:
+      return static_cast<int>(
+          launch_ddx<64>(d, w, dx, B, H, W, Cin, Co, parts, s));
+    case 128:
+      return static_cast<int>(
+          launch_ddx<128>(d, w, dx, B, H, W, Cin, Co, parts, s));
+    default:
+      return static_cast<int>(
+          launch_ddx<256>(d, w, dx, B, H, W, Cin, Co, parts, s));
+  }
+}

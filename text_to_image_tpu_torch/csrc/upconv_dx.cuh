@@ -242,19 +242,22 @@ __device__ __forceinline__ void bulk_wait() {
 }
 
 // ------------------------------------------------------------------ ring --
-// The ring loop serves two ops through one template hook, a policy Pol
+// The ring loop serves three ops through one template hook, a policy Pol
 // that says what a tile is (`tile`: from blockIdx.y, with its number of
 // (tap, slice) items), where item it's A and B boxes come from (`load`)
 // and where row r of the tile goes in dx (`out`: the element offset of its
 // channel 0, or -1 past the map): UpconvRing below (upconv3x3_dx, 16
-// combined taps) and conv5x5_s2_bwd.cu's CDxRing (the conv's dx, the 4 / 6
-// / 6 / 9 taps of a parity).
-template <int BN, int BK>
+// combined taps), conv5x5_s2_bwd.cu's CDxRing (the conv's dx, the 4 / 6 /
+// 6 / 9 taps of a parity) and DDxRing (the transposed conv's dx, 25 taps).
+// A policy's `kOneBlock` (ONE) asks for one block an SM at every width:
+// DDxRing's small-M calls leave the card one block an SM anyway, and a
+// deeper ring then hides the loads.
+template <int BN, int BK, bool ONE = false>
 struct Ring {
   static constexpr int RB = BK * 2;                  // bytes of a K row
   static constexpr int A_STAGE = BM * RB, B_STAGE = BN * RB;
   static constexpr int STAGE = A_STAGE + B_STAGE;
-  static constexpr int BLOCKS = BN == 256 ? 1 : 2;   // blocks an SM holds
+  static constexpr int BLOCKS = BN == 256 || ONE ? 1 : 2;   // an SM holds
   static constexpr int BUDGET = BLOCKS == 1 ? 192 * 1024 : 96 * 1024;
   static constexpr int STAGES = BUDGET / STAGE < 8 ? BUDGET / STAGE : 8;
   static constexpr int LD = BN + 4;                  // staged f32 rows
@@ -328,6 +331,7 @@ __device__ __forceinline__ void sum_store(const typename Pol::P& p,
 // parity plane (py, px) shifted by (1-py-a, 1-px-c)
 struct UpconvRing {
   using P = Params;
+  static constexpr bool kOneBlock = false;
   struct T {
     int row0, n0, items;
     int3 q;   // (j, i, b) of row0
@@ -360,11 +364,12 @@ struct UpconvRing {
 // A block computes the BM x BN tile blockIdx.y over part blockIdx.x of
 // its (tap, slice) items, in clusters of the tile's parts along x.
 template <int BN, int BK, class Pol>
-__global__ void __launch_bounds__(THREADS, Ring<BN, BK>::BLOCKS)
+__global__ void __launch_bounds__(THREADS,
+                                  Ring<BN, BK, Pol::kOneBlock>::BLOCKS)
     ring_kernel(const typename Pol::P p,
                 const __grid_constant__ CUtensorMap gmap,
                 const __grid_constant__ CUtensorMap wmap) {
-  using R = Ring<BN, BK>;
+  using R = Ring<BN, BK, Pol::kOneBlock>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) unsigned long long full[R::STAGES];
   __shared__ __align__(8) unsigned long long empty[R::STAGES];

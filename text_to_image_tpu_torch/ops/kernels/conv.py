@@ -62,8 +62,16 @@ cluster, dx written in place by parity (no crop), on the ring loop it
 shares with upconv3x3_dx; at Cin 64 on the 128² maps every tap of a parity
 from one staged patch.  It takes bf16 with Cin and Co multiples of 64; the
 conv's other dx (the RGB layer's Cin 3, f32) is ``deconv5x5_s2`` of the
-cotangent with w flipped and transposed (`conv_dx` picks by shape).  The
-deconv's dx is ``conv5x5_s2_act`` of its cotangent with that weight.  A
+cotangent with w flipped and transposed (`conv_dx` picks by shape).
+``deconv5x5_s2_dx``: the deconv's input gradient, the other half of
+`_deconv_bwd` (same source; `deconv_dx_path` / `deconv_dx_plan`): for bf16
+with Cin and Co multiples of 64 one GEMM of 25 taps on the same ring loop,
+A a TMA box of the cotangent's parity plane a tap, w read K-major as it
+lies (no flipped copy, no zero bias), the parts of K of a tile summed in a
+cluster; for Co <= 4 (the RGB layer, the gradient penalty's critic first
+layer) the thin-input conv of ``csrc/down0.cuh`` with the flip in the index
+of its weight staging; f32 and ragged channels ``conv5x5_s2_act`` of the
+cotangent with that weight (`deconv_dx` picks by shape).  A
 weight-gradient plan that needs more parts than a cluster holds (or the
 up-block's per-product blocks) takes a workspace, walked in chunks of Cin
 so that it stays under CONV_WS_CAP at any Cin·Co (`wgrad_chunk`).
@@ -79,8 +87,9 @@ XLA and the port computes on the kernels above, no library convolution
 among them (tanh's up-block backward, on no training path, differentiates
 the composed version again).  The conv's dx goes through the differentiable
 conv5x5_s2_dx (whose own backward is the conv and conv5x5_s2_dw) or deconv,
-and the deconv's through the conv, so a gradient of a gradient (the
-WGAN-CLS gradient penalty) runs on the same kernels.
+and the deconv's through the differentiable deconv5x5_s2_dx (whose own
+backward is the deconv and conv5x5_s2_dw) or the conv, so a gradient of a
+gradient (the WGAN-CLS gradient penalty) runs on the same kernels.
 """
 
 from __future__ import annotations
@@ -358,18 +367,17 @@ class _Deconv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         # _deconv_bwd: the epilogue's derivative from the saved output, then
-        # the two adjoints of the (linear) transposed conv: dx the conv
-        # kernel over d, dw the weight-gradient kernel with d as its map and
-        # x as its cotangent, written flipped back (no copy)
+        # the two adjoints of the (linear) transposed conv: dx its own
+        # kernel over d (`deconv_dx`: w as it lies), dw the weight-gradient
+        # kernel with d as its map and x as its cotangent, written flipped
+        # back (no copy)
         x, w, scale, y = ctx.saved_tensors
         need = ctx.needs_input_grad
         g32 = g.float() * act_grad_from_output(ctx.act, y)
         d = (g32 * scale).to(x.dtype).contiguous()
         dx = dw = None
         if need[0]:
-            dx = conv5x5_s2_act(d, deconv_dx_weight(w),
-                                torch.zeros(x.shape[-1], device=x.device),
-                                "none")
+            dx = deconv_dx(d, w)
         if need[1]:
             dw = conv5x5_s2_dw(d, x, w.dtype, True)      # flipped
         ds = None
@@ -1737,7 +1745,11 @@ def _cdw_lib() -> ctypes.CDLL:
         "t2i_conv5x5_s2_dx": [_PTR] * 3 + [_INT] * 8 + [_PTR],
         # gc, w, dx; Cin, Co, bf16
         "t2i_conv5x5_s2_dx_path": [_PTR] * 3 + [_INT] * 3,
-        "t2i_conv5x5_s2_dx_mode": []})
+        "t2i_conv5x5_s2_dx_mode": [],
+        # d, w, dx; B, H, W, Cin, Co, tile_n, parts; stream
+        "t2i_deconv5x5_s2_dx": [_PTR] * 3 + [_INT] * 7 + [_PTR],
+        # d, w, dx; Cin, Co, bf16
+        "t2i_deconv5x5_s2_dx_path": [_PTR] * 3 + [_INT] * 3})
 
 
 def conv_dw_path(h: int, w: int, cin: int, co: int, dtype: torch.dtype,
@@ -2142,3 +2154,238 @@ def conv_dx_mode_on_card() -> frozenset:
     point's CDxMode bits)."""
     bits = _cdw_lib().t2i_conv5x5_s2_dx_mode()
     return frozenset(n for i, n in enumerate(CDX_MODES) if bits >> i & 1)
+
+
+# ============ transposed conv 5x5 s2: the input gradient (deconv5x5_s2_dx) ===
+
+def deconv5x5_s2_dx_plain(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The adjoint in x of deconv5x5_s2 for its cotangent d [B,2H,2W,Co]
+    and w [5,5,Cin,Co]: 25 f32 tap matmuls over d padded (1, 2), tap (kh,
+    kw) reading every second pixel from (kh, kw) against w[4−kh, 4−kw] as
+    it lies (contracted over Co); rounded once to d's dtype."""
+    b, h2, w2, _ = d.shape
+    h, wd = h2 // 2, w2 // 2
+    dp = F.pad(d.float(), (0, 0, 1, 2, 1, 2))
+    w32 = w.float()
+    acc = torch.zeros(b, h, wd, w.shape[2], device=d.device)
+    for kh in range(5):
+        for kw in range(5):
+            tap = dp[:, kh:kh + 2 * h - 1:2, kw:kw + 2 * wd - 1:2, :]
+            acc = acc + tap @ w32[4 - kh, 4 - kw].T
+    return acc.to(d.dtype)
+
+
+# the paths of the deconv's dx (csrc/conv5x5_s2_bwd.cu DDxPath: 0 the
+# caller's conv5x5_s2_act route, 1 the ring, 2 the thin path); the ring's
+# tile widths and parts of K (4 and 8 parts lost at every generator call
+# of tools/conv_plan_sweep.py --ops ddx, so the plan offers 1 and 2)
+DDX_PATHS = ("conv", "ring", "thin")
+DDX_TILES_N = (256, 128, 64)
+DDX_PARTS = (1, 2)
+
+
+def deconv_dx_path(cin: int, co: int, dtype: torch.dtype,
+                   aligned: bool = True) -> str:
+    """The Python mirror of `ddx_path` in csrc/conv5x5_s2_bwd.cu for the
+    deconv's w [5,5,Cin,Co]: bf16 with Cin a multiple of 64 takes `ring`
+    where Co is a multiple of 64 (every deep generator layer) and `thin`
+    where Co <= 4 (the RGB layer, the critic's first-layer dx in the
+    gradient penalty); everything else `conv` (conv5x5_s2_act of d with w
+    flipped and transposed and a zero bias).  `aligned`: d, w and dx start
+    on 16-byte boundaries."""
+    if dtype != torch.bfloat16 or not aligned or cin % 64:
+        return "conv"
+    if co % 64 == 0:
+        return "ring"
+    return "thin" if co <= 4 else "conv"
+
+
+class DdxPlan(NamedTuple):
+    """A launch of deconv5x5_s2_dx: the path (`ring` or `thin`), its tile
+    (pixels of dx × its channels) and the parts of K of the ring, one
+    cluster of them."""
+    kernel: str
+    tile_m: int
+    tile_n: int
+    parts: int
+
+
+# The ring plan's cost model, in units of one 128x128x64 slice on one SM
+# (ranks plans; not a prediction): work per product of each tile width
+# relative to the 128x128 tile, a block's fixed cost, and the cost of each
+# extra part of a cluster (its f32 tile through distributed shared memory);
+# conv_dx_cost's form, in whole waves of one CTA an SM.  Fitted to the
+# ring's twelve plans (1, 2, 4, 8 parts) at each of the generator's three
+# deep calls on the H100 (tools/conv_plan_sweep.py --ops ddx): the pick is
+# the fastest at each.  It ranks by cost alone: a second part to fill the card lost at
+# 16²×256 (128 CTAs of the 256-wide tile)
+_DDX_TILE_COST = {256: 0.6, 128: 1.0, 64: 1.6}
+_DDX_BLOCK_COST = 12.0
+_DDX_PART_COST = 24.0
+
+
+def deconv_dx_candidates(b: int, h: int, w: int, cin: int, co: int):
+    """Every plan deconv5x5_s2_dx takes for dx [b,h,w,Cin] and Co: the ring
+    at each tile width dividing Cin with each of DDX_PARTS, its grid
+    within the launch's y extent; the thin path's one tile (128 pixels ×
+    128 channels, 64 where Cin is not a multiple of 128)."""
+    path = deconv_dx_path(cin, co, torch.bfloat16)
+    if path == "thin":
+        return [DdxPlan("thin", 128, 128 if cin % 128 == 0 else 64, 1)]
+    if path != "ring":
+        return []
+    tiles = cdx_box(b, h, w, CDX_BM)[3]
+    return [DdxPlan("ring", CDX_BM, tn, parts)
+            for tn in DDX_TILES_N
+            if cin % tn == 0 and tiles * (cin // tn) <= 65535
+            for parts in DDX_PARTS]
+
+
+def deconv_dx_blocks(b: int, h: int, w: int, cin: int, plan: DdxPlan) -> int:
+    """CTAs of a ring launch: tiles × column tiles × parts."""
+    tiles = cdx_box(b, h, w, plan.tile_m)[3]
+    return tiles * (cin // plan.tile_n) * plan.parts
+
+
+def deconv_dx_cost(b: int, h: int, w: int, cin: int, co: int,
+                   plan: DdxPlan) -> float:
+    """The model's relative time of a ring plan: its CTAs, each its part of
+    the 25·Co/64 items at the tile's cost plus a block's and the cluster's
+    fixed costs, in whole waves of one CTA an SM (DDxRing's deep ring)."""
+    per_item = (plan.tile_m * plan.tile_n / 16384.0
+                * _DDX_TILE_COST[plan.tile_n])
+    d = (-(-25 * (co // 64) // plan.parts) * per_item
+         + _DDX_BLOCK_COST + (plan.parts - 1) * _DDX_PART_COST)
+    return -(-deconv_dx_blocks(b, h, w, cin, plan) // SM_COUNT) * d
+
+
+@functools.lru_cache(maxsize=None)   # a training run repeats a few shapes
+def deconv_dx_plan(b: int, h: int, w: int, cin: int, co: int) -> DdxPlan:
+    """The plan of deconv5x5_s2_dx for dx [b,h,w,Cin] and Co: the thin
+    path's tile, or the ring's candidate cheapest by `deconv_dx_cost`;
+    ties to fewer parts, then the wider tile.  No plan has a workspace:
+    every part of a tile is in its cluster."""
+    cands = deconv_dx_candidates(b, h, w, cin, co)
+    if not cands:
+        raise ValueError(f"deconv5x5_s2_dx: no plan for {(b, h, w, cin)}"
+                         f"->{co}")
+    if cands[0].kernel == "thin":
+        return cands[0]
+    return min(cands, key=lambda p: (
+        deconv_dx_cost(b, h, w, cin, co, p), p.parts, -p.tile_n))
+
+
+def deconv_dx_route(b: int, h: int, w: int, cin: int, co: int,
+                    dtype: torch.dtype) -> str:
+    """A tag of the route `deconv_dx` takes for dx [b,h,w,Cin] (tools and
+    the smoke run): the kernel with its plan, or the conv and its path."""
+    if deconv_dx_path(cin, co, dtype) != "conv":
+        p = deconv_dx_plan(b, h, w, cin, co)
+        return (f"deconv5x5_s2_dx {p.kernel} {p.tile_m}x{p.tile_n} parts "
+                f"{p.parts}")
+    return f"conv5x5_s2_act {conv_path(co, cin, dtype)}"
+
+
+def _ddx_check(d, w):
+    if w.dim() != 4 or tuple(w.shape[:2]) != (5, 5):
+        raise ValueError(f"deconv5x5_s2_dx: w must be [5,5,Cin,Co], got "
+                         f"{tuple(w.shape)}")
+    if (d.dim() != 4 or d.shape[1] % 2 or d.shape[2] % 2
+            or d.shape[3] != w.shape[3]):
+        raise ValueError(f"deconv5x5_s2_dx: d must be [B,2H,2W,"
+                         f"{w.shape[3]}], got {tuple(d.shape)}")
+    _bwd_common("deconv5x5_s2_dx", [("d", d), ("w", w)], d.dtype)
+    if d.numel() // 4 // w.shape[3] * w.shape[2] >= 2**31:
+        raise ValueError("deconv5x5_s2_dx: dx too large for the kernel's "
+                         "int32 extents")
+
+
+def _deconv_dx_forward(d, w, plan=None):
+    if d.device.type == "cpu":
+        return deconv5x5_s2_dx_plain(d, w)
+    if d.device.type != "cuda":
+        raise ValueError(f"deconv5x5_s2_dx runs on cuda or cpu, not "
+                         f"{d.device}")
+    b, h, wd = d.shape[0], d.shape[1] // 2, d.shape[2] // 2
+    cin, co = w.shape[2], w.shape[3]
+    dx = torch.empty(b, h, wd, cin, dtype=d.dtype, device=d.device)
+    if deconv_dx_path(cin, co, d.dtype, _aligned16(d, w, dx)) == "conv":
+        raise ValueError(f"deconv5x5_s2_dx takes bf16 with Cin a multiple "
+                         f"of 64 and Co a multiple of 64 or at most 4, not "
+                         f"{d.dtype} {cin}->{co}")
+    plan = plan or deconv_dx_plan(b, h, wd, cin, co)
+    rc = _cdw_lib().t2i_deconv5x5_s2_dx(
+        d.data_ptr(), w.data_ptr(), dx.data_ptr(), b, h, wd, cin, co,
+        plan.tile_n, plan.parts, _stream(d))
+    if rc != 0:
+        raise RuntimeError(f"deconv5x5_s2_dx kernel launch failed: CUDA "
+                           f"error {rc}")
+    deconv5x5_s2_dx.launches += 1
+    return dx
+
+
+class _DeconvDx(torch.autograd.Function):
+    """dx is linear in d and in w: its adjoints are the transposed conv of
+    the cotangent with w (the forward whose dx it is) and the weight
+    gradient of the conv of d with w flipped and transposed, written in the
+    deconv's layout (conv5x5_s2_dw with flip), both on kernels, both
+    differentiable again."""
+
+    @staticmethod
+    def forward(ctx, d, w):
+        ctx.save_for_backward(d, w)
+        return _deconv_dx_forward(d, w)
+
+    @staticmethod
+    def backward(ctx, gdx):
+        d, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        gdx = gdx.to(d.dtype).contiguous()
+        dd = dw = None
+        if need[0]:
+            co = w.shape[3]
+            dd = deconv5x5_s2(gdx, w, torch.ones(co, device=d.device),
+                              torch.zeros(co, device=d.device), "none")
+        if need[1]:
+            dw = conv5x5_s2_dw(d, gdx, w.dtype, True)
+        return dd, dw
+
+
+def deconv5x5_s2_dx(d: torch.Tensor, w: torch.Tensor,
+                    plan: DdxPlan = None) -> torch.Tensor:
+    """dx [B,H,W,Cin] of deconv5x5_s2 for its cotangent d [B,2H,2W,Co]
+    (the activation's derivative and the scale already in it) and w
+    [5,5,Cin,Co] in d's dtype, by one hand-written kernel: w read as it
+    lies (no flipped copy), no bias, the parts of K of a tile summed in a
+    cluster (`plan` overrides `deconv_dx_plan`: a sweep's).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel (bf16, Cin a
+    multiple of 64, Co a multiple of 64 or at most 4) or raise.
+    Differentiable in d and w, at every order on kernels."""
+    _ddx_check(d, w)
+    if needs_grad(d, w):
+        return _DeconvDx.apply(d, w)
+    return _deconv_dx_forward(d, w, plan)
+
+
+deconv5x5_s2_dx.launches = 0
+
+
+def deconv_dx(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx of deconv5x5_s2 for its cotangent d, the route chosen by shape
+    (`deconv_dx_path`): `deconv5x5_s2_dx` (bf16 with Cin a multiple of 64
+    and Co a multiple of 64 or at most 4), else conv5x5_s2 of d with
+    `deconv_dx_weight(w)` and a zero bias through the differentiable
+    `conv5x5_s2_act` (f32, ragged channels)."""
+    if deconv_dx_path(w.shape[2], w.shape[3], d.dtype,
+                      _aligned16(d, w)) != "conv":
+        return deconv5x5_s2_dx(d, w)
+    return conv5x5_s2_act(d, deconv_dx_weight(w),
+                          torch.zeros(w.shape[2], device=d.device), "none")
+
+
+def deconv_dx_path_on_card(d, w, dx) -> str:
+    """The path t2i_deconv5x5_s2_dx_path reports for these tensors."""
+    return DDX_PATHS[_cdw_lib().t2i_deconv5x5_s2_dx_path(
+        d.data_ptr(), w.data_ptr(), dx.data_ptr(), w.shape[2], w.shape[3],
+        int(d.dtype == torch.bfloat16))]
+

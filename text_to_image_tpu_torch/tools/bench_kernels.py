@@ -42,10 +42,10 @@ stride-2 ops at their main-path shapes: forward + backward (the
 ``conv_transpose2d``, after the f32 gradients are held on two images; then
 dx (``conv5x5_s2_dx`` for the conv, its row tagged with its plan and the
 modes its launch reports, or ``deconv5x5_s2`` at the RGB layer;
-``conv5x5_s2_act`` for the deconv) and dw alone beside their plain
-versions and cuDNN's
-``conv2d_input`` (the deconv's: ``conv2d``) and ``conv2d_weight`` over the
-SAME-padded input; then ``conv5x5_s2_dw`` alone at every main-path call
+``deconv5x5_s2_dx`` for the deconv, tagged alike, its whole route
+``conv.deconv_dx`` timed) and dw alone beside their plain versions and
+cuDNN's ``conv2d_input`` (the deconv's: ``conv2d`` over the padded
+cotangent) and ``conv2d_weight`` over the SAME-padded input; then ``conv5x5_s2_dw`` alone at every main-path call
 (``CONV_DW_CALLS``: the 64 px and 256 px discriminators' convs at 3·64 and
 64 rows, the generator's deconvs in their own weight layout) beside
 ``conv2d_weight``, each dw row tagged with its plan: tile, parts of K and
@@ -152,19 +152,20 @@ BN_STEPS = ("bn_stats", "bn_act", "bn_bwd_reduce", "bn_bwd_apply")
 # the kernel of each row of the default table, and of each op's ``--grad``
 # table: the forward + backward row, then the backward's kernels alone (the
 # conv's dx conv5x5_s2_dx, or at the RGB layer, Cin 3, the transposed conv:
-# CONV_DX_VIA_DECONV; the deconv's dx the conv's forward kernel)
+# CONV_DX_VIA_DECONV; the deconv's dx deconv5x5_s2_dx, or for f32 and
+# ragged channels the conv's forward kernel: DECONV_DX_VIA_CONV)
 KERNELS = ("deconv5x5_s2", "conv5x5_s2_act", "upconv3x3_bias",
            "conditioning_join", *BN_STEPS)
 GRAD_TABLES = {
     "upconv": ("upconv3x3_bias fwd+bwd", "upconv3x3_dx", "upconv3x3_dw"),
     "conv": ("conv5x5_s2_act fwd+bwd", "conv5x5_s2_dx", "conv5x5_s2_dw"),
-    "deconv": ("deconv5x5_s2 fwd+bwd", "conv5x5_s2_act (deconv dx)",
-               "conv5x5_s2_dw")}
+    "deconv": ("deconv5x5_s2 fwd+bwd", "deconv5x5_s2_dx", "conv5x5_s2_dw")}
 CONV_DX_VIA_DECONV = "deconv5x5_s2 (conv dx)"
+DECONV_DX_VIA_CONV = "conv5x5_s2_act (deconv dx)"
 GRAD_KERNELS = GRAD_TABLES["upconv"]
 # the kernels that only the backwards launch
 BACKWARD_KERNELS = ("upconv3x3_dx", "upconv3x3_dw", "conv5x5_s2_dw",
-                    "conv5x5_s2_dx")
+                    "conv5x5_s2_dx", "deconv5x5_s2_dx")
 
 
 class L2Flush:
@@ -227,28 +228,54 @@ def half(n: int) -> int:
     return (n + 1) // 2
 
 
+def s2_taps(n: int) -> int:
+    """The (output, tap) pairs along one axis of a 5×5 stride-2 SAME conv
+    over an n-long input whose tap lands inside the input (the pads take
+    the rest): the conv, its transposed conv and both gradients pair the
+    same indices, so each does s2_taps(H)·s2_taps(W) products a channel
+    pair, not 25 an output pixel."""
+    no = half(n)
+    lo = ((no - 1) * 2 + 5 - n) // 2   # the SAME pad before the map
+    return sum(1 for i in range(no) for k in range(5)
+               if 0 <= 2 * i + k - lo < n)
+
+
+def up_taps(n: int) -> int:
+    """The same for upconv3x3 over an n-long input: each of the 2n outputs
+    sums two combined taps of the input, less the one past each end."""
+    return 4 * n - 2
+
+
+def s2_ops(b, h, w, cin, co) -> int:
+    """Operations of a 5×5 stride-2 SAME conv of [b,h,w,Cin] into Co
+    channels (or of its transposed conv, or either gradient)."""
+    return 2 * b * s2_taps(h) * s2_taps(w) * cin * co
+
+
 def deconv_work(shape, co, esize=2):
     """(bytes, operations) of one deconv5x5_s2: x, w, scale, shift and y
-    once; 2·25 multiply-adds a tap."""
+    once; 2 operations a product whose tap lands in the 2H×2W map."""
     b, h, w, cin = shape
     nb = esize * (b * h * w * cin + 25 * cin * co + b * 4 * h * w * co) + 8 * co
-    return nb, 2 * 25 * b * h * w * cin * co
+    return nb, s2_ops(b, 2 * h, 2 * w, cin, co)
 
 
 def conv_work(shape, co, esize=2):
-    """(bytes, operations) of one conv5x5_s2_act: x, w, bias and y once."""
+    """(bytes, operations) of one conv5x5_s2_act: x, w, bias and y once;
+    the products whose tap lands in x."""
     b, h, w, cin = shape
     m = b * half(h) * half(w)
     return (esize * (b * h * w * cin + 25 * cin * co + m * co) + 4 * co,
-            2 * 25 * m * cin * co)
+            s2_ops(b, h, w, cin, co))
 
 
 def upconv_work(shape, co, esize=2):
     """(bytes, operations) of one upconv3x3_bias: x, w, bias and y once;
-    4 combined taps for each of the 4 output parities."""
+    the combined taps (4 for each of the 4 output parities) that land in
+    x."""
     b, h, w, cin = shape
     return (esize * (b * h * w * cin + 9 * cin * co + b * 4 * h * w * co)
-            + 4 * co, 2 * 16 * b * h * w * cin * co)
+            + 4 * co, 2 * b * up_taps(h) * up_taps(w) * cin * co)
 
 
 def upconv_grad_work(shape, co, esize=2):
@@ -263,36 +290,45 @@ def upconv_grad_work(shape, co, esize=2):
 
 def upconv_dx_work(shape, co, esize=2):
     """(bytes, operations) of one upconv3x3_dx: g and w read once, dx
-    written once; 4 combined taps for each of the 4 parities."""
+    written once; the forward's products."""
     b, h, w, cin = shape
     return (esize * (b * 4 * h * w * co + 9 * cin * co + b * h * w * cin),
-            2 * 16 * b * h * w * cin * co)
+            upconv_work(shape, co, esize)[1])
 
 
 def upconv_dw_work(shape, co, esize=2):
     """(bytes, operations) of one upconv3x3_dw: x and g read once, dw
-    written once; the 16 combined-tap products over every pixel."""
+    written once; the forward's products."""
     b, h, w, cin = shape
     return (esize * (b * h * w * cin + b * 4 * h * w * co + 9 * cin * co),
-            2 * 16 * b * h * w * cin * co)
+            upconv_work(shape, co, esize)[1])
 
 
 def conv_dw_work(shape, co, esize=2):
     """(bytes, operations) of one conv5x5_s2_dw for x `shape` and Co: x
-    and g read once, dw written once; the forward's multiply-adds."""
+    and g read once, dw written once; the forward's products."""
     b, h, w, cin = shape
     m = b * half(h) * half(w)
     return (esize * (b * h * w * cin + m * co + 25 * cin * co),
-            2 * 25 * m * cin * co)
+            s2_ops(b, h, w, cin, co))
 
 
 def conv_dx_work(shape, co, esize=2):
     """(bytes, operations) of the conv's dx (the transposed conv of g): g
-    and w read once, dx written once; the forward's multiply-adds."""
+    and w read once, dx written once; the forward's products."""
     b, h, w, cin = shape
     m = b * half(h) * half(w)
     return (esize * (m * co + 25 * cin * co + b * h * w * cin),
-            2 * 25 * m * cin * co)
+            s2_ops(b, h, w, cin, co))
+
+
+def deconv_dx_work(shape, co, esize=2):
+    """(bytes, operations) of the deconv's dx for its input `shape` and Co:
+    the cotangent d [B,2H,2W,Co] and w read once, dx written once; the
+    deconv's products."""
+    b, h, w, cin = shape
+    return (esize * (b * 4 * h * w * co + 25 * cin * co + b * h * w * cin),
+            deconv_work(shape, co, esize)[1])
 
 
 def conv5_grad_work(shape, co, esize=2):
@@ -799,20 +835,32 @@ def bench_conv5_grad(op, device, flush, gen) -> List[Dict]:
             dx_work = conv_dx_work(shape, co)
             dw_x, dw_g, dw_shape, dw_co = x, g, shape, co
         else:
+            # the deconv's dx through its route (`deconv_dx`): on
+            # deconv5x5_s2_dx (its path read back and its plan tagged), else
+            # the conv of d with w flipped and a zero bias, the copy and
+            # fill included
             d, wc = g, conv.deconv_dx_weight(w)
-            zero = torch.zeros(cin, device=device)
-            dx = conv.conv5x5_s2_act(d, wc, zero, "none")
-            dx_ref = conv.conv5x5_s2_act_plain(d, wc, zero, "none")
-            dx_path = conv.conv_path_on_card(d, wc, dx)
+            dx = conv.deconv_dx(d, w)
+            if conv.deconv_dx_path(cin, co, bf) != "conv":
+                plan = conv.deconv_dx_plan(b, h, wd, cin, co)
+                dx_path = (f"{conv.deconv_dx_path_on_card(d, w, dx)} "
+                           f"{plan.tile_m}x{plan.tile_n} parts {plan.parts}")
+                dx_plain = (lambda: conv.deconv5x5_s2_dx_plain(d, w))
+            else:
+                zero = torch.zeros(cin, device=device)
+                dx_path = conv.conv_path_on_card(d, wc, dx)
+                dx_kind = DECONV_DX_VIA_CONV
+                dx_plain = (lambda: conv.conv5x5_s2_act_plain(d, wc, zero,
+                                                              "none"))
+            dx_ref = dx_plain()
             d_pad = F.pad(_nchw(d), (1, 2, 1, 2)).contiguous(
                 memory_format=torch.channels_last)
             wc_oihw = wc.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
             dx_lib = ("cuDNN conv2d", lambda: F.conv2d(d_pad, wc_oihw,
                                                        stride=2))
-            dx_fn = (lambda: conv.conv5x5_s2_act(d, wc, zero, "none"),
-                     lambda: conv.conv5x5_s2_act_plain(d, wc, zero, "none"))
-            dx_work = conv_work(out_shape[:3] + (co,), cin)
+            dx_fn = (lambda: conv.deconv_dx(d, w), dx_plain)
+            dx_work = deconv_dx_work(shape, co)
             dw_x, dw_g, dw_shape, dw_co = d, x, out_shape[:3] + (co,), cin
         err_dx = hold(dx, dx_ref, *TOL, f"{op} dx {shape}->{co}",
                       rel_to_max=True)

@@ -41,7 +41,16 @@ back against `conv_dx_modes`, and timed beside the plan `conv_dx_plan`
 picks, `conv_dx_cost`'s estimate, the route the conv's dx took before it
 (``deconv5x5_s2`` of gc with w flipped and transposed, the copy and the
 scale and shift fills timed with it) and cuDNN's ``conv2d_input``: the
-numbers the constants of `conv_dx_cost` were set from.
+numbers the constants of `conv_dx_cost` were set from.  ``--ops ddx``
+sweeps ``deconv5x5_s2_dx`` at every deconv dx of the generators and the
+gradient penalty (`ddx_shapes`): every plan of `deconv_dx_candidates` (the
+ring at each tile and each of ``DDX_PARTS`` in a cluster; the thin path's
+one tile), each held against the plain version, bit for bit between two
+runs, and timed beside the plan `deconv_dx_plan` picks, `deconv_dx_cost`'s
+estimate, the route the deconv's dx took before it (``conv5x5_s2_act`` of
+d with w flipped and a zero bias, the copy and the fill timed with it) and
+cuDNN's ``conv2d``: the numbers the constants of `deconv_dx_cost` were set
+from.
 Needs one NVIDIA GPU with nvcc.
 """
 
@@ -128,7 +137,7 @@ def sweep_grouped(op, shapes, gen, dev, flush):
 
             def run(plan):
                 return conv._deconv_forward(x, w, s, t, "relu", plan=plan)
-            flops = 2 * 25 * m * cin * co
+            flops = bench_kernels.deconv_work(shape, co)[1]
         else:
             ref = conv.upconv3x3_plain(x, w, s, t, "relu")
             w_t = w.permute(3, 2, 0, 1).contiguous(
@@ -140,7 +149,7 @@ def sweep_grouped(op, shapes, gen, dev, flush):
 
             def run(plan):
                 return conv._upconv_forward(x, w, s, t, "relu", plan=plan)
-            flops = 2 * 16 * m * cin * co
+            flops = bench_kernels.upconv_work(shape, co)[1]
         chosen = (conv.deconv_plan(m, co, cin) if op == "deconv"
                   else conv.upconv_plan(m, co, cin))
         times, model = {}, {}
@@ -189,7 +198,7 @@ def sweep_conv(gen, dev, flush):
                     memory_format=torch.channels_last)
                 b16 = b.to(torch.bfloat16)
                 lib = time_ms(lambda: F.conv2d(xp, w_t, b16, stride=2), flush)
-                flops = 2 * m * co * 25 * shape[-1]
+                flops = bench_kernels.conv_work(shape, co)[1]
                 chosen = conv.conv_plan(m, co, 25 * shape[-1])
                 times = {}
                 for plan in plans(m, co):
@@ -565,10 +574,88 @@ def sweep_cdx(gen, dev, flush):
     return bad, rows
 
 
+def ddx_shapes():
+    """((B, H, W, Cin), Co) of every deconv dx of a training tick at batch
+    64: the generator's four deconvs (GAN-CLS, GAN-INT, WGAN-CLS), then
+    the critic's first-layer dx that the gradient penalty's second order
+    differentiates (Cin 64 to Co 3)."""
+    b = bench_kernels.B
+    return [((b, 4, 4, 1024), 512), ((b, 8, 8, 512), 256),
+            ((b, 16, 16, 256), 128), ((b, 32, 32, 128), 3),
+            ((b, 32, 32, 64), 3)]
+
+
+def ddx_key(plan) -> str:
+    if plan.kernel == "ring":
+        return f"ring {plan.tile_n} x{plan.parts}"
+    return f"thin {plan.tile_n}"
+
+
+def sweep_ddx(gen, dev, flush):
+    """deconv5x5_s2_dx at `ddx_shapes`, bf16: every plan of
+    `deconv_dx_candidates` held against the plain version (within 1e-2 of
+    the largest |ref| plus 1e-2 of the element), bit for bit between two
+    launches, and timed;
+    beside the plan `deconv_dx_plan` picks, `deconv_dx_cost`, the conv
+    route and cuDNN's conv2d over the padded cotangent."""
+    bf = torch.bfloat16
+    bad, rows = 0, []
+    for shape, co in ddx_shapes():
+        b, h, w, cin = shape
+        d = torch.randn(b, 2 * h, 2 * w, co, generator=gen).to(bf).to(dev)
+        wt = (torch.randn(5, 5, cin, co, generator=gen) * 0.05).to(bf).to(dev)
+        ref = conv.deconv5x5_s2_dx_plain(d, wt).float()
+        lim = TOL * float(ref.abs().max())
+        chosen = conv.deconv_dx_plan(b, h, w, cin, co)
+        times, costs = {}, {}
+        for plan in conv.deconv_dx_candidates(b, h, w, cin, co):
+            got = conv.deconv5x5_s2_dx(d, wt, plan)
+            again = conv.deconv5x5_s2_dx(d, wt, plan)
+            torch.cuda.synchronize()
+            err = (got.float() - ref).abs()
+            n_bad = int((err > lim + TOL * ref.abs()).sum())
+            if n_bad or not torch.equal(got, again):
+                bad += 1
+                print(f"  FAIL ddx {shape}->{co} {ddx_key(plan)}: {n_bad} "
+                      f"elements, max |err| {float(err.max()):.3e}",
+                      flush=True)
+            times[ddx_key(plan)] = time_ms(
+                lambda: conv.deconv5x5_s2_dx(d, wt, plan), flush)
+            if plan.kernel == "ring":
+                costs[ddx_key(plan)] = conv.deconv_dx_cost(b, h, w, cin, co,
+                                                           plan)
+            del got, again
+        conv_ms = time_ms(lambda: conv.conv5x5_s2_act(
+            d, conv.deconv_dx_weight(wt), torch.zeros(cin, device=dev),
+            "none"), flush)
+        wc = conv.deconv_dx_weight(wt)
+        d_pad = F.pad(d.permute(0, 3, 1, 2), (1, 2, 1, 2)).contiguous(
+            memory_format=torch.channels_last)
+        wc_oihw = wc.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib_ms = time_ms(lambda: F.conv2d(d_pad, wc_oihw, stride=2), flush)
+        best = min(times, key=times.get)
+        pick = ddx_key(chosen)
+        print(f"ddx {list(shape)}->{co}: plan {pick} {times[pick]:.4f} ms, "
+              f"best {best} {times[best]:.4f}, conv route {conv_ms:.4f}, "
+              f"cuDNN {lib_ms:.4f}; "
+              + " ".join(f"[{k}] {v:.4f}"
+                         + (f" (model {costs[k]:.0f})" if k in costs else "")
+                         for k, v in times.items()), flush=True)
+        rows.append({"op": "ddx", "shape": list(shape), "co": co,
+                     "plan": pick, "best": best, "ms": times,
+                     "model": costs, "conv_route_ms": conv_ms,
+                     "cudnn_ms": lib_ms})
+        del d, wt, ref, wc, d_pad, wc_oihw
+        torch.cuda.empty_cache()
+    return bad, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ops", nargs="+", default=["conv", "deconv", "upconv"],
-                    choices=["conv", "deconv", "upconv", "dw", "dx", "cdx"])
+                    choices=["conv", "deconv", "upconv", "dw", "dx", "cdx",
+                             "ddx"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -600,6 +687,9 @@ def main() -> int:
         bad, rows = bad + b, rows + r
     if "cdx" in args.ops:
         b, r = sweep_cdx(gen, dev, flush)
+        bad, rows = bad + b, rows + r
+    if "ddx" in args.ops:
+        b, r = sweep_ddx(gen, dev, flush)
         bad, rows = bad + b, rows + r
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

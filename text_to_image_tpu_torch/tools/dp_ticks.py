@@ -80,7 +80,7 @@ def counters() -> list:
             conv.upconv3x3_dx, conv.upconv3x3_dw, fused.bn_stats,
             fused.bn_partials, fused.bn_finish, fused.bn_act,
             fused.bn_bwd_reduce, fused.bn_bwd_apply, fused.conditioning_join,
-            conv.conv5x5_s2_dw, conv.conv5x5_s2_dx]
+            conv.conv5x5_s2_dw, conv.conv5x5_s2_dx, conv.deconv5x5_s2_dx]
 
 
 def _sync(device: torch.device) -> None:

@@ -108,10 +108,14 @@ def kernel_family(name: str) -> str:
             # under CDxRing (so before "dx90::"), else the up-block's dx
             (("namespace)::cdw",), "conv5x5_s2_dw (CUDA)"),
             (("cdxring", "namespace)::cdxp::"), "conv5x5_s2_dx (CUDA)"),
+            # the deconv's dx: the ring under DDxRing, down0.cuh's kernel
+            # under DDxThin (so before "down0::kernel", the conv's RGB
+            # layer)
+            (("ddxring", "ddxthin"), "deconv5x5_s2_dx (CUDA)"),
             (("namespace)::upconvdx", "namespace)::dx_", "namespace)::dw_",
               "dx90::"), "upconv3x3 backward (CUDA)"),
             (("namespace)::upconv", "combine_kernel"), "upconv3x3 (CUDA)"),
-            (("namespace)::conv", "down0_mma_kernel"),
+            (("namespace)::conv", "down0_mma_kernel", "down0::kernel"),
              "conv5x5_s2_act (CUDA)"),
             (("namespace)::join", "join_text_kernel"),
              "conditioning_join (CUDA)"),
