@@ -649,8 +649,8 @@ def grouped_vs_plain(conv, op, args, dtype, what, want_path=None):
         got = conv.upconv3x3(*args)
         ref = conv.upconv3x3_plain(*args)
         path = conv.upconv_path_on_card(x, conv.combined_weights(w), got)
-        mirror = conv.upconv_path(cin, co, dtype)
-        want = want_path or expected_upconv_path(cin, co, dtype)
+        mirror = conv.upconv_path(wd, cin, co, dtype)
+        want = want_path or expected_upconv_path(cin, co, dtype, wd)
         plan = conv.upconv_plan(b * h * wd, co, cin) if path == "wgmma" else None
     torch.cuda.synchronize()
     check(got.shape == ref.shape, f"{what}: shape {got.shape}")
@@ -748,12 +748,31 @@ def expected_deconv_path(cin, co, dtype):
     return "pipelined" if cin % 8 == 0 and co % 8 == 0 else "tile"
 
 
-def expected_upconv_path(cin, co, dtype):
-    """The upconv path the port is meant to take for a contiguous tensor."""
+# the code paths that no bf16 call on a main path may take any more: the
+# mma.sync and FMA tiles of igemm.cuh and the FMA direct kernels (names of
+# the *_PATHS tuples; a dw mode that shares a name is not a path)
+PRE_HOPPER_PATHS = ("pipelined", "tile", "direct")
+
+
+def pre_hopper_calls(tables):
+    """(table, shape, path) of every call in `tables` (name → rows with a
+    "path") whose code path, the path tag's first word, is one of
+    PRE_HOPPER_PATHS."""
+    return [(name, r.get("shape"), r["path"])
+            for name, table in tables.items() for r in table
+            if isinstance(r.get("path"), str)
+            and (r["path"].split() or [""])[0] in PRE_HOPPER_PATHS]
+
+
+def expected_upconv_path(cin, co, dtype, width):
+    """The upconv path the port is meant to take for a contiguous tensor
+    of x [B,H,width,Cin]."""
     if dtype != torch.bfloat16:
         return "tile"
     if cin % 64 == 0 and co % 64 == 0:
         return "wgmma"
+    if cin == 64 and co % 32 == 0 and width % 128 == 0:
+        return "co32"
     return "pipelined" if cin % 8 == 0 and co % 8 == 0 else "tile"
 
 
@@ -1758,7 +1777,7 @@ def phase_upconv_timing(device, flush):
             flops = 2 * b * up_taps(h) * up_taps(wd) * cin * co
             nb = nbytes(x, w, t, y)
             bms, by = bound(nb, flops, dtype)
-            path = conv.upconv_path(cin, co, dtype)
+            path = conv.upconv_path(wd, cin, co, dtype)
             plan = (conv.upconv_plan(b * h * wd, co, cin) if path == "wgmma"
                     else None)
             tag = grouped_tag(conv, path, plan, h, wd)
@@ -3233,12 +3252,20 @@ def phase_gp_cost(device):
     return r
 
 
+# the co32 kernel beside the C-PGGAN shapes (bf16): the 256 px call at
+# batch 64, Co 96 (three 32-channel columns) and a map of 96-pixel rows,
+# which its tiles do not cover (pipelined)
+PGGAN_CO32_EXTRA = [((64, 128, 128, 64), 32), ((8, 128, 128, 64), 96),
+                    ((2, 16, 96, 64), 32)]
+
+
 def phase_pggan_upconv(device, flush):
     """upconv3x3_bias with lrelu (the C-PGGAN up-block; equalized-LR
     weights N(0, 2/(9·Cin)), inputs of unit scale as PixelNorm leaves them)
-    against its plain version at the six C-PGGAN shapes, bf16 and f32, the
-    path read back from the C entry point; bf16 timed beside the plain
-    version and F.interpolate + cuDNN."""
+    against its plain version at the six C-PGGAN shapes, bf16 and f32, and
+    at PGGAN_CO32_EXTRA in bf16, the path read back from the C entry point
+    and held against the expected one; bf16 timed beside the plain version
+    and F.interpolate + cuDNN (the extra shapes that take co32)."""
     import torch.nn.functional as F
 
     from text_to_image_tpu_torch.ops.kernels import conv
@@ -3246,7 +3273,8 @@ def phase_pggan_upconv(device, flush):
     errs, rows = {}, []
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype)[6:]
-        for shape, co in PGGAN_UPCONV_SHAPES:
+        extra = PGGAN_CO32_EXTRA if dtype == torch.bfloat16 else []
+        for shape, co in PGGAN_UPCONV_SHAPES + extra:
             b, h, wd, cin = shape
             x = torch.randn(shape, generator=gen).to(dtype).to(device)
             w = (torch.randn(3, 3, cin, co, generator=gen)
@@ -3255,13 +3283,20 @@ def phase_pggan_upconv(device, flush):
             got = conv.upconv3x3_bias(x, w, t, "lrelu")
             torch.cuda.synchronize()
             path = conv.upconv_path_on_card(x, conv.combined_weights(w), got)
-            check(path == expected_upconv_path(cin, co, dtype),
-                  f"upconv {dt} {shape}->{co}: path {path}")
+            want = expected_upconv_path(cin, co, dtype, wd)
+            check(path == conv.upconv_path(wd, cin, co, dtype) == want,
+                  f"upconv {dt} {shape}->{co}: path {path}, expected {want}")
+            if path == "co32":
+                again = conv.upconv3x3_bias(x, w, t, "lrelu")
+                check(torch.equal(got, again),
+                      f"upconv {dt} {shape}->{co}: two co32 runs differ")
+                del again
             ref = upconv_bias_plain(x, w, t, "lrelu")
-            errs[(dtype, shape)] = compare(
+            errs[(dtype, (shape, co))] = compare(
                 got, ref, *TOL[dtype],
                 f"upconv3x3_bias {dt} {shape}->{co} lrelu [{path}]")
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and ((shape, co) not in extra
+                                            or path == "co32"):
                 x_cl = x.permute(0, 3, 1, 2)
                 w_t = w.permute(3, 2, 0, 1).contiguous(
                     memory_format=torch.channels_last)
@@ -3275,6 +3310,7 @@ def phase_pggan_upconv(device, flush):
                 nb = nbytes(x, w, t, got)
                 bms, by = bound(nb, flops, dtype)
                 r = {"shape": [list(shape), co, "lrelu"], "path": path,
+                     "main_path": (shape, co) in PGGAN_UPCONV_SHAPES,
                      "ms": time_ms(lambda: conv.upconv3x3_bias(x, w, t,
                                                                "lrelu"),
                                    flush),
@@ -3380,30 +3416,62 @@ def phase_pggan_progression(device, runs):
     return {"stages": stages, "wall_s": wall}, launches
 
 
+@contextlib.contextmanager
+def upconv_path_spy(seen):
+    """Records the path the C entry point reports for every upconv3x3
+    forward on the card, as a row {"shape", "dtype", "path"}; the combined
+    weights it passes come from the combine kernel, which no launch count
+    counts."""
+    from text_to_image_tpu_torch.ops.kernels import conv
+    real = conv._upconv_forward
+
+    def spy(x, w, scale, shift, act, plan=None):
+        y = real(x, w, scale, shift, act, plan)
+        seen.append({"shape": [list(x.shape), w.shape[-1], act],
+                     "dtype": str(x.dtype)[6:],
+                     "path": conv.upconv_path_on_card(
+                         x, conv.combined_weights(w), y)})
+        return y
+
+    conv._upconv_forward = spy
+    try:
+        yield
+    finally:
+        conv._upconv_forward = real
+
+
 def phase_pggan_256(device, runs):
     """One stage-7 tick of configs/pggan_flowers_256.yml (256 px, B 32,
     bf16) through ``main.py --train``: the 128²×64→32 up-block call runs
-    on the training path with lrelu."""
-    from text_to_image_tpu_torch.ops.kernels import conv
+    on the training path with lrelu, on the co32 kernel (its path read
+    back from the C entry point inside the tick)."""
     argv = ["--cfg", os.path.join(ROOT, "configs", "pggan_flowers_256.yml"),
             "--train", "--steps", "1", "--device", str(device), "--set",
             "data.dataset_name=synthetic", "train.summary_interval=1",
             "pggan.stage=7", *run_dirs(os.path.join(runs, "pggan256"))]
+    seen = []
     t0 = time.perf_counter()
-    trainer, launches, _ = drive(argv)
+    with upconv_path_spy(seen):
+        trainer, launches, _ = drive(argv)
     wall = time.perf_counter() - t0
     cfg = trainer.cfg
     check((cfg.data.image_size, cfg.train.batch_size, cfg.pggan.stage,
            cfg.dtype) == (256, 32, 7, "bfloat16"), f"config {cfg}")
     want = pggan_launches(7, 1, 0, cfg)
+    last_call = [r for r in seen if r["shape"] == [[32, 128, 128, 64], 32,
+                                                   "lrelu"]]
     log(f"  pggan 256 px stage-7 tick: launches {launches} ({wall:.1f} s); "
-        f"the 128²×64→32 call's path "
-        f"{conv.upconv_path(64, 32, torch.bfloat16)}")
+        f"the 128²×64→32 call's paths (read back from C) "
+        f"{sorted({r['path'] for r in last_call})}, "
+        f"{len(last_call)} calls")
     check(launches == want, f"launches {launches}, expected {want}")
+    check(len(seen) == want["upconv3x3"], f"upconv calls seen {len(seen)}")
+    check(last_call and all(r["path"] == "co32" for r in last_call),
+          f"the 128²×64→32 call's paths {last_call}")
     last = trainer.history[-1]
     check_metrics(last, ("d_loss", "w_dist", "d_wrong", "gp", "g_loss",
                          "kl"), "pggan 256")
-    return last, launches
+    return {**last, "upconv_paths": seen}, launches
 
 
 # --- phase 10: Inception-score eval ---------------------------------------------
@@ -5161,6 +5229,31 @@ def run(runs: str) -> int:
             f"{r['bound_ms']:.4f} ({r['bound_by']}), plain "
             f"{r['plain_ms']:.4f}")
 
+    # no bf16 call of a main path on a pre-Hopper path: every table of
+    # main-path calls this run recorded (the timing rows, the microbench's,
+    # the backward kernels' at the main shapes, the stage-7 tick's upconv
+    # calls read back from C)
+    main_shapes = {(tuple(s), c) for s, c in (
+        UPCONV_SHAPES["stage1"] + UPCONV_SHAPES["stage2"]
+        + PGGAN_UPCONV_SHAPES + DX_CO32_B64)}
+    main_tables = {
+        **{f"timing {k}": v for k, v in rows.items()},
+        **{f"backward timing {k}": v for k, v in bwd_rows.items()},
+        "C-PGGAN upconv": [r for r in pg_upconv_rows if r["main_path"]],
+        "256 px D": conv_256_rows,
+        "up-block backward": [
+            r for r in bwd_paths if r.get("dtype") == "bfloat16"
+            and r["kernel"].startswith("upconv3x3")
+            and (tuple(r["shape"][0]), r["shape"][1]) in main_shapes],
+        "microbench": scripts["bench_kernels"]["rows"],
+        "microbench --grad": scripts["bench_kernels_grad"]["rows"],
+        "stage-7 tick": [r for r in pggan["stage7_256px"]["upconv_paths"]
+                         if r["dtype"] == "bfloat16"]}
+    stale = pre_hopper_calls(main_tables)
+    log(f"  bf16 main-path calls on {PRE_HOPPER_PATHS}: {stale} (over "
+        f"{sum(len(t) for t in main_tables.values())} recorded calls)")
+    check(not stale, f"bf16 main-path calls on a pre-Hopper path: {stale}")
+
     src = "text_to_image_tpu_torch/"
     meta = {
         "deconv5x5_s2": ("cuda", src + "csrc/deconv5x5_s2.cu",
@@ -5217,6 +5310,12 @@ def run(runs: str) -> int:
         return sum(r[key] * (1 if r.get("batch", D_BATCH) == D_BATCH else 2)
                    for r in per)
 
+    # upconv3x3's co32 call (C-PGGAN 256 px's 128²×64→32 at batch 32,
+    # phase 9b): its own time, bound and library time on the line
+    co32_call = [r for r in pg_upconv_rows
+                 if r["shape"] == [[32, 128, 128, 64], 32, "lrelu"]]
+    check(len(co32_call) == 1 and co32_call[0]["path"] == "co32",
+          f"the co32 call's row {co32_call}")
     kernels = []
     for name, (route, source, replaces) in meta.items():
         per = rows[name]
@@ -5245,6 +5344,13 @@ def run(runs: str) -> int:
                        + bwd_rows.get(name, [])
                        + (pg_upconv_rows if name == "upconv3x3" else [])),
         })
+        if name == "upconv3x3":
+            kernels[-1]["co32_call"] = {
+                "source": src + "csrc/upconv_co32.cuh",
+                "replaces": "text_to_image_tpu/ops/pallas/conv.py:424",
+                **{k: co32_call[0][k] for k in ("shape", "path", "ms",
+                                                "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}}
 
     # the data-parallel BN's two kernels: one GAN-CLS generator forward of a
     # rank of 2 (its four BN calls on the rank's half of batch 64)

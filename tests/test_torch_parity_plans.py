@@ -258,16 +258,16 @@ def test_deep_deconv_calls_take_wgmma_and_the_rgb_layer_direct():
                             + smoke.WGMMA_UPCONV_ODD_SHAPES])
 def test_upconv_path_mirror_sends_each_shape_where_the_smoke_run_expects(
         shape, co):
-    cin = shape[-1]
+    cin, wd = shape[-1], shape[2]
     for dtype in (BF16, F32):
-        got = conv.upconv_path(cin, co, dtype)
-        assert got == smoke.expected_upconv_path(cin, co, dtype)
+        got = conv.upconv_path(wd, cin, co, dtype)
+        assert got == smoke.expected_upconv_path(cin, co, dtype, wd)
         assert got in conv.UPCONV_PATHS
     main = [(s, c) for st in smoke.UPCONV_SHAPES.values() for s, c in st]
     if (shape, co) in main or (shape, co) in [
             (s, c) for s, c, _ in smoke.WGMMA_UPCONV_ODD_SHAPES]:
-        assert conv.upconv_path(cin, co, BF16) == "wgmma"
-    assert conv.upconv_path(cin, co, BF16, aligned=False) != "wgmma"
+        assert conv.upconv_path(wd, cin, co, BF16) == "wgmma"
+    assert conv.upconv_path(wd, cin, co, BF16, aligned=False) != "wgmma"
 
 
 # ---- plans

@@ -77,6 +77,8 @@ def test_tick_config_is_the_shipped_yaml_on_synthetic_data(model):
      "conv5x5_s2_dx (CUDA)"),
     ("void dx90::ring_kernel<128, 128, 64, dx90::UpconvRing>(...)",
      "upconv3x3 backward (CUDA)"),
+    ("void up32::up32_kernel<false>(up32::Params, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st)", "upconv3x3 (CUDA)"),
     ("void (anonymous namespace)::thin::thin_kernel<64, 4>((anonymous "
      "namespace)::thin::P, CUtensorMap_st)", "deconv5x5_s2 (CUDA)"),
     ("void (anonymous namespace)::bn_reduce_kernel<true>",

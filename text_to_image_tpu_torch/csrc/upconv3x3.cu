@@ -61,12 +61,19 @@
 //    blocks per SM keep their parity's weights in shared memory and stream
 //    many row tiles through one ring.  A split of K is a candidate too; on
 //    the H100 no main-path call is faster with one.
+//  * co32 (upconv_co32.cuh): bf16 with Cin 64 and Co a multiple of 32 but
+//    not of 64 on maps of 128-pixel row segments (W % 128 == 0) -- C-PGGAN
+//    256 px's 128^2x64->32 up-block: a block keeps its 32-channel column of
+//    wc resident, walks consecutive rows of a segment with one staged row
+//    of x loaded a tile, reads the 16 products' taps by shifted descriptor
+//    starts, and stores whole output rows by TMA.
 //  * pipelined / tile (igemm.cuh, mma.sync / f32 FMA): bf16 with channels
-//    that are multiples of 8 but not of 64; f32 and ragged channels (the
-//    simple tile masks Cin, Co and M, so it takes every shape).
+//    that are multiples of 8 on the other shapes; f32 and ragged channels
+//    (the simple tile masks Cin, Co and M, so it takes every shape).
 // The epilogue runs in f32 and stores each output once.
 
 #include "igemm_sm90.cuh"
+#include "upconv_co32.cuh"
 
 namespace {
 
@@ -206,7 +213,7 @@ __global__ void __launch_bounds__(256)
     }
 }
 
-enum Path { kTile = 0, kPipelined = 1, kWgmma = 2 };
+enum Path { kTile = 0, kPipelined = 1, kWgmma = 2, kCo32 = 3 };
 
 Upconv make_upconv(const void* x, const void* wc, const void* scale,
                    const void* shift, void* y, int B, int H, int W, int Cin,
@@ -235,7 +242,9 @@ Upconv make_upconv(const void* x, const void* wc, const void* scale,
 // The path a call takes: from shapes, types and alignment only.
 int upconv_path(const Upconv& p, bool bf16) {
   if (bf16 && igemm90::applies(p)) return kWgmma;
-  return bf16 && p.vec_a && p.vec_w && p.vec_y ? kPipelined : kTile;
+  const bool vec = p.vec_a && p.vec_w && p.vec_y;
+  if (bf16 && vec && up32::applies(p.Cin, p.N, p.W)) return kCo32;
+  return bf16 && vec ? kPipelined : kTile;
 }
 
 }  // namespace
@@ -256,19 +265,19 @@ extern "C" int t2i_upconv3x3_combine(const void* w, void* wc, int Cin, int Co,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The path t2i_upconv3x3 takes for these pointers and shapes: 0 the simple
-// tile, 1 the pipelined tile, 2 wgmma.
+// The path t2i_upconv3x3 takes for these pointers and shapes (x's width W):
+// 0 the simple tile, 1 the pipelined tile, 2 wgmma, 3 co32.
 extern "C" int t2i_upconv3x3_path(const void* x, const void* wc, const void* y,
-                                  int Cin, int Co, int bf16) {
+                                  int W, int Cin, int Co, int bf16) {
   return upconv_path(make_upconv(x, wc, nullptr, nullptr, const_cast<void*>(y),
-                                 1, 1, 1, Cin, Co, 0, bf16),
+                                 1, 1, W, Cin, Co, 0, bf16),
                      bf16 != 0);
 }
 
 // Launches on `stream` and returns the CUDA error code (0 when launched).
 // wc is the combined weight [16][Cin][Co], parity-major ((py*2+px)*4 + a*2+b).
 // `tile` (igemm90::TileId, kResident128x64 included) and the parts of K of
-// parities 0-3 (p0..p3, whole taps each) are read on the wgmma path only; a
+// parities 0-3 (p0..p3, whole taps each) are read on the wgmma path; a
 // part count above 1 needs `ws`, f32 scratch of one B*H*W x Co plane per
 // part of every split parity.  No path gives way to another.
 extern "C" int t2i_upconv3x3(const void* x, const void* wc, const void* scale,
@@ -279,7 +288,11 @@ extern "C" int t2i_upconv3x3(const void* x, const void* wc, const void* scale,
   const Upconv p =
       make_upconv(x, wc, scale, shift, y, B, H, W, Cin, Co, act, bf16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (upconv_path(p, bf16 != 0) == kWgmma) {
+  const int path = upconv_path(p, bf16 != 0);
+  if (path == kCo32)
+    return static_cast<int>(up32::launch(x, wc, p.scale, p.shift, y, B, H,
+                                         W, Cin, Co, act, s));
+  if (path == kWgmma) {
     const int parts[4] = {p0, p1, p2, p3};
     return static_cast<int>(
         igemm90::launch(p, tile, parts, static_cast<float*>(ws), s));

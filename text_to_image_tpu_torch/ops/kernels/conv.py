@@ -34,11 +34,15 @@ exists.  Replaces `upconv3x3` / `upconv3x3_bias` (Pallas bodies
 `_upconv_kernel` and, for maps over 32×32, `_upconv_halo_kernel`).  CUDA
 kernel: ``csrc/upconv3x3.cu``; a CUDA tensor always goes through it, in
 sampling and in training (the JAX package's per-shape dispatch tables are
-TPU measurements and are not carried over).  Three code paths
+TPU measurements and are not carried over).  Four code paths
 (`upconv_path` mirrors the rule): ``wgmma`` for bf16 with Cin and Co
 multiples of 64 (all eight StackGAN calls; `upconv_plan` picks the tile,
 the split of K, or the resident kernel for K of at most 8 slices),
-``pipelined`` / ``tile`` otherwise.  The combined weights come from one
+``co32`` for bf16 with Cin 64 and Co a multiple of 32 but not of 64 on maps
+of 128-pixel row segments (C-PGGAN 256 px's 128²×64→32 call: the 16
+products of a row of a segment from staged rows of x by shifted descriptor
+starts, the weights resident, whole output rows by TMA), ``pipelined`` /
+``tile`` otherwise.  The combined weights come from one
 kernel launch (`combined_weights`).  Its backward is two hand-written
 kernels of ``csrc/upconv3x3_bwd.cu`` over the same combined taps
 (`upconv3x3_dx`: one GEMM over 16 taps of the cotangent, A by TMA from
@@ -866,24 +870,47 @@ def _upconv_lib() -> ctypes.CDLL:
         # x, wc, scale, shift, y, ws; B, H, W, Cin, Co, act, bf16, tile,
         # parts of parities 0-3; stream
         "t2i_upconv3x3": [_PTR] * 6 + [_INT] * 12 + [_PTR],
-        # x, wc, y; Cin, Co, bf16
-        "t2i_upconv3x3_path": [_PTR] * 3 + [_INT] * 3,
+        # x, wc, y; W, Cin, Co, bf16
+        "t2i_upconv3x3_path": [_PTR] * 3 + [_INT] * 4,
         # w, wc; Cin, Co, bf16; stream
         "t2i_upconv3x3_combine": [_PTR] * 2 + [_INT] * 3 + [_PTR]})
 
 
 # The kernel's code paths in the order of the C entry point's codes
 # (csrc/upconv3x3.cu `Path`), chosen from shapes, types and alignment.
-UPCONV_PATHS = ("tile", "pipelined", "wgmma")
+UPCONV_PATHS = ("tile", "pipelined", "wgmma", "co32")
+
+# The co32 kernel (csrc/upconv_co32.cuh): input pixels of its tile (one
+# row segment) and staged rows in its ring
+CO32_SEG = 128
+CO32_RING = 4
+# its 16 products in the order it stages their weights (csrc/upconv_co32.cuh
+# `first`, `parity`, `wc_tap`): the shift (dy, dx) = (py+a−1, px+c−1) of x
+# they read, row-major, then their parities (py, px), py-major; each
+# (dy, dx, py, px, a, c)
+CO32_PRODUCTS = tuple(sorted((py + a - 1, px + c - 1, py, px, a, c)
+                             for py in (0, 1) for px in (0, 1)
+                             for a in (0, 1) for c in (0, 1)))
 
 
-def upconv_path(cin: int, co: int, dtype: torch.dtype,
+def co32_covers(cin: int, co: int, width: int) -> bool:
+    """Whether the co32 kernel takes these channels on a map `width` pixels
+    wide (csrc/upconv_co32.cuh `applies`): Cin 64, Co a multiple of 32 but
+    not of 64, rows of whole 128-pixel segments."""
+    return cin == 64 and co % 32 == 0 and co % 64 != 0 and \
+        width % CO32_SEG == 0
+
+
+def upconv_path(width: int, cin: int, co: int, dtype: torch.dtype,
                 aligned: bool = True) -> str:
-    """The Python mirror of `upconv_path` in csrc/upconv3x3.cu.  `aligned`:
-    x, the combined weights and y start on 16-byte boundaries."""
+    """The Python mirror of `upconv_path` in csrc/upconv3x3.cu for x
+    [B,H,width,Cin] and Co.  `aligned`: x, the combined weights and y start
+    on 16-byte boundaries."""
     bf16 = dtype == torch.bfloat16
     if bf16 and cin % 64 == 0 and co % 64 == 0 and aligned:
         return "wgmma"
+    if bf16 and aligned and co32_covers(cin, co, width):
+        return "co32"
     return ("pipelined" if bf16 and aligned and cin % 8 == 0 and co % 8 == 0
             else "tile")
 
@@ -927,7 +954,7 @@ def _upconv_forward(x, w, scale, shift, act, plan=None):
     wc = combined_weights(w)
     y = torch.empty(b, 2 * h, 2 * wd, co, dtype=x.dtype, device=x.device)
     tile, parts, ws = 0, (1, 1, 1, 1), None
-    if upconv_path(cin, co, x.dtype, _aligned16(x, wc, y)) == "wgmma":
+    if upconv_path(wd, cin, co, x.dtype, _aligned16(x, wc, y)) == "wgmma":
         rows = b * h * wd
         tile, parts, ws = _grouped_launch_args(
             x, plan or upconv_plan(rows, co, cin), rows, co)
@@ -945,8 +972,8 @@ def _upconv_forward(x, w, scale, shift, act, plan=None):
 def upconv_path_on_card(x, wc, y) -> str:
     """The path the C entry point itself reports for these tensors."""
     return UPCONV_PATHS[_upconv_lib().t2i_upconv3x3_path(
-        x.data_ptr(), wc.data_ptr(), y.data_ptr(), x.shape[-1], wc.shape[-1],
-        int(x.dtype == torch.bfloat16))]
+        x.data_ptr(), wc.data_ptr(), y.data_ptr(), x.shape[2], x.shape[-1],
+        wc.shape[-1], int(x.dtype == torch.bfloat16))]
 
 
 def _upconv_composed(x, w, scale, shift, act):

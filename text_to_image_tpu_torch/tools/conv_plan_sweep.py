@@ -50,7 +50,10 @@ runs, and timed beside the plan `deconv_dx_plan` picks, `deconv_dx_cost`'s
 estimate, the route the deconv's dx took before it (``conv5x5_s2_act`` of
 d with w flipped and a zero bias, the copy and the fill timed with it) and
 cuDNN's ``conv2d``: the numbers the constants of `deconv_dx_cost` were set
-from.
+from.  ``--ops up32`` holds ``upconv3x3``'s co32 kernel (C-PGGAN 256
+px's 128²×64→32 call at batch 32 and 64, Co 96, odd maps it covers; it
+has no plan to pick) against the plain version, bit for bit between two
+runs, and times it beside the bound and F.interpolate + cuDNN + act.
 Needs one NVIDIA GPU with nvcc.
 """
 
@@ -651,11 +654,77 @@ def sweep_ddx(gen, dev, flush):
     return bad, rows
 
 
+# upconv3x3's co32 kernel: C-PGGAN 256 px's call (B 32) and at B 64, Co 96,
+# and maps it covers at odd sizes (two and three segments, one row, odd
+# rows, one image); act with each
+UP32_SHAPES = [((32, 128, 128, 64), 32, "lrelu"),
+               ((64, 128, 128, 64), 32, "lrelu"),
+               ((8, 128, 128, 64), 96, "lrelu"),
+               ((1, 5, 256, 64), 32, "relu"), ((3, 1, 128, 64), 32, "none"),
+               ((2, 3, 384, 64), 96, "tanh")]
+
+
+def sweep_up32(gen, dev, flush):
+    """upconv3x3's co32 kernel at `UP32_SHAPES` (it has no plan to pick):
+    held against the plain version, bit for bit between two launches, its
+    path read back from C, and timed beside the bound and F.interpolate +
+    cuDNN + act."""
+    bf = torch.bfloat16
+    bad, rows = 0, []
+    for shape, co, act in UP32_SHAPES:
+        b, h, w, cin = shape
+        x = torch.randn(shape, generator=gen).to(bf).to(dev)
+        wt = (torch.randn(3, 3, cin, co, generator=gen)
+              * (2.0 / (9 * cin)) ** 0.5).to(bf).to(dev)
+        s = (1.0 + 0.1 * torch.randn(co, generator=gen)).to(dev)
+        t = (0.1 * torch.randn(co, generator=gen)).to(dev)
+        ref = conv.upconv3x3_plain(x, wt, s, t, act)
+        got = conv.upconv3x3(x, wt, s, t, act)
+        again = conv.upconv3x3(x, wt, s, t, act)
+        torch.cuda.synchronize()
+        path = conv.upconv_path_on_card(x, conv.combined_weights(wt), got)
+        e, n = worst(got, ref)
+        same = torch.equal(got, again)
+        if path != "co32" or conv.upconv_path(w, cin, co, bf) != "co32" \
+                or n or not same:
+            bad += 1
+            print(f"  FAIL up32 {shape}->{co}: path {path}, max|err| "
+                  f"{e:.3e}, {n} out of tolerance, two runs bit-identical "
+                  f"{same}", flush=True)
+        ms = time_ms(lambda: conv.upconv3x3(x, wt, s, t, act), flush)
+        x_cl = x.permute(0, 3, 1, 2)
+        w_cl = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        t16 = t.to(bf)
+
+        def lib():
+            out = F.conv2d(F.interpolate(x_cl, scale_factor=2,
+                                         mode="nearest"), w_cl, t16,
+                           padding=1)
+            return {"lrelu": lambda v: F.leaky_relu(v, 0.2),
+                    "relu": F.relu, "tanh": torch.tanh}.get(
+                        act, lambda v: v)(out)
+        lib_ms = time_ms(lib, flush)
+        nb, flops = bench_kernels.upconv_work(shape, co)
+        bound_ms, by = bench_kernels.bound(nb, flops, bf)
+        print(f"up32 {list(shape)}->{co} {act} [{path}]: {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ({by}, {ms / bound_ms:.2f}x), "
+              f"interpolate+cuDNN {lib_ms:.4f}, max|err| {e:.3e}",
+              flush=True)
+        rows.append({"op": "up32", "shape": [list(shape), co, act],
+                     "path": path, "ms": ms, "bound_ms": bound_ms,
+                     "bound_by": by, "library_ms": lib_ms,
+                     "max_abs_err": e})
+        del x, wt, ref, got, again, x_cl, w_cl
+        torch.cuda.empty_cache()
+    return bad, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ops", nargs="+", default=["conv", "deconv", "upconv"],
                     choices=["conv", "deconv", "upconv", "dw", "dx", "cdx",
-                             "ddx"])
+                             "ddx", "up32"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -668,7 +737,7 @@ def main() -> int:
     for name in names:
         for line in _build.ptxas_report(name).splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling",
-                                       "warning", "error")):
+                                       "warning", "error", "Performance")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     flush = bench_kernels.L2Flush(dev)
     bad, rows = 0, []
@@ -690,6 +759,9 @@ def main() -> int:
         bad, rows = bad + b, rows + r
     if "ddx" in args.ops:
         b, r = sweep_ddx(gen, dev, flush)
+        bad, rows = bad + b, rows + r
+    if "up32" in args.ops:
+        b, r = sweep_up32(gen, dev, flush)
         bad, rows = bad + b, rows + r
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -114,7 +114,8 @@ def kernel_family(name: str) -> str:
             (("ddxring", "ddxthin"), "deconv5x5_s2_dx (CUDA)"),
             (("namespace)::upconvdx", "namespace)::dx_", "namespace)::dw_",
               "dx90::"), "upconv3x3 backward (CUDA)"),
-            (("namespace)::upconv", "combine_kernel"), "upconv3x3 (CUDA)"),
+            (("namespace)::upconv", "combine_kernel", "up32::"),
+             "upconv3x3 (CUDA)"),
             (("namespace)::conv", "down0_mma_kernel", "down0::kernel"),
              "conv5x5_s2_act (CUDA)"),
             (("namespace)::join", "join_text_kernel"),
