@@ -4290,18 +4290,19 @@ def dp_world1_main(device, runs, launch):
     (grouped,) = launch("gancls_main_world1", {
         "argv": argv(os.path.join(runs, "dp", "world1_group")),
         "backend": "nccl", "device": "cuda", "world": 1})
-    for c in dp_ticks.counters():
-        c.launches = 0
+    before = dp_ticks.counters()
     collectives.all_reduce_sum.bytes = 0
     port_main.main(argv(os.path.join(runs, "dp", "world1_alone")) +
                    ["--device", str(device)])
     torch.cuda.synchronize()
-    alone = {c.__name__: c.launches for c in dp_ticks.counters()}
-    want = {k: ticks * TICK_LAUNCHES.get(k, 0) for k in alone}
+    alone = dp_ticks.counted_since(before)
+    # the kernels' launches (the program's other counters have dotted names)
+    want = {k: ticks * TICK_LAUNCHES.get(k, 0) for k in alone if "." not in k}
     log(f"  main.py --train, {ticks} ticks: launches in a group of one rank "
         f"{grouped['launches']}, without a group {alone}; bytes all-reduced "
         f"{grouped['all_reduce_bytes']} / {collectives.all_reduce_sum.bytes}")
-    check(grouped["launches"] == alone == want,
+    check(grouped["launches"] == alone
+          and {k: alone[k] for k in want} == want,
           f"world-1 launches {grouped['launches']} vs {alone} (want {want})")
     check(grouped["all_reduce_bytes"] == 0 ==
           collectives.all_reduce_sum.bytes, "a collective at world 1")
@@ -4399,7 +4400,7 @@ def phase_data_parallel(device, runs, flush):
             check(all(math.isfinite(v) for v in m.values()),
                   f"GAN-CLS bf16 rank {r} tick {i}: {m}")
         for i, n in enumerate(out["launches"]):
-            check(n == DP_TICK_LAUNCHES,
+            check({k: n[k] for k in DP_TICK_LAUNCHES} == DP_TICK_LAUNCHES,
                   f"GAN-CLS bf16 rank {r} tick {i} launches {n}, expected "
                   f"{DP_TICK_LAUNCHES}")
     report["launches"][f"dp GAN-CLS training, rank 0 of {DP_RANKS}"] = {
@@ -4447,7 +4448,8 @@ def phase_data_parallel(device, runs, flush):
         "no_group_tick_ms_median": statistics.median(steady[False]),
         "turns": out["turns"], "launches_per_tick": out["launches"][-1],
         "all_reduce_bytes_per_tick": out["all_reduce_bytes"][-1]}
-    check(out["launches"][-1] == DP_TICK_LAUNCHES,
+    check({k: out["launches"][-1][k] for k in DP_TICK_LAUNCHES}
+          == DP_TICK_LAUNCHES,
           f"nccl tick launches {out['launches'][-1]}")
     report["launches"]["dp GAN-CLS tick, nccl world 1"] = {
         k: sum(n[k] for n in out["launches"]) for k in DP_TICK_LAUNCHES}

@@ -45,7 +45,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from text_to_image_tpu_torch.utils import prng
+from text_to_image_tpu_torch.utils import prng, profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,29 +236,34 @@ def _keep_rows(d: Dict[str, Optional[torch.Tensor]], rows: slice
 def sample_stacked(data: DeviceData, key: int, n_critic: int,
                    batch_size: int, image_size: int, window: int,
                    random_crop: bool, random_flip: bool,
-                   rows: Optional[slice] = None) -> Dict[str, torch.Tensor]:
+                   rows: Optional[slice] = None, step: Optional[int] = None
+                   ) -> Dict[str, torch.Tensor]:
     """A tick's input, [n_critic, B, …] with a fresh batch per critic
     update, from a generator on the data's device seeded with `key`; with
     `rows`, only those rows of it are gathered (a rank's share of the
-    global batch, drawn whole on every rank)."""
-    g = torch.Generator(device=data.images.device)
-    g.manual_seed(int(key))
-    d = draw(data, g, (n_critic, batch_size), image_size, window,
-             random_crop, random_flip)
-    if rows is not None:
-        d = _keep_rows(d, rows)
-    return assemble(data, d, image_size, window)
+    global batch, drawn whole on every rank).  Drawn and gathered inside
+    the span ``data.draw`` of tick `step`."""
+    with profiling.span("data.draw", step=step):
+        g = torch.Generator(device=data.images.device)
+        g.manual_seed(int(key))
+        d = draw(data, g, (n_critic, batch_size), image_size, window,
+                 random_crop, random_flip)
+        if rows is not None:
+            d = _keep_rows(d, rows)
+        return assemble(data, d, image_size, window)
 
 
 def sample_stacked_sharded(data: ShardedDeviceData, key: int, n_critic: int,
                            batch_size: int, image_size: int, window: int,
-                           random_crop: bool, random_flip: bool
+                           random_crop: bool, random_flip: bool,
+                           step: Optional[int] = None
                            ) -> Dict[str, torch.Tensor]:
     """This rank's [n_critic, B/D, …] share of a tick's input, drawn from
-    its own shard with key ``fold_in(key, shard)``."""
+    its own shard with key ``fold_in(key, shard)`` (`sample_stacked`'s
+    span)."""
     if batch_size % data.shards:
         raise ValueError(f"batch_size {batch_size} not divisible by the "
                          f"{data.shards} batch-axis ranks")
     return sample_stacked(data, prng.fold_in(key, data.shard), n_critic,
                           batch_size // data.shards, image_size, window,
-                          random_crop, random_flip)
+                          random_crop, random_flip, step=step)

@@ -196,11 +196,10 @@ def _dryrun_on_mesh(env, device="cuda", overrides: Optional[Dict] = None,
     data = DD.stage(dryrun_data(cfg)[1], device)
     rstep = make_resident_step(cfg, 10, device, env)
     rts = shard_state(init_train_state(1, cfg, 10, device), env)
-    for c in dp_ticks.counters():
-        c.launches = 0
+    before = dp_ticks.counters()
     rts, rmetrics = rstep(rts, data)
-    for c in dp_ticks.counters():
-        launches[c.__name__] += c.launches
+    for k, n in dp_ticks.counted_since(before).items():
+        launches[k] = launches.get(k, 0) + n
     if rts.step != 1:
         raise AssertionError(f"resident step {rts.step} after one tick")
     rmetrics = _finite(rmetrics, "resident ")

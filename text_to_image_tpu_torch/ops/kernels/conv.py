@@ -110,6 +110,7 @@ from text_to_image_tpu_torch.ops.kernels import _build
 from text_to_image_tpu_torch.ops.kernels.fused import (ACT_CODES, acc,
                                                        act_grad_from_output,
                                                        apply_act, needs_grad)
+from text_to_image_tpu_torch.utils import profiling
 
 # parity → [(padded slice start, kernel tap index)] with x padded (1, 2)
 # per spatial dim (conv.py _DECONV_TAPS):
@@ -294,6 +295,7 @@ def _grouped_launch_args(x, plan, rows, co):
     return tile, plan.parts, ws
 
 
+@profiling.spanned("kernels.deconv5x5_s2")
 def _deconv_forward(x, w, scale, shift, act, plan=None):
     """`plan` forces a `GroupedPlan` on the wgmma path (the sweep and the
     smoke run hold every plan with it); None asks `deconv_plan`."""
@@ -684,6 +686,7 @@ def _aligned16(*ts):
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
+@profiling.spanned("kernels.conv5x5_s2_act")
 def _conv_forward(x, w, b, act, plan=None):
     """`plan` forces (tile_m, tile_n, split_k) on the wgmma path (the sweep
     and the smoke run hold every plan with it); None asks `conv_plan`."""
@@ -941,6 +944,7 @@ def _upconv_check(x, w, scale, shift, act):
                   rows=rows)
 
 
+@profiling.spanned("kernels.upconv3x3")
 def _upconv_forward(x, w, scale, shift, act, plan=None):
     """`plan` forces a `GroupedPlan` on the wgmma path; None asks
     `upconv_plan`."""
@@ -1428,6 +1432,7 @@ def _dx_check(g, w, out_dtype):
                          "extents")
 
 
+@profiling.spanned("kernels.upconv3x3_dx")
 def upconv3x3_dx(g: torch.Tensor, w: torch.Tensor,
                  out_dtype: torch.dtype, plan: DxPlan = None) -> torch.Tensor:
     """dx [B,H,W,Cin] of conv3×3(up2(x), w) for the cotangent g
@@ -1527,6 +1532,7 @@ def _dw_check(x, g, w_dtype):
     _bwd_common("upconv3x3_dw", [("x", x), ("g", g)], w_dtype)
 
 
+@profiling.spanned("kernels.upconv3x3_dw")
 def upconv3x3_dw(x: torch.Tensor, g: torch.Tensor, w_dtype: torch.dtype,
                  plan: "DwPlan" = None) -> torch.Tensor:
     """dw [3,3,Cin,Co] in w_dtype of conv3×3(up2(x), w) for the cotangent
@@ -1819,6 +1825,7 @@ def _cdw_shapes(x, g):
                          f"{want[2]},Co], got {tuple(g.shape)}")
 
 
+@profiling.spanned("kernels.conv5x5_s2_dw")
 def _conv_dw_forward(x, g, w_dtype, flip=False, plan=None):
     b, h, wd, cin = x.shape
     co = g.shape[-1]
@@ -2102,6 +2109,7 @@ def _cdx_check(gc, w, h, wd):
                          "int32 extents")
 
 
+@profiling.spanned("kernels.conv5x5_s2_dx")
 def _conv_dx_forward(gc, w, h, wd, plan=None):
     if gc.device.type == "cpu":
         return conv5x5_s2_dx_plain(gc, w, h, wd)
@@ -2327,6 +2335,7 @@ def _ddx_check(d, w):
                          "int32 extents")
 
 
+@profiling.spanned("kernels.deconv5x5_s2_dx")
 def _deconv_dx_forward(d, w, plan=None):
     if d.device.type == "cpu":
         return deconv5x5_s2_dx_plain(d, w)

@@ -42,6 +42,7 @@ from torch.autograd.function import once_differentiable
 
 from text_to_image_tpu_torch.ops.kernels import _build
 from text_to_image_tpu_torch.parallel import collectives
+from text_to_image_tpu_torch.utils import profiling
 
 ACT_CODES = {"none": 0, "relu": 1, "lrelu": 2, "tanh": 3}
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -273,6 +274,7 @@ def bn_stats_plain(x: torch.Tensor, streams: int, gamma: torch.Tensor,
     return mean, rstd, a, b, new_mean, new_var
 
 
+@profiling.spanned("kernels.bn_stats")
 def bn_stats(x: torch.Tensor, streams: int, gamma: torch.Tensor,
              beta: torch.Tensor, run_mean: torch.Tensor,
              run_var: torch.Tensor, momentum: float = 0.9, eps: float = 1e-5):
@@ -316,6 +318,7 @@ def bn_partials_plain(x: torch.Tensor, streams: int) -> torch.Tensor:
     return torch.stack([n, mean, var * n])
 
 
+@profiling.spanned("kernels.bn_partials")
 def bn_partials(x: torch.Tensor, streams: int) -> torch.Tensor:
     """Each stream's Welford state (n, mean, M2) f32 [3, S, C] in one
     launch: `bn_stats` stopping before the statistics, for `bn_finish` to
@@ -365,6 +368,7 @@ def bn_finish_plain(parts: torch.Tensor, gamma: torch.Tensor,
     return mean, rstd, a, b, new_mean, new_var
 
 
+@profiling.spanned("kernels.bn_finish")
 def bn_finish(parts: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               run_mean: torch.Tensor, run_var: torch.Tensor,
               momentum: float = 0.9, eps: float = 1e-5):
@@ -426,6 +430,7 @@ def _check(x, a, b, act):
         _bn_check(x, 1, act, per_channel=ab)
 
 
+@profiling.spanned("kernels.bn_act")
 def _bn_act_forward(x, a, b, act):
     if not _on_card(x, "bn_act"):
         return bn_act_plain(x, a, b, act)
@@ -502,6 +507,7 @@ def bn_bwd_reduce_plain(g: torch.Tensor, y, x: torch.Tensor,
     return sga, sgx, sgx.sum(0), sga.sum(0)
 
 
+@profiling.spanned("kernels.bn_bwd_reduce")
 def bn_bwd_reduce(g: torch.Tensor, y, x: torch.Tensor, mean: torch.Tensor,
                   rstd: torch.Tensor, streams: int, act: str):
     """(Σ ga, Σ ga·x̂) f32 [S, C] and (dγ, dβ) f32 [C] in one launch; y (the
@@ -546,6 +552,7 @@ def bn_bwd_apply_plain(g: torch.Tensor, y, x: torch.Tensor,
     return dx.reshape(x.shape).to(x.dtype)
 
 
+@profiling.spanned("kernels.bn_bwd_apply")
 def bn_bwd_apply(g: torch.Tensor, y, x: torch.Tensor, mean: torch.Tensor,
                  rstd: torch.Tensor, gamma: torch.Tensor, sga: torch.Tensor,
                  sgx: torch.Tensor, streams: int, act: str,
@@ -748,6 +755,7 @@ def _join_check(x, t, wx, wt, bias, act):
         raise ValueError("tensor too large for the kernel's int32 extents")
 
 
+@profiling.spanned("kernels.conditioning_join")
 def _join_forward(x, t, wx, wt, bias, act):
     if x.device.type == "cpu":
         return conditioning_join_plain(x, t, wx, wt, bias, act)

@@ -2,7 +2,9 @@
 ``scripts/profile_step.py``): a Chrome-trace JSON of `--steps` ticks under
 ``--out`` (``utils/profiling.trace``: torch.profiler over the CPU and the
 card), which TensorBoard's profiler plugin and Perfetto load, after the
-steady-state ms a tick (``utils/profiling.time_step``).
+steady-state ms a tick (``utils/profiling.time_step``).  The trace shows
+the program's spans (``train.tick``, its phases, ``kernels.<op>``) as user
+annotations above the kernels they launched.
 
     python -m text_to_image_tpu_torch.scripts.profile_step [--model gancls] \
         [--batch 64] [--image-size 64] [--steps 10] [--out /tmp/t2i_trace] \

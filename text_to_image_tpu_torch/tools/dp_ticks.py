@@ -73,14 +73,16 @@ from text_to_image_tpu_torch.train.steps import (init_train_state,
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def counters() -> list:
-    """Every kernel wrapper's launch counter, the data-parallel BN's too."""
-    from text_to_image_tpu_torch.ops.kernels import conv, fused
-    return [conv.deconv5x5_s2, conv.conv5x5_s2_act, conv.upconv3x3,
-            conv.upconv3x3_dx, conv.upconv3x3_dw, fused.bn_stats,
-            fused.bn_partials, fused.bn_finish, fused.bn_act,
-            fused.bn_bwd_reduce, fused.bn_bwd_apply, fused.conditioning_join,
-            conv.conv5x5_s2_dw, conv.conv5x5_s2_dx, conv.deconv5x5_s2_dx]
+def counters() -> Dict[str, int]:
+    """Every kernel wrapper's launches (the data-parallel BN's too) and the
+    program's other counters, by name (`profiling.counters`)."""
+    from text_to_image_tpu_torch.utils import profiling
+    return profiling.counters()
+
+
+def counted_since(before: Dict[str, int]) -> Dict[str, int]:
+    """What each of `counters` counted since it read `before`."""
+    return {k: v - before.get(k, 0) for k, v in counters().items()}
 
 
 def _sync(device: torch.device) -> None:
@@ -143,8 +145,7 @@ def run(spec: Dict, device: torch.device, env: Optional[MeshEnv] = None,
     last = len(spec["batches"]) - 1
     for i, (batch, noise) in enumerate(zip(spec["batches"], noises)):
         local = shard_batch(env, batch, axis=1) if env is not None else batch
-        for c in counters():
-            c.launches = 0
+        before = counters()
         collectives.all_reduce_sum.bytes = 0
         traced = (profiling.trace(profile) if profile and i == last
                   else contextlib.nullcontext())
@@ -160,7 +161,7 @@ def run(spec: Dict, device: torch.device, env: Optional[MeshEnv] = None,
             out["profile"] = _profile_summary(prof, ms)
         out["ms"].append(ms)
         out["metrics"].append({k: float(v) for k, v in metrics.items()})
-        out["launches"].append({c.__name__: c.launches for c in counters()})
+        out["launches"].append(counted_since(before))
         out["all_reduce_bytes"].append(collectives.all_reduce_sum.bytes)
     out.update(whole_state(ts, env if spec.get("shard_columns") else None))
     return out
@@ -241,7 +242,7 @@ def _run_spec(spec: Dict, spec_path: str, device: torch.device) -> Dict:
         from text_to_image_tpu_torch import main as port_main
         trainer = port_main.main(spec["argv"])
         return {"history": trainer.history, "step": trainer.ts.step,
-                "launches": {c.__name__: c.launches for c in counters()},
+                "launches": counters(),
                 "all_reduce_bytes": collectives.all_reduce_sum.bytes}
     if "dryrun" in spec:
         from text_to_image_tpu_torch import entry

@@ -16,6 +16,14 @@
 4. the optional generator EMA with the fade-aware ramp, counted from the
    bundle's ``ema_anchor``.
 
+Under a profiler the tick records its spans (``utils/profiling``):
+``train.tick`` holding ``train.noise`` (the noise drawn on the host and
+copied to the device: the copies, counted on ``train.host_waits``, may
+wait for the card; wait spans), ``train.d_step`` (its
+``.forward`` with ``train.gp``, its ``.backward``, ``train.adam``),
+``train.g_step`` (``.forward``, ``.backward``, ``train.adam``) and
+``train.ema``; the resident tier's draw is ``data.draw``.
+
 The bundle's hooks: ``step_aux(step)`` is merged into ``aux`` for the
 tick (C-PGGAN's fade-in α) and ``prep_images`` runs on the f32 images
 before the compute-dtype cast (C-PGGAN's downsample), as the JAX step does.
@@ -72,7 +80,7 @@ from text_to_image_tpu_torch.train import optim
 from text_to_image_tpu_torch.train.checkpoint import unflatten
 from text_to_image_tpu_torch.train.optim import flatten
 from text_to_image_tpu_torch.train.state import TrainState
-from text_to_image_tpu_torch.utils import prng
+from text_to_image_tpu_torch.utils import prng, profiling
 
 
 def _leaf_params(tree: Dict) -> Dict:
@@ -266,29 +274,46 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda",
 
     def d_step(ts: TrainState, aux, real, wrong, emb, z, eps, gp_eps
                ) -> Dict:
-        with torch.no_grad():
-            fake, _, _ = bundle.gen_apply(ts.g_params, ts.g_state, aux, z,
-                                          emb, eps, True, policy)
-        xs = torch.stack([policy.cast(v) for v in (real, fake, wrong)])
-        logits, new_state = bundle.disc_streams(
-            ts.d_params, ts.d_state, aux, xs, emb.expand(3, *emb.shape),
-            True, policy)
-        if bundle.is_wgan:
-            def critic_on_images(x):
-                return bundle.disc_apply(ts.d_params, ts.d_state, aux, x, emb,
-                                         True, policy)[0]
-            gp = LL.gradient_penalty(critic_on_images, real, fake, gp_eps)
-            ld = LL.wgan_cls_d_loss(logits[0], logits[1], logits[2], gp,
-                                    co.mismatch_alpha, co.gp_lambda,
-                                    co.drift_epsilon)
-        else:
-            ld = LL.gan_cls_d_loss(logits[0], logits[1], logits[2],
-                                   co.real_label_smooth)
-        ts.d_opt.update(_grads(ld["d_loss"], ts.d_opt.leaves, sync))
+        with profiling.span("train.d_step.forward"):
+            with torch.no_grad():
+                fake, _, _ = bundle.gen_apply(ts.g_params, ts.g_state, aux,
+                                              z, emb, eps, True, policy)
+            xs = torch.stack([policy.cast(v) for v in (real, fake, wrong)])
+            logits, new_state = bundle.disc_streams(
+                ts.d_params, ts.d_state, aux, xs, emb.expand(3, *emb.shape),
+                True, policy)
+            if bundle.is_wgan:
+                def critic_on_images(x):
+                    return bundle.disc_apply(ts.d_params, ts.d_state, aux, x,
+                                             emb, True, policy)[0]
+                with profiling.span("train.gp"):
+                    gp = LL.gradient_penalty(critic_on_images, real, fake,
+                                             gp_eps)
+                ld = LL.wgan_cls_d_loss(logits[0], logits[1], logits[2], gp,
+                                        co.mismatch_alpha, co.gp_lambda,
+                                        co.drift_epsilon)
+            else:
+                ld = LL.gan_cls_d_loss(logits[0], logits[1], logits[2],
+                                       co.real_label_smooth)
+        with profiling.span("train.d_step.backward"):
+            grads = _grads(ld["d_loss"], ts.d_opt.leaves, sync)
+        with profiling.span("train.adam"):
+            ts.d_opt.update(grads)
         ts.d_state = _detached(new_state)
         return {k: v.detach() for k, v in ld.items()}
 
     def g_step(ts: TrainState, aux, emb, z, eps, z2, eps2) -> Dict:
+        with profiling.span("train.g_step.forward"):
+            lg, new_state = g_forward(ts, aux, emb, z, eps, z2, eps2)
+        with profiling.span("train.g_step.backward"):
+            grads = _grads(lg["g_loss"], ts.g_opt.leaves, sync)
+        with profiling.span("train.adam"):
+            ts.g_opt.update(grads)
+        ts.g_state = _detached(new_state)
+        return lg
+
+    def g_forward(ts: TrainState, aux, emb, z, eps, z2, eps2):
+        """The G step's losses and G's new BN state."""
         d_params = _detached(ts.d_params)
         fake, new_state, gen_aux = bundle.gen_apply(
             ts.g_params, ts.g_state, aux, z, emb, eps, True, policy)
@@ -314,9 +339,7 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda",
         if bundle.has_ca:
             kl = LL.ca_kl_loss(gen_aux["mu"], gen_aux["logvar"])
             lg = {**lg, "kl": kl, "g_loss": lg["g_loss"] + co.kl * kl}
-        ts.g_opt.update(_grads(lg["g_loss"], ts.g_opt.leaves, sync))
-        ts.g_state = _detached(new_state)
-        return lg
+        return lg, new_state
 
     @torch.no_grad()
     def ema(ts: TrainState) -> None:
@@ -332,37 +355,48 @@ def make_train_step(cfg: Config, steps_per_epoch: int = 1000, device="cuda",
 
     def step(ts: TrainState, batch, noise: Optional[Dict] = None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        with collectives.batch_sync(sync), tensor.model_sync(msync):
+        with collectives.batch_sync(sync), tensor.model_sync(msync), \
+                profiling.span("train.tick", step=ts.step):
             return tick(ts, batch, noise)
 
     def tick(ts: TrainState, batch, noise: Optional[Dict]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         embs = torch.as_tensor(batch["emb"]).to(device, non_blocking=True)
-        if noise is None:
-            shards = 1 if sync is None else sync.size
-            noise = draw_noise(cfg, ts.step, embs.shape[1] * shards)
-        noise = shard_noise(cfg, env, noise)
 
         def on_device(name):
+            """The noise `name` on the device: a copy from pageable host
+            memory, which CUDA may make wait for the card (a host wait)."""
             if name not in noise:      # no GAN-INT term / no CA in this model
                 return None
+            profiling.count("train.host_waits")
             return torch.as_tensor(noise[name]).to(device, non_blocking=True)
 
         aux = ts.aux
         if bundle.step_aux is not None:
             # 0-dim CPU tensors: they enter the card's kernels as scalars
             aux = {**aux, **bundle.step_aux(ts.step)}
-        zs, eps_d, gp_eps = (on_device(k) for k in ("d", "d_eps", "gp_eps"))
+        # the noise's host path: where the card has drained, it waits here
+        with profiling.span("train.noise", wait=True):
+            if noise is None:
+                shards = 1 if sync is None else sync.size
+                noise = draw_noise(cfg, ts.step, embs.shape[1] * shards)
+            noise = shard_noise(cfg, env, noise)
+            zs, eps_d, gp_eps = (on_device(k)
+                                 for k in ("d", "d_eps", "gp_eps"))
         for k in range(tcfg.n_critic):
-            d_metrics = d_step(ts, aux, images(batch["real"][k]),
-                               images(batch["wrong"][k]), embs[k], zs[k],
-                               None if eps_d is None else eps_d[k],
-                               None if gp_eps is None else gp_eps[k])
-        g_noise = [on_device(k) for k in ("g", "g_eps", "g2", "g2_eps")]
+            with profiling.span("train.d_step"):
+                d_metrics = d_step(ts, aux, images(batch["real"][k]),
+                                   images(batch["wrong"][k]), embs[k], zs[k],
+                                   None if eps_d is None else eps_d[k],
+                                   None if gp_eps is None else gp_eps[k])
+        with profiling.span("train.noise", wait=True):
+            g_noise = [on_device(k) for k in ("g", "g_eps", "g2", "g2_eps")]
         for _ in range(tcfg.g_steps):
-            g_metrics = g_step(ts, aux, embs[-1], *g_noise)
+            with profiling.span("train.g_step"):
+                g_metrics = g_step(ts, aux, embs[-1], *g_noise)
         if tcfg.ema_decay > 0:
-            ema(ts)
+            with profiling.span("train.ema"):
+                ema(ts)
         ts.step += 1
         metrics = {k: v.detach() for k, v in {**d_metrics,
                                               **g_metrics}.items()}
@@ -400,8 +434,8 @@ def make_resident_step(cfg: Config, steps_per_epoch: int = 1000,
         args = (tcfg.n_critic, tcfg.batch_size, dcfg.image_size,
                 dcfg.caption_window, dcfg.random_crop, dcfg.random_flip)
         if isinstance(data, DD.ShardedDeviceData):
-            return DD.sample_stacked_sharded(data, key, *args)
-        return DD.sample_stacked(data, key, *args, rows=rows)
+            return DD.sample_stacked_sharded(data, key, *args, step=step)
+        return DD.sample_stacked(data, key, *args, rows=rows, step=step)
 
     def step(ts: TrainState, data) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         return tick(ts, batch_at(data, ts.step))
