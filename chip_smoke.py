@@ -48,7 +48,11 @@
    critic first layer and odd shapes, alike (its path read back from C,
    bit for bit twice, every plan at each shape, its Function at first
    and second order), f32 and ragged channels on the
-   conv of the flipped weight;
+   conv of the flipped weight; the 3×3 stride-1 conv's kernels
+   (``conv3x3_act``, ``act_grad``, ``conv3x3_dx``, ``conv3x3_dw``; phase
+   3d) at every C-PGGAN 256 px and StackGAN Stage-II shape against their
+   plain versions, bit for bit twice, and their Functions at second order
+   (act_grad's at third);
 3. drives the sampling path at the flagship widths (gf 128, z 100,
    embed 1024, batch 64, bf16) through ``eval/sampler.py`` — the sample grid
    and both interpolation grids — plus the BN-folded serving generator, with
@@ -94,7 +98,9 @@
    progression of ``configs/pggan_flowers.yml`` through ``main.py --train``
    at full width (5 stages × 2 ticks: each stage restores the last, α ramps
    0 → 1, grids at α = 1 and the stage's resolution, upconv launches per
-   stage); one stage-7 tick of ``configs/pggan_flowers_256.yml`` (batch 32);
+   stage); one stage-7 tick of ``configs/pggan_flowers_256.yml`` (batch 32),
+   with the 3×3 family's launches in it held to the count the model's
+   layers give and none of its 3×3 calls on the library;
    then the WGAN-CLS and the stage-5 C-PGGAN ticks timed and profiled, and
    the gradient penalty's share of a critic update and the cost of the dw
    its inner gradient forms unasked;
@@ -151,7 +157,7 @@
    the runbook at its defaults as ``python -m`` in the background of the
    untimed scripts);
    ``tools/bench_kernels`` at its defaults and with ``--upconv --conv
-   --deconv --grad``, every row a number.  Each phase's seconds are logged
+   --deconv --conv3x3 --grad``, every row a number.  Each phase's seconds are logged
    and reported;
 5. times each kernel, its plain version and one PyTorch library call at
    those shapes (CUDA events, L2 flushed before each launch), computes each
@@ -195,8 +201,8 @@ import torch
 # the package beside this script: the timing method shared with the kernel
 # microbench, and the tick timing shared with tools/tick_ab.py
 from text_to_image_tpu_torch.tools.bench_kernels import (
-    PGGAN_UPCONV_SHAPES, L2Flush, bound, bwd_path_tag, conv_dw_tag, nbytes,
-    s2_ops, time_ms, up_taps)
+    CONV3X3_SHAPES, PGGAN_UPCONV_SHAPES, L2Flush, bound, bwd_path_tag,
+    conv_dw_tag, nbytes, s2_ops, time_ms, up_taps)
 from text_to_image_tpu_torch.tools.ticks import (
     config_path, is_kernel, kernel_family, train_config)
 from text_to_image_tpu_torch.tools.ticks import (
@@ -1492,6 +1498,62 @@ def deconv_dx_function_vs_autograd(conv, device, gen):
                                           f"{(b, h, wd, cin)}->{co} (bf16)")
             worst = max(worst, err / float(v.abs().max()))
     return worst
+
+
+# the 3×3 stride-1 conv family's wrappers (their launch counters), in the
+# order of the kernels line
+K3_OPS = ("conv3x3_act", "conv3x3_dx", "conv3x3_dw", "act_grad")
+
+
+def phase_conv3x3_kernels(device):
+    """The 3×3 stride-1 SAME conv's kernels (conv3x3_act with lrelu,
+    act_grad of its output, conv3x3_dx, conv3x3_dw) against their f32
+    plain versions on the same bf16 values at every C-PGGAN 256 px shape
+    (critic at 96 and 32 rows, generator at 32) and StackGAN Stage-II's
+    residual and join convs, each output bit for bit between two launches,
+    the second order through _Conv3x3Dw where the map is small enough to
+    take it twice; act_grad's own checks (every act, the adjoint's add, a
+    tensor it does not take raising, the third order); then _Conv3x3's
+    double backward (the gradient penalty's) against autograd through the
+    plain version.  The checks are tests/test_torch_conv3x3.py's chip
+    tests (within 1e-2 of the forward's elements, of each gradient's
+    largest element; act_grad's gc bit for bit, its db within 1e-4).
+    Returns (each shape's worst errors; {op: {(dtype, shape): error}}: the
+    forward's largest absolute error, the others' relative to their
+    largest element; the second order's worst relative error)."""
+    # by its path: an installed package named `tests` may shadow the
+    # repository's test directory (it has no __init__.py)
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_conv3x3",
+        os.path.join(ROOT, "tests", "test_torch_conv3x3.py"))
+    t3 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(t3)
+    gen = torch.Generator().manual_seed(SEED + 23)
+    out, errs = {}, {k: {} for k in K3_OPS}
+    for shape in t3.MAIN_SHAPES:
+        try:
+            r = out[str(list(shape))] = t3.check_shape(
+                shape, device, gen, second=shape[0] * shape[1] ** 2 <= 2**21)
+        except AssertionError as e:
+            check(False, f"conv3x3 {shape}: {e}")
+            continue
+        log(f"  conv3x3 {list(shape)}: {r}")
+        for op, k in zip(K3_OPS, ("fwd", "dx", "dw", "act_grad_db")):
+            errs[op][(torch.bfloat16, tuple(shape))] = r[k]
+    second = None
+    for what, fn in (("act_grad", t3.test_act_grad_kernel_matches_the_plain_version),
+                     ("Function second order", t3.check_second_order)):
+        try:
+            got = fn(device)
+        except AssertionError as e:
+            check(False, f"conv3x3 {what}: {e}")
+            continue
+        if what.startswith("Function"):
+            second = got
+    log(f"  conv3x3 Function second order: worst {second}")
+    torch.cuda.empty_cache()
+    return out, errs, second
 
 
 def phase_conv_bwd_kernels(device):
@@ -3035,6 +3097,28 @@ def pggan_launches(stage, ticks, grids, cfg):
             "upconv3x3_dx": backwards, "upconv3x3_dw": backwards}
 
 
+def pggan_conv3x3_launches(stage, cfg):
+    """The 3×3 stride-1 family's launches in one C-PGGAN tick at `stage`,
+    from the model's layers: a generator forward runs `stage` 3×3 convs
+    (stem_conv, up{s}b), a critic forward 2·(stage − 1) + 1 (down{s}a,
+    down{s}b, conv4), each one conv3x3_act.  A critic update: G without
+    gradient, the critic over the three streams (one call of 3B) and at
+    x̂; the penalty's inner gradient at x̂ (an act_grad and a dx a conv,
+    no dw: it asks for x̂ alone); the loss's backward through the streams'
+    convs (act_grad, dx, dw), through the inner gradient (its dx's adjoint:
+    a forward and a dw; its act_grad's adjoint: an act_grad) and through
+    the convs at x̂ again (act_grad, dx, dw).  A G update: G and the
+    critic, the critic's act_grad and dx (no dw), G's act_grad, dx (the
+    first conv's input comes from the trained stem) and dw."""
+    g, d = stage, 2 * (stage - 1) + 1
+    nc, ng = cfg.train.n_critic, cfg.train.g_steps
+    return {"conv3x3_act": nc * (g + 3 * d) + ng * (g + d),
+            "conv3x3_dx": nc * 3 * d + ng * (d + g),
+            "conv3x3_dw": nc * 3 * d + ng * g,
+            "act_grad": nc * 4 * d + ng * (d + g),
+            "conv3x3.library": 0}
+
+
 def check_metrics(last, names, what):
     for k in names:
         check(k in last and math.isfinite(last[k]), f"{what} {k}: "
@@ -3444,19 +3528,32 @@ def phase_pggan_256(device, runs):
     """One stage-7 tick of configs/pggan_flowers_256.yml (256 px, B 32,
     bf16) through ``main.py --train``: the 128²×64→32 up-block call runs
     on the training path with lrelu, on the co32 kernel (its path read
-    back from the C entry point inside the tick)."""
+    back from the C entry point inside the tick); the 3×3 family's
+    launches in the tick (its counters read just before and just after)
+    are `pggan_conv3x3_launches`' and ``conv3x3.library`` counts none.
+    Returns (the last metrics and the up-block calls' paths, the tick's
+    launches: all_counters' and the 3×3 family's)."""
     argv = ["--cfg", os.path.join(ROOT, "configs", "pggan_flowers_256.yml"),
             "--train", "--steps", "1", "--device", str(device), "--set",
             "data.dataset_name=synthetic", "train.summary_interval=1",
             "pggan.stage=7", *run_dirs(os.path.join(runs, "pggan256"))]
+    from text_to_image_tpu_torch.utils import profiling
     seen = []
     t0 = time.perf_counter()
+    before = profiling.counters()
     with upconv_path_spy(seen):
         trainer, launches, _ = drive(argv)
+    after = profiling.counters()
     wall = time.perf_counter() - t0
     cfg = trainer.cfg
     check((cfg.data.image_size, cfg.train.batch_size, cfg.pggan.stage,
            cfg.dtype) == (256, 32, 7, "bfloat16"), f"config {cfg}")
+    # the 3×3 family's launches and library fallbacks in this tick
+    k3_want = pggan_conv3x3_launches(7, cfg)
+    k3 = {k: after.get(k, 0) - before.get(k, 0) for k in k3_want}
+    log(f"  pggan 256 px stage-7 tick: the 3×3 family {k3} (expected "
+        f"{k3_want})")
+    check(k3 == k3_want, f"3×3 launches {k3}, expected {k3_want}")
     want = pggan_launches(7, 1, 0, cfg)
     last_call = [r for r in seen if r["shape"] == [[32, 128, 128, 64], 32,
                                                    "lrelu"]]
@@ -3471,7 +3568,7 @@ def phase_pggan_256(device, runs):
     last = trainer.history[-1]
     check_metrics(last, ("d_loss", "w_dist", "d_wrong", "gp", "g_loss",
                          "kl"), "pggan 256")
-    return {**last, "upconv_paths": seen}, launches
+    return {**last, "upconv_paths": seen}, {**launches, **k3}
 
 
 # --- phase 10: Inception-score eval ---------------------------------------------
@@ -4301,8 +4398,11 @@ def dp_world1_main(device, runs, launch):
     log(f"  main.py --train, {ticks} ticks: launches in a group of one rank "
         f"{grouped['launches']}, without a group {alone}; bytes all-reduced "
         f"{grouped['all_reduce_bytes']} / {collectives.all_reduce_sum.bytes}")
-    check(grouped["launches"] == alone
-          and {k: alone[k] for k in want} == want,
+    # every key of either, a counter that a process never bumped (absent
+    # from its dict: an earlier phase of this one may have) counting 0
+    same = all(grouped["launches"].get(k, 0) == alone.get(k, 0)
+               for k in set(grouped["launches"]) | set(alone))
+    check(same and {k: alone[k] for k in want} == want,
           f"world-1 launches {grouped['launches']} vs {alone} (want {want})")
     check(grouped["all_reduce_bytes"] == 0 ==
           collectives.all_reduce_sum.bytes, "a collective at world 1")
@@ -4933,8 +5033,8 @@ def phase_scripts(device, runs):
     # 15j: the kernel microbench
     out_dir = os.path.join(ROOT, "chiprun_out")
     for argv, fname in (([], "bench_kernels.json"),
-                        (["--upconv", "--conv", "--deconv", "--grad"],
-                         "bench_kernels_grad.json")):
+                        (["--upconv", "--conv", "--deconv", "--conv3x3",
+                          "--grad"], "bench_kernels_grad.json")):
         rc, said, _ = drive_script(f"bench_kernels {' '.join(argv)}".strip(),
                                    bench_kernels.main, argv)
         with open(os.path.join(out_dir, fname)) as f:
@@ -5024,6 +5124,15 @@ def run(runs: str) -> int:
     errs["upconv3x3_dw"].update(cdw_errs.pop("upconv3x3_dw"))
     errs.update(cdw_errs)
     bwd_paths += cdw_paths
+
+    phases.start("phase 3d: the 3x3 stride-1 conv's kernels (conv3x3_act, "
+                 "act_grad, conv3x3_dx, conv3x3_dw) vs their plain versions "
+                 "at every "
+                 "C-PGGAN 256 px and StackGAN Stage-II shape (bf16), "
+                 "bit-identical twice; the second order through their "
+                 "Functions")
+    conv3x3_errs, k3_errs, k3_second = phase_conv3x3_kernels(device)
+    errs.update(k3_errs)
 
     phases.start("phase 4: sampling path at flagship widths, batch 64, bf16")
     cfg, bundle, ts, gen, z, emb, launches, g_err = phase_main_path(device)
@@ -5189,7 +5298,7 @@ def run(runs: str) -> int:
                           f"pggan_progression, profile_step, serve_profile, "
                           f"convert_inception, e2e_demo, parity_runbook) and "
                           f"bench_kernels (its defaults and --upconv --conv "
-                          f"--deconv --grad) [{card}]")
+                          f"--deconv --conv3x3 --grad) [{card}]")
     scripts = phase_scripts(device, runs)
     launches_by_path.update(scripts.pop("launches"))
     phase_seconds = phases.stop()
@@ -5230,6 +5339,14 @@ def run(runs: str) -> int:
             f"({r['ms'] / r['library_ms']:.2f}x), bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']}), plain "
             f"{r['plain_ms']:.4f}")
+
+    # the 3×3 family: the microbench's rows of C-PGGAN stage 7's 3×3 calls,
+    # each once
+    for name in K3_OPS:
+        rows[name] = [r for r in scripts["bench_kernels_grad"]["rows"]
+                      if r["kernel"] == name and r.get("op") == "conv3x3"]
+        check(len(rows[name]) == len(CONV3X3_SHAPES),
+              f"{name} rows {rows[name]}")
 
     # no bf16 call of a main path on a pre-Hopper path: every table of
     # main-path calls this run recorded (the timing rows, the microbench's,
@@ -5295,6 +5412,17 @@ def run(runs: str) -> int:
         # path's kernel in csrc/down0.cuh
         "deconv5x5_s2_dx": ("cuda", src + "csrc/conv5x5_s2_bwd.cu",
                             "text_to_image_tpu/ops/pallas/conv.py:233"),
+        # the 3×3 stride-1 SAME conv, its bias and activation, and the
+        # adjoints XLA derives, which the JAX package leaves to
+        # lax.conv_general_dilated (its layers.py conv2d :80)
+        "conv3x3_act": ("cuda", src + "csrc/conv3x3.cu",
+                        "text_to_image_tpu/ops/layers.py:80"),
+        "conv3x3_dx": ("cuda", src + "csrc/conv3x3.cu",
+                       "text_to_image_tpu/ops/layers.py:80"),
+        "conv3x3_dw": ("cuda", src + "csrc/conv3x3.cu",
+                       "text_to_image_tpu/ops/layers.py:80"),
+        "act_grad": ("cuda", src + "csrc/conv3x3.cu",
+                     "text_to_image_tpu/ops/layers.py:80"),
     }
 
     def per_unit(per, key):
@@ -5308,8 +5436,10 @@ def run(runs: str) -> int:
         Stage-II G step (the same eight calls).  conv5x5_s2_dw: one GAN-CLS
         tick's calls (the D step's four at 3·64, two G steps' four deconvs
         at 64).  deconv5x5_s2_dx: one GAN-CLS tick's calls (two G steps'
-        four deconvs at 64)."""
-        return sum(r[key] * (1 if r.get("batch", D_BATCH) == D_BATCH else 2)
+        four deconvs at 64).  conv3x3_act, conv3x3_dx, conv3x3_dw and
+        act_grad: each of C-PGGAN stage 7's 3×3 calls once."""
+        return sum(r[key] * (1 if r.get("batch", D_BATCH) == D_BATCH
+                             or r.get("op") == "conv3x3" else 2)
                    for r in per)
 
     # upconv3x3's co32 call (C-PGGAN 256 px's 128²×64→32 at batch 32,
@@ -5322,14 +5452,20 @@ def run(runs: str) -> int:
     for name, (route, source, replaces) in meta.items():
         per = rows[name]
         ops_share = sum(r["bound_ms"] for r in per if r["bound_by"] == "operations")
+        k3 = name in K3_OPS
+        # the 3×3 family is counted in the stage-7 tick alone
+        by_path = {k: p.get(name, 0) for k, p in launches_by_path.items()
+                   if not k3 or name in p}
+        err = max(v for (dt, _), v in errs[name].items()
+                  if dt == torch.bfloat16)
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces,
-            "launches": sum(p.get(name, 0) for p in launches_by_path.values()),
-            "launches_by_path": {k: p.get(name, 0)
-                                 for k, p in launches_by_path.items()},
-            "max_abs_err": max(v for (dt, _), v in errs[name].items()
-                               if dt == torch.bfloat16),
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            # the 3×3 family's dx, dw and act_grad: relative to the largest
+            # element of the plain version
+            "max_abs_err": err if not k3 or name == "conv3x3_act" else None,
             "ms": per_unit(per, "ms"),
             "plain_ms": per_unit(per, "plain_ms"),
             "bound_ms": per_unit(per, "bound_ms"),
@@ -5338,14 +5474,21 @@ def run(runs: str) -> int:
             "library_ms": per_unit(per, "library_ms"),
             # the backwards through autograd of the Function that runs
             # the kernel (the up-block's for dx and dw)
-            "max_grad_err_f32": max(v for k, v in grad_errs.items()
-                                    if k.startswith(
-                                        "batch_norm_train" if name in BN_STEPS
-                                        else BWD_OF.get(name, name))),
+            "max_grad_err_f32": None if k3 else max(
+                v for k, v in grad_errs.items()
+                if k.startswith("batch_norm_train" if name in BN_STEPS
+                                else BWD_OF.get(name, name))),
             "shapes": (rows.get(f"{name} (every call)", per)
                        + bwd_rows.get(name, [])
                        + (pg_upconv_rows if name == "upconv3x3" else [])),
         })
+        if k3:
+            # bf16 alone: _Conv3x3 at first and second order against
+            # autograd through the f32 plain version (phase 3d)
+            kernels[-1]["max_rel_err"] = err
+            kernels[-1]["max_grad_err_bf16"] = k3_second
+            kernels[-1]["library_fallbacks"] = launches_by_path[
+                "pggan 256 px stage-7 tick"]["conv3x3.library"]
         if name == "upconv3x3":
             kernels[-1]["co32_call"] = {
                 "source": src + "csrc/upconv_co32.cuh",
@@ -5385,6 +5528,7 @@ def run(runs: str) -> int:
                                 for n, d in errs.items()
                                 for (dt, s), v in d.items()},
               "backward_errors_f32": grad_errs,
+              "conv3x3_errors": conv3x3_errs,
               "generator_errors": g_err, "sampling_images_per_s": rates,
               "profile": profile, "training_history": history,
               "training_leaves_changed": moved, "tick_vs_cpu": tick_vs_cpu,

@@ -531,3 +531,18 @@ def test_deconv_dx_work_matches_the_tensors():
     dx = conv.deconv5x5_s2_dx(d, w)
     assert bk.deconv_dx_work(shape, co) == (bk.nbytes(d, w, dx),
                                             bk.deconv_work(shape, co)[1])
+
+
+def test_conv3x3_grad_rows_hold_then_time(cpu_bench, monkeypatch):
+    """``--conv3x3 --grad``: a row of each of the table's kernels a shape,
+    in the table's order (the smoke run holds the set of kernels against
+    the tables), each held against its plain version before it is timed,
+    act_grad's bound by its own bytes."""
+    monkeypatch.setattr(bk, "CONV3X3_SHAPES", [((2, 4, 4, 32), 32)])
+    gen = torch.Generator().manual_seed(0)
+    rows = bk.bench_conv3x3("cpu", None, gen)
+    assert [r["kernel"] for r in rows] == list(bk.GRAD_TABLES["conv3x3"])
+    ag = rows[-1]
+    assert ag["bound_ms"] == bk.bound(*bk.act_grad_work((2, 4, 4, 32), 32),
+                                      torch.bfloat16)[0]
+    assert all(r["op"] == "conv3x3" and r["batch"] == 2 for r in rows)

@@ -79,12 +79,13 @@ def _eq_scale(w: torch.Tensor, gain: float = GAIN) -> float:
     return gain / math.sqrt(k * k * cin)
 
 
-def _eq_conv(p: L.Params, x: torch.Tensor, gain: float = GAIN
-             ) -> torch.Tensor:
-    """Stride-1 SAME conv with the He scale applied to w in f32, then cast:
-    a matmul for 1×1, ``F.conv2d`` for 3×3 (``L.conv2d``)."""
+def _eq_conv(p: L.Params, x: torch.Tensor, gain: float = GAIN,
+             act: str = "none") -> torch.Tensor:
+    """act(stride-1 SAME conv + b) with the He scale applied to w in f32,
+    then cast: a matmul for 1×1, the `conv3x3_act` kernels for 3×3 with
+    the activation fused (``L.conv2d``)."""
     w = (p["w"] * _eq_scale(p["w"], gain)).to(x.dtype)
-    return L.conv2d({"w": w, "b": p["b"]}, x, stride=1)
+    return L.conv2d({"w": w, "b": p["b"]}, x, stride=1, act=act)
 
 
 def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -183,7 +184,7 @@ def generator_apply(params: Dict, z: torch.Tensor, emb: torch.Tensor,
 
     h = _eq_dense(params["stem"], torch.cat([z, t, c], dim=-1))
     h = pixel_norm(L.lrelu(h.reshape(h.shape[0], 4, 4, -1)))
-    h = pixel_norm(L.lrelu(_eq_conv(params["stem_conv"], h)))
+    h = pixel_norm(_eq_conv(params["stem_conv"], h, act="lrelu"))
 
     prev_rgb = None
     for s in range(2, stage + 1):
@@ -191,7 +192,7 @@ def generator_apply(params: Dict, z: torch.Tensor, emb: torch.Tensor,
         pa = params[f"up{s}a"]
         w = (pa["w"] * _eq_scale(pa["w"])).to(h.dtype)
         h = pixel_norm(upconv3x3_bias(h, w, pa["b"].float(), "lrelu"))
-        h = pixel_norm(L.lrelu(_eq_conv(params[f"up{s}b"], h)))
+        h = pixel_norm(_eq_conv(params[f"up{s}b"], h, act="lrelu"))
 
     img = _eq_conv(params[f"rgb{stage}"], h, gain=1.0)
     if prev_rgb is not None:
@@ -238,8 +239,8 @@ def _discriminator(params: Dict, x: torch.Tensor, emb: torch.Tensor,
     x, emb = policy.cast(x), policy.cast(emb)
     h = L.lrelu(_eq_conv(params[f"from{stage}"], x, gain=1.0))
     for s in range(stage, 1, -1):
-        h = L.lrelu(_eq_conv(params[f"down{s}a"], h))
-        h = _avgpool2(L.lrelu(_eq_conv(params[f"down{s}b"], h)))
+        h = _eq_conv(params[f"down{s}a"], h, act="lrelu")
+        h = _avgpool2(_eq_conv(params[f"down{s}b"], h, act="lrelu"))
         if s == stage:
             skip = L.lrelu(_eq_conv(params[f"from{s - 1}"], _avgpool2(x),
                                     gain=1.0))
@@ -248,7 +249,7 @@ def _discriminator(params: Dict, x: torch.Tensor, emb: torch.Tensor,
     h = minibatch_stddev(h, streams)
     t = L.lrelu(L.linear(params["embed"], emb))
     h = L.lrelu(_eq_conv(params["join"], L.tile_and_concat(h, t), gain=1.0))
-    h = L.lrelu(_eq_conv(params["conv4"], h))
+    h = _eq_conv(params["conv4"], h, act="lrelu")
     h = L.lrelu(_eq_dense(params["dense"], h.reshape(h.shape[0], -1)))
     return _eq_dense(params["logit"], h, gain=1.0).reshape(h.shape[0])
 

@@ -158,7 +158,13 @@ def _check_common(x, w, vecs, act, k=5, rows=None):
         raise ValueError("tensor too large for the kernel's int32 extents")
 
 
+# the current stream's handle without a Stream object (CUDA builds)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(x):
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(x.device.index)
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
@@ -2425,3 +2431,598 @@ def deconv_dx_path_on_card(d, w, dx) -> str:
         d.data_ptr(), w.data_ptr(), dx.data_ptr(), w.shape[2], w.shape[3],
         int(d.dtype == torch.bfloat16))]
 
+
+
+# =================== conv 3x3 stride 1 SAME (conv3x3_act) =====================
+# The convolutions the JAX package leaves to lax.conv_general_dilated: the
+# C-PGGAN blocks and head, StackGAN's residual blocks, join, encoder and RGB
+# layers (csrc/conv3x3.cu: its forward, dx on the same kernel, dw).
+
+# the kernels' tiles and parts of K
+K3_BM = 128                    # k3s1::BM: pixels of a forward / dx tile
+K3_SLICE = 64                  # k3s1::SLICE: pixels of a dw K slice
+K3_KERNELS = ("taps", "rows")   # t2i_conv3x3's `kernel`
+K3_TILES_N = (256, 128, 64, 32)
+K3_PARTS = (1, 2, 4, 8)
+K3_DW_TILES_N = (128, 64, 32)
+
+
+def _k3_box(h: int, w: int, px: int) -> bool:
+    """`px` pixels of an h×w map are one TMA box: a part of one row, whole
+    rows of one image or whole images (dx90::boxes, wgrad::boxes)."""
+    hw = h * w
+    return w % px == 0 or (px % w == 0 and (hw % px == 0 or px % hw == 0))
+
+
+def conv3x3_path(h: int, w: int, cin: int, co: int, dtype: torch.dtype,
+                 aligned: bool = True, b: int = 1) -> str:
+    """The Python mirror of `t2i_conv3x3_path` in csrc/conv3x3.cu for x
+    [b,h,w,Cin] and Co: bf16 with Cin and Co multiples of 32 on a map whose
+    128-pixel tiles and 64-pixel dw slices are TMA boxes (every power-of-two
+    map), 16-byte-aligned tensors and int32 extents take the kernels;
+    everything else (f32, StackGAN's `out` with Co 3 and `enc0` with Cin 3)
+    the library composition.  `aligned`: x, w, the output (and b) start on
+    16-byte boundaries."""
+    if (dtype != torch.bfloat16 or not aligned or cin % 32 or co % 32
+            or not (_k3_box(h, w, K3_BM) and _k3_box(h, w, K3_SLICE))
+            or b * h * w * max(cin, co) >= 2**31):
+        return "library"
+    return "kernel"
+
+
+class K3Plan(NamedTuple):
+    """A launch of the forward / dx: the taps kernel (128 pixels ×
+    `tile_n` output channels a tile, its 9·K/BK (tap, slice) items in
+    `parts` parts, one cluster) or the rows kernel (two image rows of a
+    128-pixel segment × all N = 32 or 64 channels, one part)."""
+    tile_n: int
+    parts: int
+    kernel: str = "taps"
+
+
+class K3DwPlan(NamedTuple):
+    """A launch of the dw: the taps kernel (128 rows of dw × `tile_n`
+    columns a tile) or the rows kernel (a kernel row's 192 rows of a
+    64-channel chunk), `cluster` parts of K summed on chip times `groups`
+    such clusters summed through an f32 workspace (groups > 1)."""
+    tile_n: int
+    cluster: int
+    groups: int
+    kernel: str = "taps"
+
+
+# The taps kernel's cost model, in units of one 128x128x64 item on one SM
+# (ranks plans; not a prediction): an item's cost at each tile width, a
+# block's fixed cost (ring fill, epilogue), each extra part's (its f32 tile
+# read through distributed shared memory, per 128 columns), in whole waves
+# of the card's slots (one block an SM at the 256-wide tile, two
+# otherwise, which share the SM).  Fitted to every plan at each forward and
+# dx call of C-PGGAN 256 px on the H100 (tools/conv_plan_sweep.py --ops
+# k3): the picks lose 0.08 ms over the 44 calls against the fastest.
+_K3_TILE_COST = {32: 0.9, 64: 0.6, 128: 1.0, 256: 1.6}
+_K3_BLOCK_COST = 2.0
+_K3_PART_COST = 4.0
+_K3_SHARED = 1.6               # two blocks an SM: each runs at 1/1.6
+
+
+def _k3_items(k: int) -> int:
+    """(tap, slice) items of a taps launch over K input channels."""
+    return 9 * (k // (64 if k % 64 == 0 else 32))
+
+
+def k3_rows(h: int, w: int, n: int) -> bool:
+    """The rows kernel takes the map (rows of 128-pixel segments, in
+    pairs) and N (32 or 64): the byte-bound 256² and 128² layers."""
+    return w % 128 == 0 and h % 2 == 0 and n in (32, 64)
+
+
+def conv3x3_candidates(b: int, h: int, w: int, n: int, k: int):
+    """Every plan of the forward / dx over x [b,h,w,K] into N channels: the
+    taps kernel at each tile width dividing N with each of K3_PARTS (at
+    most the items), and the rows kernel where it takes the shape."""
+    items = _k3_items(k)
+    out = [K3Plan(tn, parts) for tn in K3_TILES_N if n % tn == 0
+           for parts in K3_PARTS if parts <= items]
+    if k3_rows(h, w, n):
+        out.append(K3Plan(n, 1, "rows"))
+    return out
+
+
+def conv3x3_cost(m: int, n: int, k: int, plan: K3Plan) -> float:
+    """The model's relative time of a taps plan over M pixels."""
+    tn, parts = plan.tile_n, plan.parts
+    bk = 64 if k % 64 == 0 else 32
+    per_item = _K3_TILE_COST[tn] * bk / 64
+    d = (-(-_k3_items(k) // parts) * per_item + _K3_BLOCK_COST
+         + (parts - 1) * _K3_PART_COST * tn / 128)
+    blocks = -(-m // K3_BM) * (n // tn) * parts
+    per_sm = 1 if tn == 256 else 2
+    return (-(-blocks // (SM_COUNT * per_sm)) * d
+            * (1.0 if per_sm == 1 else _K3_SHARED))
+
+
+@functools.lru_cache(maxsize=None)   # a training run repeats a few shapes
+def conv3x3_plan(b: int, h: int, w: int, n: int, k: int) -> K3Plan:
+    """The forward / dx plan over x [b,h,w,K] into N channels: the rows
+    kernel where it takes the shape, else the taps plan cheapest by
+    `conv3x3_cost` (ties to fewer parts, then the wider tile)."""
+    if k3_rows(h, w, n):
+        return K3Plan(n, 1, "rows")
+    m = b * h * w
+    return min((p for p in conv3x3_candidates(b, h, w, n, k)
+                if p.kernel == "taps"), key=lambda p: (
+        conv3x3_cost(m, n, k, p), p.parts, -p.tile_n))
+
+
+K3_DW_TARGET = 8 * SM_COUNT    # CTAs of a dw launch: four waves of two
+K3_DW_MIN_SLICES = 96          # the least K a part is given
+K3_DW_WS_CAP = 64 * 2**20      # bytes of its f32 workspace
+
+
+def k3_dw_rows(w: int, cin: int, co: int) -> bool:
+    """The rows dw kernel takes the shape: 64-pixel row segments, Cin and
+    Co multiples of 64 (the 128² and 64² layers)."""
+    return w % K3_SLICE == 0 and cin % 64 == 0 and co % 64 == 0
+
+
+def conv3x3_dw_plan(b: int, h: int, w: int, cin: int, co: int) -> K3DwPlan:
+    """The dw plan for x [b,h,w,Cin] and Co: the rows kernel where it takes
+    the shape (tile 128 columns, 64 where Co is not a multiple of 128; one
+    block an SM), else the taps kernel at the widest tile dividing Co (32
+    where Co is not a multiple of 64; two blocks an SM); then as many parts
+    of K as bring the launch to four waves, each at least K3_DW_MIN_SLICES
+    slices of 64 pixels: below 8 the power of two under them in one
+    cluster, past that whole clusters of 8 summed through the workspace
+    (under K3_DW_WS_CAP).  Set from every plan at each dw call of C-PGGAN
+    256 px on the H100 (tools/conv_plan_sweep.py --ops k3)."""
+    rows = k3_dw_rows(w, cin, co)
+    if rows:
+        tn = 128 if co % 128 == 0 else 64
+        tiles, target = 3 * (cin // 64) * (co // tn), K3_DW_TARGET // 2
+    else:
+        tn = next(t for t in K3_DW_TILES_N
+                  if co % t == 0 and (t == 32) == (co % 64 != 0))
+        tiles, target = -(-9 * cin // K3_BM) * (co // tn), K3_DW_TARGET
+    slices = -(-b * h * w // K3_SLICE)
+    parts = max(1, min(-(-target // tiles), slices // K3_DW_MIN_SLICES))
+    kernel = "rows" if rows else "taps"
+    if parts < 8:
+        return K3DwPlan(tn, 1 << (parts.bit_length() - 1), 1, kernel)
+    groups = parts // 8
+    while groups > 1 and groups * 9 * cin * co * 4 > K3_DW_WS_CAP:
+        groups -= 1
+    return K3DwPlan(tn, 8, groups, kernel)
+
+
+_K3_SIGNATURES = {
+    # x, w, bias, y; B, H, W, K, N, act, flip, tile_n, parts, kernel; stream
+    "t2i_conv3x3": [_PTR] * 4 + [_INT] * 10 + [_PTR],
+    # x, g, dw, ws; B, H, W, Cin, Co, tile_n, cluster, groups, kernel;
+    # stream
+    "t2i_conv3x3_dw": [_PTR] * 4 + [_INT] * 9 + [_PTR],
+    # g, y, add, gc, partial, db, count; M, C, rows, act; stream
+    "t2i_act_grad": [_PTR] * 7 + [ctypes.c_longlong, _INT, ctypes.c_longlong,
+                                  _INT, _PTR]}
+
+
+def _k3_lib() -> ctypes.CDLL:
+    return _build.bind("conv3x3", _K3_SIGNATURES)
+
+
+def conv3x3_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      act: str = "none") -> torch.Tensor:
+    """The plain version: ``F.conv2d`` over x padded by 1 on each side, in
+    f32 (f64 for f64), + b (None: no bias), the activation, rounded once
+    to x's dtype."""
+    y = F.conv2d(acc(x).permute(0, 3, 1, 2), acc(w).permute(3, 2, 0, 1),
+                 None if b is None else acc(b), padding=1).permute(0, 2, 3, 1)
+    return apply_act(y, act).to(x.dtype)
+
+
+def conv3x3_dx_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The adjoint in x of the 3×3 stride-1 SAME conv for its cotangent g
+    [B,H,W,Co] and w [3,3,Cin,Co]: the same conv of g with w flipped in
+    (kh, kw) and its channels swapped, in f32 (f64), rounded once to g's
+    dtype."""
+    wf = acc(w).flip(0, 1).permute(2, 3, 0, 1)          # [Cin, Co, 3, 3]
+    return F.conv2d(acc(g).permute(0, 3, 1, 2), wf, padding=1).permute(
+        0, 2, 3, 1).to(g.dtype)
+
+
+def conv3x3_dw_plain(x: torch.Tensor, g: torch.Tensor,
+                     w_dtype: torch.dtype) -> torch.Tensor:
+    """The adjoint in w for x [B,H,W,Cin] and the cotangent g [B,H,W,Co]:
+    dw[kh,kw] = the product of x padded by 1, shifted by (kh, kw), against
+    g over every pixel, nine matmuls in f32 (f64); rounded once to
+    w_dtype."""
+    b, h, wd, ci = x.shape
+    xp = F.pad(acc(x), (0, 0, 1, 1, 1, 1))
+    g2 = acc(g).reshape(-1, g.shape[-1])
+    dw = torch.stack([
+        xp[:, kh:kh + h, kw:kw + wd].reshape(-1, ci).T @ g2
+        for kh in range(3) for kw in range(3)])
+    return dw.reshape(3, 3, ci, g.shape[-1]).to(w_dtype)
+
+
+@profiling.spanned("kernels.conv3x3")
+def _conv3x3_forward(x, w, b, act, plan=None):
+    """`plan` forces a K3Plan (the microbench's sweep and the smoke run
+    hold every plan with it); None asks `conv3x3_plan`.  b None: no bias
+    (the adjoints' convs)."""
+    if x.device.type == "cpu":
+        return conv3x3_act_plain(x, w, b, act)
+    vecs = () if b is None else (("b", b),)
+    _check_common(x, w, vecs, act, k=3)
+    bsz, h, wd, cin = x.shape
+    co = w.shape[-1]
+    y = torch.empty(bsz, h, wd, co, dtype=x.dtype, device=x.device)
+    if conv3x3_path(h, wd, cin, co, x.dtype,
+                    _aligned16(x, w, y, *(t for _, t in vecs)),
+                    bsz) != "kernel":
+        raise ValueError(f"conv3x3_act takes bf16 with Cin and Co multiples "
+                         f"of 32 on a map of TMA boxes, not {x.dtype} "
+                         f"{tuple(x.shape)}->{co}")
+    plan = plan or conv3x3_plan(bsz, h, wd, co, cin)
+    rc = _k3_lib().t2i_conv3x3(
+        x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+        y.data_ptr(), bsz, h, wd,
+        cin, co, ACT_CODES[act], 0, plan.tile_n, plan.parts,
+        K3_KERNELS.index(plan.kernel), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {rc}")
+    conv3x3_act.launches += 1
+    return y
+
+
+def _k3_shapes(what, g, w):
+    """g [B,H,W,Co] against w [3,3,Cin,Co]."""
+    if (g.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3)
+            or g.shape[3] != w.shape[3]):
+        raise ValueError(f"{what}: g {tuple(g.shape)} and w "
+                         f"{tuple(w.shape)} disagree")
+
+
+@profiling.spanned("kernels.conv3x3_dx")
+def _conv3x3_dx_forward(g, w, plan=None):
+    if g.device.type == "cpu":
+        return conv3x3_dx_plain(g, w)
+    _k3_shapes("conv3x3_dx", g, w)
+    _bwd_common("conv3x3_dx", [("g", g), ("w", w)], g.dtype)
+    bsz, h, wd, co = g.shape
+    cin = w.shape[2]
+    dx = torch.empty(bsz, h, wd, cin, dtype=g.dtype, device=g.device)
+    if conv3x3_path(h, wd, cin, co, g.dtype, _aligned16(g, w, dx),
+                    bsz) != "kernel":
+        raise ValueError(f"conv3x3_dx takes bf16 with Cin and Co multiples "
+                         f"of 32 on a map of TMA boxes, not {g.dtype} "
+                         f"{tuple(g.shape)}->{cin}")
+    plan = plan or conv3x3_plan(bsz, h, wd, cin, co)
+    rc = _k3_lib().t2i_conv3x3(
+        g.data_ptr(), w.data_ptr(), None, dx.data_ptr(), bsz, h, wd, co, cin,
+        0, 1, plan.tile_n, plan.parts, K3_KERNELS.index(plan.kernel),
+        _stream(g))
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_dx kernel launch failed: CUDA error "
+                           f"{rc}")
+    conv3x3_dx.launches += 1
+    return dx
+
+
+@profiling.spanned("kernels.conv3x3_dw")
+def _conv3x3_dw_forward(x, g, w_dtype, plan=None):
+    if x.device.type == "cpu":
+        return conv3x3_dw_plain(x, g, w_dtype)
+    if g.dim() != 4 or x.dim() != 4 or g.shape[:3] != x.shape[:3]:
+        raise ValueError(f"conv3x3_dw: x {tuple(x.shape)} and g "
+                         f"{tuple(g.shape)} must be NHWC of one map")
+    _bwd_common("conv3x3_dw", [("x", x), ("g", g)], w_dtype)
+    bsz, h, wd, cin = x.shape
+    co = g.shape[-1]
+    dw = torch.empty(3, 3, cin, co, dtype=w_dtype, device=x.device)
+    if (w_dtype != torch.bfloat16 or conv3x3_path(
+            h, wd, cin, co, x.dtype, _aligned16(x, g, dw), bsz) != "kernel"):
+        raise ValueError(f"conv3x3_dw takes bf16 (and a bf16 dw) with Cin "
+                         f"and Co multiples of 32 on a map of TMA boxes, not "
+                         f"{x.dtype} {tuple(x.shape)}->{co}, dw {w_dtype}")
+    plan = plan or conv3x3_dw_plan(bsz, h, wd, cin, co)
+    ws = (torch.empty(plan.groups * 9 * cin * co, dtype=torch.float32,
+                      device=x.device) if plan.groups > 1 else None)
+    rc = _k3_lib().t2i_conv3x3_dw(
+        x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+        ws.data_ptr() if ws is not None else None, bsz, h, wd, cin, co,
+        plan.tile_n, plan.cluster, plan.groups, K3_KERNELS.index(plan.kernel),
+        _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_dw kernel launch failed: CUDA error "
+                           f"{rc}")
+    conv3x3_dw.launches += 1
+    return dw
+
+
+# the act-gradient kernel (csrc/conv3x3.cu act_grad_kernel): threads a block,
+# the most blocks a launch (eight an SM), and the most partial sums (blocks
+# x channels, f32) its last block adds into db
+AG_THREADS = 256
+AG_MAX_BLOCKS = 8 * SM_COUNT
+AG_PARTIALS = 2**17
+
+
+def act_grad_rows(m: int, c: int) -> int:
+    """Rows a block of the act-gradient kernel takes for M rows of C
+    channels: whole iterations of its threads (2048 / C rows each), enough
+    that at most AG_MAX_BLOCKS blocks, and at most AG_PARTIALS partial sums
+    for the last block to add, cover M."""
+    step = AG_THREADS // (c // 8)
+    blocks = max(1, min(AG_MAX_BLOCKS, AG_PARTIALS // c))
+    rows = -(-m // blocks)
+    return max(step, -(-rows // step) * step)
+
+
+def act_grad_plain(g: torch.Tensor, y: torch.Tensor, act: str,
+                   add: torch.Tensor = None):
+    """(gc, db): gc = (g + add)·act′(y) in f32 (f64), rounded once to g's
+    dtype, and db its sum over every pixel before the rounding."""
+    p = acc(g) if add is None else acc(g) + add
+    f = p * act_grad_from_output(act, y)
+    return f.to(g.dtype), f.reshape(-1, f.shape[-1]).sum(0)
+
+
+def _act_grad_on_card(g, y) -> bool:
+    c = g.shape[-1]
+    return (g.device.type == "cuda" and g.dtype == torch.bfloat16
+            and y.dtype == g.dtype and g.shape == y.shape and c % 8 == 0
+            and c <= 2048 and g.is_contiguous() and y.is_contiguous()
+            and _aligned16(g, y))
+
+
+# each stream's count of the act-gradient blocks done (int32, on the card):
+# the launch's last block adds the partial sums and sets it back to 0
+_AG_COUNTS = {}
+
+
+def _ag_count(g) -> torch.Tensor:
+    key = (g.device.index, _stream(g))
+    c = _AG_COUNTS.get(key)
+    if c is None:
+        c = _AG_COUNTS[key] = torch.zeros(1, dtype=torch.int32,
+                                          device=g.device)
+    return c
+
+
+def _act_grad_forward(g, y, act, add=None, with_db=True):
+    """gc (and db where `with_db`) by the kernel in one launch; the plain
+    version for CPU tensors.  A CUDA tensor the kernel does not take
+    raises, as the conv3x3 wrappers do."""
+    if g.device.type == "cpu":
+        gc, db = act_grad_plain(g, y, act, add)
+        return gc, (db if with_db else None)
+    if not _act_grad_on_card(g, y):
+        raise ValueError(f"act_grad takes contiguous bf16 g and y of one "
+                         f"shape with channels a multiple of 8 up to 2048, "
+                         f"not {g.dtype} {tuple(g.shape)} and {y.dtype} "
+                         f"{tuple(y.shape)}")
+    c = g.shape[-1]
+    m = g.numel() // c
+    rows = act_grad_rows(m, c)
+    gc = torch.empty_like(g)
+    partial = db = None
+    if with_db:
+        partial = torch.empty(-(-m // rows) * c, dtype=torch.float32,
+                              device=g.device)
+        db = torch.empty(c, dtype=torch.float32, device=g.device)
+    rc = _k3_lib().t2i_act_grad(
+        g.data_ptr(), y.data_ptr(), add.data_ptr() if add is not None else
+        None, gc.data_ptr(), partial.data_ptr() if with_db else None,
+        db.data_ptr() if with_db else None,
+        _ag_count(g).data_ptr() if with_db else None, m, c, rows,
+        ACT_CODES[act], _stream(g))
+    if rc != 0:
+        raise RuntimeError(f"act_grad kernel launch failed: CUDA error {rc}")
+    act_grad.launches += 1
+    return gc, db
+
+
+class _ActGrad(torch.autograd.Function):
+    """(gc, db) of act_grad.  gc is linear in g and db is gc's sum, so the
+    adjoint in g of both is (ggc + gdb)·act′(y): the same kernel with gdb as
+    its broadcast add (y's adjoint is zero almost everywhere), through
+    `_ActGradAdjoint`, whose own adjoint is act_grad again."""
+
+    @staticmethod
+    def forward(ctx, g, y, act):
+        ctx.save_for_backward(y)
+        ctx.act = act
+        return _act_grad_forward(g, y, act)
+
+    @staticmethod
+    def backward(ctx, ggc, gdb):
+        y, = ctx.saved_tensors
+        ggc = ggc.to(y.dtype).contiguous()
+        add = (gdb.to(_bias_dtype(y)).contiguous() if gdb is not None
+               else None)
+        if needs_grad(ggc) or (add is not None and needs_grad(add)):
+            dg = _ActGradAdjoint.apply(ggc, add, y, ctx.act)
+        else:
+            dg, _ = _act_grad_forward(ggc, y, ctx.act, add, False)
+        return dg, None, None
+
+
+class _ActGradAdjoint(torch.autograd.Function):
+    """(ggc + gdb)·act′(y), rounded once to ggc's dtype: the adjoint of
+    act_grad, on the same kernel (no sums).  Linear in (ggc, gdb), with
+    act_grad's (gc, db) of its cotangent as its adjoint, so every order
+    stays on the kernel."""
+
+    @staticmethod
+    def forward(ctx, ggc, gdb, y, act):
+        ctx.save_for_backward(y)
+        ctx.act = act
+        dg, _ = _act_grad_forward(ggc, y, act, gdb, False)
+        return dg
+
+    @staticmethod
+    def backward(ctx, h):
+        y, = ctx.saved_tensors
+        gc, db = act_grad(h.to(y.dtype).contiguous(), y, ctx.act)
+        return (gc if ctx.needs_input_grad[0] else None,
+                db if ctx.needs_input_grad[1] else None, None, None)
+
+
+def act_grad(g: torch.Tensor, y: torch.Tensor, act: str):
+    """The cotangent of a conv's pre-activation and its bias gradient from
+    the output y = act(p) and its cotangent g: (g·act′(y) in g's dtype,
+    rounded once; its sum over every pixel in f32).  relu and lrelu: on the
+    card one launch of the kernel (bf16, channels a multiple of 8 up to
+    2048; any other CUDA tensor raises), one pass over g and y for the four
+    launches of the composition, differentiable in g at every order on the
+    kernel; on the CPU the plain version.  The others: `act_backward` and a
+    sum."""
+    if act in ("relu", "lrelu"):
+        if needs_grad(g):
+            return _ActGrad.apply(g, y, act)
+        return _act_grad_forward(g, y, act)
+    gc = act_backward(act, g, y)
+    return gc, gc.sum((0, 1, 2), dtype=_bias_dtype(gc))
+
+
+act_grad.launches = 0
+
+
+def _wanted(ctx, i: int) -> bool:
+    """Whether this backward must give input i's gradient: the input needs
+    one and the engine runs its branch in this pass.  A Function's
+    needs_input_grad does not see the pass: the gradient penalty's first
+    backward asks for the input's gradient alone, and there the weight and
+    bias gradients of every conv would be computed and thrown away, as a
+    library convolution's output mask skips them.  A leaf under
+    ``autograd.grad`` cannot be asked, and counts as wanted."""
+    if not ctx.needs_input_grad[i]:
+        return False
+    node = ctx.next_functions[i][0]
+    if node is None:
+        return True
+    try:
+        return torch._C._will_engine_execute_node(node)
+    except RuntimeError:
+        return True
+
+
+class _Conv3x3(torch.autograd.Function):
+    """The VJP of act(conv3x3(x, w) + b): the activation's derivative from
+    the saved output and the bias gradient in one pass (`act_grad`: g·act′
+    in g's dtype, rounded once, and its f32 sum), dx through the
+    differentiable conv3x3_dx (the conv of that cotangent with w flipped
+    and transposed, act none, no bias: the flip read in the kernel's tap
+    index), dw through conv3x3_dw; each differentiable again, so the
+    gradient penalty's double backward stays on the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, act):
+        y = _conv3x3_forward(x, w, b, act)
+        ctx.act = act
+        ctx.save_for_backward(x, w, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y = ctx.saved_tensors
+        need = [_wanted(ctx, i) for i in range(3)]
+        gc, db = act_grad(g.to(x.dtype).contiguous(), y, ctx.act)
+        dx = conv3x3_dx(gc, w) if need[0] else None
+        dw = conv3x3_dw(x, gc, w.dtype) if need[1] else None
+        return dx, dw, db if need[2] else None, None
+
+
+class _Conv3x3Dx(torch.autograd.Function):
+    """dx is bilinear in (g, w): its adjoints are the conv of the cotangent
+    with w (the forward whose dx it is) and conv3x3_dw of the cotangent
+    against g, in w's own layout."""
+
+    @staticmethod
+    def forward(ctx, g, w):
+        ctx.save_for_backward(g, w)
+        return _conv3x3_dx_forward(g, w)
+
+    @staticmethod
+    def backward(ctx, gdx):
+        g, w = ctx.saved_tensors
+        need = [_wanted(ctx, i) for i in range(2)]
+        gdx = gdx.to(g.dtype).contiguous()
+        dg = dw = None
+        if need[0]:
+            dg = conv3x3_act(gdx, w, None, "none")
+        if need[1]:
+            dw = conv3x3_dw(gdx, g, w.dtype)
+        return dg, dw
+
+
+class _Conv3x3Dw(torch.autograd.Function):
+    """dw is bilinear in (x, g): its adjoints are the dx of g with the
+    cotangent as the weight, and the conv of x with it."""
+
+    @staticmethod
+    def forward(ctx, x, g, w_dtype):
+        ctx.save_for_backward(x, g)
+        return _conv3x3_dw_forward(x, g, w_dtype)
+
+    @staticmethod
+    def backward(ctx, gdw):
+        x, g = ctx.saved_tensors
+        need = [_wanted(ctx, i) for i in range(2)]
+        wd = gdw.to(x.dtype).contiguous()
+        dx = conv3x3_dx(g, wd) if need[0] else None
+        dg = None
+        if need[1]:
+            dg = conv3x3_act(x, wd, None, "none")
+        return dx, dg, None
+
+
+def _bias_dtype(x: torch.Tensor) -> torch.dtype:
+    """The type of a bias and of its gradient beside x: f32, f64 for
+    f64."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def conv3x3_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                act: str = "none") -> torch.Tensor:
+    """Fused ``act(conv(x, w, s=1, SAME) + b)``: x [B,H,W,Cin] NHWC, w
+    [3,3,Cin,Co] HWIO in x's dtype, b f32 [Co] (f64 with f64 x) or None
+    for no bias; returns
+    [B,H,W,Co] in x's dtype.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16, Cin and Co multiples of 32, a map of
+    TMA boxes: `conv3x3_path`) or raise.  Differentiable in x, w and b, at
+    every order on the kernels (`_Conv3x3`)."""
+    if needs_grad(x, w) or (b is not None and needs_grad(b)):
+        return _Conv3x3.apply(x, w, b, act)
+    return _conv3x3_forward(x, w, b, act)
+
+
+conv3x3_act.launches = 0
+
+
+def conv3x3_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx [B,H,W,Cin] of conv3x3_act for its cotangent g [B,H,W,Co] (the
+    activation's derivative already in it) and w [3,3,Cin,Co] in g's dtype:
+    the conv of g with w flipped and transposed, by the forward's kernel
+    with the flip in its tap index (no copy of w, no bias).  Differentiable
+    in g and w."""
+    if needs_grad(g, w):
+        return _Conv3x3Dx.apply(g, w)
+    return _conv3x3_dx_forward(g, w)
+
+
+conv3x3_dx.launches = 0
+
+
+def conv3x3_dw(x: torch.Tensor, g: torch.Tensor,
+               w_dtype: torch.dtype) -> torch.Tensor:
+    """dw [3,3,Cin,Co] in w_dtype of conv3x3_act over x [B,H,W,Cin] for the
+    cotangent g [B,H,W,Co] in x's dtype: nine long-K products summed in f32
+    over every pixel by one kernel (the same bits every launch).
+    Differentiable in x and g."""
+    if needs_grad(x, g):
+        return _Conv3x3Dw.apply(x, g, w_dtype)
+    return _conv3x3_dw_forward(x, g, w_dtype)
+
+
+conv3x3_dw.launches = 0

@@ -32,11 +32,12 @@ import torch.nn.functional as F
 
 from text_to_image_tpu_torch.ops import initializers as init
 from text_to_image_tpu_torch.ops.kernels.conv import (  # noqa: F401
-    conv5x5_s2_act, deconv5x5_s2,
+    conv3x3_act, conv3x3_path, conv5x5_s2_act, deconv5x5_s2,
     upsample_nearest)  # re-exported: the JAX package's `L.upsample_nearest`
 from text_to_image_tpu_torch.ops.kernels.fused import (
     apply_act, batch_norm_train, bn_act)
 from text_to_image_tpu_torch.parallel import tensor
+from text_to_image_tpu_torch.utils import profiling
 
 Params = Dict[str, torch.Tensor]
 
@@ -111,18 +112,32 @@ def conv2d(p: Params, x: torch.Tensor, stride: int = 2,
 
     * 5×5 stride 2 SAME (the D down-blocks): the `conv5x5_s2_act` kernel,
       bias and activation fused;
+    * 3×3 stride 1 SAME (C-PGGAN's blocks and head, StackGAN's residual
+      blocks, join and encoder): the `conv3x3_act` kernels, bias and
+      activation fused, where `conv3x3_path` takes the shape (bf16, Cin
+      and Co multiples of 32; on the CPU its plain version); the rest (f32,
+      Co 3, Cin 3) the library branch below, counted as
+      ``conv3x3.library``;
     * 1×1 stride 1 (the text join's plain version): one matmul;
     * k×k VALID over a k×k map (the logit): a ``[B, k·k·C] @ [k·k·C, Co]``
       matmul;
-    * anything else (StackGAN's 3×3 stride 1 and 4×4 stride 2, which the
-      JAX package computes outside any kernel too): ``F.conv2d`` over the
-      SAME-padded input (4×4 stride 2 pads (1, 1) on an even map, (1, 2)
-      on an odd one).
+    * anything else (4×4 stride 2 and the 3×3 convs above that the kernels
+      do not take, which the JAX package computes outside any kernel too):
+      ``F.conv2d`` over the SAME-padded input (4×4 stride 2 pads (1, 1) on
+      an even map, (1, 2) on an odd one).
     """
     k = p["w"].shape[0]
     w = p["w"].to(x.dtype)
     if k == 5 and stride == 2 and padding == "SAME":
         return conv5x5_s2_act(x, w, p["b"].float(), act)
+    if k == 3 and stride == 1 and padding == "SAME":
+        b = p["b"].to(torch.promote_types(x.dtype, torch.float32))
+        if x.device.type == "cpu" or conv3x3_path(
+                x.shape[1], x.shape[2], x.shape[3], w.shape[-1], x.dtype,
+                all(t.data_ptr() % 16 == 0 for t in (x, w, b)),
+                x.shape[0]) == "kernel":
+            return conv3x3_act(x.contiguous(), w.contiguous(), b, act)
+        profiling.count("conv3x3.library")
     if k == 1 and stride == 1:
         y = x @ w[0, 0] + p["b"].to(x.dtype)
     elif padding == "VALID" and tuple(x.shape[1:3]) == (k, k):

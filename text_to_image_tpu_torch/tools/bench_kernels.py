@@ -159,7 +159,8 @@ KERNELS = ("deconv5x5_s2", "conv5x5_s2_act", "upconv3x3_bias",
 GRAD_TABLES = {
     "upconv": ("upconv3x3_bias fwd+bwd", "upconv3x3_dx", "upconv3x3_dw"),
     "conv": ("conv5x5_s2_act fwd+bwd", "conv5x5_s2_dx", "conv5x5_s2_dw"),
-    "deconv": ("deconv5x5_s2 fwd+bwd", "deconv5x5_s2_dx", "conv5x5_s2_dw")}
+    "deconv": ("deconv5x5_s2 fwd+bwd", "deconv5x5_s2_dx", "conv5x5_s2_dw"),
+    "conv3x3": ("conv3x3_act", "conv3x3_dx", "conv3x3_dw", "act_grad")}
 CONV_DX_VIA_DECONV = "deconv5x5_s2 (conv dx)"
 DECONV_DX_VIA_CONV = "conv5x5_s2_act (deconv dx)"
 GRAD_KERNELS = GRAD_TABLES["upconv"]
@@ -1004,6 +1005,106 @@ def bench_bn(device, flush, gen) -> List[Dict]:
     return rows
 
 
+# every 3×3 call of C-PGGAN 256 px at stage 7: the critic's at 96 rows
+# (real, fake, wrong) and 32 (the gradient penalty, the G step), the
+# generator's at 32: ((b, h, w, cin), co)
+_PG_D = ((256, 32, 32), (256, 32, 64), (128, 64, 64), (128, 64, 128),
+         (64, 128, 128), (64, 128, 256), (32, 256, 256), (32, 256, 512),
+         (16, 512, 512), (8, 512, 512), (4, 512, 512))
+_PG_G = ((4, 512, 512), (8, 512, 512), (16, 512, 512), (32, 256, 256),
+         (64, 128, 128), (128, 64, 64), (256, 32, 32))
+CONV3X3_SHAPES = list(dict.fromkeys(
+    [((b, n, n, ci), co) for b in (96, 32) for n, ci, co in _PG_D]
+    + [((32, n, n, ci), co) for n, ci, co in _PG_G]))
+
+
+def conv3x3_work(shape, co, esize=2):
+    """(bytes, operations) of one 3×3 stride-1 SAME call (forward, dx or
+    dw: as many products each): in-map taps only (3n − 2 along an axis of
+    n pixels), x, w and y each once (the forward's f32 bias besides)."""
+    b, h, w, cin = shape
+    ops = 2 * b * (3 * h - 2) * (3 * w - 2) * cin * co
+    return (b * h * w * (cin + co) + 9 * cin * co) * esize, ops
+
+
+def act_grad_work(shape, co, esize=2):
+    """(bytes, operations) of one act_grad call over the output [b,h,w,Co]
+    of a conv: g and y read and gc written once, db's f32 [Co]; the
+    products and sums are not counted (it is bound by bytes)."""
+    b, h, w, _ = shape
+    return 3 * b * h * w * co * esize + 4 * co, 0
+
+
+def bench_conv3x3(device, flush, gen) -> List[Dict]:
+    """``--conv3x3 --grad``: conv3x3_act (lrelu), conv3x3_dx, conv3x3_dw
+    and act_grad (lrelu, on the forward's output) alone at every C-PGGAN
+    256 px call (CONV3X3_SHAPES), bf16, each held against its plain version
+    (f32 on the same values) and timed beside it and beside the library:
+    cuDNN's ``conv2d`` over channels-last x + leaky_relu, ``conv2d_input``
+    and ``conv2d_weight``; for act_grad torch's leaky_relu backward and the
+    bias gradient's sum; each row tagged with its plan."""
+    from text_to_image_tpu_torch.ops.kernels import conv
+    bf = torch.bfloat16
+    rows = []
+    for shape, co in CONV3X3_SHAPES:
+        b, h, wd, cin = shape
+        x = randn(gen, shape).to(bf)
+        w = (randn(gen, 3, 3, cin, co) * (9 * cin) ** -0.5).to(bf)
+        bias = (0.1 * randn(gen, co))
+        g = randn(gen, b, h, wd, co).to(bf)
+        x_cl, g_cl = _nchw(x), _nchw(g)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        work = conv3x3_work(shape, co)
+        calls = (
+            ("conv3x3_act", lambda: conv.conv3x3_act(x, w, bias, "lrelu"),
+             lambda: conv.conv3x3_act_plain(x.float(), w.float(), bias,
+                                            "lrelu"),
+             "cuDNN conv2d + lrelu",
+             lambda: F.leaky_relu(F.conv2d(x_cl, w_oihw, bias.to(bf),
+                                           padding=1), 0.2),
+             "plan {} x {} parts, {}".format(*conv.conv3x3_plan(
+                 b, h, wd, co, cin))),
+            ("conv3x3_dx", lambda: conv.conv3x3_dx(g, w),
+             lambda: conv.conv3x3_dx_plain(g.float(), w.float()),
+             "cuDNN conv2d_input",
+             lambda: torch.nn.grad.conv2d_input(x_cl.shape, w_oihw, g_cl,
+                                                padding=1),
+             "plan {} x {} parts, {}".format(*conv.conv3x3_plan(
+                 b, h, wd, cin, co))),
+            ("conv3x3_dw", lambda: conv.conv3x3_dw(x, g, bf),
+             lambda: conv.conv3x3_dw_plain(x.float(), g.float(),
+                                           torch.float32),
+             "cuDNN conv2d_weight",
+             lambda: torch.nn.grad.conv2d_weight(x_cl, w_oihw.shape, g_cl,
+                                                 padding=1),
+             "plan {} x cluster {} x groups {}, {}".format(
+                 *conv.conv3x3_dw_plan(b, h, wd, cin, co))))
+        y = conv.conv3x3_act(x, w, bias, "lrelu")
+        calls += (
+            ("act_grad", lambda: conv.act_grad(g, y, "lrelu")[0],
+             lambda: conv.act_grad_plain(g, y, "lrelu")[0],
+             "torch leaky_relu backward + sum",
+             lambda: torch.ops.aten.leaky_relu_backward(
+                 g, y, 0.2, True).sum((0, 1, 2), dtype=torch.float32),
+             "one launch"),)
+        for kernel, ours, plain, lib_name, lib, tag in calls:
+            want = plain()
+            err = hold(ours(), want, 1e-2, 1e-2, f"{kernel} {shape}->{co}",
+                       rel_to_max=True)
+            del want
+            r = _row(kernel, f"{list(shape)}->{co}", tag,
+                     time_ms(ours, flush), lib_name, time_ms(lib, flush),
+                     act_grad_work(shape, co) if kernel == "act_grad"
+                     else work, bf, err)
+            r["plain_ms"] = time_ms(plain, flush, iters=3)
+            r["op"], r["batch"] = "conv3x3", b
+            rows.append(r)
+        del x, w, g, y, x_cl, g_cl, w_oihw
+        torch.cuda.empty_cache()
+    return rows
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1038,6 +1139,8 @@ def run(grad, device=None) -> Dict:
                     rows += bench_conv5_grad(op, device, flush, gen)
             if "conv" in grad or "deconv" in grad:
                 rows += bench_conv_dw(device, flush, gen)
+            if "conv3x3" in grad:
+                rows += bench_conv3x3(device, flush, gen)
         else:
             rows = []
             for fn in (bench_deconv, bench_conv, bench_upconv, bench_join,

@@ -720,11 +720,100 @@ def sweep_up32(gen, dev, flush):
     return bad, rows
 
 
+def k3_dw_plans(b, h, w, cin, co):
+    """The dw plans swept at a call, on each kernel that takes it: each
+    cluster alone, and whole clusters of 8 summed through the workspace,
+    at most one part a 16 slices."""
+    slices = -(-b * h * w // conv.K3_SLICE)
+    out = []
+    for kernel in ("taps", "rows"):
+        if kernel == "rows" and not conv.k3_dw_rows(w, cin, co):
+            continue
+        tn = (next(t for t in conv.K3_DW_TILES_N if co % t == 0
+                   and (t == 32) == (co % 64 != 0)) if kernel == "taps"
+              else 128 if co % 128 == 0 else 64)
+        out += [conv.K3DwPlan(tn, c, 1, kernel) for c in conv.K3_PARTS
+                if c <= slices]
+        out += [conv.K3DwPlan(tn, 8, g, kernel) for g in (2, 4, 8, 16, 32)
+                if 8 * g * 16 <= slices
+                and g * 9 * cin * co * 4 <= conv.K3_DW_WS_CAP]
+    return out
+
+
+def sweep_k3(gen, dev, flush):
+    """conv3x3_act's taps kernel at every forward and dx call of C-PGGAN 256
+    px (bench_kernels.CONV3X3_SHAPES), every plan of `conv3x3_candidates`,
+    and its dw kernel under `k3_dw_plans`, bf16: each held against the
+    plain version, timed beside the plan `conv3x3_plan` /
+    `conv3x3_dw_plan` picks and `conv3x3_cost`'s estimate: the numbers the
+    constants of the cost model were set from."""
+    bf = torch.bfloat16
+    bad, rows = 0, []
+    for (b, h, w, cin), co in bench_kernels.CONV3X3_SHAPES:
+        x = torch.randn(b, h, w, cin, generator=gen).to(bf).to(dev)
+        wt = (torch.randn(3, 3, cin, co, generator=gen)
+              * (9 * cin) ** -0.5).to(bf).to(dev)
+        bias = torch.zeros(co, device=dev)
+        g = torch.randn(b, h, w, co, generator=gen).to(bf).to(dev)
+        m = b * h * w
+        for op, n, k, ref_fn, run in (
+                ("fwd", co, cin,
+                 lambda: conv.conv3x3_act_plain(x.float(), wt.float(), bias),
+                 lambda plan: conv._conv3x3_forward(x, wt, bias, "none",
+                                                    plan)),
+                ("dx", cin, co,
+                 lambda: conv.conv3x3_dx_plain(g.float(), wt.float()),
+                 lambda plan: conv._conv3x3_dx_forward(g, wt, plan)),
+                ("dw", co, 9 * cin,
+                 lambda: conv.conv3x3_dw_plain(x.float(), g.float(),
+                                               torch.float32),
+                 lambda plan: conv._conv3x3_dw_forward(x, g, bf, plan))):
+            ref = ref_fn().float()
+            lim = TOL * float(ref.abs().max())
+            if op == "dw":
+                chosen = conv.conv3x3_dw_plan(b, h, w, cin, co)
+                cands = k3_dw_plans(b, h, w, cin, co)
+            else:
+                chosen = conv.conv3x3_plan(b, h, w, n, k)
+                cands = conv.conv3x3_candidates(b, h, w, n, k)
+            times, costs = {}, {}
+            for plan in cands:
+                got = run(plan)
+                torch.cuda.synchronize()
+                n_bad = int(((got.float() - ref).abs()
+                             > lim + TOL * ref.abs()).sum())
+                key = "x".join(map(str, plan))
+                if n_bad:
+                    bad += 1
+                    print(f"  FAIL k3 {op} {(b, h, w, cin)}->{co} {key}: "
+                          f"{n_bad} elements", flush=True)
+                times[key] = time_ms(lambda: run(plan), flush)
+                if op != "dw" and plan.kernel == "taps":
+                    costs[key] = conv.conv3x3_cost(m, n, k, plan)
+                del got
+            best = min(times, key=times.get)
+            pick = "x".join(map(str, chosen))
+            print(f"k3 {op} {[b, h, w, cin]}->{co}: plan {pick} "
+                  f"{times.get(pick, float('nan')):.4f} ms, best {best} "
+                  f"{times[best]:.4f}; "
+                  + " ".join(f"[{key}] {v:.4f}"
+                             + (f" ({costs[key]:.0f})" if key in costs
+                                else "")
+                             for key, v in times.items()), flush=True)
+            rows.append({"op": f"k3_{op}", "shape": [b, h, w, cin], "co": co,
+                         "plan": pick, "best": best, "ms": times,
+                         "model": costs})
+            del ref
+        del x, wt, g
+        torch.cuda.empty_cache()
+    return bad, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--ops", nargs="+", default=["conv", "deconv", "upconv"],
                     choices=["conv", "deconv", "upconv", "dw", "dx", "cdx",
-                             "ddx", "up32"])
+                             "ddx", "up32", "k3"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -732,7 +821,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     names = ["conv5x5_s2", "conditioning_join", "deconv5x5_s2", "upconv3x3",
-             "conv5x5_s2_bwd", "upconv3x3_bwd"]
+             "conv5x5_s2_bwd", "upconv3x3_bwd", "conv3x3"]
     _build.build(names)
     for name in names:
         for line in _build.ptxas_report(name).splitlines():
@@ -762,6 +851,9 @@ def main() -> int:
         bad, rows = bad + b, rows + r
     if "up32" in args.ops:
         b, r = sweep_up32(gen, dev, flush)
+        bad, rows = bad + b, rows + r
+    if "k3" in args.ops:
+        b, r = sweep_k3(gen, dev, flush)
         bad, rows = bad + b, rows + r
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -122,6 +122,8 @@ def kernel_family(name: str) -> str:
              "conditioning_join (CUDA)"),
             (("bn_stats_kernel", "bn_apply_kernel", "bn_reduce_kernel",
               "bn_dx_kernel"), "batch norm (CUDA)"),
+            # csrc/conv3x3.cu: the 3x3 stride-1 conv's forward, dx and dw
+            (("k3s1::",), "conv3x3 (CUDA)"),
             (("gemm", "gemv"), "matmul (cuBLAS)"),
             (("conv", "cudnn", "dgrad", "wgrad", "xmma"),
              "conv backward (cuDNN)"),

@@ -255,7 +255,8 @@ def counters() -> Dict[str, int]:
                 fused.bn_partials, fused.bn_finish, fused.bn_act,
                 fused.bn_bwd_reduce, fused.bn_bwd_apply,
                 fused.conditioning_join, conv.conv5x5_s2_dw,
-                conv.conv5x5_s2_dx, conv.deconv5x5_s2_dx)
+                conv.conv5x5_s2_dx, conv.deconv5x5_s2_dx, conv.conv3x3_act,
+                conv.conv3x3_dx, conv.conv3x3_dw, conv.act_grad)
     return {**{f.__name__: f.launches for f in wrappers}, **RECORDER.counts}
 
 
